@@ -1,0 +1,224 @@
+"""Kernel sites of the PyTorch port against the JAX reference's kernels.
+
+On the CPU each wrapper in ``repro_torch.kernels`` runs its plain PyTorch
+version; these tests hold those plain versions *bitwise* equal to the
+reference's Pallas kernels (run in interpret mode, as the reference's own
+tests run them on the CPU), for the unpack kernel and all four fused band
+kernels with every ``what``.  The plain versions are what ``chip_smoke.py``
+and the ``gpu``-marked tests below hold the Hopper kernels against on the
+card; those tests skip when no CUDA device is present.
+"""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import by_name as jax_by_name
+from repro.core import encode as jax_encode
+from repro.kernels import bitpack as jax_bitpack
+from repro.kernels import fused as jax_fk
+from repro_torch.core import encode
+from repro_torch.kernels import bitpack, fused, ops
+
+# field (397, 45) padded to (400, 48) by (16, 16) blocks: two Lorenzo bands
+# and five block-mean bands in the reference kernels
+SHAPE, BLOCK = (397, 45), (16, 16)
+LZ_CASES = [(src, w) for src in ("payload", "plane")
+            for w in fused.LORENZO_WHATS]
+BM_CASES = [(src, w) for src in ("payload", "plane")
+            for w in fused.BLOCKMEAN_WHATS]
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, uint32 words as their int32 bit pattern."""
+    a = np.array(a)  # a writable copy (jax hands out read-only buffers)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a)
+
+
+def _same(want, got, what):
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    assert len(want) == len(got), what
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        g = g.numpy()
+        assert (w.shape, w.dtype) == (g.shape, g.dtype), (what, w.dtype, g.dtype)
+        assert w.tobytes() == g.tobytes(), what
+
+
+@functools.lru_cache(maxsize=None)
+def _field(scheme: str):
+    """The reference's Compressed + Encoded of one smooth 2-D field."""
+    rng = np.random.default_rng(11)
+    d = rng.normal(0, 1, SHAPE)
+    d = (np.cumsum(np.cumsum(d, 0), 1) * 0.05).astype(np.float32)
+    comp = jax_by_name(scheme, BLOCK)
+    c = comp.compress(jnp.asarray(d), abs_eb=1e-2)
+    e = comp.encode(c)
+    assert 0 < e.bits < 32
+    return c, e
+
+
+# ===========================================================================
+# unpack (Pallas row 1)
+# ===========================================================================
+
+@pytest.mark.parametrize("bits", list(range(0, 33)))
+def test_unpack_matches_reference_kernel(bits):
+    """Every width 0..32 at tail lengths that are not a multiple of the
+    reference kernel's 4096-value grid step (``test_bitpack_tail_shapes``)."""
+    n = (100, 4097, 5000)[bits % 3]
+    rng = np.random.default_rng(bits * 101 + n)
+    maxv = (1 << bits) - 1 if bits < 32 else 0xFFFFFFFF
+    u = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    u &= np.uint32(maxv)
+    words = np.asarray(jax_encode.pack_uniform(jnp.asarray(u), bits))
+    want = jax_bitpack.unpack(jnp.asarray(words), n, bits, interpret=True)
+    got = bitpack.unpack(_t(words), n, bits)
+    _same(np.asarray(want).view(np.int32), got, f"unpack bits={bits}")
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), u)
+
+
+# ===========================================================================
+# fused band kernels (Pallas rows 2-6)
+# ===========================================================================
+
+@pytest.mark.parametrize("src,what", LZ_CASES, ids=[f"{s}-{w}" for s, w in LZ_CASES])
+def test_lorenzo_matches_reference_kernel(src, what):
+    c, e = _field("hszp_nd")
+    if src == "payload":
+        want = jax_fk.lorenzo_enc2d(e.payload, tuple(e.padded_shape), e.bits,
+                                    what=what, interpret=True)
+        got = fused.lorenzo_enc2d(_t(np.asarray(e.payload)),
+                                  tuple(e.padded_shape), e.bits, what=what)
+    else:
+        want = jax_fk.lorenzo2d(c.residuals, what=what, interpret=True)
+        got = fused.lorenzo2d(_t(np.asarray(c.residuals)), what=what)
+    _same(want, got, f"lorenzo {src} {what}")
+
+
+@pytest.mark.parametrize("src,what", BM_CASES, ids=[f"{s}-{w}" for s, w in BM_CASES])
+def test_blockmean_matches_reference_kernel(src, what):
+    c, e = _field("hszx_nd")
+    meta = _t(np.asarray(c.metadata))
+    if src == "payload":
+        want = jax_fk.blockmean_enc2d(e.payload, e.metadata,
+                                      tuple(e.padded_shape), BLOCK, e.bits,
+                                      what=what, interpret=True)
+        got = fused.blockmean_enc2d(_t(np.asarray(e.payload)), meta,
+                                    tuple(e.padded_shape), BLOCK, e.bits,
+                                    what=what)
+    else:
+        want = jax_fk.blockmean2d(c.residuals, c.metadata, BLOCK, what=what,
+                                  interpret=True)
+        got = fused.blockmean2d(_t(np.asarray(c.residuals)), meta, BLOCK,
+                                what=what)
+    _same(want, got, f"blockmean {src} {what}")
+
+
+@pytest.mark.parametrize("tile", [(4, 8), (32, 128), (7, 5)])
+def test_lorenzo_tile_edges_compose_to_prefixes(tile):
+    """The Hopper Lorenzo kernels cut the plane into tiles and start each
+    tile's scans from edge prefixes (exclusive prefixes of the per-tile row
+    and column sums).  Emulating that tiling here with the plain edge pass
+    must rebuild ``cumsum(p, 1)`` and ``cumsum(p, 0)`` exactly, including
+    int32 wrap-around."""
+    rng = np.random.default_rng(sum(tile))
+    p = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (45, 37), dtype=np.int64)
+                        .astype(np.int32))
+    rowsum, colsum = fused.lorenzo_edges_plain(p, tile)
+    rowedge = fused.exclusive_prefix(rowsum, 1)
+    coledge = fused.exclusive_prefix(colsum, 0)
+    th, tw = tile
+    d0 = torch.empty_like(p)
+    d1 = torch.empty_like(p)
+    for ti in range(coledge.shape[0]):
+        for tj in range(rowedge.shape[1]):
+            rs, cs = slice(ti * th, (ti + 1) * th), slice(tj * tw, (tj + 1) * tw)
+            blk = p[rs, cs]
+            d0[rs, cs] = (rowedge[rs, tj:tj + 1]
+                          + torch.cumsum(blk, 1, dtype=torch.int32))
+            d1[rs, cs] = (coledge[ti:ti + 1, cs]
+                          + torch.cumsum(blk, 0, dtype=torch.int32))
+    _same(torch.cumsum(p, 1, dtype=torch.int32).numpy(), d0, "D0")
+    _same(torch.cumsum(p, 0, dtype=torch.int32).numpy(), d1, "D1")
+
+
+def test_cpu_wrappers_launch_nothing():
+    """On the CPU every wrapper takes its plain version: no counter moves."""
+    c, e = _field("hszx_nd")
+    ops.reset_launches()
+    encode.unzigzag(bitpack.unpack(_t(np.asarray(e.payload)), 400 * 48, e.bits))
+    fused.blockmean_enc2d(_t(np.asarray(e.payload)), _t(np.asarray(c.metadata)),
+                          (400, 48), BLOCK, e.bits, what="grad")
+    fused.lorenzo2d(_t(np.asarray(c.residuals)), what="lap")
+    assert set(ops.LAUNCHES.values()) == {0}
+
+
+def test_dispatch_rejects_mixed_devices_and_unknown_what():
+    p = torch.zeros((16, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device or on the CPU"):
+        fused.blockmean2d(p, torch.zeros((1, 1), dtype=torch.int32,
+                                         device="meta"), BLOCK, what="grad")
+    with pytest.raises(ValueError, match="what="):
+        fused.lorenzo2d(p, what="lap_q")
+
+
+# ===========================================================================
+# the Hopper kernels against their plain versions (card only)
+# ===========================================================================
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [1, 5, 13, 31])
+def test_unpack_kernel_matches_plain_on_card(bits):
+    dev = _card()
+    n = 1_000_003
+    rng = np.random.default_rng(bits)
+    u = rng.integers(0, 1 << bits, n, dtype=np.int64).astype(np.int32)
+    words = encode.pack_uniform(torch.as_tensor(u, device=dev), bits)
+    before = ops.LAUNCHES["unpack"]
+    got = bitpack.unpack(words, n, bits)
+    assert ops.LAUNCHES["unpack"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitpack.unpack_plain(words, n, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["hszp_nd", "hszx_nd"])
+def test_band_kernels_match_plain_on_card(scheme):
+    dev = _card()
+    c, e = _field(scheme)
+    payload = _t(np.asarray(e.payload)).to(dev)
+    plane = _t(np.asarray(c.residuals)).to(dev)
+    meta = _t(np.asarray(c.metadata)).to(dev)
+    shape = tuple(e.padded_shape)
+    if scheme == "hszp_nd":
+        for what in fused.LORENZO_WHATS:
+            want = fused.lorenzo_core(plane, what)
+            _same_card(want, fused.lorenzo2d(plane, what=what))
+            _same_card(want, fused.lorenzo_enc2d(payload, shape, e.bits, what=what))
+    else:
+        for what in fused.BLOCKMEAN_WHATS:
+            want = fused.blockmean_core(plane, meta, BLOCK, what)
+            _same_card(want, fused.blockmean2d(plane, meta, BLOCK, what=what))
+            _same_card(want, fused.blockmean_enc2d(payload, meta, shape, BLOCK,
+                                                   e.bits, what=what))
+
+
+def _same_card(want, got):
+    torch.cuda.synchronize()
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and torch.equal(w.view(torch.int32),
+                                                  g.view(torch.int32))
