@@ -10,17 +10,26 @@ Phases (any failure raises, so the exit code is non-zero):
 1. the card: its name, power limit and the device count;
 2. build the Hopper kernels from ``src/repro_torch/kernels/csrc`` and print
    ``ptxas``'s register, shared-memory and spill lines;
-3. every kernel against its plain PyTorch version on the card, at the Ocean
-   shape (2400 x 3600, blocks 16 x 16) and a padded one (2401 x 3599):
-   bitwise, for every ``what`` and several unpack widths;
-4. the main path: the two Ocean fields (u, v) through ``compress`` ->
+3. every kernel of the main path against its plain PyTorch version on the
+   card, at the Ocean shape (2400 x 3600, blocks 16 x 16) and a padded one
+   (2401 x 3599): bitwise, for every ``what`` and several unpack widths;
+4. the kernel entry point (``repro_torch.kernels``: quant_lorenzo2d, pack,
+   unpack, block_stats, grad2d, laplacian2d, prefix_stats2d): each kernel
+   against its plain version at both shapes (bitwise; prefix_stats2d rtol
+   1e-5 and bitwise between two launches), then the entry point driven on
+   the Ocean field u and held against the main path's containers and
+   stage-③ results on the card;
+5. the main path: the two Ocean fields (u, v) through ``compress`` ->
    ``encode`` -> ``decompress`` and every feasible (op, stage) cell of
    ``hszp_nd`` and ``hszx_nd`` for ``Compressed`` and ``Encoded`` containers,
-   each held against the port on the CPU; the launch counters, reset just
-   before and read just after, must show every kernel site; then an A/B pass
-   with the fused rules off;
-5. times: each kernel and its plain version with CUDA events, the bound
+   each held against the port on the CPU; then an A/B pass with the fused
+   rules off;
+6. times: each kernel and its plain version with CUDA events, the bound
    (bytes over 3.35 TB/s), launches per query, and end-to-end ms per query.
+
+Launch counters are reset just before each path (entry point, main path)
+and read just after it: each path must launch every kernel site it runs,
+and every site must be launched on some path.
 
 Per-cell detail goes to ``chiprun_out/chip_smoke.log``.  The last two lines
 of standard output are a JSON object of per-kernel numbers and
@@ -42,10 +51,13 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import Stage, by_name, encode, error_analysis  # noqa: E402
+from repro_torch.core import blocking, quantize  # noqa: E402
 from repro_torch.core import homomorphic as H  # noqa: E402
 from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
-from repro_torch.kernels import bitpack, build, fused, ops  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, stencil_dq)
 
 #: published H100 SXM peaks (NVIDIA data sheet): device memory, and f32
 #: outside the tensor cores (the table has no int32 rate; the kernels' few
@@ -79,6 +91,27 @@ SITES = {
                           "src/repro/kernels/fused.py:250"),
     "blockmean2d": (f"{CSRC}/blockmean_band.cu",
                     "src/repro/kernels/fused.py:412"),
+    "pack": (f"{CSRC}/pack.cu", "src/repro/kernels/bitpack.py:67"),
+    "quant_lorenzo2d": (f"{CSRC}/quant_lorenzo.cu",
+                        "src/repro/kernels/quant_lorenzo.py:54"),
+    "block_stats": (f"{CSRC}/block_stats.cu",
+                    "src/repro/kernels/block_stats.py:37"),
+    "grad2d": (f"{CSRC}/stencil_dq.cu", "src/repro/kernels/stencil_dq.py:66"),
+    "laplacian2d": (f"{CSRC}/stencil_dq.cu",
+                    "src/repro/kernels/stencil_dq.py:85"),
+    "prefix_stats2d.edges": (f"{CSRC}/lorenzo_band.cu",
+                             "src/repro/kernels/prefix_stats.py:56"),
+    "prefix_stats2d.stats": (f"{CSRC}/lorenzo_band.cu",
+                             "src/repro/kernels/prefix_stats.py:56"),
+}
+#: path -> the kernel sites it must launch
+PATHS = {
+    "entry point": ("pack", "unpack", "quant_lorenzo2d", "block_stats",
+                    "grad2d", "laplacian2d", "prefix_stats2d.edges",
+                    "prefix_stats2d.stats"),
+    "main path": ("unpack", "lorenzo_enc2d.edges", "lorenzo_enc2d.stencil",
+                  "blockmean_enc2d", "lorenzo2d.edges", "lorenzo2d.stencil",
+                  "blockmean2d"),
 }
 
 LOG: list[str] = []
@@ -224,7 +257,163 @@ def check_kernels(shape, seed: int, errs: dict) -> dict:
 
 
 # ===========================================================================
-# phase 4: the main path
+# phase 4: the kernel entry point
+# ===========================================================================
+
+def _note(errs: dict, site: str, err: float) -> None:
+    errs[site] = max(errs.get(site, 0.0), err)
+
+
+def _blocked(q: torch.Tensor) -> torch.Tensor:
+    """``(n_blocks, b0*b1)`` rows of the block-padded plane ``q``."""
+    b = blocking.to_blocked(blocking.pad_to_blocks(q, BLOCK), BLOCK)
+    return b.reshape(-1, BLOCK[0] * BLOCK[1]).contiguous()
+
+
+def _bit_length(z: torch.Tensor) -> int:
+    """Width of the largest zigzag value (int32 patterns read as unsigned)."""
+    return int(encode.as_unsigned(z).max().item()).bit_length()
+
+
+def stat_err(want, got, what: str) -> float:
+    """prefix_stats2d: rtol 1e-5 per sum; returns the max absolute gap."""
+    err = 0.0
+    for w, g in zip(want, got, strict=True):
+        w, g = float(w), float(g)
+        if not abs(g - w) <= 1e-5 * abs(w):
+            fail(f"{what}: {g} vs {w}, over rtol 1e-5")
+        err = max(err, abs(g - w))
+    return err
+
+
+def check_entry_kernels(shape, seed: int, errs: dict) -> None:
+    """Every kernel of the entry point against its plain version on the
+    card, on the Ocean field u cut or padded to ``shape``."""
+    x = torch.as_tensor(synth_field("Ocean", 0, shape, seed), device=DEVICE)
+    eps = quantize.resolve_eps(x, rel_eb=REL_EB)
+    p = K.quant_lorenzo2d(x, eps)
+    _note(errs, "quant_lorenzo2d", bitwise_err(
+        quant_lorenzo.quant_lorenzo2d_plain(x, eps), p,
+        f"quant_lorenzo2d {shape}"))
+    q = quantize.quantize(x, eps)
+    flat = p.reshape(-1)
+    odd = flat[:flat.numel() // 37 * 37].reshape(-1, 37)
+    for rows in (_blocked(q), odd):
+        _note(errs, "block_stats", bitwise_err(
+            ref.block_stats(rows), K.block_stats(rows),
+            f"block_stats {tuple(rows.shape)}"))
+    z = encode.zigzag(flat)
+    n = z.numel()
+    rng = np.random.default_rng(seed)
+    for bits in sorted({_bit_length(z), 1, 5, 13, 31}):
+        # the field's own width on its zigzag residuals; other widths on
+        # random 32-bit values, so the mask to ``bits`` is exercised
+        vals = z if bits == _bit_length(z) else torch.as_tensor(
+            rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+            .view(np.int32), device=DEVICE)
+        words = K.pack(vals, bits)
+        _note(errs, "pack", bitwise_err(bitpack.pack_plain(vals, bits), words,
+                                        f"pack bits={bits} n={n}"))
+        _note(errs, "unpack", bitwise_err(
+            vals & ((1 << bits) - 1), K.unpack(words, n, bits),
+            f"unpack(pack) bits={bits} n={n}"))
+    _note(errs, "grad2d", bitwise_err(stencil_dq.grad2d_int_plain(q),
+                                      stencil_dq.grad2d_int(q),
+                                      f"grad2d int planes {shape}"))
+    bitwise_err(stencil_dq.grad2d_plain(q, eps), K.grad2d(q, eps),
+                f"grad2d {shape}")
+    _note(errs, "laplacian2d", bitwise_err(
+        stencil_dq.laplacian2d_int_plain(q), stencil_dq.laplacian2d_int(q),
+        f"laplacian2d int plane {shape}"))
+    bitwise_err(stencil_dq.laplacian2d_plain(q, eps), K.laplacian2d(q, eps),
+                f"laplacian2d {shape}")
+    th, tw = fused.lorenzo_tile()
+    _note(errs, "prefix_stats2d.edges", bitwise_err(
+        fused.lorenzo_edges_plain(p, (th, tw)),
+        fused.lorenzo_edges(p, tuple(p.shape), 0, from_payload=False,
+                            site="prefix_stats2d"),
+        f"prefix_stats2d edges {shape}"))
+    first, again = K.prefix_stats2d(p), K.prefix_stats2d(p)
+    bitwise_err(first, again, f"prefix_stats2d twice {shape}")
+    _note(errs, "prefix_stats2d.stats", stat_err(
+        prefix_stats.prefix_stats2d_plain(p), first,
+        f"prefix_stats2d {shape}"))
+    torch.cuda.synchronize()
+    say(f"entry-point kernels == plain versions at {shape}: bitwise "
+        f"(prefix_stats2d within rtol 1e-5, repeatable bitwise)")
+
+
+def entry_point_path(x: torch.Tensor, eps: torch.Tensor, bits: int) -> dict:
+    """The user's calls of the kernel entry point on one Ocean field on the
+    card: the caller resets the counters just before and reads them just
+    after."""
+    out = {"x": x, "eps": eps, "bits": bits}
+    out["p"] = K.quant_lorenzo2d(x, eps)
+    out["q"] = quantize.quantize(x, eps)
+    out["blocked"] = _blocked(out["q"])
+    out["means"], out["maxu"] = K.block_stats(out["blocked"])
+    out["z"] = encode.zigzag(out["p"].reshape(-1))
+    out["words"] = K.pack(out["z"], bits)
+    out["back"] = K.unpack(out["words"], out["z"].numel(), bits)
+    out["grad"] = K.grad2d(out["q"], eps)
+    out["lap"] = K.laplacian2d(out["q"], eps)
+    out["stats"] = K.prefix_stats2d(out["p"])
+    torch.cuda.synchronize()
+    return out
+
+
+def check_entry_against_main(u: np.ndarray, r: dict) -> None:
+    """The entry point's results against the main path's containers and
+    stage-③ results, all on the card (Ocean: no padded blocks)."""
+    comp_p, comp_x = by_name("hszp_nd", BLOCK), by_name("hszx_nd", BLOCK)
+    cp = comp_p.compress(u, rel_eb=REL_EB, device=DEVICE)
+    ep = comp_p.encode(cp)
+    cx = comp_x.compress(u, rel_eb=REL_EB, device=DEVICE)
+    if tuple(cp.padded_shape) != tuple(u.shape):
+        fail(f"entry-point check needs an unpadded field, got {u.shape}")
+    bitwise_err(cp.eps, r["eps"], "eps")
+    bitwise_err(cp.residuals, r["p"], "quant_lorenzo2d vs hszp_nd residuals")
+    bitwise_err(cx.metadata.reshape(-1), r["means"],
+                "block_stats means vs hszx_nd metadata")
+    zb = r["blocked"].cpu().numpy()
+    zig = ((zb << 1) ^ (zb >> 31)).astype(np.uint32).max(axis=1)
+    bitwise_err(torch.as_tensor(zig.view(np.int32)), r["maxu"].cpu(),
+                "block_stats zigzag max vs numpy")
+    if ep.bits != r["bits"]:
+        fail(f"payload width {ep.bits} vs {r['bits']}")
+    bitwise_err(ep.payload, r["words"], "pack vs Encoded payload")
+    bitwise_err(r["z"], r["back"], "unpack(pack) vs zigzag residuals")
+    q = comp_p.decompress(cp, Stage.Q)
+    bitwise_err(q, r["q"], "stage-3 integers vs quantize")
+    qmax = int(q.abs().max().item())
+    for scheme, c in (("hszp_nd", cp), ("hszp_nd", ep), ("hszx_nd", cx)):
+        kind = type(c).__name__
+        bitwise_err(H.derivative(c, Stage.Q, 0), r["grad"][0],
+                    f"grad2d d0 vs {scheme} {kind} deriv0@Q")
+        bitwise_err(H.derivative(c, Stage.Q, 1), r["grad"][1],
+                    f"grad2d d1 vs {scheme} {kind} deriv1@Q")
+        bitwise_err(H.laplacian(c, Stage.Q), r["lap"],
+                    f"laplacian2d vs {scheme} {kind} laplacian@Q")
+    q64 = q.to(torch.int64)
+    exact = (q64.sum(), (q64 * q64).sum())
+    gap = stat_err(exact, r["stats"], "prefix_stats2d vs exact (Σq, Σq²)")
+    torch.cuda.synchronize()
+    say(f"entry point == main path at {tuple(u.shape)}: residuals, block "
+        f"means, payload words ({ep.bits} bits), grad/laplacian@③ bitwise "
+        f"(max |q| {qmax}); (Σq, Σq²) = ({float(r['stats'][0])!r}, "
+        f"{float(r['stats'][1])!r}) vs exact ({int(exact[0])}, "
+        f"{int(exact[1])}), max |gap| {gap:.6g}")
+
+
+def require_launches(path: str, launches: dict) -> None:
+    say(f"{path} launches: {json.dumps(launches)}")
+    missing = [k for k in PATHS[path] if launches[k] == 0]
+    if missing:
+        fail(f"kernel sites never launched on the {path}: {missing}")
+
+
+# ===========================================================================
+# phase 5: the main path
 # ===========================================================================
 
 def feasible(scheme: str):
@@ -339,7 +528,7 @@ def check_ab(fields):
 
 
 # ===========================================================================
-# phase 5: times
+# phase 6: times
 # ===========================================================================
 
 def cuda_ms(fn, reps: int) -> float:
@@ -363,9 +552,10 @@ def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernels(cont: dict, reps: int, tag: str) -> dict:
+def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     """Kernel and plain-version times at the Ocean shape (what = grad for
-    the band kernels: the gradient query's call)."""
+    the band kernels: the gradient query's call; the entry point's kernels
+    on the inputs of its run)."""
     c_lz, e_lz = cont["hszp_nd"]
     c_bm, e_bm = cont["hszx_nd"]
     n0, n1 = c_lz.padded_shape
@@ -386,6 +576,14 @@ def time_kernels(cont: dict, reps: int, tag: str) -> dict:
                                          from_payload=True, site="lorenzo_enc2d")
     rowedge = fused.exclusive_prefix(rowsum, 1)
     coledge = fused.exclusive_prefix(colsum, 0)
+    x, eps, bits = entry["x"], entry["eps"], entry["bits"]
+    inv = (1.0 / (2.0 * eps)).reshape(())
+    z, q, p, blocked = entry["z"], entry["q"], entry["p"], entry["blocked"]
+    nb, s_len = blocked.shape
+    m = (n0 - 2) * (n1 - 2)
+    ps_rowsum, ps_colsum = fused.lorenzo_edges(p, shape, 0, from_payload=False,
+                                               site="prefix_stats2d")
+    ps_rowedge, ps_top = prefix_stats.tile_edges(ps_rowsum, ps_colsum)
     plans = {
         # name: (kernel, plain version, bytes, operations)
         "unpack": (
@@ -427,6 +625,35 @@ def time_kernels(cont: dict, reps: int, tag: str) -> dict:
             lambda: fused.blockmean2d(bm_plane, meta, BLOCK, what="grad"),
             lambda: fused.blockmean_core(bm_plane, meta, BLOCK, "grad"),
             4 * n + meta_bytes + 8 * n, 12 * n),
+        "pack": (
+            lambda: K.pack(z, bits),
+            lambda: bitpack.pack_plain(z, bits),
+            4 * n + 4 * encode.words_for(n, bits), 6 * n),
+        "quant_lorenzo2d": (
+            lambda: quant_lorenzo.quant_lorenzo_kernel(x, inv),
+            lambda: quant_lorenzo.quant_lorenzo2d_plain(x, eps),
+            4 * n + 4 + 4 * n, 11 * n),
+        "block_stats": (
+            lambda: K.block_stats(blocked),
+            lambda: ref.block_stats(blocked),
+            4 * nb * s_len + 8 * nb, 6 * nb * s_len),
+        "grad2d": (
+            lambda: stencil_dq.grad2d_int(q),
+            lambda: stencil_dq.grad2d_int_plain(q),
+            4 * n + 8 * m, 2 * m),
+        "laplacian2d": (
+            lambda: stencil_dq.laplacian2d_int(q),
+            lambda: stencil_dq.laplacian2d_int_plain(q),
+            4 * n + 4 * m, 5 * m),
+        "prefix_stats2d.edges": (
+            lambda: fused.lorenzo_edges(p, shape, 0, from_payload=False,
+                                        site="prefix_stats2d"),
+            lambda: fused.lorenzo_edges_plain(p, (th, tw)),
+            4 * n + edge_bytes, 2 * n),
+        "prefix_stats2d.stats": (
+            lambda: prefix_stats.prefix_stats_tiles(p, ps_rowedge, ps_top),
+            lambda: prefix_stats.prefix_stats2d_plain(p),
+            4 * n + edge_bytes + 8, 6 * n),
     }
     out = {}
     for name, (kernel, plain, n_bytes, n_ops) in plans.items():
@@ -479,6 +706,27 @@ def per_query_launches(fields, tag: str) -> dict:
     return out
 
 
+def per_call_launches(entry: dict, tag: str) -> dict:
+    """Launches of each entry-point site per call of its wrapper."""
+    calls = {
+        "pack": lambda: K.pack(entry["z"], entry["bits"]),
+        "quant_lorenzo2d": lambda: K.quant_lorenzo2d(entry["x"], entry["eps"]),
+        "block_stats": lambda: K.block_stats(entry["blocked"]),
+        "grad2d": lambda: K.grad2d(entry["q"], entry["eps"]),
+        "laplacian2d": lambda: K.laplacian2d(entry["q"], entry["eps"]),
+        "prefix_stats2d.edges": lambda: K.prefix_stats2d(entry["p"]),
+        "prefix_stats2d.stats": lambda: K.prefix_stats2d(entry["p"]),
+    }
+    out = {}
+    for site, call in calls.items():
+        ops.reset_launches()
+        call()
+        torch.cuda.synchronize()
+        out[site] = ops.LAUNCHES[site]
+        say(f"[{tag}] {site}: {out[site]} launch(es) per entry-point call")
+    return out
+
+
 def host_ms(fn, reps: int) -> float:
     for _ in range(2):
         fn()
@@ -519,6 +767,10 @@ def main() -> None:
     args = ap.parse_args()
     t_start = time.perf_counter()
 
+    if set(SITES) != set(ops.LAUNCHES) or set(SITES) != {
+            k for sites in PATHS.values() for k in sites}:
+        fail("SITES, PATHS and kernels.ops.LAUNCHES name different sites")
+
     # 1. the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -540,27 +792,45 @@ def main() -> None:
         if any(k in line for k in ("registers", "spill", "Compiling entry")):
             say(f"  {line}")
 
-    # 3. kernels against plain versions
+    # 3. main-path kernels against plain versions
     errs: dict[str, float] = {}
     cont = check_kernels(OCEAN, args.seed, errs)
     check_kernels(PADDED, args.seed, errs)
 
-    # 4. main path
+    # 4. the kernel entry point: against plain versions, then driven on u
+    # and held against the main path's containers and stage-3 results
+    check_entry_kernels(OCEAN, args.seed, errs)
+    check_entry_kernels(PADDED, args.seed, errs)
     u = synth_field("Ocean", 0, OCEAN, args.seed)
     v = synth_field("Ocean", 1, OCEAN, args.seed)
+    x = torch.as_tensor(u, device=DEVICE)
+    eps = quantize.resolve_eps(x, rel_eb=REL_EB)
+    path_launches = {}
+    ops.reset_launches()
+    entry = entry_point_path(x, eps, cont["hszp_nd"][1].bits)
+    path_launches["entry point"] = dict(ops.LAUNCHES)
+    require_launches("entry point", path_launches["entry point"])
+    check_entry_against_main(u, entry)
+
+    # 5. main path
     ops.reset_launches()
     fields, decomp, results = main_path(u, v)
-    launches = dict(ops.LAUNCHES)
-    say(f"main path launches: {json.dumps(launches)}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        fail(f"kernel sites never launched on the main path: {missing}")
+    path_launches["main path"] = dict(ops.LAUNCHES)
+    require_launches("main path", path_launches["main path"])
+    never = [k for k in ops.LAUNCHES
+             if all(counts[k] == 0 for counts in path_launches.values())]
+    if never:
+        fail(f"kernel sites launched on no path: {never}")
+    # each site's launches on its path (unpack runs on both: the main path's)
+    launches = {k: path_launches["main path" if k in PATHS["main path"]
+                                 else "entry point"][k] for k in SITES}
     check_main_path(u, v, fields, decomp, results)
     check_ab(fields)
 
-    # 5. times
-    times = time_kernels(cont, REPS, tag)
+    # 6. times
+    times = time_kernels(cont, entry, REPS, tag)
     per_query = per_query_launches(fields, tag)
+    per_query.update(per_call_launches(entry, tag))
     time_queries(fields, tag)
 
     kernels = []

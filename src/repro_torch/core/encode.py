@@ -138,6 +138,9 @@ def encode_device(c: Compressed, bits: int) -> Encoded:
     u = zigzag(c.residuals.reshape(-1))
     if bits < 32:
         u = as_unsigned(u).clamp_(max=(1 << bits) - 1).to(torch.int32)
+    # torch packer, not the pack kernel (kernels.bitpack.pack): the
+    # reference's encode_device likewise packs with its XLA pack_uniform and
+    # leaves the Pallas pack to its kernel entry point
     payload = pack_uniform(u, bits)
     return Encoded(
         payload=payload, metadata=c.metadata, bitwidths=c.bitwidths, eps=c.eps,

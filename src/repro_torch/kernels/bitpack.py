@@ -1,8 +1,10 @@
-"""Uniform-width bitplane unpack: the Hopper kernel and its plain version.
+"""Uniform-width bitplane pack and unpack: the Hopper kernels and their plain
+versions.
 
-Counterpart of ``repro/kernels/bitpack.py:unpack``.  Payload words are
-``int32`` tensors holding the ``uint32`` bit pattern; the result is ``n``
-zigzag values, also as int32 bit patterns (``encode.unzigzag`` follows).
+Counterparts of ``repro/kernels/bitpack.py:pack`` and ``:unpack``.  Payload
+words are ``int32`` tensors holding the ``uint32`` bit pattern, and zigzag
+values are int32 bit patterns too (``encode.unzigzag`` follows an unpack).
+Every length ``n`` is accepted, as in the reference.
 """
 from __future__ import annotations
 
@@ -11,6 +13,40 @@ import torch
 from . import build, ops
 
 _WORD_MASK = 0xFFFFFFFF
+
+
+def pack_plain(u: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain version of :func:`pack`: the port's XLA-style packer
+    ``core.encode.pack_uniform``, as the reference's oracle
+    (``repro/kernels/ref.py:pack_uniform``) is its ``encode.pack_uniform``."""
+    from ..core import encode  # core.encode imports this module
+
+    return encode.pack_uniform(u, bits)
+
+
+def pack(u: torch.Tensor, bits: int) -> torch.Tensor:
+    """``ceil(n·bits/32)`` words holding ``n`` zigzag values, each masked to
+    its low ``bits`` bits, at bit offset ``i·bits``.
+
+    A CUDA tensor launches the Hopper kernel (``csrc/pack.cu``) for widths
+    1..31; widths 0 and 32 are fast paths without a kernel, as in the
+    reference.  A CPU tensor takes :func:`pack_plain`.
+    """
+    if not ops.on_card(u) or bits in (0, 32):
+        return pack_plain(u, bits)
+    if not 0 < bits < 32:
+        raise ValueError(f"pack takes widths 0..32, got {bits}")
+    ops.check(u, "values", torch.int32)
+    if u.ndim != 1:
+        raise ValueError(f"pack takes a flat tensor, got {tuple(u.shape)}")
+    n = u.shape[0]
+    n_words = -(-(n * bits) // 32)
+    words = torch.empty((n_words,), dtype=torch.int32, device=u.device)
+    if n_words:
+        build.call("hsz_pack", u.data_ptr(), n, words.data_ptr(), n_words,
+                   bits, ops.stream_ptr())
+        ops.count("pack")
+    return words
 
 
 def unpack_plain(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:

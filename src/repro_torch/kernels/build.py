@@ -44,6 +44,18 @@ SIGNATURES = {
     # from_payload, src, n_words, bits, n0, n1, meta, b0, b1, what,
     # out0, out1, stream
     "hsz_blockmean": (_I, _P, _LL, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
+    # p, n0, n1, rowedge, top, partials, out, stream
+    "hsz_prefix_stats": (_P, _I, _I, _P, _P, _P, _P, _P),
+    # u, n, words, n_words, bits, stream
+    "hsz_pack": (_P, _LL, _P, _LL, _I, _P),
+    # x, n0, n1, inv, p, stream
+    "hsz_quant_lorenzo2d": (_P, _I, _I, _P, _P, _P),
+    # q, n_blocks, s_len, means, maxu, stream
+    "hsz_block_stats": (_P, _LL, _I, _P, _P, _P),
+    # q, n0, n1, d0, d1, stream
+    "hsz_grad2d": (_P, _I, _I, _P, _P, _P),
+    # q, n0, n1, out, stream
+    "hsz_laplacian2d": (_P, _I, _I, _P, _P),
 }
 
 _LOCK = threading.Lock()

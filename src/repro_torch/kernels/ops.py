@@ -7,8 +7,8 @@ failure to build or launch raises — nothing falls back.
 
 :data:`LAUNCHES` counts kernel launches per site; a wrapper adds one only
 where it launches its kernel, so a run can show that its path went through
-the kernels (``chip_smoke.py`` resets the counts before its main path and
-reads them after).
+the kernels (``chip_smoke.py`` resets the counts before each path it drives
+and reads them after).
 
 :func:`override_mode` ``("off")`` deselects the fused lowering rules in
 ``repro_torch.core.oplib`` so a covered cell runs its plain torch lowering
@@ -29,6 +29,14 @@ LAUNCHES: dict[str, int] = {
     "lorenzo2d.edges": 0,
     "lorenzo2d.stencil": 0,
     "blockmean2d": 0,
+    # the kernel entry point (``repro_torch.kernels``), off the main path
+    "pack": 0,
+    "quant_lorenzo2d": 0,
+    "block_stats": 0,
+    "grad2d": 0,
+    "laplacian2d": 0,
+    "prefix_stats2d.edges": 0,
+    "prefix_stats2d.stats": 0,
 }
 
 _MODES = ("on", "off")

@@ -19,6 +19,7 @@ from repro.core import by_name as jax_by_name
 from repro.core import encode as jax_encode
 from repro.kernels import bitpack as jax_bitpack
 from repro.kernels import fused as jax_fk
+from repro_torch import kernels as K
 from repro_torch.core import encode
 from repro_torch.kernels import bitpack, fused, ops
 
@@ -156,6 +157,14 @@ def test_cpu_wrappers_launch_nothing():
     fused.blockmean_enc2d(_t(np.asarray(e.payload)), _t(np.asarray(c.metadata)),
                           (400, 48), BLOCK, e.bits, what="grad")
     fused.lorenzo2d(_t(np.asarray(c.residuals)), what="lap")
+    # the kernel entry point's six other wrappers
+    x = _t(np.asarray(c.residuals)).to(torch.float32)
+    p = K.quant_lorenzo2d(x, torch.tensor(0.5))
+    K.pack(encode.zigzag(p.reshape(-1)), e.bits)
+    K.block_stats(p.reshape(-1, BLOCK[0] * BLOCK[1]))
+    K.grad2d(p, 1e-2)
+    K.laplacian2d(p, 1e-2)
+    K.prefix_stats2d(p)
     assert set(ops.LAUNCHES.values()) == {0}
 
 
@@ -166,6 +175,18 @@ def test_dispatch_rejects_mixed_devices_and_unknown_what():
                                          device="meta"), BLOCK, what="grad")
     with pytest.raises(ValueError, match="what="):
         fused.lorenzo2d(p, what="lap_q")
+    # the kernel entry point: an eps tensor takes part in the dispatch, and
+    # one-tensor wrappers refuse a tensor on neither the CPU nor a card
+    meta_eps = torch.tensor(1e-3, device="meta")
+    x = torch.zeros((16, 16), dtype=torch.float32)
+    for call in (lambda: K.quant_lorenzo2d(x, meta_eps),
+                 lambda: K.grad2d(p, meta_eps),
+                 lambda: K.laplacian2d(p, meta_eps),
+                 lambda: K.pack(p.to("meta").reshape(-1), 5),
+                 lambda: K.block_stats(p.to("meta")),
+                 lambda: K.prefix_stats2d(p.to("meta"))):
+        with pytest.raises(ValueError, match="one CUDA device or on the CPU"):
+            call()
 
 
 # ===========================================================================
