@@ -9,10 +9,13 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. the card: its name, power limit and the device count;
 2. build the Hopper kernels from ``src/repro_torch/kernels/csrc`` and print
-   ``ptxas``'s register, shared-memory and spill lines;
+   ``ptxas``'s register, shared-memory and spill lines, and each block-mean
+   instantiation's dynamic shared memory, blocks per SM and SASS count;
 3. every kernel of the main path against its plain PyTorch version on the
    card, at the Ocean shape (2400 x 3600, blocks 16 x 16) and a padded one
    (2401 x 3599): bitwise, for every ``what`` and several unpack widths;
+   then the block-mean kernels on random planes near Ocean's size at blocks
+   (8, 8), (5, 7) and (4, 48), whose edges straddle the kernel's tiles;
 4. the kernel entry point (``repro_torch.kernels``: quant_lorenzo2d, pack,
    unpack, block_stats, grad2d, laplacian2d, prefix_stats2d): each kernel
    against its plain version at both shapes (bitwise; prefix_stats2d rtol
@@ -25,7 +28,8 @@ Phases (any failure raises, so the exit code is non-zero):
    each held against the port on the CPU; then an A/B pass with the fused
    rules off;
 6. times: each kernel and its plain version with CUDA events, the bound
-   (bytes over 3.35 TB/s), launches per query, and end-to-end ms per query.
+   (bytes over 3.35 TB/s), launches per query, and end-to-end ms per query;
+   detail lines time the block-mean kernels for every ``what``.
 
 Launch counters are reset just before each path (entry point, main path)
 and read just after it: each path must launch every kernel site it runs,
@@ -40,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -254,6 +259,45 @@ def check_kernels(shape, seed: int, errs: dict) -> dict:
     say(f"kernels == plain versions, bitwise, at {shape} "
         f"(bits {out['hszp_nd'][1].bits} / {out['hszx_nd'][1].bits})")
     return out
+
+
+#: block -> (plane near Ocean's size, payload width) for the block-mean
+#: tiling check: tile edges (32 x 128) do not line up with these blocks, the
+#: last tile row and column are ragged, and n1 % 4 != 0 for (5, 7), so every
+#: row takes the scalar-store edge there
+BM_TILING = {(8, 8): ((2400, 3592), 13), (5, 7): ((2395, 3598), 31),
+             (4, 48): ((2404, 3600), 5)}
+
+
+def check_blockmean_tiling(seed: int, errs: dict) -> None:
+    """Both block-mean kernels on seeded random residuals and block means
+    (the full int32 range, so sums wrap) at the blocks of ``BM_TILING``:
+    every ``what``, bitwise against the plain versions."""
+    rng = np.random.default_rng(seed)
+    for block, (shape, bits) in BM_TILING.items():
+        lim = 1 << (bits - 1)
+        p = torch.as_tensor(rng.integers(-lim, lim, shape, dtype=np.int64)
+                            .astype(np.int32), device=DEVICE)
+        grid = (shape[0] // block[0], shape[1] // block[1])
+        meta = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, grid,
+                                            dtype=np.int64).astype(np.int32),
+                               device=DEVICE)
+        words = encode.pack_uniform(encode.zigzag(p.reshape(-1)), bits)
+        for what in fused.BLOCKMEAN_WHATS:
+            _note(errs, "blockmean2d", bitwise_err(
+                fused.blockmean_core(p, meta, block, what),
+                fused.blockmean2d(p, meta, block, what=what),
+                f"blockmean2d {what} {shape} block {block}"))
+            _note(errs, "blockmean_enc2d", bitwise_err(
+                fused.blockmean_enc2d_plain(words, meta, shape, block, bits,
+                                            what=what),
+                fused.blockmean_enc2d(words, meta, shape, block, bits,
+                                      what=what),
+                f"blockmean_enc2d {what} {shape} block {block} bits={bits}"))
+    torch.cuda.synchronize()
+    say("block-mean kernels == plain versions, bitwise, every what, at "
+        + ", ".join(f"{s} block {b} ({w} bits)"
+                    for b, (s, w) in BM_TILING.items()))
 
 
 # ===========================================================================
@@ -665,7 +709,53 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
         say(f"[{tag}] {name}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, bound "
             f"{b_ms * 1e3:.1f} us by {b_by}, {n_bytes / 1e6:.1f} MB, "
             f"{n_bytes / (k_ms * 1e-3) / 1e9:.0f} GB/s)")
+    time_blockmean_whats(bm_words, bm_bits, bm_plane, meta, reps, tag)
     return out
+
+
+def _blockmean_tiles(src, meta, shape, bits, what, from_payload):
+    """The block-mean planes with one block per tile (no pipelining)."""
+    n_out = 2 if what == "grad" else 1
+    dtype = torch.float32 if what in ("lap_p", "lap_q") else torch.int32
+    outs = [torch.empty(shape, dtype=dtype, device=src.device)
+            for _ in range(n_out)]
+    build.call("hsz_blockmean_tiles", int(from_payload), src.data_ptr(),
+               src.shape[0] if from_payload else 0, bits, shape[0], shape[1],
+               meta.data_ptr(), BLOCK[0], BLOCK[1], fused._BM_CODE[what],
+               outs[0].data_ptr(), outs[-1].data_ptr() if n_out > 1 else None,
+               ops.stream_ptr())
+    return outs
+
+
+def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
+    """Detail lines: both block-mean kernels for every ``what`` at the Ocean
+    shape (the kernels line keeps ``grad``), beside the one-block-per-tile
+    schedule and the card's own rate for writing the same output planes."""
+    shape = tuple(plane.shape)
+    n = plane.numel()
+    for what in fused.BLOCKMEAN_WHATS:
+        n_out = 2 if what == "grad" else 1
+        fill = torch.empty((n_out, n), dtype=torch.int32, device=plane.device)
+        fill_ms = cuda_ms(lambda: fill.fill_(1), reps)
+        for site, src, from_payload in (("blockmean_enc2d", words, True),
+                                        ("blockmean2d", plane, False)):
+            if from_payload:
+                def kernel():
+                    return fused.blockmean_enc2d(words, meta, shape, BLOCK, bits,
+                                                 what=what)
+            else:
+                def kernel():
+                    return fused.blockmean2d(plane, meta, BLOCK, what=what)
+            k_ms = cuda_ms(kernel, reps)
+            t_ms = cuda_ms(lambda: _blockmean_tiles(src, meta, shape, bits, what,
+                                                    from_payload), reps)
+            n_bytes = (4 * src.numel() + 4 * meta.numel() + 4 * n * n_out)
+            b_ms, _ = bound_ms(n_bytes, 0)
+            smem, per_sm = fused.blockmean_launch_config(from_payload, what)
+            say(f"[{tag}] {site} {what}: {k_ms * 1e3:.1f} us (one block per "
+                f"tile: {t_ms * 1e3:.1f} us; bound {b_ms * 1e3:.1f} us; "
+                f"fill_ of the {n_out} output plane(s) {fill_ms * 1e3:.1f} us; "
+                f"{smem} B shared memory, {per_sm} blocks/SM)")
 
 
 PER_QUERY = {
@@ -752,6 +842,48 @@ def time_queries(fields, tag: str) -> None:
 
 # ===========================================================================
 
+def sass_counts(obj) -> dict[str, int]:
+    """SASS instructions per kernel of a compiled object (``cuobjdump -sass``
+    beside ``nvcc``; {} when the toolkit has none), by demangled name."""
+    cuobjdump = pathlib.Path(build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return {}
+    out = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+            counts[name] += 1
+    names = list(counts)
+    demangled = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    if len(demangled) != len(names):
+        demangled = names
+    return {d: counts[n] for d, n in zip(demangled, names)}
+
+
+def blockmean_build_lines() -> list[str]:
+    """Dynamic shared memory, blocks per SM and SASS instructions of each
+    block-mean instantiation (``ptxas -v`` prints its registers)."""
+    sass = sass_counts(build.BUILD_DIR / "blockmean_band.o")
+    lines = []
+    for from_payload, src in ((True, "payload"), (False, "plane")):
+        for code, what in enumerate(fused.BLOCKMEAN_WHATS):
+            smem, per_sm = fused.blockmean_launch_config(from_payload, what)
+            key = f"blockmean_kernel<{str(from_payload).lower()}, {code},"
+            n_sass = [v for k, v in sass.items() if key in k]
+            lines.append(f"  blockmean_band.cu {src} {what}: {smem} B dynamic "
+                         f"shared memory, {per_sm} blocks/SM, SASS "
+                         f"instructions {n_sass or 'not read'}")
+    return lines
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -791,11 +923,14 @@ def main() -> None:
     for line in build.BUILD_LOG:
         if any(k in line for k in ("registers", "spill", "Compiling entry")):
             say(f"  {line}")
+    for line in blockmean_build_lines():
+        say(line)
 
     # 3. main-path kernels against plain versions
     errs: dict[str, float] = {}
     cont = check_kernels(OCEAN, args.seed, errs)
     check_kernels(PADDED, args.seed, errs)
+    check_blockmean_tiling(args.seed, errs)
 
     # 4. the kernel entry point: against plain versions, then driven on u
     # and held against the main path's containers and stage-3 results

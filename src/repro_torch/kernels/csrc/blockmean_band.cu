@@ -1,10 +1,10 @@
 // Fused block-mean upsample + stencil planes (2-D, stages 2-4).
 //
 // Replaces two Pallas sites of repro/kernels/fused.py:
-//   blockmean_enc2d (_blockmean_enc_kernel) -> blockmean_kernel<true>
-//   blockmean2d     (_blockmean_kernel)     -> blockmean_kernel<false>
+//   blockmean_enc2d (_blockmean_enc_kernel) -> blockmean_kernel<true, WHAT>
+//   blockmean2d     (_blockmean_kernel)     -> blockmean_kernel<false, WHAT>
 // With m the block means upsampled to the plane and every neighbour outside
-// the plane read as 0, the planes are
+// the plane read as 0 (for p and for m), the planes are
 //   deriv0 = (p_dn - p_up) + (m_dn - m_up)          int32
 //   deriv1 = (p_r - p_l) + (m_r - m_l)              int32
 //   lap_p  = lap5(p) + lap5(m)                      f32 (stage 2)
@@ -13,96 +13,449 @@
 // order of the reference (repro/kernels/fused.py:337-344).  Every float
 // operation is an __fmul_rn / __fadd_rn intrinsic, which the compiler never
 // contracts into a multiply-add; the eps multiply stays outside the kernel.
+// In wrapping int32 arithmetic (p_dn - p_up) + (m_dn - m_up) equals
+// q_dn - q_up with q = p + m, so every plane but lap_p needs only q.
 //
-// Bound on Hopper: memory.  The kernel reads the payload (n*bits/8 bytes) or
-// the residual plane (4n bytes) and the block means (4n/(b0*b1) bytes) once,
-// and writes 4 bytes per element per output plane.
-// Design: one thread per output element, 32 x 8 threads per block; each
-// thread reads p at its five stencil points (unpacking payload words inline,
-// so the residual plane never exists in device memory on the payload path)
-// and m = meta[i/b0, j/b1] at the same points.  Neighbouring threads touch
-// neighbouring words, so the repeated reads are served from L1/L2.
+// Bound on Hopper: bytes, about 90 % of them writes.  The kernel reads the
+// payload (n*bits/8 bytes) or the residual plane (4n bytes) and the block
+// means (4n/(b0*b1) bytes) once, and writes 4 bytes per element per output
+// plane (two planes for grad).  Tensor cores have no part in it: there is
+// no product, only an integer stencil and five f32 adds.
+//
+// Design: a block of 8 warps owns a TH x TW = 32 x 128 tile of outputs.
+//  - Tile in shared memory.  The block copies the (TH+2) x (TW+2) residuals
+//    of its tile and halo once: on the payload path each halo row is one
+//    contiguous span of bits, whose words a warp copies with coalesced
+//    reads; each lane then unpacks and unzigzags values from shared memory
+//    (64-bit bit offsets per row, 32-bit within it, the n_words guard on
+//    the copy).  Each residual is unpacked once per tile, not once per
+//    neighbour.  Cells outside the plane are written as 0.
+//  - No division per element.  Per tile, TH + TW + 4 divisions give the
+//    block row of each halo row and the block column of each halo column;
+//    the value tile holds q = p + m (or p and m apart for lap_p), so tiles
+//    need not line up with blocks and any (b0, b1) dividing the plane works.
+//  - Wide stores.  A lane computes 4 consecutive outputs of a row from one
+//    16-byte shared-memory load per stencil row (left and right neighbours
+//    by warp shuffles) and writes them as one 16-byte store when rows are
+//    16-byte aligned (n1 % 4 == 0): one warp writes 512 contiguous bytes.
+//    A ragged tile edge or an unaligned row falls back to masked scalars.
+//  - `what` is a template parameter: 5 x 2 instantiations, each doing only
+//    its own arithmetic.
+//  - ASYNC: a persistent grid (blocks per SM from the occupancy API) walks
+//    over the tiles and copies the next tile's words or residuals with
+//    cp.async into a second buffer while the current tile is computed and
+//    stored.  Without it, one block per tile with plain loads.
 #include "common.cuh"
 
 namespace {
 
+constexpr int TH = 32;                 // tile rows (outputs)
+constexpr int TW = 128;                // tile columns (outputs)
+constexpr int NT = 256;                // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int ROWS = TH / NWARP;       // output rows per warp
+constexpr int HR = TH + 2;             // halo rows
+constexpr int HC = TW + 2;             // halo columns
+// Shared-memory row stride in words: halo column c sits at c + 3, so the
+// interior starts at word 4 and every lane's 4 outputs are 16-byte aligned.
+// A payload row of HC values at <= 31 bits spans <= 127 words (+1 sentinel).
+constexpr int LD = TW + 8;
+constexpr int TILE = HR * LD;          // words per staged tile
+constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(TH % NWARP == 0 && TW == 4 * 32, "one warp covers a tile row");
+static_assert(LD >= 128, "a payload row needs 127 words and a sentinel");
+
 enum What { DERIV0 = 0, DERIV1 = 1, GRAD = 2, LAP_P = 3, LAP_Q = 4 };
 
-__device__ __forceinline__ float lap5(int32_t c, int32_t dn, int32_t up,
-                                      int32_t right, int32_t left) {
-  float acc = __fmul_rn(__int2float_rn(c), -4.0f);
-  acc = __fadd_rn(acc, __int2float_rn(dn));
-  acc = __fadd_rn(acc, __int2float_rn(up));
-  acc = __fadd_rn(acc, __int2float_rn(right));
-  acc = __fadd_rn(acc, __int2float_rn(left));
+struct Args {
+  const void* src;        // payload words or the int32 residual plane
+  long long n_words;      // payload words (payload path)
+  int bits;               // payload width 1..31 (payload path)
+  int n0, n1;             // plane
+  const int32_t* meta;    // (n0/b0, ng1) block means
+  int ng1, b0, b1;
+  uint32_t* out0;
+  uint32_t* out1;         // grad only
+  int n_ct, n_tiles;      // tile columns, tiles
+};
+
+__device__ __forceinline__ float lap5(uint32_t c, uint32_t dn, uint32_t up,
+                                      uint32_t right, uint32_t left) {
+  float acc = __fmul_rn(__int2float_rn((int32_t)c), -4.0f);
+  acc = __fadd_rn(acc, __int2float_rn((int32_t)dn));
+  acc = __fadd_rn(acc, __int2float_rn((int32_t)up));
+  acc = __fadd_rn(acc, __int2float_rn((int32_t)right));
+  acc = __fadd_rn(acc, __int2float_rn((int32_t)left));
   return acc;
 }
 
-template <bool PAYLOAD>
-__global__ void blockmean_kernel(const void* __restrict__ src, long long n_words,
-                                 int bits, int n0, int n1,
-                                 const int32_t* __restrict__ meta, int ng1, int b0,
-                                 int b1, int what, void* __restrict__ out0,
-                                 void* __restrict__ out1) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= n0 || j >= n1) return;
-  auto P = [&](int ii, int jj) -> uint32_t {
-    if (ii < 0 || ii >= n0 || jj < 0 || jj >= n1) return 0u;
-    return (uint32_t)hsz::load_p<PAYLOAD>(src, n_words, bits, (long long)ii * n1 + jj);
-  };
-  auto M = [&](int ii, int jj) -> uint32_t {
-    if (ii < 0 || ii >= n0 || jj < 0 || jj >= n1) return 0u;
-    return (uint32_t)__ldg(meta + (long long)(ii / b0) * ng1 + jj / b1);
-  };
-  const long long k = (long long)i * n1 + j;
-  int32_t* o0 = static_cast<int32_t*>(out0);
-  int32_t* o1 = static_cast<int32_t*>(out1);
-  if (what == DERIV0 || what == GRAD) {
-    o0[k] = (int32_t)((P(i + 1, j) - P(i - 1, j)) + (M(i + 1, j) - M(i - 1, j)));
-  }
-  if (what == DERIV1 || what == GRAD) {
-    int32_t* o = (what == GRAD) ? o1 : o0;
-    o[k] = (int32_t)((P(i, j + 1) - P(i, j - 1)) + (M(i, j + 1) - M(i, j - 1)));
-  }
-  if (what == LAP_P || what == LAP_Q) {
-    const uint32_t pc = P(i, j), pd = P(i + 1, j), pu = P(i - 1, j);
-    const uint32_t pr = P(i, j + 1), pl = P(i, j - 1);
-    const uint32_t mc = M(i, j), md = M(i + 1, j), mu = M(i - 1, j);
-    const uint32_t mr = M(i, j + 1), ml = M(i, j - 1);
-    float v;
-    if (what == LAP_P) {
-      v = __fadd_rn(lap5((int32_t)pc, (int32_t)pd, (int32_t)pu, (int32_t)pr, (int32_t)pl),
-                    lap5((int32_t)mc, (int32_t)md, (int32_t)mu, (int32_t)mr, (int32_t)ml));
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <bool ASYNC>
+__device__ __forceinline__ void copy_word(uint32_t* dst, const uint32_t* src) {
+  if constexpr (ASYNC) cp_async4(dst, src);
+  else *dst = __ldg(src);
+}
+
+// Payload bits of halo row i (in the plane) of the tile at column j0: its
+// first plane column, its first bit and the words it touches.
+struct RowSpan {
+  int jlo;
+  unsigned long long bit0;
+  int n_words;
+};
+
+__device__ __forceinline__ RowSpan row_span(int i, int j0, int n1, int bits) {
+  const int jlo = max(j0 - 1, 0), jhi = min(j0 + TW, n1 - 1);
+  const unsigned long long k = (unsigned long long)i * (unsigned)n1;
+  const unsigned long long first = (k + jlo) * (unsigned)bits;
+  const unsigned long long end = (k + jhi + 1) * (unsigned)bits;
+  return {jlo, first, (int)(((end - 1) >> 5) - (first >> 5)) + 1};
+}
+
+// Copy the raw input of the tile at (i0, j0) into R: per halo row in the
+// plane, the payload words of its span followed by a 0 sentinel, or its
+// residuals at word c + 3 for halo column c (0 outside the plane).  Warp w
+// takes halo rows w, w + 8, ...; rows outside the plane are left alone.
+template <bool PAYLOAD, bool ASYNC>
+__device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < HR; r += NWARP) {
+    const int i = i0 - 1 + r;
+    if (i < 0 || i >= a.n0) continue;
+    uint32_t* row = R + r * LD;
+    if constexpr (PAYLOAD) {
+      const auto* words = static_cast<const uint32_t*>(a.src);
+      const RowSpan sp = row_span(i, j0, a.n1, a.bits);
+      const long long w0 = (long long)(sp.bit0 >> 5);
+      for (int q = lane; q <= sp.n_words; q += 32) {
+        if (q < sp.n_words && w0 + q < a.n_words) copy_word<ASYNC>(row + q, words + w0 + q);
+        else row[q] = 0u;
+      }
     } else {
-      v = lap5((int32_t)(pc + mc), (int32_t)(pd + md), (int32_t)(pu + mu),
-               (int32_t)(pr + mr), (int32_t)(pl + ml));
+      const auto* p = static_cast<const uint32_t*>(a.src) + (long long)i * a.n1;
+      for (int c = lane; c < HC; c += 32) {
+        const int j = j0 - 1 + c;
+        if (j >= 0 && j < a.n1) copy_word<ASYNC>(row + 3 + c, p + j);
+        else row[3 + c] = 0u;
+      }
     }
-    static_cast<float*>(out0)[k] = v;
   }
 }
 
-}  // namespace
+// Block column of each halo column and flat offset of the block row of each
+// halo row in the block means (-1 outside the plane): the tile's only
+// divisions.
+__device__ __forceinline__ void tile_index(const Args& a, int i0, int j0, int* colb,
+                                           int* rowoff) {
+  const int t = threadIdx.x;
+  if (t < HC) {
+    const int j = j0 - 1 + t;
+    colb[t] = (j >= 0 && j < a.n1) ? j / a.b1 : -1;
+  } else if (t < HC + HR) {
+    const int r = t - HC, i = i0 - 1 + r;
+    rowoff[r] = (i >= 0 && i < a.n0) ? (i / a.b0) * a.ng1 : -1;
+  }
+}
 
-// meta: (n0/b0, ng1) int32 block means; out0/out1: (n0, n1), int32 for the
-// derivative planes, f32 for lap_p / lap_q (out1 only for what == GRAD).
-extern "C" int hsz_blockmean(int from_payload, const void* src, long long n_words,
-                             int bits, int n0, int n1, const void* meta, int b0,
-                             int b1, int what, void* out0, void* out1, void* stream) {
+// From the raw tile R, write S = p + m (lap_p: S = p and M = m) at word
+// c + 3 of each halo row, 0 outside the plane.
+template <bool PAYLOAD, int WHAT>
+__device__ __forceinline__ void expand(const Args& a, int i0, int j0, const uint32_t* R,
+                                       const int* colb, const int* rowoff, uint32_t* S,
+                                       uint32_t* M) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < HR; r += NWARP) {
+    const int ro = rowoff[r];
+    const uint32_t* row = R + r * LD;
+    // bit offset of halo column c within the staged words: c * bits + base
+    int base = 0;
+    if constexpr (PAYLOAD) {
+      if (ro >= 0) {
+        const RowSpan sp = row_span(i0 - 1 + r, j0, a.n1, a.bits);
+        base = (int)(sp.bit0 & 31ull) + (j0 - 1 - sp.jlo) * a.bits;
+      }
+    }
+#pragma unroll
+    for (int c0 = 0; c0 < HC; c0 += 32) {
+      const int c = c0 + lane;
+      if (c >= HC) break;
+      const int cb = colb[c];
+      uint32_t p = 0u, m = 0u;
+      if (ro >= 0 && cb >= 0) {
+        if constexpr (PAYLOAD) {
+          const int off = c * a.bits + base;
+          const uint32_t u = __funnelshift_r(row[off >> 5], row[(off >> 5) + 1], off & 31);
+          p = (uint32_t)hsz::unzigzag(u & ((1u << a.bits) - 1u));
+        } else {
+          p = row[3 + c];
+        }
+        m = (uint32_t)__ldg(a.meta + ro + cb);
+      }
+      if constexpr (WHAT == LAP_P) {
+        S[r * LD + 3 + c] = p;
+        M[r * LD + 3 + c] = m;
+      } else {
+        S[r * LD + 3 + c] = p + m;
+      }
+    }
+  }
+}
+
+// Halo row r of tile T at the lane's 4 interior columns: x[1..4]; with LR
+// also the left and right neighbours x[0] and x[5] (shuffled from the
+// neighbouring lanes, the halo columns for lanes 0 and 31).
+template <bool LR>
+__device__ __forceinline__ void load_row(const uint32_t* T, int r, int lane,
+                                         uint32_t (&x)[6]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(T + r * LD + 4 + 4 * lane);
+  x[1] = v.x;
+  x[2] = v.y;
+  x[3] = v.z;
+  x[4] = v.w;
+  if constexpr (LR) {
+    const uint32_t l = __shfl_up_sync(FULL, v.w, 1);
+    const uint32_t rr = __shfl_down_sync(FULL, v.x, 1);
+    x[0] = lane == 0 ? T[r * LD + 3] : l;
+    x[5] = lane == 31 ? T[r * LD + 4 + TW] : rr;
+  }
+}
+
+// Four outputs at flat index k (plane column j); one 16-byte store when the
+// row is 16-byte aligned and all four lie in the plane.
+__device__ __forceinline__ void store4(uint32_t* out, long long k, int j, int n1,
+                                       bool vec, const uint32_t (&v)[4]) {
+  if (vec && j + 3 < n1) {
+    *reinterpret_cast<uint4*>(out + k) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (j + e < n1) out[k + e] = v[e];
+  }
+}
+
+// The requested planes of the tile at (i0, j0) from S (and M): warp w writes
+// output rows w*ROWS .. w*ROWS + ROWS-1, lane l columns 4l .. 4l+3.
+template <int WHAT>
+__device__ __forceinline__ void compute_store(const Args& a, int i0, int j0,
+                                              const uint32_t* S, const uint32_t* M) {
+  constexpr bool LR = WHAT != DERIV0;  // needs left / right neighbours
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * ROWS;  // halo row above the warp's first output row
+  const int j = j0 + 4 * lane;
+  const bool vec = (a.n1 & 3) == 0;
+  uint32_t up[6] = {}, ce[6] = {}, dn[6] = {};
+  uint32_t mu[6] = {}, mc[6] = {}, md[6] = {};
+  load_row<LR>(S, r0, lane, up);
+  load_row<LR>(S, r0 + 1, lane, ce);
+  if constexpr (WHAT == LAP_P) {
+    load_row<true>(M, r0, lane, mu);
+    load_row<true>(M, r0 + 1, lane, mc);
+  }
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    load_row<LR>(S, r0 + k + 2, lane, dn);
+    if constexpr (WHAT == LAP_P) load_row<true>(M, r0 + k + 2, lane, md);
+    uint32_t o0[4], o1[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t d0 = dn[e + 1] - up[e + 1];
+      const uint32_t d1 = ce[e + 2] - ce[e];
+      if constexpr (WHAT == DERIV0) o0[e] = d0;
+      if constexpr (WHAT == DERIV1) o0[e] = d1;
+      if constexpr (WHAT == GRAD) {
+        o0[e] = d0;
+        o1[e] = d1;
+      }
+      if constexpr (WHAT == LAP_Q)
+        o0[e] = __float_as_uint(lap5(ce[e + 1], dn[e + 1], up[e + 1], ce[e + 2], ce[e]));
+      if constexpr (WHAT == LAP_P)
+        o0[e] = __float_as_uint(
+            __fadd_rn(lap5(ce[e + 1], dn[e + 1], up[e + 1], ce[e + 2], ce[e]),
+                      lap5(mc[e + 1], md[e + 1], mu[e + 1], mc[e + 2], mc[e])));
+    }
+    const int i = i0 + r0 + k;
+    if (i < a.n0) {
+      const long long kk = (long long)i * a.n1 + j;
+      store4(a.out0, kk, j, a.n1, vec, o0);
+      if constexpr (WHAT == GRAD) store4(a.out1, kk, j, a.n1, vec, o1);
+    }
+#pragma unroll
+    for (int e = 0; e < 6; ++e) {
+      up[e] = ce[e];
+      ce[e] = dn[e];
+      if constexpr (WHAT == LAP_P) {
+        mu[e] = mc[e];
+        mc[e] = md[e];
+      }
+    }
+  }
+}
+
+// Shared memory: S, then M (lap_p only), then NBUF raw tiles, then the
+// per-tile block indices.
+constexpr int smem_bytes(int what, bool async) {
+  return 4 * (TILE * ((what == LAP_P ? 2 : 1) + (async ? 2 : 1)) + HC + HR);
+}
+
+template <bool PAYLOAD, int WHAT, bool ASYNC>
+__global__ void __launch_bounds__(NT) blockmean_kernel(const Args a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* S = smem;
+  uint32_t* M = smem + TILE;  // lap_p only
+  uint32_t* R = smem + TILE * (WHAT == LAP_P ? 2 : 1);
+  int* colb = reinterpret_cast<int*>(R + TILE * (ASYNC ? 2 : 1));
+  int* rowoff = colb + HC;
+  int buf = 0;
+  int tile = blockIdx.x;
+  if constexpr (ASYNC) {
+    if (tile < a.n_tiles) {
+      const int ti = tile / a.n_ct;
+      fetch<PAYLOAD, true>(a, ti * TH, (tile - ti * a.n_ct) * TW, R);
+    }
+    cp_async_commit();
+  }
+  for (; tile < a.n_tiles; tile += gridDim.x) {
+    const int ti = tile / a.n_ct;
+    const int i0 = ti * TH, j0 = (tile - ti * a.n_ct) * TW;
+    if constexpr (ASYNC) {
+      const int next = tile + gridDim.x;
+      if (next < a.n_tiles) {
+        const int ni = next / a.n_ct;
+        fetch<PAYLOAD, true>(a, ni * TH, (next - ni * a.n_ct) * TW, R + (buf ^ 1) * TILE);
+      }
+      cp_async_commit();
+      cp_async_wait_prev();
+    } else {
+      fetch<PAYLOAD, false>(a, i0, j0, R);
+    }
+    tile_index(a, i0, j0, colb, rowoff);
+    __syncthreads();
+    expand<PAYLOAD, WHAT>(a, i0, j0, R + buf * TILE, colb, rowoff, S, M);
+    __syncthreads();
+    compute_store<WHAT>(a, i0, j0, S, M);
+    if constexpr (ASYNC) buf ^= 1;
+  }
+}
+
+// Dynamic shared memory and resident blocks per SM of one instantiation,
+// set up once (above 48 KB a block's shared memory must be allowed first).
+struct Config {
+  cudaError_t err;
+  int smem;
+  int per_sm;
+};
+
+template <bool PAYLOAD, int WHAT, bool ASYNC>
+const Config& config() {
+  static const Config c = [] {
+    auto kernel = blockmean_kernel<PAYLOAD, WHAT, ASYNC>;
+    Config k{cudaSuccess, smem_bytes(WHAT, ASYNC), 0};
+    k.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 k.smem);
+    if (k.err == cudaSuccess)
+      k.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k.per_sm, kernel, NT, k.smem);
+    return k;
+  }();
+  return c;
+}
+
+template <bool PAYLOAD, int WHAT, bool ASYNC>
+int launch(const Args& a, cudaStream_t stream) {
+  const Config& c = config<PAYLOAD, WHAT, ASYNC>();
+  if (c.err != cudaSuccess) return (int)c.err;
+  int grid = a.n_tiles;
+  if constexpr (ASYNC) {  // persistent: as many blocks as can be resident
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    grid = min(grid, sms * max(c.per_sm, 1));
+  }
+  blockmean_kernel<PAYLOAD, WHAT, ASYNC><<<grid, NT, c.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool PAYLOAD, bool ASYNC>
+int dispatch(const Args& a, int what, cudaStream_t s) {
+  switch (what) {
+    case DERIV0: return launch<PAYLOAD, DERIV0, ASYNC>(a, s);
+    case DERIV1: return launch<PAYLOAD, DERIV1, ASYNC>(a, s);
+    case GRAD: return launch<PAYLOAD, GRAD, ASYNC>(a, s);
+    case LAP_P: return launch<PAYLOAD, LAP_P, ASYNC>(a, s);
+    default: return launch<PAYLOAD, LAP_Q, ASYNC>(a, s);
+  }
+}
+
+template <bool PAYLOAD>
+const Config& config_of(int what) {
+  switch (what) {
+    case DERIV0: return config<PAYLOAD, DERIV0, true>();
+    case DERIV1: return config<PAYLOAD, DERIV1, true>();
+    case GRAD: return config<PAYLOAD, GRAD, true>();
+    case LAP_P: return config<PAYLOAD, LAP_P, true>();
+    default: return config<PAYLOAD, LAP_Q, true>();
+  }
+}
+
+int blockmean(int from_payload, const void* src, long long n_words, int bits, int n0,
+              int n1, const void* meta, int b0, int b1, int what, void* out0,
+              void* out1, bool pipelined, void* stream) {
   if (n0 <= 0 || n1 <= 0 || b0 <= 0 || b1 <= 0 || n0 % b0 || n1 % b1 ||
       what < DERIV0 || what > LAP_Q)
     return (int)cudaErrorInvalidValue;
   if (from_payload && (bits < 1 || bits > 31)) return (int)cudaErrorInvalidValue;
-  const dim3 block(32, 8);
-  const dim3 grid((n1 + 31) / 32, (n0 + 7) / 8);
+  const int n_ct = (n1 + TW - 1) / TW, n_rt = (n0 + TH - 1) / TH;
+  const Args a{src, n_words, from_payload ? bits : 1, n0, n1,
+               static_cast<const int32_t*>(meta), n1 / b1, b0, b1,
+               static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1),
+               n_ct, n_ct * n_rt};
   auto s = (cudaStream_t)stream;
-  auto m = static_cast<const int32_t*>(meta);
-  const int ng1 = n1 / b1;
   if (from_payload)
-    blockmean_kernel<true><<<grid, block, 0, s>>>(src, n_words, bits, n0, n1, m, ng1,
-                                                  b0, b1, what, out0, out1);
-  else
-    blockmean_kernel<false><<<grid, block, 0, s>>>(src, n_words, bits, n0, n1, m, ng1,
-                                                   b0, b1, what, out0, out1);
-  return (int)cudaGetLastError();
+    return pipelined ? dispatch<true, true>(a, what, s) : dispatch<true, false>(a, what, s);
+  return pipelined ? dispatch<false, true>(a, what, s) : dispatch<false, false>(a, what, s);
+}
+
+}  // namespace
+
+// meta: (n0/b0, n1/b1) int32 block means; out0/out1: (n0, n1), int32 for the
+// derivative planes, f32 for lap_p / lap_q (out1 only for what == GRAD).
+extern "C" int hsz_blockmean(int from_payload, const void* src, long long n_words,
+                             int bits, int n0, int n1, const void* meta, int b0,
+                             int b1, int what, void* out0, void* out1, void* stream) {
+  return blockmean(from_payload, src, n_words, bits, n0, n1, meta, b0, b1, what, out0,
+                   out1, true, stream);
+}
+
+// The same planes with one block per tile and plain loads (no pipelining).
+extern "C" int hsz_blockmean_tiles(int from_payload, const void* src, long long n_words,
+                                   int bits, int n0, int n1, const void* meta, int b0,
+                                   int b1, int what, void* out0, void* out1,
+                                   void* stream) {
+  return blockmean(from_payload, src, n_words, bits, n0, n1, meta, b0, b1, what, out0,
+                   out1, false, stream);
+}
+
+// Dynamic shared memory (bytes) and resident blocks per SM of the kernel
+// that hsz_blockmean launches for (from_payload, what).
+extern "C" int hsz_blockmean_info(int from_payload, int what, int* smem_bytes,
+                                  int* blocks_per_sm) {
+  if (what < DERIV0 || what > LAP_Q) return (int)cudaErrorInvalidValue;
+  const Config& c = from_payload ? config_of<true>(what) : config_of<false>(what);
+  *smem_bytes = c.smem;
+  *blocks_per_sm = c.per_sm;
+  return (int)c.err;
 }

@@ -235,6 +235,15 @@ def blockmean_core(p: torch.Tensor, meta: torch.Tensor, block: tuple, what: str)
     return _result(outs)
 
 
+def blockmean_launch_config(from_payload: bool, what: str) -> tuple[int, int]:
+    """(dynamic shared memory in bytes, resident blocks per SM) of the
+    block-mean kernel launched for ``what``, read from the library."""
+    smem, per_sm = ctypes.c_int(), ctypes.c_int()
+    build.call("hsz_blockmean_info", int(from_payload), _BM_CODE[what],
+               ctypes.addressof(smem), ctypes.addressof(per_sm))
+    return smem.value, per_sm.value
+
+
 def _blockmean_kernel(src, meta, shape, block, bits, what, *, from_payload,
                       site):
     n0, n1 = shape

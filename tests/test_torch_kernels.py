@@ -30,6 +30,18 @@ LZ_CASES = [(src, w) for src in ("payload", "plane")
             for w in fused.LORENZO_WHATS]
 BM_CASES = [(src, w) for src in ("payload", "plane")
             for w in fused.BLOCKMEAN_WHATS]
+# block -> a field shape that does not fill whole blocks (two or more bands
+# in the reference kernels; tiles of the Hopper kernel straddle blocks)
+BM_BLOCKS = {BLOCK: SHAPE, (8, 8): (397, 59), (4, 16): (301, 77),
+             (5, 7): (398, 68)}
+BM_BLOCK_CASES = [(b, src, w) for b in BM_BLOCKS for src, w in BM_CASES]
+CARD_CASES = [(scheme, b) for scheme in ("hszp_nd", "hszx_nd")
+              for b in BM_BLOCKS]
+
+
+def _block_id(block) -> str:
+    """'' for the default block (the ids it had before), else '5x7-'."""
+    return "" if block == BLOCK else f"{block[0]}x{block[1]}-"
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -52,12 +64,13 @@ def _same(want, got, what):
 
 
 @functools.lru_cache(maxsize=None)
-def _field(scheme: str):
-    """The reference's Compressed + Encoded of one smooth 2-D field."""
+def _field(scheme: str, block: tuple = BLOCK):
+    """The reference's Compressed + Encoded of one smooth 2-D field (of the
+    shape :data:`BM_BLOCKS` gives ``block``)."""
     rng = np.random.default_rng(11)
-    d = rng.normal(0, 1, SHAPE)
+    d = rng.normal(0, 1, BM_BLOCKS[block])
     d = (np.cumsum(np.cumsum(d, 0), 1) * 0.05).astype(np.float32)
-    comp = jax_by_name(scheme, BLOCK)
+    comp = jax_by_name(scheme, block)
     c = comp.compress(jnp.asarray(d), abs_eb=1e-2)
     e = comp.encode(c)
     assert 0 < e.bits < 32
@@ -102,23 +115,24 @@ def test_lorenzo_matches_reference_kernel(src, what):
     _same(want, got, f"lorenzo {src} {what}")
 
 
-@pytest.mark.parametrize("src,what", BM_CASES, ids=[f"{s}-{w}" for s, w in BM_CASES])
-def test_blockmean_matches_reference_kernel(src, what):
-    c, e = _field("hszx_nd")
+@pytest.mark.parametrize("block,src,what", BM_BLOCK_CASES,
+                         ids=[f"{_block_id(b)}{s}-{w}" for b, s, w in BM_BLOCK_CASES])
+def test_blockmean_matches_reference_kernel(block, src, what):
+    c, e = _field("hszx_nd", block)
     meta = _t(np.asarray(c.metadata))
     if src == "payload":
         want = jax_fk.blockmean_enc2d(e.payload, e.metadata,
-                                      tuple(e.padded_shape), BLOCK, e.bits,
+                                      tuple(e.padded_shape), block, e.bits,
                                       what=what, interpret=True)
         got = fused.blockmean_enc2d(_t(np.asarray(e.payload)), meta,
-                                    tuple(e.padded_shape), BLOCK, e.bits,
+                                    tuple(e.padded_shape), block, e.bits,
                                     what=what)
     else:
-        want = jax_fk.blockmean2d(c.residuals, c.metadata, BLOCK, what=what,
+        want = jax_fk.blockmean2d(c.residuals, c.metadata, block, what=what,
                                   interpret=True)
-        got = fused.blockmean2d(_t(np.asarray(c.residuals)), meta, BLOCK,
+        got = fused.blockmean2d(_t(np.asarray(c.residuals)), meta, block,
                                 what=what)
-    _same(want, got, f"blockmean {src} {what}")
+    _same(want, got, f"blockmean {block} {src} {what}")
 
 
 @pytest.mark.parametrize("tile", [(4, 8), (32, 128), (7, 5)])
@@ -215,10 +229,12 @@ def test_unpack_kernel_matches_plain_on_card(bits):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("scheme", ["hszp_nd", "hszx_nd"])
-def test_band_kernels_match_plain_on_card(scheme):
+@pytest.mark.parametrize("scheme,block", CARD_CASES,
+                         ids=[f"{s}" + (f"-{b[0]}x{b[1]}" if b != BLOCK else "")
+                              for s, b in CARD_CASES])
+def test_band_kernels_match_plain_on_card(scheme, block):
     dev = _card()
-    c, e = _field(scheme)
+    c, e = _field(scheme, block)
     payload = _t(np.asarray(e.payload)).to(dev)
     plane = _t(np.asarray(c.residuals)).to(dev)
     meta = _t(np.asarray(c.metadata)).to(dev)
@@ -230,9 +246,9 @@ def test_band_kernels_match_plain_on_card(scheme):
             _same_card(want, fused.lorenzo_enc2d(payload, shape, e.bits, what=what))
     else:
         for what in fused.BLOCKMEAN_WHATS:
-            want = fused.blockmean_core(plane, meta, BLOCK, what)
-            _same_card(want, fused.blockmean2d(plane, meta, BLOCK, what=what))
-            _same_card(want, fused.blockmean_enc2d(payload, meta, shape, BLOCK,
+            want = fused.blockmean_core(plane, meta, block, what)
+            _same_card(want, fused.blockmean2d(plane, meta, block, what=what))
+            _same_card(want, fused.blockmean_enc2d(payload, meta, shape, block,
                                                    e.bits, what=what))
 
 
