@@ -713,49 +713,30 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     return out
 
 
-def _blockmean_tiles(src, meta, shape, bits, what, from_payload):
-    """The block-mean planes with one block per tile (no pipelining)."""
-    n_out = 2 if what == "grad" else 1
-    dtype = torch.float32 if what in ("lap_p", "lap_q") else torch.int32
-    outs = [torch.empty(shape, dtype=dtype, device=src.device)
-            for _ in range(n_out)]
-    build.call("hsz_blockmean_tiles", int(from_payload), src.data_ptr(),
-               src.shape[0] if from_payload else 0, bits, shape[0], shape[1],
-               meta.data_ptr(), BLOCK[0], BLOCK[1], fused._BM_CODE[what],
-               outs[0].data_ptr(), outs[-1].data_ptr() if n_out > 1 else None,
-               ops.stream_ptr())
-    return outs
-
-
 def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
     """Detail lines: both block-mean kernels for every ``what`` at the Ocean
-    shape (the kernels line keeps ``grad``), beside the one-block-per-tile
-    schedule and the card's own rate for writing the same output planes."""
+    shape (the kernels line keeps ``grad``), beside the card's own time for
+    writing the same output planes (``fill_``)."""
     shape = tuple(plane.shape)
     n = plane.numel()
     for what in fused.BLOCKMEAN_WHATS:
         n_out = 2 if what == "grad" else 1
         fill = torch.empty((n_out, n), dtype=torch.int32, device=plane.device)
         fill_ms = cuda_ms(lambda: fill.fill_(1), reps)
-        for site, src, from_payload in (("blockmean_enc2d", words, True),
-                                        ("blockmean2d", plane, False)):
-            if from_payload:
-                def kernel():
-                    return fused.blockmean_enc2d(words, meta, shape, BLOCK, bits,
-                                                 what=what)
-            else:
-                def kernel():
-                    return fused.blockmean2d(plane, meta, BLOCK, what=what)
+        for site, src, from_payload, kernel in (
+                ("blockmean_enc2d", words, True,
+                 lambda: fused.blockmean_enc2d(words, meta, shape, BLOCK, bits,
+                                               what=what)),
+                ("blockmean2d", plane, False,
+                 lambda: fused.blockmean2d(plane, meta, BLOCK, what=what))):
             k_ms = cuda_ms(kernel, reps)
-            t_ms = cuda_ms(lambda: _blockmean_tiles(src, meta, shape, bits, what,
-                                                    from_payload), reps)
             n_bytes = (4 * src.numel() + 4 * meta.numel() + 4 * n * n_out)
             b_ms, _ = bound_ms(n_bytes, 0)
             smem, per_sm = fused.blockmean_launch_config(from_payload, what)
-            say(f"[{tag}] {site} {what}: {k_ms * 1e3:.1f} us (one block per "
-                f"tile: {t_ms * 1e3:.1f} us; bound {b_ms * 1e3:.1f} us; "
-                f"fill_ of the {n_out} output plane(s) {fill_ms * 1e3:.1f} us; "
-                f"{smem} B shared memory, {per_sm} blocks/SM)")
+            say(f"[{tag}] {site} {what}: {k_ms * 1e3:.1f} us (bound "
+                f"{b_ms * 1e3:.1f} us; fill_ of the {n_out} output plane(s) "
+                f"{fill_ms * 1e3:.1f} us; {smem} B shared memory, {per_sm} "
+                f"blocks/SM)")
 
 
 PER_QUERY = {
@@ -876,7 +857,7 @@ def blockmean_build_lines() -> list[str]:
     for from_payload, src in ((True, "payload"), (False, "plane")):
         for code, what in enumerate(fused.BLOCKMEAN_WHATS):
             smem, per_sm = fused.blockmean_launch_config(from_payload, what)
-            key = f"blockmean_kernel<{str(from_payload).lower()}, {code},"
+            key = f"blockmean_kernel<{str(from_payload).lower()}, {code}>"
             n_sass = [v for k, v in sass.items() if key in k]
             lines.append(f"  blockmean_band.cu {src} {what}: {smem} B dynamic "
                          f"shared memory, {per_sm} blocks/SM, SASS "

@@ -44,7 +44,6 @@ SIGNATURES = {
     # from_payload, src, n_words, bits, n0, n1, meta, b0, b1, what,
     # out0, out1, stream
     "hsz_blockmean": (_I, _P, _LL, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
-    "hsz_blockmean_tiles": (_I, _P, _LL, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
     # from_payload, what, &smem_bytes, &blocks_per_sm
     "hsz_blockmean_info": (_I, _I, _P, _P),
     # p, n0, n1, rowedge, top, partials, out, stream

@@ -22,29 +22,31 @@
 // plane (two planes for grad).  Tensor cores have no part in it: there is
 // no product, only an integer stencil and five f32 adds.
 //
-// Design: a block of 8 warps owns a TH x TW = 32 x 128 tile of outputs.
-//  - Tile in shared memory.  The block copies the (TH+2) x (TW+2) residuals
-//    of its tile and halo once: on the payload path each halo row is one
-//    contiguous span of bits, whose words a warp copies with coalesced
-//    reads; each lane then unpacks and unzigzags values from shared memory
-//    (64-bit bit offsets per row, 32-bit within it, the n_words guard on
-//    the copy).  Each residual is unpacked once per tile, not once per
-//    neighbour.  Cells outside the plane are written as 0.
+// Design: a block of 8 warps computes 32 x 128 tiles of outputs.
+//  - Tiles in shared memory.  The block stages the (TH+2) x (TW+2)
+//    residuals of a tile and its halo once: on the payload path each halo
+//    row is one contiguous span of bits whose words a warp copies with
+//    coalesced reads, and each lane then unpacks and unzigzags values from
+//    shared memory (64-bit bit offsets per row, 32-bit within it, the
+//    n_words guard on the copy).  Each residual is unpacked once per tile,
+//    not once per neighbour.  Cells outside the plane are written as 0.
 //  - No division per element.  Per tile, TH + TW + 4 divisions give the
 //    block row of each halo row and the block column of each halo column;
-//    the value tile holds q = p + m (or p and m apart for lap_p), so tiles
-//    need not line up with blocks and any (b0, b1) dividing the plane works.
+//    the value tile holds q = p + m (p and m apart for lap_p), so tiles need
+//    not line up with blocks and any (b0, b1) dividing the plane works.
 //  - Wide stores.  A lane computes 4 consecutive outputs of a row from one
 //    16-byte shared-memory load per stencil row (left and right neighbours
-//    by warp shuffles) and writes them as one 16-byte store when rows are
-//    16-byte aligned (n1 % 4 == 0): one warp writes 512 contiguous bytes.
-//    A ragged tile edge or an unaligned row falls back to masked scalars.
+//    by warp shuffles) and writes them as one 16-byte streaming store
+//    (st.global.cs: nothing here reads them again) when rows are 16-byte
+//    aligned (n1 % 4 == 0): one warp writes 512 contiguous bytes.  A ragged
+//    tile edge or an unaligned row falls back to masked scalar stores.
+//  - Loads under stores.  A persistent grid (blocks per SM from the
+//    occupancy API) walks over the tiles; each block copies the next tile's
+//    words or residuals with cp.async into a second buffer while it expands,
+//    computes and stores the current one.  On the card this beat one block
+//    per tile with plain loads (PERF.md).
 //  - `what` is a template parameter: 5 x 2 instantiations, each doing only
 //    its own arithmetic.
-//  - ASYNC: a persistent grid (blocks per SM from the occupancy API) walks
-//    over the tiles and copies the next tile's words or residuals with
-//    cp.async into a second buffer while the current tile is computed and
-//    stored.  Without it, one block per tile with plain loads.
 #include "common.cuh"
 
 namespace {
@@ -103,12 +105,6 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <bool ASYNC>
-__device__ __forceinline__ void copy_word(uint32_t* dst, const uint32_t* src) {
-  if constexpr (ASYNC) cp_async4(dst, src);
-  else *dst = __ldg(src);
-}
-
 // Payload bits of halo row i (in the plane) of the tile at column j0: its
 // first plane column, its first bit and the words it touches.
 struct RowSpan {
@@ -125,12 +121,21 @@ __device__ __forceinline__ RowSpan row_span(int i, int j0, int n1, int bits) {
   return {jlo, first, (int)(((end - 1) >> 5) - (first >> 5)) + 1};
 }
 
-// Copy the raw input of the tile at (i0, j0) into R: per halo row in the
-// plane, the payload words of its span followed by a 0 sentinel, or its
-// residuals at word c + 3 for halo column c (0 outside the plane).  Warp w
-// takes halo rows w, w + 8, ...; rows outside the plane are left alone.
-template <bool PAYLOAD, bool ASYNC>
-__device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R) {
+// First output row and column of a tile (row-major over the tile grid).
+__device__ __forceinline__ void tile_origin(const Args& a, int tile, int& i0, int& j0) {
+  const int ti = tile / a.n_ct;
+  i0 = ti * TH;
+  j0 = (tile - ti * a.n_ct) * TW;
+}
+
+// Start copying the raw input of a tile into R with cp.async: per halo row
+// in the plane, the payload words of its span followed by a 0 sentinel, or
+// its residuals at word c + 3 for halo column c (0 outside the plane).  Warp
+// w takes halo rows w, w + 8, ...; rows outside the plane are left alone.
+template <bool PAYLOAD>
+__device__ __forceinline__ void fetch(const Args& a, int tile, uint32_t* R) {
+  int i0, j0;
+  tile_origin(a, tile, i0, j0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < HR; r += NWARP) {
     const int i = i0 - 1 + r;
@@ -141,14 +146,14 @@ __device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R
       const RowSpan sp = row_span(i, j0, a.n1, a.bits);
       const long long w0 = (long long)(sp.bit0 >> 5);
       for (int q = lane; q <= sp.n_words; q += 32) {
-        if (q < sp.n_words && w0 + q < a.n_words) copy_word<ASYNC>(row + q, words + w0 + q);
+        if (q < sp.n_words && w0 + q < a.n_words) cp_async4(row + q, words + w0 + q);
         else row[q] = 0u;
       }
     } else {
       const auto* p = static_cast<const uint32_t*>(a.src) + (long long)i * a.n1;
       for (int c = lane; c < HC; c += 32) {
         const int j = j0 - 1 + c;
-        if (j >= 0 && j < a.n1) copy_word<ASYNC>(row + 3 + c, p + j);
+        if (j >= 0 && j < a.n1) cp_async4(row + 3 + c, p + j);
         else row[3 + c] = 0u;
       }
     }
@@ -233,16 +238,17 @@ __device__ __forceinline__ void load_row(const uint32_t* T, int r, int lane,
   }
 }
 
-// Four outputs at flat index k (plane column j); one 16-byte store when the
-// row is 16-byte aligned and all four lie in the plane.
+// Four outputs at flat index k (plane column j), streaming stores; one
+// 16-byte store when the row is 16-byte aligned and all four lie in the
+// plane.
 __device__ __forceinline__ void store4(uint32_t* out, long long k, int j, int n1,
                                        bool vec, const uint32_t (&v)[4]) {
   if (vec && j + 3 < n1) {
-    *reinterpret_cast<uint4*>(out + k) = make_uint4(v[0], v[1], v[2], v[3]);
+    __stcs(reinterpret_cast<uint4*>(out + k), make_uint4(v[0], v[1], v[2], v[3]));
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (j + e < n1) out[k + e] = v[e];
+      if (j + e < n1) __stcs(out + k + e, v[e]);
   }
 }
 
@@ -304,49 +310,36 @@ __device__ __forceinline__ void compute_store(const Args& a, int i0, int j0,
   }
 }
 
-// Shared memory: S, then M (lap_p only), then NBUF raw tiles, then the
+// Shared memory: S, then M (lap_p only), then two raw tiles, then the
 // per-tile block indices.
-constexpr int smem_bytes(int what, bool async) {
-  return 4 * (TILE * ((what == LAP_P ? 2 : 1) + (async ? 2 : 1)) + HC + HR);
+constexpr int smem_bytes(int what) {
+  return 4 * (TILE * ((what == LAP_P ? 2 : 1) + 2) + HC + HR);
 }
 
-template <bool PAYLOAD, int WHAT, bool ASYNC>
+template <bool PAYLOAD, int WHAT>
 __global__ void __launch_bounds__(NT) blockmean_kernel(const Args a) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* S = smem;
   uint32_t* M = smem + TILE;  // lap_p only
   uint32_t* R = smem + TILE * (WHAT == LAP_P ? 2 : 1);
-  int* colb = reinterpret_cast<int*>(R + TILE * (ASYNC ? 2 : 1));
+  int* colb = reinterpret_cast<int*>(R + 2 * TILE);
   int* rowoff = colb + HC;
+  fetch<PAYLOAD>(a, blockIdx.x, R);  // the grid has at most one block a tile
+  cp_async_commit();
   int buf = 0;
-  int tile = blockIdx.x;
-  if constexpr (ASYNC) {
-    if (tile < a.n_tiles) {
-      const int ti = tile / a.n_ct;
-      fetch<PAYLOAD, true>(a, ti * TH, (tile - ti * a.n_ct) * TW, R);
-    }
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
+    // the next tile's copies go out before this tile's have to land
+    const int next = tile + gridDim.x;
+    if (next < a.n_tiles) fetch<PAYLOAD>(a, next, R + (buf ^ 1) * TILE);
     cp_async_commit();
-  }
-  for (; tile < a.n_tiles; tile += gridDim.x) {
-    const int ti = tile / a.n_ct;
-    const int i0 = ti * TH, j0 = (tile - ti * a.n_ct) * TW;
-    if constexpr (ASYNC) {
-      const int next = tile + gridDim.x;
-      if (next < a.n_tiles) {
-        const int ni = next / a.n_ct;
-        fetch<PAYLOAD, true>(a, ni * TH, (next - ni * a.n_ct) * TW, R + (buf ^ 1) * TILE);
-      }
-      cp_async_commit();
-      cp_async_wait_prev();
-    } else {
-      fetch<PAYLOAD, false>(a, i0, j0, R);
-    }
+    cp_async_wait_prev();
+    int i0, j0;
+    tile_origin(a, tile, i0, j0);
     tile_index(a, i0, j0, colb, rowoff);
     __syncthreads();
     expand<PAYLOAD, WHAT>(a, i0, j0, R + buf * TILE, colb, rowoff, S, M);
     __syncthreads();
     compute_store<WHAT>(a, i0, j0, S, M);
-    if constexpr (ASYNC) buf ^= 1;
   }
 }
 
@@ -358,11 +351,11 @@ struct Config {
   int per_sm;
 };
 
-template <bool PAYLOAD, int WHAT, bool ASYNC>
+template <bool PAYLOAD, int WHAT>
 const Config& config() {
   static const Config c = [] {
-    auto kernel = blockmean_kernel<PAYLOAD, WHAT, ASYNC>;
-    Config k{cudaSuccess, smem_bytes(WHAT, ASYNC), 0};
+    auto kernel = blockmean_kernel<PAYLOAD, WHAT>;
+    Config k{cudaSuccess, smem_bytes(WHAT), 0};
     k.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  k.smem);
     if (k.err == cudaSuccess)
@@ -372,48 +365,49 @@ const Config& config() {
   return c;
 }
 
-template <bool PAYLOAD, int WHAT, bool ASYNC>
+// A persistent grid: as many blocks as can be resident, at most one a tile.
+template <bool PAYLOAD, int WHAT>
 int launch(const Args& a, cudaStream_t stream) {
-  const Config& c = config<PAYLOAD, WHAT, ASYNC>();
+  const Config& c = config<PAYLOAD, WHAT>();
   if (c.err != cudaSuccess) return (int)c.err;
-  int grid = a.n_tiles;
-  if constexpr (ASYNC) {  // persistent: as many blocks as can be resident
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    grid = min(grid, sms * max(c.per_sm, 1));
-  }
-  blockmean_kernel<PAYLOAD, WHAT, ASYNC><<<grid, NT, c.smem, stream>>>(a);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
+  blockmean_kernel<PAYLOAD, WHAT><<<grid, NT, c.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool PAYLOAD, bool ASYNC>
+template <bool PAYLOAD>
 int dispatch(const Args& a, int what, cudaStream_t s) {
   switch (what) {
-    case DERIV0: return launch<PAYLOAD, DERIV0, ASYNC>(a, s);
-    case DERIV1: return launch<PAYLOAD, DERIV1, ASYNC>(a, s);
-    case GRAD: return launch<PAYLOAD, GRAD, ASYNC>(a, s);
-    case LAP_P: return launch<PAYLOAD, LAP_P, ASYNC>(a, s);
-    default: return launch<PAYLOAD, LAP_Q, ASYNC>(a, s);
+    case DERIV0: return launch<PAYLOAD, DERIV0>(a, s);
+    case DERIV1: return launch<PAYLOAD, DERIV1>(a, s);
+    case GRAD: return launch<PAYLOAD, GRAD>(a, s);
+    case LAP_P: return launch<PAYLOAD, LAP_P>(a, s);
+    default: return launch<PAYLOAD, LAP_Q>(a, s);
   }
 }
 
 template <bool PAYLOAD>
 const Config& config_of(int what) {
   switch (what) {
-    case DERIV0: return config<PAYLOAD, DERIV0, true>();
-    case DERIV1: return config<PAYLOAD, DERIV1, true>();
-    case GRAD: return config<PAYLOAD, GRAD, true>();
-    case LAP_P: return config<PAYLOAD, LAP_P, true>();
-    default: return config<PAYLOAD, LAP_Q, true>();
+    case DERIV0: return config<PAYLOAD, DERIV0>();
+    case DERIV1: return config<PAYLOAD, DERIV1>();
+    case GRAD: return config<PAYLOAD, GRAD>();
+    case LAP_P: return config<PAYLOAD, LAP_P>();
+    default: return config<PAYLOAD, LAP_Q>();
   }
 }
 
-int blockmean(int from_payload, const void* src, long long n_words, int bits, int n0,
-              int n1, const void* meta, int b0, int b1, int what, void* out0,
-              void* out1, bool pipelined, void* stream) {
+}  // namespace
+
+// meta: (n0/b0, n1/b1) int32 block means; out0/out1: (n0, n1), int32 for the
+// derivative planes, f32 for lap_p / lap_q (out1 only for what == GRAD).
+extern "C" int hsz_blockmean(int from_payload, const void* src, long long n_words,
+                             int bits, int n0, int n1, const void* meta, int b0,
+                             int b1, int what, void* out0, void* out1, void* stream) {
   if (n0 <= 0 || n1 <= 0 || b0 <= 0 || b1 <= 0 || n0 % b0 || n1 % b1 ||
       what < DERIV0 || what > LAP_Q)
     return (int)cudaErrorInvalidValue;
@@ -424,29 +418,7 @@ int blockmean(int from_payload, const void* src, long long n_words, int bits, in
                static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1),
                n_ct, n_ct * n_rt};
   auto s = (cudaStream_t)stream;
-  if (from_payload)
-    return pipelined ? dispatch<true, true>(a, what, s) : dispatch<true, false>(a, what, s);
-  return pipelined ? dispatch<false, true>(a, what, s) : dispatch<false, false>(a, what, s);
-}
-
-}  // namespace
-
-// meta: (n0/b0, n1/b1) int32 block means; out0/out1: (n0, n1), int32 for the
-// derivative planes, f32 for lap_p / lap_q (out1 only for what == GRAD).
-extern "C" int hsz_blockmean(int from_payload, const void* src, long long n_words,
-                             int bits, int n0, int n1, const void* meta, int b0,
-                             int b1, int what, void* out0, void* out1, void* stream) {
-  return blockmean(from_payload, src, n_words, bits, n0, n1, meta, b0, b1, what, out0,
-                   out1, true, stream);
-}
-
-// The same planes with one block per tile and plain loads (no pipelining).
-extern "C" int hsz_blockmean_tiles(int from_payload, const void* src, long long n_words,
-                                   int bits, int n0, int n1, const void* meta, int b0,
-                                   int b1, int what, void* out0, void* out1,
-                                   void* stream) {
-  return blockmean(from_payload, src, n_words, bits, n0, n1, meta, b0, b1, what, out0,
-                   out1, false, stream);
+  return from_payload ? dispatch<true>(a, what, s) : dispatch<false>(a, what, s);
 }
 
 // Dynamic shared memory (bytes) and resident blocks per SM of the kernel
