@@ -590,6 +590,38 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """ms per call of the device work alone: ``reps`` calls captured in one
+    CUDA graph and replayed, so no host dispatch sits between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def enqueue_ms(fn, reps: int) -> float:
+    """Host ms per call to enqueue ``fn`` (the wrapper's dispatch); when it
+    exceeds the kernel's time, ``cuda_ms`` measures the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
 def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / OPS_PER_S * 1e3
@@ -715,7 +747,9 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
 
 def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
     """Detail lines: both block-mean kernels for every ``what`` at the Ocean
-    shape (the kernels line keeps ``grad``), beside the card's own time for
+    shape (the kernels line keeps ``grad``): CUDA events over back-to-back
+    calls as ``time_kernels`` times them, the device time alone (CUDA
+    graph), the host's enqueue time per call, and the card's own time for
     writing the same output planes (``fill_``)."""
     shape = tuple(plane.shape)
     n = plane.numel()
@@ -730,10 +764,13 @@ def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
                 ("blockmean2d", plane, False,
                  lambda: fused.blockmean2d(plane, meta, BLOCK, what=what))):
             k_ms = cuda_ms(kernel, reps)
+            g_ms = graph_ms(kernel, reps)
+            h_ms = enqueue_ms(kernel, reps)
             n_bytes = (4 * src.numel() + 4 * meta.numel() + 4 * n * n_out)
             b_ms, _ = bound_ms(n_bytes, 0)
             smem, per_sm = fused.blockmean_launch_config(from_payload, what)
-            say(f"[{tag}] {site} {what}: {k_ms * 1e3:.1f} us (bound "
+            say(f"[{tag}] {site} {what}: {k_ms * 1e3:.1f} us, device alone "
+                f"{g_ms * 1e3:.1f} us, enqueue {h_ms * 1e3:.1f} us (bound "
                 f"{b_ms * 1e3:.1f} us; fill_ of the {n_out} output plane(s) "
                 f"{fill_ms * 1e3:.1f} us; {smem} B shared memory, {per_sm} "
                 f"blocks/SM)")
