@@ -9,8 +9,8 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. the card: its name, power limit and the device count;
 2. build the Hopper kernels from ``src/repro_torch/kernels/csrc`` and print
-   ``ptxas``'s register, shared-memory and spill lines, and each block-mean
-   instantiation's dynamic shared memory, blocks per SM and SASS count;
+   ``ptxas``'s register, shared-memory and spill lines, and each band-kernel
+   instantiation's shared memory, registers, blocks per SM and SASS count;
 3. every kernel of the main path against its plain PyTorch version on the
    card, at the Ocean shape (2400 x 3600, blocks 16 x 16) and a padded one
    (2401 x 3599): bitwise, for every ``what`` and several unpack widths;
@@ -27,9 +27,19 @@ Phases (any failure raises, so the exit code is non-zero):
    ``hszp_nd`` and ``hszx_nd`` for ``Compressed`` and ``Encoded`` containers,
    each held against the port on the CPU; then an A/B pass with the fused
    rules off;
-6. times: each kernel and its plain version with CUDA events, the bound
-   (bytes over 3.35 TB/s), launches per query, and end-to-end ms per query;
-   detail lines time the block-mean kernels for every ``what``.
+   then the Lorenzo kernels on seeded full-range int32 planes and payloads
+   at widths 1, 7, 13, 31 over six shapes (ragged tiles, n1 % 4 != 0, a
+   tile row shorter than 32 rows), both passes and every ``what``;
+6. times: each kernel with CUDA events, as device time alone (a CUDA graph
+   of the calls) and as host enqueue per call, its plain version, the bound
+   (bytes over 3.35 TB/s or int32 / f32 operations over the card's lane
+   rates, the larger), launches per query, the device kernels of a Lorenzo
+   gradient query from a ``torch.profiler`` trace, and end-to-end ms per
+   query; detail lines time the band kernels for every ``what``.
+
+``--ab DIR`` also times the band wrappers and passes of the checkout at DIR
+(its ``src/repro_torch``, built from its own sources) beside this one's, in
+turns on the same inputs.
 
 Launch counters are reset just before each path (entry point, main path)
 and read just after it: each path must launch every kernel site it runs,
@@ -42,6 +52,9 @@ of standard output are a JSON object of per-kernel numbers and
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib
+import importlib.util
 import json
 import pathlib
 import re
@@ -64,11 +77,14 @@ from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, stencil_dq)
 
-#: published H100 SXM peaks (NVIDIA data sheet): device memory, and f32
-#: outside the tensor cores (the table has no int32 rate; the kernels' few
-#: integer operations per element are far below either bound)
+#: published H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+#: 32-bit lanes per SM outside the tensor cores (Hopper architecture white
+#: paper): 64 INT32, 128 FP32.  With the SM count and the card's maximum SM
+#: clock they give the operation rates the bounds use (``card_rates``).
+INT32_LANES, FP32_LANES = 64, 128
+#: "int32" / "f32" operations per second of this card, set by ``card_rates``
+RATES: dict[str, float] = {}
 
 DEVICE = "cuda"
 OCEAN = dataset_dims("Ocean")  # (2400, 3600), the dataset's full size
@@ -212,7 +228,7 @@ def check_kernels(shape, seed: int, errs: dict) -> dict:
                     ("lorenzo2d", plane, False)):
                 got = fused.lorenzo_edges(src, pshape, bits,
                                           from_payload=from_payload, site=site)
-                want = fused.lorenzo_edges_plain(plane, tile)
+                want = fused.lorenzo_edge_prefixes_plain(plane, tile)
                 errs[f"{site}.edges"] = max(errs.get(f"{site}.edges", 0.0),
                                             bitwise_err(want, got, f"{site} edges"))
             for what in fused.LORENZO_WHATS:
@@ -300,6 +316,53 @@ def check_blockmean_tiling(seed: int, errs: dict) -> None:
                     for b, (s, w) in BM_TILING.items()))
 
 
+#: the Lorenzo tiling check: Ocean, ragged tiles, n1 % 4 != 0 (every row on
+#: the scalar-store edge) and tile rows shorter than 32 rows; payload widths
+LZ_SHAPES = ((2400, 3600), (2401, 3599), (2400, 3598), (33, 129), (31, 127),
+             (5, 4099))
+LZ_WIDTHS = (1, 7, 13, 31)
+
+
+def check_lorenzo_tiling(seed: int, errs: dict) -> None:
+    """Both Lorenzo passes, both sources and every ``what`` at
+    ``LZ_SHAPES``, bitwise against the plain versions: a seeded full-range
+    int32 plane (so sums wrap) and payloads packed at ``LZ_WIDTHS``."""
+    rng = np.random.default_rng(seed)
+    tile = fused.lorenzo_tile()
+    for shape in LZ_SHAPES:
+        plane = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape,
+                                             dtype=np.int64).astype(np.int32),
+                                device=DEVICE)
+        _note(errs, "lorenzo2d.edges", bitwise_err(
+            fused.lorenzo_edge_prefixes_plain(plane, tile),
+            fused.lorenzo_edges(plane, shape, 0, from_payload=False,
+                                site="lorenzo2d"), f"lorenzo2d edges {shape}"))
+        for what in fused.LORENZO_WHATS:
+            _note(errs, "lorenzo2d.stencil", bitwise_err(
+                fused.lorenzo_core(plane, what),
+                fused.lorenzo2d(plane, what=what),
+                f"lorenzo2d {what} {shape}"))
+        for bits in LZ_WIDTHS:
+            lim = 1 << (bits - 1)
+            p = torch.as_tensor(rng.integers(-lim, lim, shape, dtype=np.int64)
+                                .astype(np.int32), device=DEVICE)
+            words = encode.pack_uniform(encode.zigzag(p.reshape(-1)), bits)
+            _note(errs, "lorenzo_enc2d.edges", bitwise_err(
+                fused.lorenzo_edge_prefixes_plain(p, tile),
+                fused.lorenzo_edges(words, shape, bits, from_payload=True,
+                                    site="lorenzo_enc2d"),
+                f"lorenzo_enc2d edges {shape} bits={bits}"))
+            for what in fused.LORENZO_WHATS:
+                _note(errs, "lorenzo_enc2d.stencil", bitwise_err(
+                    fused.lorenzo_enc2d_plain(words, shape, bits, what=what),
+                    fused.lorenzo_enc2d(words, shape, bits, what=what),
+                    f"lorenzo_enc2d {what} {shape} bits={bits}"))
+    torch.cuda.synchronize()
+    say("Lorenzo kernels == plain versions, bitwise, both passes, every what, "
+        f"full-range int32 planes and payloads at {LZ_WIDTHS} bits, at "
+        + ", ".join(map(str, LZ_SHAPES)))
+
+
 # ===========================================================================
 # phase 4: the kernel entry point
 # ===========================================================================
@@ -373,7 +436,7 @@ def check_entry_kernels(shape, seed: int, errs: dict) -> None:
                 f"laplacian2d {shape}")
     th, tw = fused.lorenzo_tile()
     _note(errs, "prefix_stats2d.edges", bitwise_err(
-        fused.lorenzo_edges_plain(p, (th, tw)),
+        fused.lorenzo_edge_prefixes_plain(p, (th, tw)),
         fused.lorenzo_edges(p, tuple(p.shape), 0, from_payload=False,
                             site="prefix_stats2d"),
         f"prefix_stats2d edges {shape}"))
@@ -622,9 +685,24 @@ def enqueue_ms(fn, reps: int) -> float:
     return (t1 - t0) * 1e3 / reps
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def card_rates() -> dict[str, float]:
+    """int32 and f32 operations per second of card 0: lanes per SM x SMs x
+    the maximum SM clock that ``nvidia-smi`` reports."""
+    out = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    hz = float(out.stdout.strip()) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"int32": INT32_LANES * sms * hz, "f32": FP32_LANES * sms * hz,
+            "sms": sms, "clock_hz": hz}
+
+
+def bound_ms(n_bytes: int, int_ops: int, f32_ops: int = 0) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate, or int32 and
+    f32 lane operations over the card's lane rates, the larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / OPS_PER_S * 1e3
+    t_ops = (int_ops / RATES["int32"] + f32_ops / RATES["f32"]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -648,20 +726,19 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     bm_words, bm_bits, bm_plane = e_bm.payload, e_bm.bits, c_bm.residuals
     meta = c_bm.metadata
     shape = (n0, n1)
-    rowsum, colsum = fused.lorenzo_edges(lz_words, shape, lz_bits,
-                                         from_payload=True, site="lorenzo_enc2d")
-    rowedge = fused.exclusive_prefix(rowsum, 1)
-    coledge = fused.exclusive_prefix(colsum, 0)
+    rowedge, coledge = fused.lorenzo_edges(lz_words, shape, lz_bits,
+                                           from_payload=True,
+                                           site="lorenzo_enc2d")
     x, eps, bits = entry["x"], entry["eps"], entry["bits"]
     inv = (1.0 / (2.0 * eps)).reshape(())
     z, q, p, blocked = entry["z"], entry["q"], entry["p"], entry["blocked"]
     nb, s_len = blocked.shape
     m = (n0 - 2) * (n1 - 2)
-    ps_rowsum, ps_colsum = fused.lorenzo_edges(p, shape, 0, from_payload=False,
-                                               site="prefix_stats2d")
-    ps_rowedge, ps_top = prefix_stats.tile_edges(ps_rowsum, ps_colsum)
+    ps_rowedge, ps_top = prefix_stats.tile_edges(*fused.lorenzo_edges(
+        p, shape, 0, from_payload=False, site="prefix_stats2d"))
     plans = {
-        # name: (kernel, plain version, bytes, operations)
+        # name: (kernel, plain version, bytes, int32 operations[, f32
+        # operations])
         "unpack": (
             lambda: bitpack.unpack(lz_words, n, lz_bits),
             lambda: bitpack.unpack_plain(lz_words, n, lz_bits),
@@ -669,7 +746,7 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
         "lorenzo_enc2d.edges": (
             lambda: fused.lorenzo_edges(lz_words, shape, lz_bits,
                                         from_payload=True, site="lorenzo_enc2d"),
-            lambda: fused.lorenzo_edges_plain(encode.unzigzag(
+            lambda: fused.lorenzo_edge_prefixes_plain(encode.unzigzag(
                 bitpack.unpack_plain(lz_words, n, lz_bits)).reshape(shape),
                 (th, tw)),
             pay(e_lz) + edge_bytes, 14 * n),
@@ -689,7 +766,7 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
         "lorenzo2d.edges": (
             lambda: fused.lorenzo_edges(lz_plane, shape, 0,
                                         from_payload=False, site="lorenzo2d"),
-            lambda: fused.lorenzo_edges_plain(lz_plane, (th, tw)),
+            lambda: fused.lorenzo_edge_prefixes_plain(lz_plane, (th, tw)),
             4 * n + edge_bytes, 2 * n),
         "lorenzo2d.stencil": (
             lambda: fused.lorenzo_stencil(lz_plane, shape, 0, rowedge, coledge,
@@ -708,7 +785,7 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
         "quant_lorenzo2d": (
             lambda: quant_lorenzo.quant_lorenzo_kernel(x, inv),
             lambda: quant_lorenzo.quant_lorenzo2d_plain(x, eps),
-            4 * n + 4 + 4 * n, 11 * n),
+            4 * n + 4 + 4 * n, 8 * n, 3 * n),
         "block_stats": (
             lambda: K.block_stats(blocked),
             lambda: ref.block_stats(blocked),
@@ -724,7 +801,7 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
         "prefix_stats2d.edges": (
             lambda: fused.lorenzo_edges(p, shape, 0, from_payload=False,
                                         site="prefix_stats2d"),
-            lambda: fused.lorenzo_edges_plain(p, (th, tw)),
+            lambda: fused.lorenzo_edge_prefixes_plain(p, (th, tw)),
             4 * n + edge_bytes, 2 * n),
         "prefix_stats2d.stats": (
             lambda: prefix_stats.prefix_stats_tiles(p, ps_rowedge, ps_top),
@@ -732,16 +809,22 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
             4 * n + edge_bytes + 8, 6 * n),
     }
     out = {}
-    for name, (kernel, plain, n_bytes, n_ops) in plans.items():
+    for name, (kernel, plain, n_bytes, *n_ops) in plans.items():
         k_ms = cuda_ms(kernel, reps)
+        g_ms = graph_ms(kernel, reps)
+        h_ms = enqueue_ms(kernel, reps)
         p_ms = cuda_ms(plain, max(5, reps // 5))
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        out[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "bytes": n_bytes}
-        say(f"[{tag}] {name}: {k_ms:.4f} ms (plain {p_ms:.4f} ms, bound "
-            f"{b_ms * 1e3:.1f} us by {b_by}, {n_bytes / 1e6:.1f} MB, "
-            f"{n_bytes / (k_ms * 1e-3) / 1e9:.0f} GB/s)")
+        b_ms, b_by = bound_ms(n_bytes, *n_ops)
+        out[name] = {"ms": k_ms, "graph_ms": g_ms, "enqueue_ms": h_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": n_bytes}
+        say(f"[{tag}] {name}: {k_ms * 1e3:.1f} us by events, device alone "
+            f"{g_ms * 1e3:.1f} us, enqueue {h_ms * 1e3:.1f} us (plain "
+            f"{p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by {b_by}, "
+            f"{n_bytes / 1e6:.1f} MB, {n_bytes / (g_ms * 1e-3) / 1e9:.0f} GB/s "
+            f"device alone)")
     time_blockmean_whats(bm_words, bm_bits, bm_plane, meta, reps, tag)
+    time_lorenzo_whats(lz_words, lz_bits, lz_plane, reps, tag)
     return out
 
 
@@ -769,11 +852,178 @@ def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
             n_bytes = (4 * src.numel() + 4 * meta.numel() + 4 * n * n_out)
             b_ms, _ = bound_ms(n_bytes, 0)
             smem, per_sm = fused.blockmean_launch_config(from_payload, what)
+            # (bytes only: at its few integer operations per element the
+            # block-mean kernel is bound by bytes for every what)
             say(f"[{tag}] {site} {what}: {k_ms * 1e3:.1f} us, device alone "
                 f"{g_ms * 1e3:.1f} us, enqueue {h_ms * 1e3:.1f} us (bound "
                 f"{b_ms * 1e3:.1f} us; fill_ of the {n_out} output plane(s) "
                 f"{fill_ms * 1e3:.1f} us; {smem} B shared memory, {per_sm} "
                 f"blocks/SM)")
+
+
+def time_lorenzo_whats(words, bits, plane, reps: int, tag: str) -> None:
+    """Detail lines: both Lorenzo wrappers (edge pass + stencil pass) for
+    every ``what`` at the Ocean shape, and the stencil pass alone, as
+    ``time_blockmean_whats`` times the block-mean kernels; then both passes
+    (``what="grad"``) under each of the kernels' two schedules."""
+    shape = tuple(plane.shape)
+    n = plane.numel()
+    edges = {True: fused.lorenzo_edges(words, shape, bits, from_payload=True,
+                                       site="lorenzo_enc2d"),
+             False: fused.lorenzo_edges(plane, shape, 0, from_payload=False,
+                                        site="lorenzo2d")}
+    for what in fused.LORENZO_WHATS:
+        n_out = 2 if what == "grad" else 1
+        fill = torch.empty((n_out, n), dtype=torch.int32, device=plane.device)
+        fill_ms = cuda_ms(lambda: fill.fill_(1), reps)
+        for site, src, from_payload, wrapper in (
+                ("lorenzo_enc2d", words, True,
+                 lambda: fused.lorenzo_enc2d(words, shape, bits, what=what)),
+                ("lorenzo2d", plane, False,
+                 lambda: fused.lorenzo2d(plane, what=what))):
+            w_bits = bits if from_payload else 0
+            stencil = functools.partial(
+                fused.lorenzo_stencil, src, shape, w_bits, *edges[from_payload],
+                what, from_payload=from_payload, site=site)
+            k_ms = cuda_ms(wrapper, reps)
+            g_ms = graph_ms(wrapper, reps)
+            h_ms = enqueue_ms(wrapper, reps)
+            s_ms = graph_ms(stencil, reps)
+            edge_bytes = 4 * sum(e.numel() for e in edges[from_payload])
+            b_ms, b_by = bound_ms(4 * src.numel() + edge_bytes + 4 * n * n_out,
+                                  (18 if from_payload else 6) * n)
+            smem, regs, per_sm = fused.lorenzo_launch_config(from_payload, what)
+            say(f"[{tag}] {site} {what}: wrapper {k_ms * 1e3:.1f} us by events, "
+                f"device alone {g_ms * 1e3:.1f} us, enqueue {h_ms * 1e3:.1f} us; "
+                f"stencil pass alone {s_ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f} "
+                f"us by {b_by}; fill_ of the {n_out} output plane(s) "
+                f"{fill_ms * 1e3:.1f} us; {smem} B shared memory, {regs} "
+                f"registers, {per_sm} blocks/SM)")
+    for persistent in (1, 0, 1, 0):
+        build.call("hsz_lorenzo_schedule", persistent)
+        row = []
+        for site, src, from_payload in (("lorenzo_enc2d", words, True),
+                                        ("lorenzo2d", plane, False)):
+            w_bits = bits if from_payload else 0
+            e_ms = graph_ms(lambda: fused.lorenzo_edges(
+                src, shape, w_bits, from_payload=from_payload, site=site), reps)
+            s_ms = graph_ms(lambda: fused.lorenzo_stencil(
+                src, shape, w_bits, *edges[from_payload], "grad",
+                from_payload=from_payload, site=site), reps)
+            row.append(f"{site} edges {e_ms * 1e3:.1f} us, stencil "
+                       f"{s_ms * 1e3:.1f} us")
+        say(f"[{tag}] Lorenzo schedule "
+            f"{'persistent' if persistent else 'one block per tile'} (device "
+            f"alone, grad): " + "; ".join(row))
+    build.call("hsz_lorenzo_schedule", 1)
+
+
+def query_kernels(fields, tag: str) -> dict:
+    """The device kernels of one Lorenzo gradient@③ query per container, in
+    order, from a ``torch.profiler`` trace: the Lorenzo kernels before the
+    float tail (at most three, and no other kernel between them) and the
+    float tail's kernels, each with its device time."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for container in ("Encoded", "Compressed"):
+        fu, fv = fields["hszp_nd"][container]
+        for _ in range(2):
+            run_cell("gradient", Stage.Q, fu, fv)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_cell("gradient", Stage.Q, fu, fv)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if not events:
+            fail("torch.profiler recorded no device kernel")
+        names = [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.name)
+                 for e in events]
+        ours = 0
+        while ours < len(names) and names[ours].startswith("lorenzo_"):
+            ours += 1
+        if not 0 < ours <= 3 or any(k.startswith("lorenzo_")
+                                    for k in names[ours:]):
+            fail(f"Lorenzo gradient query ({container}): kernels {names}")
+        out[container] = {"before_tail": ours, "total": len(names)}
+        say(f"[{tag}] hszp_nd {container} gradient@Q device kernels: {ours} "
+            f"before the float tail (" + ", ".join(
+                f"{k} {e.device_time:.1f} us" for k, e in
+                zip(names[:ours], events[:ours]))
+            + f"), then {len(names) - ours} (" + ", ".join(
+                f"{k} {e.device_time:.1f} us" for k, e in
+                zip(names[ours:], events[ours:])) + ")")
+    return out
+
+
+def load_fused(checkout: pathlib.Path):
+    """``kernels.fused`` of the ``repro_torch`` package of another checkout,
+    imported under another name (the package imports itself relatively) and
+    built from that checkout's own sources into its own ``build/``."""
+    pkg = checkout.resolve() / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "ab_repro_torch", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["ab_repro_torch"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("ab_repro_torch.kernels.fused")
+
+
+def time_ab(checkout: pathlib.Path, cont: dict, reps: int, tag: str) -> None:
+    """The band wrappers and the Lorenzo passes (``what="grad"``) of the
+    checkout at ``checkout`` ("other") and of this one, in turns (other,
+    this, this, other) on the same Ocean inputs: device time alone, CUDA
+    events and host enqueue per call."""
+    other = load_fused(checkout)
+    c_lz, e_lz = cont["hszp_nd"]
+    c_bm, e_bm = cont["hszx_nd"]
+    shape = tuple(c_lz.padded_shape)
+
+    def calls(fk):
+        def edges(src, bits, from_payload, site):
+            got = fk.lorenzo_edges(src, shape, bits, from_payload=from_payload,
+                                   site=site)
+            if hasattr(fk, "lorenzo_edge_prefixes_plain"):
+                return got
+            return fk.exclusive_prefix(got[0], 1), fk.exclusive_prefix(got[1], 0)
+
+        e_pay = edges(e_lz.payload, e_lz.bits, True, "lorenzo_enc2d")
+        e_pln = edges(c_lz.residuals, 0, False, "lorenzo2d")
+        return {
+            "lorenzo_enc2d": lambda: fk.lorenzo_enc2d(
+                e_lz.payload, shape, e_lz.bits, what="grad"),
+            "lorenzo_enc2d.edges": lambda: edges(
+                e_lz.payload, e_lz.bits, True, "lorenzo_enc2d"),
+            "lorenzo_enc2d.stencil": lambda: fk.lorenzo_stencil(
+                e_lz.payload, shape, e_lz.bits, *e_pay, "grad",
+                from_payload=True, site="lorenzo_enc2d"),
+            "lorenzo2d": lambda: fk.lorenzo2d(c_lz.residuals, what="grad"),
+            "lorenzo2d.edges": lambda: edges(c_lz.residuals, 0, False,
+                                             "lorenzo2d"),
+            "lorenzo2d.stencil": lambda: fk.lorenzo_stencil(
+                c_lz.residuals, shape, 0, *e_pln, "grad", from_payload=False,
+                site="lorenzo2d"),
+            "blockmean_enc2d": lambda: fk.blockmean_enc2d(
+                e_bm.payload, c_bm.metadata, shape, BLOCK, e_bm.bits,
+                what="grad"),
+            "blockmean2d": lambda: fk.blockmean2d(c_bm.residuals, c_bm.metadata,
+                                                  BLOCK, what="grad"),
+        }
+
+    trees = {"other": calls(other), "this": calls(fused)}
+    times = {name: {"this": [], "other": []} for name in trees["this"]}
+    for who in ("other", "this", "this", "other"):
+        for name, fn in trees[who].items():
+            times[name][who].append((graph_ms(fn, reps), cuda_ms(fn, reps),
+                                     enqueue_ms(fn, reps)))
+    for name, t in times.items():
+        say(f"[{tag}] A/B {name} (grad): " + "; ".join(
+            f"{who} device alone " + " / ".join(f"{g * 1e3:.1f}" for g, _, _ in t[who])
+            + " us, events " + " / ".join(f"{e * 1e3:.1f}" for _, e, _ in t[who])
+            + " us, enqueue " + " / ".join(f"{h * 1e3:.1f}" for _, _, h in t[who])
+            + " us" for who in ("other", "this")))
 
 
 PER_QUERY = {
@@ -902,6 +1152,27 @@ def blockmean_build_lines() -> list[str]:
     return lines
 
 
+def lorenzo_build_lines() -> list[str]:
+    """Static shared memory, registers, blocks per SM and SASS instructions
+    of each Lorenzo pass's instantiation."""
+    sass = sass_counts(build.BUILD_DIR / "lorenzo_band.o")
+    lines = []
+    for from_payload, src in ((True, "payload"), (False, "plane")):
+        flag = str(from_payload).lower()
+        for what in (None,) + fused.LORENZO_WHATS:
+            smem, regs, per_sm = fused.lorenzo_launch_config(from_payload, what)
+            key = (f"lorenzo_edges_kernel<{flag}>" if what is None else
+                   f"lorenzo_stencil_kernel<{flag}, {fused._LZ_CODE[what]}>")
+            n_sass = [v for k, v in sass.items() if key in k]
+            lines.append(f"  lorenzo_band.cu {src} {what or 'edges'}: {smem} B "
+                         f"shared memory, {regs} registers, {per_sm} blocks/SM, "
+                         f"SASS instructions {n_sass or 'not read'}")
+    n_scan = [v for k, v in sass.items() if "lorenzo_scan_kernel" in k]
+    lines.append(f"  lorenzo_band.cu edge scan: SASS instructions "
+                 f"{n_scan or 'not read'}")
+    return lines
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -914,6 +1185,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the synthetic Ocean fields")
+    ap.add_argument("--ab", type=pathlib.Path, default=None, metavar="DIR",
+                    help="also time the band kernels of the checkout at DIR "
+                         "beside this one's")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -932,6 +1206,11 @@ def main() -> None:
         f"CUDA {torch.version.cuda}; python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    RATES.update(card_rates())
+    say(f"int32 {RATES['int32'] / 1e12:.2f} Tops/s, f32 "
+        f"{RATES['f32'] / 1e12:.2f} Tops/s ({INT32_LANES} / {FP32_LANES} lanes "
+        f"x {RATES['sms']} SMs x {RATES['clock_hz'] / 1e6:.0f} MHz max SM "
+        f"clock); memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -941,7 +1220,7 @@ def main() -> None:
     for line in build.BUILD_LOG:
         if any(k in line for k in ("registers", "spill", "Compiling entry")):
             say(f"  {line}")
-    for line in blockmean_build_lines():
+    for line in blockmean_build_lines() + lorenzo_build_lines():
         say(line)
 
     # 3. main-path kernels against plain versions
@@ -949,6 +1228,7 @@ def main() -> None:
     cont = check_kernels(OCEAN, args.seed, errs)
     check_kernels(PADDED, args.seed, errs)
     check_blockmean_tiling(args.seed, errs)
+    check_lorenzo_tiling(args.seed, errs)
 
     # 4. the kernel entry point: against plain versions, then driven on u
     # and held against the main path's containers and stage-3 results
@@ -984,7 +1264,10 @@ def main() -> None:
     times = time_kernels(cont, entry, REPS, tag)
     per_query = per_query_launches(fields, tag)
     per_query.update(per_call_launches(entry, tag))
+    query_kernels(fields, tag)
     time_queries(fields, tag)
+    if args.ab is not None:
+        time_ab(args.ab, cont, REPS, tag)
 
     kernels = []
     for name, (source, replaces) in SITES.items():
@@ -994,6 +1277,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "launches_per_query": per_query[name],
             "max_abs_err": errs[name], "ms": t["ms"],
+            "graph_ms": t["graph_ms"], "enqueue_ms": t["enqueue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     say(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")

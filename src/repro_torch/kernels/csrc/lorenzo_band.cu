@@ -3,8 +3,8 @@
 // Replaces three Pallas sites of repro/kernels/fused.py and the one of
 // repro/kernels/prefix_stats.py:
 //   lorenzo_enc2d, pass 1 (_colsum_enc_kernel)   -> lorenzo_edges_kernel<true>
-//   lorenzo_enc2d, pass 2 (_lorenzo_enc_kernel)  -> lorenzo_stencil_kernel<true>
-//   lorenzo2d            (_lorenzo_kernel)       -> lorenzo_stencil_kernel<false>
+//   lorenzo_enc2d, pass 2 (_lorenzo_enc_kernel)  -> lorenzo_stencil_kernel<true, WHAT>
+//   lorenzo2d            (_lorenzo_kernel)       -> lorenzo_stencil_kernel<false, WHAT>
 //                                                   (+ lorenzo_edges_kernel<false>
 //                                                   for the band sums the reference
 //                                                   takes outside its kernel)
@@ -18,139 +18,583 @@
 // in int32, wrapping modulo 2^32 like the reference, so any order of
 // summation gives the same bits.
 //
-// Bound on Hopper: memory.  A stencil pass reads the payload (n*bits/8 bytes)
-// or the residual plane (4n bytes) once, plus small edge arrays, and writes
-// 4 bytes per element per output plane.
-// Design: the TPU keeps a whole (r <= 256, n1) band in VMEM; a Hopper block
-// has at most 227 KB of shared memory, so the plane is cut into TH x TW tiles
-// in both directions and both prefixes are made carry-free between tiles.
-// The edge pass emits per-tile row sums and column sums of p; two exclusive
-// prefixes over those small arrays (torch ops in the wrapper) give each
-// tile's row-prefix edge (sum of p left of the tile) and column-prefix edge
-// (sum of p above it).  The stencil pass loads the tile plus one halo row
-// and one halo column into shared memory (unpacking payload words inline,
-// so the residual plane never exists in device memory on the payload path),
-// scans columns and then rows in shared memory starting from the edges, and
-// writes the requested planes.  The halo row's and column's edges are read
-// from the same edge arrays.  The shared-memory row stride TW+1 is odd, so
-// the row-parallel and column-parallel scans are both bank-conflict free.
+// Tiling.  The TPU keeps a whole (r <= 256, n1) band in VMEM and carries the
+// row prefix across a sequential grid; Hopper blocks run in no order, so the
+// plane is cut into 32 x 128 tiles and both prefixes are made carry-free
+// between tiles by two edge arrays: rowedge[i, tj] = sum of p left of tile
+// column tj in row i, coledge[ti, j] = sum of p above tile row ti in column j.
+//
+//  - The edge pass reads each tile once and writes its per-row sums into
+//    rowedge and its per-column sums into coledge; a second small kernel
+//    (lorenzo_scan_kernel) turns them into exclusive prefixes in place: a
+//    warp per row of rowedge, and per 32 columns of coledge 8 warps that
+//    each sum one segment of tile rows, meet in shared memory and write
+//    their segment's prefixes.  No torch op and no host work sits between
+//    the three kernels of a query.  (Letting the last tile of each tile
+//    row and column do the scans inside the edge kernel, after an arrival
+//    counter, took 26-51 us instead of 14-26 us on the card: the fence and
+//    atomics stall every tile and the last column's scan runs in the tail;
+//    PERF.md, PR 14.)
+//  - The stencil pass rebuilds D0 and D1 of its tile (plus the next row for
+//    D0 and the next column for D1) from the edges and writes the planes.
+//
+// Both passes share one register tile: warp w owns rows 4w..4w+3 and lane l
+// columns 4l..4l+3, so every thread holds a 4 x 4 block of p.
+//  - D0 (row prefix): an in-thread prefix over 4 values, a warp-shuffle scan
+//    of the lanes' totals, plus the tile's row edge.  Warp 7 also scans the
+//    next row; row 4w+4 reaches warp w through shared memory.
+//  - D1 (column prefix): an in-thread prefix over 4 rows, an exclusive scan
+//    over the 8 warps' column totals through shared memory, plus the column
+//    edge.  Lane 31 also carries column 128; column 4l+4 comes from lane
+//    l+1 by shuffle.
+//  - Edge sums: row sums by a warp reduction (redux.sync) of the in-thread
+//    sums, column sums across warps through shared memory.
+// Every scan step keeps all 8 warps busy.
+//
+// Bound on Hopper.  Stencil pass: bytes; it reads the payload (n*bits/8
+// bytes) or the residual plane (4n bytes) once plus the small edge arrays,
+// and writes 4 bytes per element per output plane.  Payload edge pass:
+// int32 operations (about 14 per residual: unpack, unzigzag, two sums)
+// against 0.9 bytes read per residual at 7 bits.  Design against both:
+//  - One unpack per residual per pass, from shared memory: per tile row
+//    segment a warp copies the payload words it touches (64-bit bit offsets,
+//    the n_words guard on the copy, a zero sentinel; a row cut by the
+//    plane's right edge keeps only its own bits, so no value needs a mask).
+//    Up to 16 bits a lane takes its 4 values from one 64-bit window of 3
+//    staged words (two funnel shifts), above that one funnel shift each.
+//    The plane source is copied in 16-byte pieces where n1 % 4 == 0.
+//  - The stencil pass is held to 64 registers (4 blocks per SM): unbounded,
+//    the payload grad instantiation took 80-145 registers and 1-3 blocks
+//    per SM, and ran at 34-64 us against 33-34 us.
+//  - A persistent grid (blocks per SM from the occupancy API) walks over
+//    the tiles and copies the next tile's words or residuals (and, for the
+//    stencil pass, its edges) with cp.async while it computes the current
+//    one.
+//  - `what` is a template parameter (4 x 2 stencil instantiations), each
+//    doing only its own arithmetic, with 16-byte streaming stores
+//    (st.global.cs) where n1 % 4 == 0 and masked scalars at a ragged edge.
 //
 // prefix_stats2d (paper Algorithm 4) gives (sum q, sum q^2) of
 // q = cumsum(cumsum(p, 0), 1) without writing q.  The TPU kernel carries the
 // previous row of q across a sequential grid; here nothing is carried.  From
-// the same edge pass, the row-prefix edge (sum of p left of the tile) and
-// the row of q just above the tile (an inclusive cumsum along columns of the
-// column-prefix edge, a torch op in the wrapper) are enough to rebuild q in
-// each 32 x 128 tile independently: warps scan the tile's rows with
-// shuffles starting from the row-prefix edge, then 128 threads scan its
-// columns starting from the row above, summing q and q^2 in f64 (exact for
-// |q| < 2^26) as they go.  Each tile writes one f64 (sum q, sum q^2) pair; a
-// second launch of one block sums the pairs in a fixed order and rounds to
-// f32 once.  No atomics: the result is the same bits run after run.
-// Bound: memory, p read twice (edge pass and tile pass), 4n bytes each.
+// the same edge pass, the row edge and the row of q just above the tile (an
+// inclusive cumsum along columns of the column edge, a torch op in the
+// wrapper) are enough to rebuild q in each 32 x 128 tile independently:
+// warps scan the tile's rows with shuffles starting from the row edge, then
+// 128 threads scan its columns starting from the row above, summing q and q^2
+// in f64 (exact for |q| < 2^26) as they go.  Each tile writes one f64
+// (sum q, sum q^2) pair; a second launch of one block sums the pairs in a
+// fixed order and rounds to f32 once.  No float atomics: the result is the
+// same bits run after run.  Bound: memory, p read twice (edge pass and tile
+// pass), 4n bytes each.
 #include "common.cuh"
+
 
 namespace {
 
-constexpr int TH = 32;      // tile rows
-constexpr int TW = 128;     // tile columns
-constexpr int NT = 256;     // threads per block
-constexpr int LD = TW + 1;  // shared-memory row stride (odd)
+constexpr int TH = 32;                 // tile rows
+constexpr int TW = 128;                // tile columns
+constexpr int NT = 256;                // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int ROWS = TH / NWARP;       // rows per warp
+constexpr int LD = TW + 8;             // staged row stride in words (16-byte rows)
+constexpr int LDT = TW + 4;            // column totals: one row per warp + column TW
+constexpr int EW = 168;                // staged edges: coledge at 0, rowedge at 132
+constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(ROWS == 4 && TW == 4 * 32 && NT == 2 * TW, "one 4 x 4 block a thread");
+static_assert(LD >= 128, "a payload row of 129 values needs 127 words and a sentinel");
+static_assert(EW >= 132 + TH + 1, "edge staging");
 
 enum What { DERIV0 = 0, DERIV1 = 1, GRAD = 2, LAP = 3 };
 
-template <bool PAYLOAD>
-__global__ void __launch_bounds__(NT)
-lorenzo_edges_kernel(const void* __restrict__ src, long long n_words, int bits,
-                     int n0, int n1, int n_ct, int32_t* __restrict__ rowsum,
-                     int32_t* __restrict__ colsum) {
-  __shared__ int32_t P[TH][LD];
-  const int tj = blockIdx.x, ti = blockIdx.y;
-  const int i0 = ti * TH, j0 = tj * TW;
-  for (int e = threadIdx.x; e < TH * TW; e += NT) {
-    const int r = e / TW, c = e % TW;
-    const int i = i0 + r, j = j0 + c;
-    P[r][c] = (i < n0 && j < n1)
-                  ? hsz::load_p<PAYLOAD>(src, n_words, bits, (long long)i * n1 + j)
-                  : 0;
+struct Args {
+  const void* src;         // payload words or the int32 residual plane
+  long long n_words;       // payload words (payload path)
+  int bits;                // payload width 1..31 (payload path)
+  int n0, n1;              // plane
+  int n_rt, n_ct, n_tiles; // tile rows, tile columns, tiles
+  int32_t* rowedge;        // (n0, n_ct)
+  int32_t* coledge;        // (n_rt, n1)
+  uint32_t* out0;          // stencil pass: (n0, n1) planes
+  uint32_t* out1;          // grad only
+  bool vin;                // plane rows are 16-byte aligned (16-byte copies)
+  bool vout;               // output rows are 16-byte aligned (16-byte stores)
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying rows i0 .. i0+NR-1, columns j0 .. j0+NC-1 of the input into R
+// (row r at R + r*LD).  Payload: the words each row segment touches, then a
+// 0 sentinel; plane: residual c at word c, 0 right of the plane.  Rows
+// outside the plane are left alone (row4 reads them as 0).  Warp w takes
+// rows w, w + 8, ...
+template <bool PAYLOAD, int NR, int NC>
+__device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jend = min(j0 + NC, a.n1);
+  for (int r = warp; r < NR; r += NWARP) {
+    const int i = i0 + r;
+    if (i >= a.n0) break;
+    uint32_t* row = R + r * LD;
+    if constexpr (PAYLOAD) {
+      const auto* words = static_cast<const uint32_t*>(a.src);
+      const unsigned long long k = (unsigned long long)i * (unsigned)a.n1;
+      const unsigned long long first = (k + j0) * (unsigned)a.bits;
+      const unsigned long long end = (k + jend) * (unsigned)a.bits;
+      const long long w0 = (long long)(first >> 5);
+      const int nw = (int)(((end - 1) >> 5) - (first >> 5)) + 1;
+      // A row cut by the plane's right edge keeps only its own bits and
+      // zeros after them, so columns right of the plane unpack as 0.
+      const bool cut = jend < j0 + NC;
+      const int tail = (int)(end & 31ull);
+      for (int q = lane; q < LD; q += 32) {
+        const bool in = q < nw && w0 + q < a.n_words;
+        if (in && !(cut && q == nw - 1 && tail)) cp_async4(row + q, words + w0 + q);
+        else if (in) row[q] = __ldg(words + w0 + q) & ((1u << tail) - 1u);
+        else if (q <= nw || cut) row[q] = 0u;
+      }
+    } else {
+      const auto* p = static_cast<const uint32_t*>(a.src) + (long long)i * a.n1;
+      const int c = 4 * lane, j = j0 + c;
+      if (a.vin && j + 3 < a.n1) {
+        cp_async16(row + c, p + j);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j + e < a.n1) cp_async4(row + c + e, p + j + e);
+          else row[c + e] = 0u;
+        }
+      }
+      if constexpr (NC > TW) {
+        if (lane == 0) {
+          if (j0 + TW < a.n1) cp_async4(row + TW, p + j0 + TW);
+          else row[TW] = 0u;
+        }
+      }
+    }
   }
+}
+
+// Bit offset of column 0 of staged row i within its first staged word.
+__device__ __forceinline__ int row_base(const Args& a, int i, int j0) {
+  return (int)((((unsigned)i * (unsigned)a.n1 + (unsigned)j0) * (unsigned)a.bits) & 31u);
+}
+
+// Residual at column c of a staged row whose column 0 starts at bit `base`
+// (0 right of the plane: the staged bits or residuals are 0 there).
+template <bool PAYLOAD>
+__device__ __forceinline__ uint32_t value_at(const Args& a, const uint32_t* row, int base,
+                                             int c) {
+  if constexpr (PAYLOAD) {
+    const int off = base + c * a.bits;
+    const uint32_t u = __funnelshift_r(row[off >> 5], row[(off >> 5) + 1], off & 31) &
+                       ((1u << a.bits) - 1u);
+    return (uint32_t)hsz::unzigzag(u);
+  } else {
+    return row[c];
+  }
+}
+
+// The residuals of staged row r at columns c0 .. c0+3 (0 outside the plane).
+template <bool PAYLOAD>
+__device__ __forceinline__ void row4(const Args& a, const uint32_t* R, int i0, int j0, int r,
+                                     int c0, uint32_t (&v)[4]) {
+  const int i = i0 + r;
+  if (i >= a.n0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = 0u;
+    return;
+  }
+  const uint32_t* row = R + r * LD;
+  if constexpr (PAYLOAD) {
+    const int off = row_base(a, i, j0) + c0 * a.bits;
+    if (a.bits <= 16) {
+      // the 4 values lie in 3 staged words: one 64-bit window, 4 shifts
+      const int w = off >> 5;
+      const uint32_t w0 = row[w], w1 = row[w + 1], w2 = row[w + 2];
+      const unsigned long long x =
+          ((unsigned long long)__funnelshift_r(w1, w2, off) << 32) | __funnelshift_r(w0, w1, off);
+      const uint32_t mask = (1u << a.bits) - 1u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (uint32_t)hsz::unzigzag((uint32_t)(x >> (e * a.bits)) & mask);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = value_at<true>(a, row, off - c0 * a.bits, c0 + e);
+    }
+  } else {
+    const uint4 q = *reinterpret_cast<const uint4*>(row + c0);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+}
+
+// One residual: staged row r, column c.
+template <bool PAYLOAD>
+__device__ __forceinline__ uint32_t one(const Args& a, const uint32_t* R, int i0, int j0, int r,
+                                        int c) {
+  const int i = i0 + r;
+  if (i >= a.n0) return 0u;
+  const uint32_t* row = R + r * LD;
+  return value_at<PAYLOAD>(a, row, PAYLOAD ? row_base(a, i, j0) : 0, c);
+}
+
+// Inclusive prefix sum across the lanes of a warp.
+__device__ __forceinline__ uint32_t warp_scan(uint32_t v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t x = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v += x;
+  }
+  return v;
+}
+
+// Four outputs at flat index k (plane column j), streaming stores; one
+// 16-byte store when the row is 16-byte aligned and all four lie in the plane.
+__device__ __forceinline__ void store4(uint32_t* out, long long k, int j, int n1, bool vec,
+                                       const uint32_t (&v)[4]) {
+  if (vec && j + 3 < n1) {
+    __stcs(reinterpret_cast<uint4*>(out + k), make_uint4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (j + e < n1) __stcs(out + k + e, v[e]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// edge pass
+// ---------------------------------------------------------------------------
+
+// Tile rows and columns in row-major order.
+__device__ __forceinline__ void tile_of(const Args& a, int tile, int& ti, int& tj) {
+  ti = tile / a.n_ct;
+  tj = tile - ti * a.n_ct;
+}
+
+template <bool PAYLOAD>
+__device__ __forceinline__ void edges_tile(const Args& a, int ti, int tj, const uint32_t* R,
+                                           uint32_t* T) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i0 = ti * TH, j0 = tj * TW;
+  const int r0 = warp * ROWS, c0 = 4 * lane;
+  uint32_t p[ROWS][4];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) row4<PAYLOAD>(a, R, i0, j0, r0 + k, c0, p[k]);
+  // row sums: in-thread, then one warp reduction per row
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const uint32_t s = __reduce_add_sync(FULL, (p[k][0] + p[k][1]) + (p[k][2] + p[k][3]));
+    const int i = i0 + r0 + k;
+    if (lane == k && i < a.n0) a.rowedge[(long long)i * a.n_ct + tj] = (int32_t)s;
+  }
+  // column sums: in-thread over 4 rows, then across the 8 warps
+  uint32_t ct[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) ct[e] = (p[0][e] + p[1][e]) + (p[2][e] + p[3][e]);
+  *reinterpret_cast<uint4*>(T + warp * LDT + c0) = make_uint4(ct[0], ct[1], ct[2], ct[3]);
   __syncthreads();
-  const int t = threadIdx.x;
-  if (t < TW) {  // column sums of the tile
-    const int j = j0 + t;
-    uint32_t acc = 0;
-    for (int r = 0; r < TH; ++r) acc += (uint32_t)P[r][t];
-    if (j < n1) colsum[(long long)ti * n1 + j] = (int32_t)acc;
-  } else if (t < TW + TH) {  // row sums of the tile
-    const int r = t - TW, i = i0 + r;
-    uint32_t acc = 0;
-    for (int c = 0; c < TW; ++c) acc += (uint32_t)P[r][c];
-    if (i < n0) rowsum[(long long)i * n_ct + tj] = (int32_t)acc;
+  {
+    const int c = threadIdx.x >> 1, h = threadIdx.x & 1;  // two threads a column
+    uint32_t s = 0u;
+#pragma unroll
+    for (int w = 0; w < NWARP / 2; ++w) s += T[(4 * h + w) * LDT + c];
+    s += __shfl_xor_sync(FULL, s, 1);
+    if (h == 0 && j0 + c < a.n1) a.coledge[(long long)ti * a.n1 + j0 + c] = (int32_t)s;
   }
 }
 
 template <bool PAYLOAD>
-__global__ void __launch_bounds__(NT)
-lorenzo_stencil_kernel(const void* __restrict__ src, long long n_words, int bits,
-                       int n0, int n1, int n_ct,
-                       const int32_t* __restrict__ rowedge,
-                       const int32_t* __restrict__ coledge, int what,
-                       int32_t* __restrict__ out0, int32_t* __restrict__ out1) {
-  __shared__ int32_t A[TH + 1][LD];  // p tile + halo; then D0 in place
-  __shared__ int32_t B[TH][LD];      // D1, columns 0..TW
-  const int tj = blockIdx.x, ti = blockIdx.y;
-  const int i0 = ti * TH, j0 = tj * TW;
-  const int t = threadIdx.x;
-  for (int e = t; e < (TH + 1) * (TW + 1); e += NT) {
-    const int r = e / (TW + 1), c = e % (TW + 1);
-    const int i = i0 + r, j = j0 + c;
-    A[r][c] = (i < n0 && j < n1)
-                  ? hsz::load_p<PAYLOAD>(src, n_words, bits, (long long)i * n1 + j)
-                  : 0;
-  }
-  __syncthreads();
-  const bool need0 = what != DERIV1;
-  const bool need1 = what != DERIV0;
-  // D1: column prefixes from the column-prefix edge (the halo column too);
-  // D1 is 0 right of the last column
-  if (need1 && t <= TW) {
-    const int j = j0 + t;
-    uint32_t acc = (j < n1) ? (uint32_t)coledge[(long long)ti * n1 + j] : 0u;
-    for (int r = 0; r < TH; ++r) {
-      acc += (uint32_t)A[r][t];
-      B[r][t] = (j < n1) ? (int32_t)acc : 0;
+__global__ void __launch_bounds__(NT) lorenzo_edges_kernel(const Args a) {
+  __shared__ __align__(16) uint32_t R[2][TH * LD];
+  __shared__ __align__(16) uint32_t T[NWARP * LDT];
+  int ti, tj;
+  tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
+  fetch<PAYLOAD, TH, TW>(a, ti * TH, tj * TW, R[0]);
+  cp_async_commit();
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    // the next tile's copies run under this tile's work
+    const int next = tile + gridDim.x;
+    if (next < a.n_tiles) {
+      int ni, nj;
+      tile_of(a, next, ni, nj);
+      fetch<PAYLOAD, TH, TW>(a, ni * TH, nj * TW, R[buf ^ 1]);
     }
+    cp_async_commit();
+    tile_of(a, tile, ti, tj);
+    edges_tile<PAYLOAD>(a, ti, tj, R[buf], T);
   }
-  __syncthreads();
-  // D0: row prefixes in place from the row-prefix edge (the halo row too);
-  // D0 is 0 below the last row
-  if (need0 && t <= TH) {
-    const int i = i0 + t;
-    uint32_t acc = (i < n0) ? (uint32_t)rowedge[(long long)i * n_ct + tj] : 0u;
-    for (int c = 0; c < TW; ++c) {
-      acc += (uint32_t)A[t][c];
-      A[t][c] = (i < n0) ? (int32_t)acc : 0;
+}
+
+// Exclusive prefixes of the edge sums, in place.  Blocks below n_rb take 8
+// rows of rowedge, a warp each, 32 tiles a step with a carry.  The others
+// take 32 columns of coledge: warp g sums segment g of a column's tile
+// rows (lane = column, so each load is one 128-byte row piece), the 8
+// segment totals meet in shared memory, and each warp then writes its
+// segment's prefixes starting from the totals above it.
+constexpr int SCOLS = 32;            // coledge columns per block
+constexpr int SSEG = NT / SCOLS;     // segments per column
+
+__global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb) {
+  __shared__ uint32_t S[SSEG][SCOLS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if ((int)blockIdx.x < n_rb) {
+    const int i = blockIdx.x * NWARP + warp;
+    if (i >= a.n0) return;
+    int32_t* row = a.rowedge + (long long)i * a.n_ct;
+    uint32_t carry = 0u;
+    for (int c0 = 0; c0 < a.n_ct; c0 += 32) {
+      const int c = c0 + lane;
+      const uint32_t v = c < a.n_ct ? (uint32_t)row[c] : 0u;
+      const uint32_t inc = warp_scan(v, lane);
+      if (c < a.n_ct) row[c] = (int32_t)(carry + inc - v);
+      carry += __shfl_sync(FULL, inc, 31);
     }
+    return;
   }
+  const int j = (blockIdx.x - n_rb) * SCOLS + lane;
+  const int len = (a.n_rt + SSEG - 1) / SSEG;
+  const int lo = min(warp * len, a.n_rt), hi = min(lo + len, a.n_rt);
+  int32_t* col = a.coledge + j;
+  uint32_t s = 0u;
+  if (j < a.n1) {
+#pragma unroll 16
+    for (int r = lo; r < hi; ++r) s += (uint32_t)col[(long long)r * a.n1];
+  }
+  S[warp][lane] = s;
   __syncthreads();
-  for (int e = t; e < TH * TW; e += NT) {
-    const int r = e / TW, c = e % TW;
-    const int i = i0 + r, j = j0 + c;
-    if (i >= n0 || j >= n1) continue;
-    const long long k = (long long)i * n1 + j;
-    const uint32_t d0 = (uint32_t)A[r][c], d0n = (uint32_t)A[r + 1][c];
-    const uint32_t d1 = (uint32_t)B[r][c], d1n = (uint32_t)B[r][c + 1];
-    switch (what) {
-      case DERIV0: out0[k] = (int32_t)(d0n + d0); break;
-      case DERIV1: out0[k] = (int32_t)(d1n + d1); break;
-      case GRAD:
-        out0[k] = (int32_t)(d0n + d0);
-        out1[k] = (int32_t)(d1n + d1);
-        break;
-      default: out0[k] = (int32_t)((d0n - d0) + (d1n - d1)); break;
+  if (j < a.n1) {
+    uint32_t run = 0u;
+    for (int g = 0; g < warp; ++g) run += S[g][lane];
+#pragma unroll 16
+    for (int r = lo; r < hi; ++r) {
+      const uint32_t v = (uint32_t)col[(long long)r * a.n1];
+      col[(long long)r * a.n1] = (int32_t)run;
+      run += v;
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// stencil pass
+// ---------------------------------------------------------------------------
+
+// Start copying the edges of tile (ti, tj) into E: coledge[ti, j0 .. j0+128]
+// at 0 .. 128, rowedge[i0 .. i0+32, tj] at 132 .. 164, 0 outside the plane.
+__device__ __forceinline__ void fetch_edges(const Args& a, int ti, int tj, uint32_t* E) {
+  const int t = threadIdx.x;
+  const int i0 = ti * TH, j0 = tj * TW;
+  if (t <= TW) {
+    const int j = j0 + t;
+    if (j < a.n1) cp_async4(E + t, a.coledge + (long long)ti * a.n1 + j);
+    else E[t] = 0u;
+  } else if (t >= 132 && t <= 132 + TH) {
+    const int i = i0 + t - 132;
+    if (i < a.n0) cp_async4(E + t, a.rowedge + (long long)i * a.n_ct + tj);
+    else E[t] = 0u;
+  }
+}
+
+template <bool PAYLOAD, int WHAT>
+__device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, const uint32_t* R,
+                                             const uint32_t* E, uint32_t* T, uint32_t* H) {
+  constexpr bool N0 = WHAT != DERIV1;  // needs D0
+  constexpr bool N1 = WHAT != DERIV0;  // needs D1
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i0 = ti * TH, j0 = tj * TW;
+  const int r0 = warp * ROWS, c0 = 4 * lane;
+  uint32_t p[ROWS][4];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) row4<PAYLOAD>(a, R, i0, j0, r0 + k, c0, p[k]);
+
+  // D1, first half: in-thread prefix down the 4 rows (lane 31 also column
+  // 128), the warp's column totals to T
+  uint32_t d1[ROWS][4], d1x[ROWS];
+  if constexpr (N1) {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      d1x[k] = lane == 31 ? one<PAYLOAD>(a, R, i0, j0, r0 + k, TW) : 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d1[k][e] = p[k][e];
+    }
+#pragma unroll
+    for (int k = 1; k < ROWS; ++k) {
+      d1x[k] += d1x[k - 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d1[k][e] += d1[k - 1][e];
+    }
+    *reinterpret_cast<uint4*>(T + warp * LDT + c0) =
+        make_uint4(d1[3][0], d1[3][1], d1[3][2], d1[3][3]);
+    if (lane == 31) T[warp * LDT + TW] = d1x[3];
+  }
+
+  // D0: in-thread prefix along the 4 columns, a shuffle scan of the lanes'
+  // totals, the row edge; warp 7 also the next row.  Row 4w goes to H[w].
+  uint32_t d0[ROWS][4], d0h[4];
+  if constexpr (N0) {
+    uint32_t inc[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      d0[k][0] = p[k][0];
+#pragma unroll
+      for (int e = 1; e < 4; ++e) d0[k][e] = d0[k][e - 1] + p[k][e];
+      inc[k] = d0[k][3];
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const uint32_t x = __shfl_up_sync(FULL, inc[k], off);
+        if (lane >= off) inc[k] += x;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const uint32_t carry = E[132 + r0 + k] + inc[k] - d0[k][3];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d0[k][e] += carry;
+    }
+    *reinterpret_cast<uint4*>(H + warp * TW + c0) =
+        make_uint4(d0[0][0], d0[0][1], d0[0][2], d0[0][3]);
+    if (warp == NWARP - 1) {
+      row4<PAYLOAD>(a, R, i0, j0, TH, c0, d0h);
+#pragma unroll
+      for (int e = 1; e < 4; ++e) d0h[e] += d0h[e - 1];
+      const uint32_t incl = warp_scan(d0h[3], lane);
+      const uint32_t carry = E[132 + TH] + incl - d0h[3];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d0h[e] += carry;
+      *reinterpret_cast<uint4*>(H + NWARP * TW + c0) =
+          make_uint4(d0h[0], d0h[1], d0h[2], d0h[3]);
+    }
+  }
+  __syncthreads();
+
+  // D1, second half: the column edge plus the totals of the warps above
+  uint32_t d1r[ROWS][4];  // D1 one column to the right
+  if constexpr (N1) {
+    const uint4 ce = *reinterpret_cast<const uint4*>(E + c0);
+    uint32_t base[4] = {ce.x, ce.y, ce.z, ce.w};
+    uint32_t basex = E[TW];
+    for (int w = 0; w < warp; ++w) {
+      const uint4 tw = *reinterpret_cast<const uint4*>(T + w * LDT + c0);
+      base[0] += tw.x;
+      base[1] += tw.y;
+      base[2] += tw.z;
+      base[3] += tw.w;
+      if (lane == 31) basex += T[w * LDT + TW];
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d1[k][e] += base[e];
+      d1x[k] += basex;
+      const uint32_t right = __shfl_down_sync(FULL, d1[k][0], 1);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) d1r[k][e] = d1[k][e + 1];
+      d1r[k][3] = lane == 31 ? d1x[k] : right;
+    }
+  }
+  uint32_t d0d[4];  // D0 of the row below the warp's last row
+  if constexpr (N0) {
+    const uint4 dn = *reinterpret_cast<const uint4*>(H + (warp + 1) * TW + c0);
+    d0d[0] = dn.x;
+    d0d[1] = dn.y;
+    d0d[2] = dn.z;
+    d0d[3] = dn.w;
+  }
+
+  const int j = j0 + c0;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int i = i0 + r0 + k;
+    if (i >= a.n0) break;
+    uint32_t o0[4], o1[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t d0n = 0u, d0c = 0u, d1n = 0u, d1c = 0u;
+      if constexpr (N0) {
+        d0c = d0[k][e];
+        const int kn = k + 1 < ROWS ? k + 1 : k;
+        d0n = k + 1 < ROWS ? d0[kn][e] : d0d[e];
+      }
+      if constexpr (N1) {
+        d1c = d1[k][e];
+        d1n = d1r[k][e];
+      }
+      if constexpr (WHAT == DERIV0) o0[e] = d0n + d0c;
+      if constexpr (WHAT == DERIV1) o0[e] = d1n + d1c;
+      if constexpr (WHAT == GRAD) {
+        o0[e] = d0n + d0c;
+        o1[e] = d1n + d1c;
+      }
+      if constexpr (WHAT == LAP) o0[e] = (d0n - d0c) + (d1n - d1c);
+    }
+    const long long kk = (long long)i * a.n1 + j;
+    store4(a.out0, kk, j, a.n1, a.vout, o0);
+    if constexpr (WHAT == GRAD) store4(a.out1, kk, j, a.n1, a.vout, o1);
+  }
+}
+
+// Staged input of one tile: rows 0..32 (the next row too), columns 0..128.
+constexpr int STAGE = (TH + 1) * LD;
+
+template <bool PAYLOAD, int WHAT>
+__global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
+  __shared__ __align__(16) uint32_t R[2][STAGE];
+  __shared__ __align__(16) uint32_t E[2][EW];
+  __shared__ __align__(16) uint32_t T[NWARP * LDT];
+  __shared__ __align__(16) uint32_t H[(NWARP + 1) * TW];
+  {
+    const int tile = blockIdx.x;  // the grid has at most one block a tile
+    const int ti = tile / a.n_ct, tj = tile - ti * a.n_ct;
+    fetch<PAYLOAD, TH + 1, TW + 1>(a, ti * TH, tj * TW, R[0]);
+    fetch_edges(a, ti, tj, E[0]);
+    cp_async_commit();
+  }
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    const int next = tile + gridDim.x;
+    if (next < a.n_tiles) {
+      const int ni = next / a.n_ct, nj = next - ni * a.n_ct;
+      fetch<PAYLOAD, TH + 1, TW + 1>(a, ni * TH, nj * TW, R[buf ^ 1]);
+      fetch_edges(a, ni, nj, E[buf ^ 1]);
+    }
+    cp_async_commit();
+    const int ti = tile / a.n_ct, tj = tile - ti * a.n_ct;
+    stencil_tile<PAYLOAD, WHAT>(a, ti, tj, R[buf], E[buf], T, H);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefix_stats2d
+// ---------------------------------------------------------------------------
+
+constexpr int PS_LD = TW + 1;  // odd stride: row and column scans conflict free
 
 __device__ __forceinline__ void warp_sum2(double& a, double& b) {
 #pragma unroll
@@ -167,7 +611,7 @@ prefix_stats_tile_kernel(const int32_t* __restrict__ p, int n0, int n1, int n_ct
                          const int32_t* __restrict__ rowedge,
                          const int32_t* __restrict__ top,
                          double* __restrict__ partials) {
-  __shared__ int32_t A[TH][LD];
+  __shared__ int32_t A[TH][PS_LD];
   __shared__ double red[2][NT / 32];
   const int tj = blockIdx.x, ti = blockIdx.y;
   const int i0 = ti * TH, j0 = tj * TW;
@@ -254,55 +698,183 @@ prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_tile
   }
 }
 
+// ---------------------------------------------------------------------------
+// launch configuration
+// ---------------------------------------------------------------------------
+
+// Static shared memory, registers and resident blocks per SM of one kernel,
+// read once.
+struct Config {
+  cudaError_t err;
+  int smem;
+  int regs;
+  int per_sm;
+};
+
+template <typename K>
+Config config_of(K kernel) {
+  Config c{cudaSuccess, 0, 0, 0};
+  cudaFuncAttributes fa;
+  c.err = cudaFuncGetAttributes(&fa, kernel);
+  if (c.err == cudaSuccess) {
+    c.smem = (int)fa.sharedSizeBytes;
+    c.regs = fa.numRegs;
+    c.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel, NT, 0);
+  }
+  return c;
+}
+
+template <bool PAYLOAD>
+const Config& edges_config() {
+  static const Config c = config_of(lorenzo_edges_kernel<PAYLOAD>);
+  return c;
+}
+
+template <bool PAYLOAD, int WHAT>
+const Config& stencil_config() {
+  static const Config c = config_of(lorenzo_stencil_kernel<PAYLOAD, WHAT>);
+  return c;
+}
+
+template <bool PAYLOAD>
+const Config& stencil_config(int what) {
+  switch (what) {
+    case DERIV0: return stencil_config<PAYLOAD, DERIV0>();
+    case DERIV1: return stencil_config<PAYLOAD, DERIV1>();
+    case GRAD: return stencil_config<PAYLOAD, GRAD>();
+    default: return stencil_config<PAYLOAD, LAP>();
+  }
+}
+
+// 1: a persistent grid (as many blocks as can be resident, at most one a
+// tile); 0: one block per tile.
+int g_persistent = 1;
+
+// Blocks to launch for n_tiles tiles.
+int grid_of(const Config& c, int n_tiles, int& grid) {
+  if (c.err != cudaSuccess) return (int)c.err;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  grid = g_persistent ? min(n_tiles, sms * max(c.per_sm, 1)) : n_tiles;
+  return 0;
+}
+
+// The edge sums, then their prefixes.
+template <bool PAYLOAD>
+int launch_edges(const Args& a, cudaStream_t s) {
+  int grid = 0;
+  if (int err = grid_of(edges_config<PAYLOAD>(), a.n_tiles, grid)) return err;
+  lorenzo_edges_kernel<PAYLOAD><<<grid, NT, 0, s>>>(a);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  const int n_rb = (a.n0 + NWARP - 1) / NWARP, n_cb = (a.n1 + SCOLS - 1) / SCOLS;
+  lorenzo_scan_kernel<<<n_rb + n_cb, NT, 0, s>>>(a, n_rb);
+  return (int)cudaGetLastError();
+}
+
+template <bool PAYLOAD, int WHAT>
+int launch_stencil(const Args& a, cudaStream_t s) {
+  int grid = 0;
+  if (int err = grid_of(stencil_config<PAYLOAD, WHAT>(), a.n_tiles, grid)) return err;
+  lorenzo_stencil_kernel<PAYLOAD, WHAT><<<grid, NT, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool PAYLOAD>
+int dispatch_stencil(const Args& a, int what, cudaStream_t s) {
+  switch (what) {
+    case DERIV0: return launch_stencil<PAYLOAD, DERIV0>(a, s);
+    case DERIV1: return launch_stencil<PAYLOAD, DERIV1>(a, s);
+    case GRAD: return launch_stencil<PAYLOAD, GRAD>(a, s);
+    default: return launch_stencil<PAYLOAD, LAP>(a, s);
+  }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+Args make_args(int from_payload, const void* src, long long n_words, int bits, int n0,
+               int n1) {
+  Args a{};
+  a.src = src;
+  a.n_words = n_words;
+  a.bits = from_payload ? bits : 1;
+  a.n0 = n0;
+  a.n1 = n1;
+  a.n_rt = (n0 + TH - 1) / TH;
+  a.n_ct = (n1 + TW - 1) / TW;
+  a.n_tiles = a.n_rt * a.n_ct;
+  a.vin = !from_payload && (n1 & 3) == 0 && aligned16(src);
+  return a;
+}
+
+bool bad_shape(int from_payload, int bits, int n0, int n1) {
+  if (n0 <= 0 || n1 <= 0) return true;
+  if ((long long)((n0 + TH - 1) / TH) * ((n1 + TW - 1) / TW) > 0x7fffffffLL) return true;
+  return from_payload && (bits < 1 || bits > 31);
+}
+
 }  // namespace
 
+// The tile the edge arrays are cut by.
 extern "C" int hsz_lorenzo_tile(int* th, int* tw) {
   *th = TH;
   *tw = TW;
   return 0;
 }
 
-// rowsum: (n0, ceil(n1/TW)) int32; colsum: (ceil(n0/TH), n1) int32.
-extern "C" int hsz_lorenzo_edges(int from_payload, const void* src, long long n_words,
-                                 int bits, int n0, int n1, void* rowsum,
-                                 void* colsum, void* stream) {
-  if (n0 <= 0 || n1 <= 0) return (int)cudaErrorInvalidValue;
-  if (from_payload && (bits < 1 || bits > 31)) return (int)cudaErrorInvalidValue;
-  const int n_ct = (n1 + TW - 1) / TW, n_rt = (n0 + TH - 1) / TH;
-  const dim3 grid(n_ct, n_rt);
-  auto s = (cudaStream_t)stream;
-  auto rs = static_cast<int32_t*>(rowsum);
-  auto cs = static_cast<int32_t*>(colsum);
-  if (from_payload)
-    lorenzo_edges_kernel<true><<<grid, NT, 0, s>>>(src, n_words, bits, n0, n1, n_ct, rs, cs);
-  else
-    lorenzo_edges_kernel<false><<<grid, NT, 0, s>>>(src, n_words, bits, n0, n1, n_ct, rs, cs);
-  return (int)cudaGetLastError();
+// Schedule of both passes: 1 a persistent grid (the default), 0 one block
+// per tile.
+extern "C" int hsz_lorenzo_schedule(int persistent) {
+  g_persistent = persistent != 0;
+  return 0;
 }
 
-// rowedge/coledge: exclusive prefixes of rowsum (along tiles) and colsum
-// (along tile rows); out0/out1: (n0, n1) int32 (out1 only for what == GRAD).
+// Static shared memory (bytes), registers per thread and resident blocks per
+// SM of the edge pass (what < 0) or of the stencil pass for `what`.
+extern "C" int hsz_lorenzo_info(int from_payload, int what, int* smem_bytes, int* regs,
+                                int* blocks_per_sm) {
+  if (what > LAP) return (int)cudaErrorInvalidValue;
+  const Config& c = what < 0 ? (from_payload ? edges_config<true>() : edges_config<false>())
+                    : from_payload ? stencil_config<true>(what)
+                                   : stencil_config<false>(what);
+  *smem_bytes = c.smem;
+  *regs = c.regs;
+  *blocks_per_sm = c.per_sm;
+  return (int)c.err;
+}
+
+// Edge pass: two launches on one stream, the per-tile sums and their
+// exclusive prefixes.  rowedge: (n0, ceil(n1/TW)) int32, the sum of p left of
+// each tile in each row; coledge: (ceil(n0/TH), n1) int32, the sum of p above
+// each tile in each column.
+extern "C" int hsz_lorenzo_edges(int from_payload, const void* src, long long n_words,
+                                 int bits, int n0, int n1, void* rowedge, void* coledge,
+                                 void* stream) {
+  if (bad_shape(from_payload, bits, n0, n1)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(from_payload, src, n_words, bits, n0, n1);
+  a.rowedge = static_cast<int32_t*>(rowedge);
+  a.coledge = static_cast<int32_t*>(coledge);
+  auto s = (cudaStream_t)stream;
+  return from_payload ? launch_edges<true>(a, s) : launch_edges<false>(a, s);
+}
+
+// Stencil pass.  rowedge / coledge as the edge pass leaves them; out0/out1:
+// (n0, n1) int32 (out1 only for what == GRAD).
 extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long n_words,
                                    int bits, int n0, int n1, const void* rowedge,
                                    const void* coledge, int what, void* out0,
                                    void* out1, void* stream) {
-  if (n0 <= 0 || n1 <= 0 || what < DERIV0 || what > LAP)
+  if (bad_shape(from_payload, bits, n0, n1) || what < DERIV0 || what > LAP)
     return (int)cudaErrorInvalidValue;
-  if (from_payload && (bits < 1 || bits > 31)) return (int)cudaErrorInvalidValue;
-  const int n_ct = (n1 + TW - 1) / TW, n_rt = (n0 + TH - 1) / TH;
-  const dim3 grid(n_ct, n_rt);
+  Args a = make_args(from_payload, src, n_words, bits, n0, n1);
+  a.rowedge = const_cast<int32_t*>(static_cast<const int32_t*>(rowedge));
+  a.coledge = const_cast<int32_t*>(static_cast<const int32_t*>(coledge));
+  a.out0 = static_cast<uint32_t*>(out0);
+  a.out1 = static_cast<uint32_t*>(out1);
+  a.vout = (n1 & 3) == 0 && aligned16(out0) && (out1 == nullptr || aligned16(out1));
   auto s = (cudaStream_t)stream;
-  auto re = static_cast<const int32_t*>(rowedge);
-  auto ce = static_cast<const int32_t*>(coledge);
-  auto o0 = static_cast<int32_t*>(out0);
-  auto o1 = static_cast<int32_t*>(out1);
-  if (from_payload)
-    lorenzo_stencil_kernel<true><<<grid, NT, 0, s>>>(src, n_words, bits, n0, n1, n_ct,
-                                                     re, ce, what, o0, o1);
-  else
-    lorenzo_stencil_kernel<false><<<grid, NT, 0, s>>>(src, n_words, bits, n0, n1, n_ct,
-                                                      re, ce, what, o0, o1);
-  return (int)cudaGetLastError();
+  return from_payload ? dispatch_stencil<true>(a, what, s) : dispatch_stencil<false>(a, what, s);
 }
 
 // p: (n0, n1) int32; rowedge: (n0, ceil(n1/TW)) int32; top: (ceil(n0/TH), n1)

@@ -18,6 +18,7 @@ over the whole plane with zero neighbours outside it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -103,16 +104,29 @@ def lorenzo_core(p: torch.Tensor, what: str):
     return _result(outs)
 
 
+@functools.cache
 def lorenzo_tile() -> tuple[int, int]:
-    """(rows, columns) of the Lorenzo kernels' tiles, read from the library."""
+    """(rows, columns) of the Lorenzo kernels' tiles, read from the library
+    once."""
     th, tw = ctypes.c_int(), ctypes.c_int()
     build.call("hsz_lorenzo_tile", ctypes.addressof(th), ctypes.addressof(tw))
     return th.value, tw.value
 
 
+def lorenzo_launch_config(from_payload: bool, what: str | None):
+    """(static shared memory in bytes, registers per thread, resident blocks
+    per SM) of the edge pass (``what=None``) or of the stencil pass launched
+    for ``what``, read from the library."""
+    smem, regs, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.call("hsz_lorenzo_info", int(from_payload),
+               -1 if what is None else _LZ_CODE[what], ctypes.addressof(smem),
+               ctypes.addressof(regs), ctypes.addressof(per_sm))
+    return smem.value, regs.value, per_sm.value
+
+
 def lorenzo_edges_plain(p: torch.Tensor, tile: tuple[int, int]):
-    """Plain version of the edge pass: per-tile row sums ``(n0, n_ct)`` and
-    column sums ``(n_rt, n1)`` of ``p`` (int32, modular)."""
+    """Per-tile row sums ``(n0, n_ct)`` and column sums ``(n_rt, n1)`` of
+    ``p`` (int32, modular)."""
     n0, n1 = p.shape
     th, tw = tile
     n_rt, n_ct = -(-n0 // th), -(-n1 // tw)
@@ -124,32 +138,41 @@ def lorenzo_edges_plain(p: torch.Tensor, tile: tuple[int, int]):
     return rowsum, colsum
 
 
-def lorenzo_edges(src: torch.Tensor, shape: tuple, bits: int, *,
-                  from_payload: bool, site: str):
-    """Edge pass (kernel): per-tile row and column sums of the residuals,
-    read from payload words or from the residual plane."""
-    n0, n1 = shape
-    th, tw = lorenzo_tile()
-    n_rt, n_ct = -(-n0 // th), -(-n1 // tw)
-    rowsum = torch.empty((n0, n_ct), dtype=torch.int32, device=src.device)
-    colsum = torch.empty((n_rt, n1), dtype=torch.int32, device=src.device)
-    build.call("hsz_lorenzo_edges", int(from_payload), src.data_ptr(),
-               src.shape[0] if from_payload else 0, bits, n0, n1,
-               rowsum.data_ptr(), colsum.data_ptr(), ops.stream_ptr())
-    ops.count(f"{site}.edges")
-    return rowsum, colsum
-
-
 def exclusive_prefix(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Exclusive int32 prefix sum along ``dim`` (modular)."""
     return torch.cumsum(x, dim=dim, dtype=torch.int32) - x
 
 
+def lorenzo_edge_prefixes_plain(p: torch.Tensor, tile: tuple[int, int]):
+    """Plain version of the edge pass: the row edge ``(n0, n_ct)`` (sum of
+    ``p`` left of each tile, per row) and the column edge ``(n_rt, n1)`` (sum
+    of ``p`` above each tile, per column), int32, modular."""
+    rowsum, colsum = lorenzo_edges_plain(p, tile)
+    return exclusive_prefix(rowsum, 1), exclusive_prefix(colsum, 0)
+
+
+def lorenzo_edges(src: torch.Tensor, shape: tuple, bits: int, *,
+                  from_payload: bool, site: str):
+    """Edge pass (kernels): the row and column edges of
+    :func:`lorenzo_edge_prefixes_plain`, from payload words or from the
+    residual plane: the per-tile sums, then their prefixes, on the card."""
+    n0, n1 = shape
+    th, tw = lorenzo_tile()
+    n_rt, n_ct = -(-n0 // th), -(-n1 // tw)
+    rowedge = torch.empty((n0, n_ct), dtype=torch.int32, device=src.device)
+    coledge = torch.empty((n_rt, n1), dtype=torch.int32, device=src.device)
+    build.call("hsz_lorenzo_edges", int(from_payload), src.data_ptr(),
+               src.shape[0] if from_payload else 0, bits, n0, n1,
+               rowedge.data_ptr(), coledge.data_ptr(), ops.stream_ptr())
+    ops.count(f"{site}.edges")
+    return rowedge, coledge
+
+
 def lorenzo_stencil(src: torch.Tensor, shape: tuple, bits: int,
                     rowedge: torch.Tensor, coledge: torch.Tensor, what: str, *,
                     from_payload: bool, site: str):
-    """Stencil pass (kernel): tile + halo in shared memory, column and row
-    prefixes from the edges, the requested int32 planes."""
+    """Stencil pass (kernel): D0 and D1 of each tile from its edges, the
+    requested int32 planes."""
     n_out = 2 if what == "grad" else 1
     outs = _outputs(tuple(shape), n_out, torch.int32, src.device)
     build.call("hsz_lorenzo_stencil", int(from_payload), src.data_ptr(),
@@ -162,10 +185,9 @@ def lorenzo_stencil(src: torch.Tensor, shape: tuple, bits: int,
 
 
 def _lorenzo_kernels(src, shape, bits, what, *, from_payload, site):
-    rowsum, colsum = lorenzo_edges(src, shape, bits,
-                                   from_payload=from_payload, site=site)
-    return lorenzo_stencil(src, shape, bits, exclusive_prefix(rowsum, 1),
-                           exclusive_prefix(colsum, 0), what,
+    edges = lorenzo_edges(src, shape, bits, from_payload=from_payload,
+                          site=site)
+    return lorenzo_stencil(src, shape, bits, *edges, what,
                            from_payload=from_payload, site=site)
 
 

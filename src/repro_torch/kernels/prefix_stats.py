@@ -6,10 +6,10 @@ kernel carries the previous row of ``q`` across a sequential grid; Hopper
 blocks run in no order, so nothing is carried.  Instead (``csrc/lorenzo_band.cu``):
 
 1. the Lorenzo edge pass (:func:`fused.lorenzo_edges`, plane input) writes
-   each 32 × 128 tile's row sums and column sums of ``p``;
-2. two small torch prefixes turn them into the row-prefix edge (Σp left of
-   the tile, per row) and the row of ``q`` just above the tile (an inclusive
-   cumsum along columns of the column-prefix edge);
+   the row edge (Σp left of each 32 × 128 tile, per row) and the column edge
+   (Σp above each tile, per column);
+2. one small torch cumsum along columns of the column edge gives the row of
+   ``q`` just above each tile;
 3. the stats pass rebuilds ``q`` per tile in shared memory (modular int32),
    sums ``q`` and ``q²`` in f64, and writes one pair per tile; a second
    launch of one block sums the pairs in a fixed order and rounds to f32.
@@ -38,13 +38,10 @@ def prefix_stats2d_plain(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.sum(qf), torch.sum(qf * qf)
 
 
-def tile_edges(rowsum: torch.Tensor, colsum: torch.Tensor):
-    """(row-prefix edge, row of q above each tile) from the edge pass's
-    per-tile row sums ``(n0, n_ct)`` and column sums ``(n_rt, n1)``."""
-    rowedge = fused.exclusive_prefix(rowsum, 1)
-    top = torch.cumsum(fused.exclusive_prefix(colsum, 0), dim=1,
-                       dtype=torch.int32)
-    return rowedge, top
+def tile_edges(rowedge: torch.Tensor, coledge: torch.Tensor):
+    """(row edge, row of q above each tile) from the edge pass's row edge
+    ``(n0, n_ct)`` and column edge ``(n_rt, n1)``."""
+    return rowedge, torch.cumsum(coledge, dim=1, dtype=torch.int32)
 
 
 def prefix_stats_tiles(p: torch.Tensor, rowedge: torch.Tensor,
@@ -71,7 +68,6 @@ def prefix_stats2d(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if p.ndim != 2 or p.numel() == 0:
         raise ValueError(f"prefix_stats2d takes a non-empty 2-D plane, got "
                          f"{tuple(p.shape)}")
-    rowsum, colsum = fused.lorenzo_edges(p, tuple(p.shape), 0,
-                                         from_payload=False,
-                                         site="prefix_stats2d")
-    return prefix_stats_tiles(p, *tile_edges(rowsum, colsum))
+    edges = fused.lorenzo_edges(p, tuple(p.shape), 0, from_payload=False,
+                                site="prefix_stats2d")
+    return prefix_stats_tiles(p, *tile_edges(*edges))

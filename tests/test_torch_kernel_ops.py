@@ -251,7 +251,8 @@ def test_prefix_stats_tiles_rebuild_q(tile):
     rng = np.random.default_rng(sum(tile))
     p = _t(rng.integers(-2 ** 31, 2 ** 31, (45, 37), dtype=np.int64)
            .astype(np.int32))
-    rowedge, top = prefix_stats.tile_edges(*fused.lorenzo_edges_plain(p, tile))
+    rowedge, top = prefix_stats.tile_edges(
+        *fused.lorenzo_edge_prefixes_plain(p, tile))
     th, tw = tile
     q = torch.empty_like(p)
     for ti in range(top.shape[0]):

@@ -163,6 +163,141 @@ def test_lorenzo_tile_edges_compose_to_prefixes(tile):
     _same(torch.cumsum(p, 0, dtype=torch.int32).numpy(), d1, "D1")
 
 
+#: (warps, rows per warp, lanes, columns per lane) -> plane shapes: the
+#: Hopper Lorenzo kernels' 32 x 128 tile (8 warps of 4 rows, 32 lanes of 4
+#: columns) at ragged tiles, a plane shorter than one tile row, and small
+#: tilings with odd counts
+LZ_TILINGS = {(8, 4, 32, 4): [(70, 300), (5, 300), (33, 129)],
+              (3, 2, 4, 3): [(45, 37)], (2, 4, 5, 2): [(23, 41)]}
+LZ_TILING_CASES = [(t, s) for t, shapes in LZ_TILINGS.items() for s in shapes]
+
+
+def _lorenzo_tiles_emulated(p: torch.Tensor, tiling):
+    """The Hopper Lorenzo kernels' decomposition written with torch ops
+    (int64 sums, read modulo 2**32 at the end): the edge pass's per-thread
+    4 x 4 sums, warp reductions and cross-warp column sums; the last-tile
+    scans that turn them into edge prefixes (rows 32 tiles a step with a
+    carry, columns in two halves); and the stencil pass's in-thread
+    prefixes, lane scans, cross-warp column scan and halo row and column.
+    Returns the edges and, per tile, D0 with its next row and D1 with its
+    next column."""
+    W, R, L, C = tiling
+    th, tw = W * R, L * C
+    n0, n1 = p.shape
+    n_rt, n_ct = -(-n0 // th), -(-n1 // tw)
+    z = torch.zeros((n_rt * th + 1, n_ct * tw + 1), dtype=torch.int64)
+    z[:n0, :n1] = p
+    rowsum = torch.zeros((n0, n_ct), dtype=torch.int64)
+    colsum = torch.zeros((n_rt, n1), dtype=torch.int64)
+    for ti in range(n_rt):
+        for tj in range(n_ct):
+            i0, j0 = ti * th, tj * tw
+            blk = z[i0:i0 + th, j0:j0 + tw].reshape(W, R, L, C)
+            rows = blk.sum(3).sum(2).reshape(th)      # in-thread, then warp
+            wcol = blk.sum(1)                         # in-thread, (W, L, C)
+            cols = (wcol[:W // 2].sum(0) + wcol[W // 2:].sum(0)).reshape(tw)
+            r1, c1 = min(th, n0 - i0), min(tw, n1 - j0)
+            rowsum[i0:i0 + r1, tj] = rows[:r1]
+            colsum[ti, j0:j0 + c1] = cols[:c1]
+    # the last tile of each tile row: 32 tiles a step, carried
+    rowedge = torch.zeros_like(rowsum)
+    for c0 in range(0, n_ct, 32):
+        step = rowsum[:, c0:c0 + 32]
+        carry = rowsum[:, :c0].sum(1, keepdim=True)
+        rowedge[:, c0:c0 + 32] = carry + torch.cumsum(step, 1) - step
+    # the last tile of each tile column: two halves, the first's total
+    # starting the second
+    mid = (n_rt + 1) // 2
+    coledge = torch.cumsum(colsum, 0) - colsum
+    coledge[mid:] = (colsum[:mid].sum(0) + torch.cumsum(colsum[mid:], 0)
+                     - colsum[mid:])
+    re = torch.zeros((n_rt * th + 1, n_ct), dtype=torch.int64)
+    re[:n0] = rowedge
+    ce = torch.zeros((n_rt, n_ct * tw + 1), dtype=torch.int64)
+    ce[:, :n1] = coledge
+    tiles = {}
+    for ti in range(n_rt):
+        for tj in range(n_ct):
+            i0, j0 = ti * th, tj * tw
+            blk = z[i0:i0 + th + 1, j0:j0 + tw + 1]
+            P = blk[:th, :tw].reshape(W, R, L, C)
+            # D0: in-thread prefix, lane scan of the lanes' totals, row edge
+            s = torch.cumsum(P, 3)
+            tot = s[..., -1]
+            d0 = (s + (torch.cumsum(tot, 2) - tot)[..., None]
+                  + re[i0:i0 + th, tj].reshape(W, R, 1, 1)).reshape(th, tw)
+            h = torch.cumsum(blk[th, :tw].reshape(L, C), 1)   # the next row
+            ht = h[:, -1]
+            d0h = (h + (torch.cumsum(ht, 0) - ht)[:, None] + re[i0 + th, tj])
+            # D1: in-thread prefix down the rows, scan over the warps'
+            # column totals, column edge; lane L-1 also the next column
+            c1 = torch.cumsum(P, 1)
+            wt = c1[:, -1]
+            base = (torch.cumsum(wt, 0) - wt
+                    + ce[ti, j0:j0 + tw].reshape(L, C))
+            d1 = (c1 + base[:, None]).reshape(th, tw)
+            x = torch.cumsum(blk[:th, tw].reshape(W, R), 1)
+            xt = x[:, -1]
+            d1x = (x + (torch.cumsum(xt, 0) - xt + ce[ti, j0 + tw])[:, None])
+            tiles[ti, tj] = (torch.cat([d0, d0h.reshape(1, tw)], 0),
+                             torch.cat([d1, d1x.reshape(th, 1)], 1))
+    return rowedge, coledge, tiles
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)  # modulo 2**32, as the kernels' uint32 sums
+
+
+@pytest.mark.parametrize("tiling,shape", LZ_TILING_CASES,
+                         ids=[f"{'x'.join(map(str, t))}-{s[0]}x{s[1]}"
+                              for t, s in LZ_TILING_CASES])
+def test_lorenzo_register_tiles_rebuild_prefixes(tiling, shape):
+    """The redesigned Hopper Lorenzo kernels: 4 x 4 register blocks, lane
+    and cross-warp scans and the edge prefixes made on the card, emulated
+    with torch ops on full-range int32 planes (so sums wrap).  The edges
+    equal the plain edge pass, every tile's D0 / D1 (with its next row /
+    column) equals cumsum(p, 1) / cumsum(p, 0) bitwise (0 outside the
+    plane), and the planes built from the tiles equal ``lorenzo_core`` for
+    every ``what``."""
+    W, R, L, C = tiling
+    th, tw = W * R, L * C
+    rng = np.random.default_rng(shape[0] * shape[1] + th)
+    p = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+                        .astype(np.int32))
+    rowedge, coledge, tiles = _lorenzo_tiles_emulated(p, tiling)
+    want_re, want_ce = fused.lorenzo_edge_prefixes_plain(p, (th, tw))
+    _same(want_re.numpy(), _i32(rowedge), "row edge")
+    _same(want_ce.numpy(), _i32(coledge), "column edge")
+    n0, n1 = shape
+    n_rt, n_ct = len({k[0] for k in tiles}), len({k[1] for k in tiles})
+    z = torch.zeros((n_rt * th + 1, n_ct * tw + 1), dtype=torch.int32)
+    z[:n0, :n1] = p
+    d0_all = torch.cumsum(z, 1, dtype=torch.int32)
+    d1_all = torch.cumsum(z, 0, dtype=torch.int32)
+    d0_all[n0:] = 0  # D0 = 0 below the last row, D1 = 0 right of the last column
+    d1_all[:, n1:] = 0
+    planes = {w: [torch.empty((n_rt * th, n_ct * tw), dtype=torch.int32)
+                  for _ in range(2 if w == "grad" else 1)]
+              for w in fused.LORENZO_WHATS}
+    for (ti, tj), (d0, d1) in tiles.items():
+        i0, j0 = ti * th, tj * tw
+        d0, d1 = _i32(d0), _i32(d1)
+        _same(d0_all[i0:i0 + th + 1, j0:j0 + tw].numpy(), d0, f"D0 {ti},{tj}")
+        _same(d1_all[i0:i0 + th, j0:j0 + tw + 1].numpy(), d1, f"D1 {ti},{tj}")
+        d0c, d0n = d0[:-1], d0[1:]
+        d1c, d1n = d1[:, :-1], d1[:, 1:]
+        rs, cs = slice(i0, i0 + th), slice(j0, j0 + tw)
+        planes["deriv0"][0][rs, cs] = d0n + d0c
+        planes["deriv1"][0][rs, cs] = d1n + d1c
+        planes["grad"][0][rs, cs] = d0n + d0c
+        planes["grad"][1][rs, cs] = d1n + d1c
+        planes["lap"][0][rs, cs] = (d0n - d0c) + (d1n - d1c)
+    for what, outs in planes.items():
+        want = fused.lorenzo_core(p, what)
+        _same(want, tuple(o[:n0, :n1].contiguous() for o in outs),
+              f"lorenzo {what} from register tiles")
+
+
 def test_cpu_wrappers_launch_nothing():
     """On the CPU every wrapper takes its plain version: no counter moves."""
     c, e = _field("hszx_nd")
@@ -250,6 +385,42 @@ def test_band_kernels_match_plain_on_card(scheme, block):
             _same_card(want, fused.blockmean2d(plane, meta, block, what=what))
             _same_card(want, fused.blockmean_enc2d(payload, meta, shape, block,
                                                    e.bits, what=what))
+
+
+#: the Lorenzo tiling check's planes: Ocean, ragged tiles, n1 % 4 != 0, a
+#: tile row shorter than 32 rows
+LZ_CARD_SHAPES = [(2400, 3600), (2401, 3599), (2400, 3598), (33, 129),
+                  (31, 127), (5, 4099)]
+LZ_CARD_CASES = [(s, b) for s in LZ_CARD_SHAPES for b in (1, 7, 13, 31)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,bits", LZ_CARD_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{b}bits" for s, b in LZ_CARD_CASES])
+def test_lorenzo_kernels_match_plain_on_card(shape, bits):
+    """Both Lorenzo passes, both sources and every ``what`` against their
+    plain versions: a full-range int32 plane (sums wrap) and a payload packed
+    at ``bits``."""
+    dev = _card()
+    rng = np.random.default_rng(shape[0] + bits)
+    plane = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+                            .astype(np.int32), device=dev)
+    lim = 1 << (bits - 1)
+    p = torch.as_tensor(rng.integers(-lim, lim, shape, dtype=np.int64)
+                        .astype(np.int32), device=dev)
+    words = encode.pack_uniform(encode.zigzag(p.reshape(-1)), bits)
+    tile = fused.lorenzo_tile()
+    _same_card(fused.lorenzo_edge_prefixes_plain(plane, tile),
+               fused.lorenzo_edges(plane, shape, 0, from_payload=False,
+                                   site="lorenzo2d"))
+    _same_card(fused.lorenzo_edge_prefixes_plain(p, tile),
+               fused.lorenzo_edges(words, shape, bits, from_payload=True,
+                                   site="lorenzo_enc2d"))
+    for what in fused.LORENZO_WHATS:
+        _same_card(fused.lorenzo_core(plane, what),
+                   fused.lorenzo2d(plane, what=what))
+        _same_card(fused.lorenzo_enc2d_plain(words, shape, bits, what=what),
+                   fused.lorenzo_enc2d(words, shape, bits, what=what))
 
 
 def _same_card(want, got):
