@@ -56,13 +56,14 @@
 // and writes 4 bytes per element per output plane.  Payload edge pass:
 // int32 operations (about 14 per residual: unpack, unzigzag, two sums)
 // against 0.9 bytes read per residual at 7 bits.  Design against both:
-//  - One unpack per residual per pass, from shared memory: per tile row
-//    segment a warp copies the payload words it touches (64-bit bit offsets,
-//    the n_words guard on the copy, a zero sentinel; a row cut by the
-//    plane's right edge keeps only its own bits, so no value needs a mask).
-//    Up to 16 bits a lane takes its 4 values from one 64-bit window of 3
-//    staged words (two funnel shifts), above that one funnel shift each.
-//    The plane source is copied in 16-byte pieces where n1 % 4 == 0.
+//  - One unpack per residual per pass, from shared memory: the payload
+//    words of each tile row segment are copied in 16-byte pieces, eight
+//    threads a row so that all rows' 64-bit bit offsets are computed at
+//    once (a warp walking its rows one after another spent more on that
+//    chain than on the copies: 24.6 against 17.1 us for the payload edge
+//    pass).  Up to 16 bits a lane takes its 4 values from one 64-bit window
+//    of 3 staged words (two funnel shifts), above that one funnel shift
+//    each.  The plane source is copied in 16-byte pieces where n1 % 4 == 0.
 //  - The stencil pass is held to 64 registers (4 blocks per SM): unbounded,
 //    the payload grad instantiation took 80-145 registers and 1-3 blocks
 //    per SM, and ran at 34-64 us against 33-34 us.
@@ -118,7 +119,7 @@ struct Args {
   int32_t* coledge;        // (n_rt, n1)
   uint32_t* out0;          // stencil pass: (n0, n1) planes
   uint32_t* out1;          // grad only
-  bool vin;                // plane rows are 16-byte aligned (16-byte copies)
+  bool vin;                // 16-byte copies: aligned payload, or aligned plane rows
   bool vout;               // output rows are 16-byte aligned (16-byte stores)
 };
 
@@ -141,36 +142,52 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Start copying rows i0 .. i0+NR-1, columns j0 .. j0+NC-1 of the input into R
-// (row r at R + r*LD).  Payload: the words each row segment touches, then a
-// 0 sentinel; plane: residual c at word c, 0 right of the plane.  Rows
-// outside the plane are left alone (row4 reads them as 0).  Warp w takes
-// rows w, w + 8, ...
+// (row r at R + r*LD).  Rows outside the plane are left alone (row4 reads
+// them as 0).
+//  - Payload: the words from the 16-byte boundary at or before each row
+//    segment's first bit through the last word it touches (row_base gives
+//    the segment's bit offset); words past them are never needed, as values
+//    right of the plane are masked when unpacked.  Eight threads share a
+//    row (each its 16-byte pieces), so all rows' offsets are computed at
+//    once.
+//  - Plane: residual c at word c, 0 right of the plane; warp w takes rows
+//    w, w + 8, ..., a lane 4 residuals (16 bytes where n1 % 4 == 0).
 template <bool PAYLOAD, int NR, int NC>
 __device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int jend = min(j0 + NC, a.n1);
-  for (int r = warp; r < NR; r += NWARP) {
-    const int i = i0 + r;
-    if (i >= a.n0) break;
-    uint32_t* row = R + r * LD;
-    if constexpr (PAYLOAD) {
-      const auto* words = static_cast<const uint32_t*>(a.src);
+  if constexpr (PAYLOAD) {
+    const auto* words = static_cast<const uint32_t*>(a.src);
+    const int part = threadIdx.x & 7;
+    for (int r = threadIdx.x >> 3; r < NR; r += NT / 8) {
+      const int i = i0 + r;
+      if (i >= a.n0) break;
+      uint32_t* row = R + r * LD;
       const unsigned long long k = (unsigned long long)i * (unsigned)a.n1;
       const unsigned long long first = (k + j0) * (unsigned)a.bits;
       const unsigned long long end = (k + jend) * (unsigned)a.bits;
-      const long long w0 = (long long)(first >> 5);
-      const int nw = (int)(((end - 1) >> 5) - (first >> 5)) + 1;
-      // A row cut by the plane's right edge keeps only its own bits and
-      // zeros after them, so columns right of the plane unpack as 0.
-      const bool cut = jend < j0 + NC;
-      const int tail = (int)(end & 31ull);
-      for (int q = lane; q < LD; q += 32) {
-        const bool in = q < nw && w0 + q < a.n_words;
-        if (in && !(cut && q == nw - 1 && tail)) cp_async4(row + q, words + w0 + q);
-        else if (in) row[q] = __ldg(words + w0 + q) & ((1u << tail) - 1u);
-        else if (q <= nw || cut) row[q] = 0u;
+      const long long g0 = (long long)(first >> 7) << 2;
+      const int nw = (int)((long long)((end - 1) >> 5) - g0) + 1;
+      if (a.vin) {
+        for (int q = 4 * part; q < nw; q += 32) {
+          if (g0 + q + 3 < a.n_words) {
+            cp_async16(row + q, words + g0 + q);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (g0 + q + e < a.n_words) cp_async4(row + q + e, words + g0 + q + e);
+          }
+        }
+      } else {
+        for (int q = part; q < nw; q += 8)
+          if (g0 + q < a.n_words) cp_async4(row + q, words + g0 + q);
       }
-    } else {
+    }
+  } else {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < NR; r += NWARP) {
+      const int i = i0 + r;
+      if (i >= a.n0) break;
+      uint32_t* row = R + r * LD;
       const auto* p = static_cast<const uint32_t*>(a.src) + (long long)i * a.n1;
       const int c = 4 * lane, j = j0 + c;
       if (a.vin && j + 3 < a.n1) {
@@ -192,23 +209,24 @@ __device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R
   }
 }
 
-// Bit offset of column 0 of staged row i within its first staged word.
+// Bit offset of column 0 of staged row i from its first staged word (the
+// 16-byte boundary at or before it).
 __device__ __forceinline__ int row_base(const Args& a, int i, int j0) {
-  return (int)((((unsigned)i * (unsigned)a.n1 + (unsigned)j0) * (unsigned)a.bits) & 31u);
+  return (int)((((unsigned)i * (unsigned)a.n1 + (unsigned)j0) * (unsigned)a.bits) & 127u);
 }
 
 // Residual at column c of a staged row whose column 0 starts at bit `base`
-// (0 right of the plane: the staged bits or residuals are 0 there).
+// (plane column j = j0 + c; 0 right of the plane).
 template <bool PAYLOAD>
 __device__ __forceinline__ uint32_t value_at(const Args& a, const uint32_t* row, int base,
-                                             int c) {
+                                             int c, int j) {
   if constexpr (PAYLOAD) {
     const int off = base + c * a.bits;
     const uint32_t u = __funnelshift_r(row[off >> 5], row[(off >> 5) + 1], off & 31) &
                        ((1u << a.bits) - 1u);
-    return (uint32_t)hsz::unzigzag(u);
+    return j < a.n1 ? (uint32_t)hsz::unzigzag(u) : 0u;
   } else {
-    return row[c];
+    return row[c];  // staged as 0 right of the plane
   }
 }
 
@@ -233,11 +251,14 @@ __device__ __forceinline__ void row4(const Args& a, const uint32_t* R, int i0, i
           ((unsigned long long)__funnelshift_r(w1, w2, off) << 32) | __funnelshift_r(w0, w1, off);
       const uint32_t mask = (1u << a.bits) - 1u;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[e] = (uint32_t)hsz::unzigzag((uint32_t)(x >> (e * a.bits)) & mask);
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t u = (uint32_t)(x >> (e * a.bits)) & mask;
+        v[e] = j0 + c0 + e < a.n1 ? (uint32_t)hsz::unzigzag(u) : 0u;
+      }
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = value_at<true>(a, row, off - c0 * a.bits, c0 + e);
+      for (int e = 0; e < 4; ++e)
+        v[e] = value_at<true>(a, row, off - c0 * a.bits, c0 + e, j0 + c0 + e);
     }
   } else {
     const uint4 q = *reinterpret_cast<const uint4*>(row + c0);
@@ -255,7 +276,7 @@ __device__ __forceinline__ uint32_t one(const Args& a, const uint32_t* R, int i0
   const int i = i0 + r;
   if (i >= a.n0) return 0u;
   const uint32_t* row = R + r * LD;
-  return value_at<PAYLOAD>(a, row, PAYLOAD ? row_base(a, i, j0) : 0, c);
+  return value_at<PAYLOAD>(a, row, PAYLOAD ? row_base(a, i, j0) : 0, c, j0 + c);
 }
 
 // Inclusive prefix sum across the lanes of a warp.
@@ -353,9 +374,13 @@ __global__ void __launch_bounds__(NT) lorenzo_edges_kernel(const Args a) {
 // take 32 columns of coledge: warp g sums segment g of a column's tile
 // rows (lane = column, so each load is one 128-byte row piece), the 8
 // segment totals meet in shared memory, and each warp then writes its
-// segment's prefixes starting from the totals above it.
+// segment's prefixes starting from the totals above it.  A segment is read
+// in chunks of SCHUNK loads issued together (a loop with a short runtime
+// trip count would wait for each load in turn); a segment of one chunk
+// stays in registers for the second half.
 constexpr int SCOLS = 32;            // coledge columns per block
 constexpr int SSEG = NT / SCOLS;     // segments per column
+constexpr int SCHUNK = 16;           // loads in flight per thread
 
 __global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb) {
   __shared__ uint32_t S[SSEG][SCOLS];
@@ -377,22 +402,32 @@ __global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb
   const int j = (blockIdx.x - n_rb) * SCOLS + lane;
   const int len = (a.n_rt + SSEG - 1) / SSEG;
   const int lo = min(warp * len, a.n_rt), hi = min(lo + len, a.n_rt);
+  const bool in = j < a.n1;
   int32_t* col = a.coledge + j;
+  uint32_t v[SCHUNK];
   uint32_t s = 0u;
-  if (j < a.n1) {
-#pragma unroll 16
-    for (int r = lo; r < hi; ++r) s += (uint32_t)col[(long long)r * a.n1];
+  for (int r0 = lo; r0 < hi; r0 += SCHUNK) {
+#pragma unroll
+    for (int m = 0; m < SCHUNK; ++m)
+      v[m] = in && r0 + m < hi ? (uint32_t)col[(long long)(r0 + m) * a.n1] : 0u;
+#pragma unroll
+    for (int m = 0; m < SCHUNK; ++m) s += v[m];
   }
   S[warp][lane] = s;
   __syncthreads();
-  if (j < a.n1) {
-    uint32_t run = 0u;
-    for (int g = 0; g < warp; ++g) run += S[g][lane];
-#pragma unroll 16
-    for (int r = lo; r < hi; ++r) {
-      const uint32_t v = (uint32_t)col[(long long)r * a.n1];
-      col[(long long)r * a.n1] = (int32_t)run;
-      run += v;
+  if (!in) return;
+  uint32_t run = 0u;
+  for (int g = 0; g < warp; ++g) run += S[g][lane];
+  for (int r0 = lo; r0 < hi; r0 += SCHUNK) {
+    if (hi - lo > SCHUNK) {
+#pragma unroll
+      for (int m = 0; m < SCHUNK; ++m)
+        v[m] = r0 + m < hi ? (uint32_t)col[(long long)(r0 + m) * a.n1] : 0u;
+    }
+#pragma unroll
+    for (int m = 0; m < SCHUNK; ++m) {
+      if (r0 + m < hi) col[(long long)(r0 + m) * a.n1] = (int32_t)run;
+      run += v[m];
     }
   }
 }
@@ -498,13 +533,16 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, cons
     const uint4 ce = *reinterpret_cast<const uint4*>(E + c0);
     uint32_t base[4] = {ce.x, ce.y, ce.z, ce.w};
     uint32_t basex = E[TW];
-    for (int w = 0; w < warp; ++w) {
-      const uint4 tw = *reinterpret_cast<const uint4*>(T + w * LDT + c0);
-      base[0] += tw.x;
-      base[1] += tw.y;
-      base[2] += tw.z;
-      base[3] += tw.w;
-      if (lane == 31) basex += T[w * LDT + TW];
+#pragma unroll
+    for (int w = 0; w < NWARP - 1; ++w) {
+      if (w < warp) {
+        const uint4 tw = *reinterpret_cast<const uint4*>(T + w * LDT + c0);
+        base[0] += tw.x;
+        base[1] += tw.y;
+        base[2] += tw.z;
+        base[3] += tw.w;
+        if (lane == 31) basex += T[w * LDT + TW];
+      }
     }
 #pragma unroll
     for (int k = 0; k < ROWS; ++k) {
@@ -804,7 +842,7 @@ Args make_args(int from_payload, const void* src, long long n_words, int bits, i
   a.n_rt = (n0 + TH - 1) / TH;
   a.n_ct = (n1 + TW - 1) / TW;
   a.n_tiles = a.n_rt * a.n_ct;
-  a.vin = !from_payload && (n1 & 3) == 0 && aligned16(src);
+  a.vin = aligned16(src) && (from_payload || (n1 & 3) == 0);
   return a;
 }
 
