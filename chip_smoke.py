@@ -864,8 +864,7 @@ def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
 def time_lorenzo_whats(words, bits, plane, reps: int, tag: str) -> None:
     """Detail lines: both Lorenzo wrappers (edge pass + stencil pass) for
     every ``what`` at the Ocean shape, and the stencil pass alone, as
-    ``time_blockmean_whats`` times the block-mean kernels; then both passes
-    (``what="grad"``) under each of the kernels' two schedules."""
+    ``time_blockmean_whats`` times the block-mean kernels."""
     shape = tuple(plane.shape)
     n = plane.numel()
     edges = {True: fused.lorenzo_edges(words, shape, bits, from_payload=True,
@@ -899,23 +898,6 @@ def time_lorenzo_whats(words, bits, plane, reps: int, tag: str) -> None:
                 f"us by {b_by}; fill_ of the {n_out} output plane(s) "
                 f"{fill_ms * 1e3:.1f} us; {smem} B shared memory, {regs} "
                 f"registers, {per_sm} blocks/SM)")
-    for persistent in (1, 0, 1, 0):
-        build.call("hsz_lorenzo_schedule", persistent)
-        row = []
-        for site, src, from_payload in (("lorenzo_enc2d", words, True),
-                                        ("lorenzo2d", plane, False)):
-            w_bits = bits if from_payload else 0
-            e_ms = graph_ms(lambda: fused.lorenzo_edges(
-                src, shape, w_bits, from_payload=from_payload, site=site), reps)
-            s_ms = graph_ms(lambda: fused.lorenzo_stencil(
-                src, shape, w_bits, *edges[from_payload], "grad",
-                from_payload=from_payload, site=site), reps)
-            row.append(f"{site} edges {e_ms * 1e3:.1f} us, stencil "
-                       f"{s_ms * 1e3:.1f} us")
-        say(f"[{tag}] Lorenzo schedule "
-            f"{'persistent' if persistent else 'one block per tile'} (device "
-            f"alone, grad): " + "; ".join(row))
-    build.call("hsz_lorenzo_schedule", 1)
 
 
 def query_kernels(fields, tag: str) -> dict:

@@ -36,8 +36,6 @@ SIGNATURES = {
     "hsz_unpack": (_P, _LL, _P, _LL, _I, _P),
     # &th, &tw
     "hsz_lorenzo_tile": (_P, _P),
-    # persistent
-    "hsz_lorenzo_schedule": (_I,),
     # from_payload, what (-1: edge pass), &smem_bytes, &regs, &blocks_per_sm
     "hsz_lorenzo_info": (_I, _I, _P, _P, _P),
     # from_payload, src, n_words, bits, n0, n1, rowedge, coledge, stream

@@ -67,10 +67,10 @@
 //  - The stencil pass is held to 64 registers (4 blocks per SM): unbounded,
 //    the payload grad instantiation took 80-145 registers and 1-3 blocks
 //    per SM, and ran at 34-64 us against 33-34 us.
-//  - A persistent grid (blocks per SM from the occupancy API) walks over
-//    the tiles and copies the next tile's words or residuals (and, for the
-//    stencil pass, its edges) with cp.async while it computes the current
-//    one.
+//  - The edge pass runs on a persistent grid (blocks per SM from the
+//    occupancy API) that copies the next tile's words or residuals with
+//    cp.async while it sums the current one; the stencil pass runs one
+//    block per tile, which was as fast or faster there (PERF.md, PR 14).
 //  - `what` is a template parameter (4 x 2 stencil instantiations), each
 //    doing only its own arithmetic, with 16-byte streaming stores
 //    (st.global.cs) where n1 % 4 == 0 and masked scalars at a ragged edge.
@@ -344,8 +344,11 @@ __device__ __forceinline__ void edges_tile(const Args& a, int ti, int tj, const 
   }
 }
 
+// Held to 51 registers (5 blocks per SM, as shared memory allows): the
+// payload instantiation took 58 and 4 blocks per SM otherwise, and ran at
+// 17.1-17.4 against 16.2-16.3 us (PERF.md, PR 14).
 template <bool PAYLOAD>
-__global__ void __launch_bounds__(NT) lorenzo_edges_kernel(const Args a) {
+__global__ void __launch_bounds__(NT, 5) lorenzo_edges_kernel(const Args a) {
   __shared__ __align__(16) uint32_t R[2][TH * LD];
   __shared__ __align__(16) uint32_t T[NWARP * LDT];
   int ti, tj;
@@ -596,36 +599,24 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, cons
   }
 }
 
-// Staged input of one tile: rows 0..32 (the next row too), columns 0..128.
-constexpr int STAGE = (TH + 1) * LD;
-
+// One block per tile: the tile's input (rows 0..32, the next row too;
+// columns 0..128, the next column too) and its edges, then D0, D1 and the
+// planes.  (A persistent grid that copies the next tile during this one was
+// 1-2 us slower on the card; PERF.md, PR 14.)
 template <bool PAYLOAD, int WHAT>
 __global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
-  __shared__ __align__(16) uint32_t R[2][STAGE];
-  __shared__ __align__(16) uint32_t E[2][EW];
+  __shared__ __align__(16) uint32_t R[(TH + 1) * LD];
+  __shared__ __align__(16) uint32_t E[EW];
   __shared__ __align__(16) uint32_t T[NWARP * LDT];
   __shared__ __align__(16) uint32_t H[(NWARP + 1) * TW];
-  {
-    const int tile = blockIdx.x;  // the grid has at most one block a tile
-    const int ti = tile / a.n_ct, tj = tile - ti * a.n_ct;
-    fetch<PAYLOAD, TH + 1, TW + 1>(a, ti * TH, tj * TW, R[0]);
-    fetch_edges(a, ti, tj, E[0]);
-    cp_async_commit();
-  }
-  int buf = 0;
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();
-    const int next = tile + gridDim.x;
-    if (next < a.n_tiles) {
-      const int ni = next / a.n_ct, nj = next - ni * a.n_ct;
-      fetch<PAYLOAD, TH + 1, TW + 1>(a, ni * TH, nj * TW, R[buf ^ 1]);
-      fetch_edges(a, ni, nj, E[buf ^ 1]);
-    }
-    cp_async_commit();
-    const int ti = tile / a.n_ct, tj = tile - ti * a.n_ct;
-    stencil_tile<PAYLOAD, WHAT>(a, ti, tj, R[buf], E[buf], T, H);
-  }
+  int ti, tj;
+  tile_of(a, blockIdx.x, ti, tj);
+  fetch<PAYLOAD, TH + 1, TW + 1>(a, ti * TH, tj * TW, R);
+  fetch_edges(a, ti, tj, E);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  stencil_tile<PAYLOAD, WHAT>(a, ti, tj, R, E, T, H);
 }
 
 // ---------------------------------------------------------------------------
@@ -784,26 +775,17 @@ const Config& stencil_config(int what) {
   }
 }
 
-// 1: a persistent grid (as many blocks as can be resident, at most one a
-// tile); 0: one block per tile.
-int g_persistent = 1;
-
-// Blocks to launch for n_tiles tiles.
-int grid_of(const Config& c, int n_tiles, int& grid) {
+// The edge sums on a persistent grid (as many blocks as can be resident, at
+// most one a tile), then their prefixes.
+template <bool PAYLOAD>
+int launch_edges(const Args& a, cudaStream_t s) {
+  const Config& c = edges_config<PAYLOAD>();
   if (c.err != cudaSuccess) return (int)c.err;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  grid = g_persistent ? min(n_tiles, sms * max(c.per_sm, 1)) : n_tiles;
-  return 0;
-}
-
-// The edge sums, then their prefixes.
-template <bool PAYLOAD>
-int launch_edges(const Args& a, cudaStream_t s) {
-  int grid = 0;
-  if (int err = grid_of(edges_config<PAYLOAD>(), a.n_tiles, grid)) return err;
+  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
   lorenzo_edges_kernel<PAYLOAD><<<grid, NT, 0, s>>>(a);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   const int n_rb = (a.n0 + NWARP - 1) / NWARP, n_cb = (a.n1 + SCOLS - 1) / SCOLS;
@@ -813,9 +795,7 @@ int launch_edges(const Args& a, cudaStream_t s) {
 
 template <bool PAYLOAD, int WHAT>
 int launch_stencil(const Args& a, cudaStream_t s) {
-  int grid = 0;
-  if (int err = grid_of(stencil_config<PAYLOAD, WHAT>(), a.n_tiles, grid)) return err;
-  lorenzo_stencil_kernel<PAYLOAD, WHAT><<<grid, NT, 0, s>>>(a);
+  lorenzo_stencil_kernel<PAYLOAD, WHAT><<<a.n_tiles, NT, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -858,13 +838,6 @@ bool bad_shape(int from_payload, int bits, int n0, int n1) {
 extern "C" int hsz_lorenzo_tile(int* th, int* tw) {
   *th = TH;
   *tw = TW;
-  return 0;
-}
-
-// Schedule of both passes: 1 a persistent grid (the default), 0 one block
-// per tile.
-extern "C" int hsz_lorenzo_schedule(int persistent) {
-  g_persistent = persistent != 0;
   return 0;
 }
 
