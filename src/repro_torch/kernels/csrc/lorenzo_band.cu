@@ -32,9 +32,8 @@
 //    their segment's prefixes.  No torch op and no host work sits between
 //    the three kernels of a query.  (Letting the last tile of each tile
 //    row and column do the scans inside the edge kernel, after an arrival
-//    counter, took 26-51 us instead of 14-26 us on the card: the fence and
-//    atomics stall every tile and the last column's scan runs in the tail;
-//    PERF.md, PR 14.)
+//    counter, was slower on the card: the fence and atomics stall every
+//    tile and the last column's scan runs in the tail.)
 //  - The stencil pass rebuilds D0 and D1 of its tile (plus the next row for
 //    D0 and the next column for D1) from the edges and writes the planes.
 //
@@ -59,18 +58,18 @@
 //  - One unpack per residual per pass, from shared memory: the payload
 //    words of each tile row segment are copied in 16-byte pieces, eight
 //    threads a row so that all rows' 64-bit bit offsets are computed at
-//    once (a warp walking its rows one after another spent more on that
-//    chain than on the copies: 24.6 against 17.1 us for the payload edge
-//    pass).  Up to 16 bits a lane takes its 4 values from one 64-bit window
-//    of 3 staged words (two funnel shifts), above that one funnel shift
-//    each.  The plane source is copied in 16-byte pieces where n1 % 4 == 0.
-//  - The stencil pass is held to 64 registers (4 blocks per SM): unbounded,
-//    the payload grad instantiation took 80-145 registers and 1-3 blocks
-//    per SM, and ran at 34-64 us against 33-34 us.
+//    once (a warp walking its rows one after another spent more time on
+//    that chain than on the copies).  Up to 16 bits a lane takes its 4
+//    values from one 64-bit window of 3 staged words (two funnel shifts),
+//    above that one funnel shift each.  The plane source is copied in
+//    16-byte pieces where n1 % 4 == 0.
+//  - The stencil pass is held to 64 registers so that 4 blocks fit per SM
+//    (unbounded, the payload grad instantiation took up to twice as many
+//    and fitted 1-3).
 //  - The edge pass runs on a persistent grid (blocks per SM from the
 //    occupancy API) that copies the next tile's words or residuals with
 //    cp.async while it sums the current one; the stencil pass runs one
-//    block per tile, which was as fast or faster there (PERF.md, PR 14).
+//    block per tile, which was as fast or faster there (PERF.md).
 //  - `what` is a template parameter (4 x 2 stencil instantiations), each
 //    doing only its own arithmetic, with 16-byte streaming stores
 //    (st.global.cs) where n1 % 4 == 0 and masked scalars at a ragged edge.
@@ -90,7 +89,6 @@
 // pass), 4n bytes each.
 #include "common.cuh"
 
-
 namespace {
 
 constexpr int TH = 32;                 // tile rows
@@ -104,7 +102,7 @@ constexpr int EW = 168;                // staged edges: coledge at 0, rowedge at
 constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(ROWS == 4 && TW == 4 * 32 && NT == 2 * TW, "one 4 x 4 block a thread");
-static_assert(LD >= 128, "a payload row of 129 values needs 127 words and a sentinel");
+static_assert(LD >= 132, "129 values at 31 bits span 129 words from a 16-byte boundary");
 static_assert(EW >= 132 + TH + 1, "edge staging");
 
 enum What { DERIV0 = 0, DERIV1 = 1, GRAD = 2, LAP = 3 };
@@ -344,9 +342,8 @@ __device__ __forceinline__ void edges_tile(const Args& a, int ti, int tj, const 
   }
 }
 
-// Held to 51 registers (5 blocks per SM, as shared memory allows): the
-// payload instantiation took 58 and 4 blocks per SM otherwise, and ran at
-// 17.1-17.4 against 16.2-16.3 us (PERF.md, PR 14).
+// Held to 51 registers so that the 5 blocks per SM that shared memory
+// allows fit (unbounded, the payload instantiation took 58 and fitted 4).
 template <bool PAYLOAD>
 __global__ void __launch_bounds__(NT, 5) lorenzo_edges_kernel(const Args a) {
   __shared__ __align__(16) uint32_t R[2][TH * LD];
@@ -602,7 +599,7 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, cons
 // One block per tile: the tile's input (rows 0..32, the next row too;
 // columns 0..128, the next column too) and its edges, then D0, D1 and the
 // planes.  (A persistent grid that copies the next tile during this one was
-// 1-2 us slower on the card; PERF.md, PR 14.)
+// no faster on the card; PERF.md.)
 template <bool PAYLOAD, int WHAT>
 __global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
   __shared__ __align__(16) uint32_t R[(TH + 1) * LD];
