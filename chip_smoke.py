@@ -31,15 +31,13 @@ Phases (any failure raises, so the exit code is non-zero):
    at widths 1, 7, 13, 31 over six shapes (ragged tiles, n1 % 4 != 0, a
    tile row shorter than 32 rows), both passes and every ``what``;
 6. times: each kernel with CUDA events, as device time alone (a CUDA graph
-   of the calls) and as host enqueue per call, its plain version, the bound
-   (bytes over 3.35 TB/s or int32 / f32 operations over the card's lane
-   rates, the larger), launches per query, the device kernels of a Lorenzo
+   of the calls, taking turns over copies of the inputs so that they come
+   from device memory, not the L2) and as host enqueue per call, its plain
+   version, the bound (bytes over 3.35 TB/s or the operations the function
+   needs over the card's int32 / f32 lane rates, the larger), launches per
+   query, the device kernels of a Lorenzo
    gradient query from a ``torch.profiler`` trace, and end-to-end ms per
    query; detail lines time the band kernels for every ``what``.
-
-``--ab DIR`` also times the band wrappers and passes of the checkout at DIR
-(its ``src/repro_torch``, built from its own sources) beside this one's, in
-turns on the same inputs.
 
 Launch counters are reset just before each path (entry point, main path)
 and read just after it: each path must launch every kernel site it runs,
@@ -53,8 +51,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import importlib
-import importlib.util
 import json
 import pathlib
 import re
@@ -83,7 +79,8 @@ HBM_BYTES_PER_S = 3.35e12
 #: paper): 64 INT32, 128 FP32.  With the SM count and the card's maximum SM
 #: clock they give the operation rates the bounds use (``card_rates``).
 INT32_LANES, FP32_LANES = 64, 128
-#: "int32" / "f32" operations per second of this card, set by ``card_rates``
+#: "int32" / "f32" operations per second of this card and its L2 bytes, set
+#: by ``card_rates``
 RATES: dict[str, float] = {}
 
 DEVICE = "cuda"
@@ -653,15 +650,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int) -> float:
-    """ms per call of the device work alone: ``reps`` calls captured in one
-    CUDA graph and replayed, so no host dispatch sits between launches."""
-    fn()
+def graph_ms(fn, reps: int, args: tuple = (), *, cold: bool = True) -> float:
+    """ms per call of the device work alone: ``reps`` calls of ``fn(*args)``
+    captured in one CUDA graph and replayed, so no host dispatch sits
+    between launches.  With ``cold`` the calls take turns over copies of the
+    tensors in ``args``, so many that the copies read between two reads of
+    one copy exceed twice the L2: each call reads its inputs from device
+    memory, as a query does (one 35 MB plane replayed would stay in the
+    H100's 50 MB L2)."""
+    sets = [args]
+    in_bytes = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
+    if cold and in_bytes:
+        k = min(reps, 1 + -(-2 * RATES["l2_bytes"] // in_bytes))
+        sets += [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                       for a in args) for _ in range(k - 1)]
+    fn(*args)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for r in range(reps):
+            fn(*sets[r % len(sets)])
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -687,15 +696,16 @@ def enqueue_ms(fn, reps: int) -> float:
 
 def card_rates() -> dict[str, float]:
     """int32 and f32 operations per second of card 0: lanes per SM x SMs x
-    the maximum SM clock that ``nvidia-smi`` reports."""
+    the maximum SM clock that ``nvidia-smi`` reports; and its L2 bytes."""
     out = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60)
     hz = float(out.stdout.strip()) * 1e6
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
     return {"int32": INT32_LANES * sms * hz, "f32": FP32_LANES * sms * hz,
-            "sms": sms, "clock_hz": hz}
+            "sms": sms, "clock_hz": hz, "l2_bytes": props.L2_cache_size}
 
 
 def bound_ms(n_bytes: int, int_ops: int, f32_ops: int = 0) -> tuple[float, str]:
@@ -736,82 +746,96 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     m = (n0 - 2) * (n1 - 2)
     ps_rowedge, ps_top = prefix_stats.tile_edges(*fused.lorenzo_edges(
         p, shape, 0, from_payload=False, site="prefix_stats2d"))
+    # Operations are those the function needs per element, not what an
+    # implementation adds (64-bit bit offsets, edge masks, index math):
+    # taking a value out of staged payload words is a shift and a mask (2;
+    # the funnel shifts that build a 64-bit window serve several values);
+    # unzigzag (z >> 1) ^ -(z & 1) is a shift, the low bit sign-extended
+    # (one bfe.s32) and an xor (3); a prefix or a sum adds 1 per element.
+    # Integer operations run on the int32 lanes.
     plans = {
-        # name: (kernel, plain version, bytes, int32 operations[, f32
-        # operations])
-        "unpack": (
-            lambda: bitpack.unpack(lz_words, n, lz_bits),
+        # name: (kernel, its tensor arguments, plain version, bytes, int32
+        # operations[, f32 operations])
+        "unpack": (  # take out: 2
+            lambda w: bitpack.unpack(w, n, lz_bits), (lz_words,),
             lambda: bitpack.unpack_plain(lz_words, n, lz_bits),
-            pay(e_lz) + 4 * n, 10 * n),
-        "lorenzo_enc2d.edges": (
-            lambda: fused.lorenzo_edges(lz_words, shape, lz_bits,
-                                        from_payload=True, site="lorenzo_enc2d"),
+            pay(e_lz) + 4 * n, 2 * n),
+        "lorenzo_enc2d.edges": (  # take out 2, unzigzag 3, row and column sums 2
+            lambda w: fused.lorenzo_edges(w, shape, lz_bits, from_payload=True,
+                                          site="lorenzo_enc2d"), (lz_words,),
             lambda: fused.lorenzo_edge_prefixes_plain(encode.unzigzag(
                 bitpack.unpack_plain(lz_words, n, lz_bits)).reshape(shape),
                 (th, tw)),
-            pay(e_lz) + edge_bytes, 14 * n),
-        "lorenzo_enc2d.stencil": (
-            lambda: fused.lorenzo_stencil(lz_words, shape, lz_bits, rowedge,
-                                          coledge, "grad", from_payload=True,
-                                          site="lorenzo_enc2d"),
+            pay(e_lz) + edge_bytes, 7 * n),
+        "lorenzo_enc2d.stencil": (  # take out 2, unzigzag 3, D0 and D1 2,
+            # deriv0 and deriv1 2
+            lambda w, r, c: fused.lorenzo_stencil(
+                w, shape, lz_bits, r, c, "grad", from_payload=True,
+                site="lorenzo_enc2d"), (lz_words, rowedge, coledge),
             lambda: fused.lorenzo_enc2d_plain(lz_words, shape, lz_bits,
                                               what="grad"),
-            pay(e_lz) + edge_bytes + 8 * n, 18 * n),
-        "blockmean_enc2d": (
-            lambda: fused.blockmean_enc2d(bm_words, meta, shape, BLOCK,
-                                          bm_bits, what="grad"),
+            pay(e_lz) + edge_bytes + 8 * n, 9 * n),
+        "blockmean_enc2d": (  # take out 2, unzigzag 3, two differences of p
+            # and of the means and their sums 6
+            lambda w, m: fused.blockmean_enc2d(w, m, shape, BLOCK, bm_bits,
+                                               what="grad"), (bm_words, meta),
             lambda: fused.blockmean_enc2d_plain(bm_words, meta, shape, BLOCK,
                                                 bm_bits, what="grad"),
-            pay(e_bm) + meta_bytes + 8 * n, 40 * n),
-        "lorenzo2d.edges": (
-            lambda: fused.lorenzo_edges(lz_plane, shape, 0,
-                                        from_payload=False, site="lorenzo2d"),
+            pay(e_bm) + meta_bytes + 8 * n, 11 * n),
+        "lorenzo2d.edges": (  # row and column sums 2
+            lambda x: fused.lorenzo_edges(x, shape, 0, from_payload=False,
+                                          site="lorenzo2d"), (lz_plane,),
             lambda: fused.lorenzo_edge_prefixes_plain(lz_plane, (th, tw)),
             4 * n + edge_bytes, 2 * n),
-        "lorenzo2d.stencil": (
-            lambda: fused.lorenzo_stencil(lz_plane, shape, 0, rowedge, coledge,
-                                          "grad", from_payload=False,
-                                          site="lorenzo2d"),
+        "lorenzo2d.stencil": (  # D0 and D1 2, deriv0 and deriv1 2
+            lambda x, r, c: fused.lorenzo_stencil(
+                x, shape, 0, r, c, "grad", from_payload=False,
+                site="lorenzo2d"), (lz_plane, rowedge, coledge),
             lambda: fused.lorenzo_core(lz_plane, "grad"),
-            4 * n + edge_bytes + 8 * n, 6 * n),
-        "blockmean2d": (
-            lambda: fused.blockmean2d(bm_plane, meta, BLOCK, what="grad"),
+            4 * n + edge_bytes + 8 * n, 4 * n),
+        "blockmean2d": (  # two differences of p and of the means, sums 6
+            lambda x, m: fused.blockmean2d(x, m, BLOCK, what="grad"),
+            (bm_plane, meta),
             lambda: fused.blockmean_core(bm_plane, meta, BLOCK, "grad"),
-            4 * n + meta_bytes + 8 * n, 12 * n),
-        "pack": (
-            lambda: K.pack(z, bits),
+            4 * n + meta_bytes + 8 * n, 6 * n),
+        "pack": (  # mask, shift into place, or into the word 3
+            lambda v: K.pack(v, bits), (z,),
             lambda: bitpack.pack_plain(z, bits),
-            4 * n + 4 * encode.words_for(n, bits), 6 * n),
-        "quant_lorenzo2d": (
-            lambda: quant_lorenzo.quant_lorenzo_kernel(x, inv),
+            4 * n + 4 * encode.words_for(n, bits), 3 * n),
+        "quant_lorenzo2d": (  # q - q_up - q_left + q_upleft 3; f32 multiply
+            # and round-to-int 2
+            quant_lorenzo.quant_lorenzo_kernel, (x, inv),
             lambda: quant_lorenzo.quant_lorenzo2d_plain(x, eps),
-            4 * n + 4 + 4 * n, 8 * n, 3 * n),
-        "block_stats": (
-            lambda: K.block_stats(blocked),
+            4 * n + 4 + 4 * n, 3 * n, 2 * n),
+        "block_stats": (  # sum 1, zigzag 3, unsigned max 1
+            K.block_stats, (blocked,),
             lambda: ref.block_stats(blocked),
-            4 * nb * s_len + 8 * nb, 6 * nb * s_len),
-        "grad2d": (
-            lambda: stencil_dq.grad2d_int(q),
+            4 * nb * s_len + 8 * nb, 5 * nb * s_len),
+        "grad2d": (  # two differences
+            stencil_dq.grad2d_int, (q,),
             lambda: stencil_dq.grad2d_int_plain(q),
             4 * n + 8 * m, 2 * m),
-        "laplacian2d": (
-            lambda: stencil_dq.laplacian2d_int(q),
+        "laplacian2d": (  # three sums, 4q as a shift, one difference
+            stencil_dq.laplacian2d_int, (q,),
             lambda: stencil_dq.laplacian2d_int_plain(q),
             4 * n + 4 * m, 5 * m),
-        "prefix_stats2d.edges": (
-            lambda: fused.lorenzo_edges(p, shape, 0, from_payload=False,
-                                        site="prefix_stats2d"),
+        "prefix_stats2d.edges": (  # row and column sums 2
+            lambda v: fused.lorenzo_edges(v, shape, 0, from_payload=False,
+                                          site="prefix_stats2d"), (p,),
             lambda: fused.lorenzo_edge_prefixes_plain(p, (th, tw)),
             4 * n + edge_bytes, 2 * n),
-        "prefix_stats2d.stats": (
-            lambda: prefix_stats.prefix_stats_tiles(p, ps_rowedge, ps_top),
+        "prefix_stats2d.stats": (  # q from two prefixes 2; f32 cast, q², two
+            # sums 4
+            prefix_stats.prefix_stats_tiles, (p, ps_rowedge, ps_top),
             lambda: prefix_stats.prefix_stats2d_plain(p),
-            4 * n + edge_bytes + 8, 6 * n),
+            4 * n + edge_bytes + 8, 2 * n, 4 * n),
     }
     out = {}
-    for name, (kernel, plain, n_bytes, *n_ops) in plans.items():
+    for name, (fn, args, plain, n_bytes, *n_ops) in plans.items():
+        kernel = functools.partial(fn, *args)
         k_ms = cuda_ms(kernel, reps)
-        g_ms = graph_ms(kernel, reps)
+        g_ms = graph_ms(fn, reps, args)
+        w_ms = graph_ms(fn, reps, args, cold=False)
         h_ms = enqueue_ms(kernel, reps)
         p_ms = cuda_ms(plain, max(5, reps // 5))
         b_ms, b_by = bound_ms(n_bytes, *n_ops)
@@ -819,10 +843,10 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "bytes": n_bytes}
         say(f"[{tag}] {name}: {k_ms * 1e3:.1f} us by events, device alone "
-            f"{g_ms * 1e3:.1f} us, enqueue {h_ms * 1e3:.1f} us (plain "
-            f"{p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by {b_by}, "
-            f"{n_bytes / 1e6:.1f} MB, {n_bytes / (g_ms * 1e-3) / 1e9:.0f} GB/s "
-            f"device alone)")
+            f"{g_ms * 1e3:.1f} us (L2-warm {w_ms * 1e3:.1f} us), enqueue "
+            f"{h_ms * 1e3:.1f} us (plain {p_ms * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.1f} us by {b_by}, {n_bytes / 1e6:.1f} MB, "
+            f"{n_bytes / (g_ms * 1e-3) / 1e9:.0f} GB/s device alone)")
     time_blockmean_whats(bm_words, bm_bits, bm_plane, meta, reps, tag)
     time_lorenzo_whats(lz_words, lz_bits, lz_plane, reps, tag)
     return out
@@ -842,13 +866,13 @@ def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
         fill_ms = cuda_ms(lambda: fill.fill_(1), reps)
         for site, src, from_payload, kernel in (
                 ("blockmean_enc2d", words, True,
-                 lambda: fused.blockmean_enc2d(words, meta, shape, BLOCK, bits,
-                                               what=what)),
+                 lambda w, m: fused.blockmean_enc2d(w, m, shape, BLOCK, bits,
+                                                    what=what)),
                 ("blockmean2d", plane, False,
-                 lambda: fused.blockmean2d(plane, meta, BLOCK, what=what))):
-            k_ms = cuda_ms(kernel, reps)
-            g_ms = graph_ms(kernel, reps)
-            h_ms = enqueue_ms(kernel, reps)
+                 lambda x, m: fused.blockmean2d(x, m, BLOCK, what=what))):
+            k_ms = cuda_ms(lambda: kernel(src, meta), reps)
+            g_ms = graph_ms(kernel, reps, (src, meta))
+            h_ms = enqueue_ms(lambda: kernel(src, meta), reps)
             n_bytes = (4 * src.numel() + 4 * meta.numel() + 4 * n * n_out)
             b_ms, _ = bound_ms(n_bytes, 0)
             smem, per_sm = fused.blockmean_launch_config(from_payload, what)
@@ -859,6 +883,12 @@ def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
                 f"{b_ms * 1e3:.1f} us; fill_ of the {n_out} output plane(s) "
                 f"{fill_ms * 1e3:.1f} us; {smem} B shared memory, {per_sm} "
                 f"blocks/SM)")
+
+
+#: int32 operations per element of the Lorenzo stencil pass for each what
+#: from the residuals: prefixes D0 / D1 1 each, then a sum (deriv0,
+#: deriv1), two sums (grad) or two differences and a sum (lap)
+LZ_OPS = {"deriv0": 2, "deriv1": 2, "grad": 4, "lap": 5}
 
 
 def time_lorenzo_whats(words, bits, plane, reps: int, tag: str) -> None:
@@ -877,20 +907,24 @@ def time_lorenzo_whats(words, bits, plane, reps: int, tag: str) -> None:
         fill_ms = cuda_ms(lambda: fill.fill_(1), reps)
         for site, src, from_payload, wrapper in (
                 ("lorenzo_enc2d", words, True,
-                 lambda: fused.lorenzo_enc2d(words, shape, bits, what=what)),
+                 lambda w: fused.lorenzo_enc2d(w, shape, bits, what=what)),
                 ("lorenzo2d", plane, False,
-                 lambda: fused.lorenzo2d(plane, what=what))):
+                 lambda x: fused.lorenzo2d(x, what=what))):
             w_bits = bits if from_payload else 0
-            stencil = functools.partial(
-                fused.lorenzo_stencil, src, shape, w_bits, *edges[from_payload],
-                what, from_payload=from_payload, site=site)
-            k_ms = cuda_ms(wrapper, reps)
-            g_ms = graph_ms(wrapper, reps)
-            h_ms = enqueue_ms(wrapper, reps)
-            s_ms = graph_ms(stencil, reps)
+
+            def stencil(x, r, c):
+                return fused.lorenzo_stencil(x, shape, w_bits, r, c, what,
+                                             from_payload=from_payload,
+                                             site=site)
+
+            k_ms = cuda_ms(lambda: wrapper(src), reps)
+            g_ms = graph_ms(wrapper, reps, (src,))
+            h_ms = enqueue_ms(lambda: wrapper(src), reps)
+            s_ms = graph_ms(stencil, reps, (src, *edges[from_payload]))
             edge_bytes = 4 * sum(e.numel() for e in edges[from_payload])
+            # take out and unzigzag 5 (payload), then as in time_kernels
             b_ms, b_by = bound_ms(4 * src.numel() + edge_bytes + 4 * n * n_out,
-                                  (18 if from_payload else 6) * n)
+                                  (5 * from_payload + LZ_OPS[what]) * n)
             smem, regs, per_sm = fused.lorenzo_launch_config(from_payload, what)
             say(f"[{tag}] {site} {what}: wrapper {k_ms * 1e3:.1f} us by events, "
                 f"device alone {g_ms * 1e3:.1f} us, enqueue {h_ms * 1e3:.1f} us; "
@@ -937,75 +971,6 @@ def query_kernels(fields, tag: str) -> dict:
                 f"{k} {e.device_time:.1f} us" for k, e in
                 zip(names[ours:], events[ours:])) + ")")
     return out
-
-
-def load_fused(checkout: pathlib.Path):
-    """``kernels.fused`` of the ``repro_torch`` package of another checkout,
-    imported under another name (the package imports itself relatively) and
-    built from that checkout's own sources into its own ``build/``."""
-    pkg = checkout.resolve() / "src" / "repro_torch"
-    spec = importlib.util.spec_from_file_location(
-        "ab_repro_torch", pkg / "__init__.py",
-        submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["ab_repro_torch"] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module("ab_repro_torch.kernels.fused")
-
-
-def time_ab(checkout: pathlib.Path, cont: dict, reps: int, tag: str) -> None:
-    """The band wrappers and the Lorenzo passes (``what="grad"``) of the
-    checkout at ``checkout`` ("other") and of this one, in turns (other,
-    this, this, other) on the same Ocean inputs: device time alone, CUDA
-    events and host enqueue per call."""
-    other = load_fused(checkout)
-    c_lz, e_lz = cont["hszp_nd"]
-    c_bm, e_bm = cont["hszx_nd"]
-    shape = tuple(c_lz.padded_shape)
-
-    def calls(fk):
-        def edges(src, bits, from_payload, site):
-            got = fk.lorenzo_edges(src, shape, bits, from_payload=from_payload,
-                                   site=site)
-            if hasattr(fk, "lorenzo_edge_prefixes_plain"):
-                return got
-            return fk.exclusive_prefix(got[0], 1), fk.exclusive_prefix(got[1], 0)
-
-        e_pay = edges(e_lz.payload, e_lz.bits, True, "lorenzo_enc2d")
-        e_pln = edges(c_lz.residuals, 0, False, "lorenzo2d")
-        return {
-            "lorenzo_enc2d": lambda: fk.lorenzo_enc2d(
-                e_lz.payload, shape, e_lz.bits, what="grad"),
-            "lorenzo_enc2d.edges": lambda: edges(
-                e_lz.payload, e_lz.bits, True, "lorenzo_enc2d"),
-            "lorenzo_enc2d.stencil": lambda: fk.lorenzo_stencil(
-                e_lz.payload, shape, e_lz.bits, *e_pay, "grad",
-                from_payload=True, site="lorenzo_enc2d"),
-            "lorenzo2d": lambda: fk.lorenzo2d(c_lz.residuals, what="grad"),
-            "lorenzo2d.edges": lambda: edges(c_lz.residuals, 0, False,
-                                             "lorenzo2d"),
-            "lorenzo2d.stencil": lambda: fk.lorenzo_stencil(
-                c_lz.residuals, shape, 0, *e_pln, "grad", from_payload=False,
-                site="lorenzo2d"),
-            "blockmean_enc2d": lambda: fk.blockmean_enc2d(
-                e_bm.payload, c_bm.metadata, shape, BLOCK, e_bm.bits,
-                what="grad"),
-            "blockmean2d": lambda: fk.blockmean2d(c_bm.residuals, c_bm.metadata,
-                                                  BLOCK, what="grad"),
-        }
-
-    trees = {"other": calls(other), "this": calls(fused)}
-    times = {name: {"this": [], "other": []} for name in trees["this"]}
-    for who in ("other", "this", "this", "other"):
-        for name, fn in trees[who].items():
-            times[name][who].append((graph_ms(fn, reps), cuda_ms(fn, reps),
-                                     enqueue_ms(fn, reps)))
-    for name, t in times.items():
-        say(f"[{tag}] A/B {name} (grad): " + "; ".join(
-            f"{who} device alone " + " / ".join(f"{g * 1e3:.1f}" for g, _, _ in t[who])
-            + " us, events " + " / ".join(f"{e * 1e3:.1f}" for _, e, _ in t[who])
-            + " us, enqueue " + " / ".join(f"{h * 1e3:.1f}" for _, _, h in t[who])
-            + " us" for who in ("other", "this")))
 
 
 PER_QUERY = {
@@ -1167,9 +1132,6 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the synthetic Ocean fields")
-    ap.add_argument("--ab", type=pathlib.Path, default=None, metavar="DIR",
-                    help="also time the band kernels of the checkout at DIR "
-                         "beside this one's")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1192,7 +1154,8 @@ def main() -> None:
     say(f"int32 {RATES['int32'] / 1e12:.2f} Tops/s, f32 "
         f"{RATES['f32'] / 1e12:.2f} Tops/s ({INT32_LANES} / {FP32_LANES} lanes "
         f"x {RATES['sms']} SMs x {RATES['clock_hz'] / 1e6:.0f} MHz max SM "
-        f"clock); memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        f"clock); memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s; L2 "
+        f"{RATES['l2_bytes'] / 2 ** 20:.0f} MiB")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1248,8 +1211,6 @@ def main() -> None:
     per_query.update(per_call_launches(entry, tag))
     query_kernels(fields, tag)
     time_queries(fields, tag)
-    if args.ab is not None:
-        time_ab(args.ab, cont, REPS, tag)
 
     kernels = []
     for name, (source, replaces) in SITES.items():

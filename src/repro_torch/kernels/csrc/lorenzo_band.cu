@@ -53,8 +53,10 @@
 // Bound on Hopper.  Stencil pass: bytes; it reads the payload (n*bits/8
 // bytes) or the residual plane (4n bytes) once plus the small edge arrays,
 // and writes 4 bytes per element per output plane.  Payload edge pass:
-// int32 operations (about 14 per residual: unpack, unzigzag, two sums)
-// against 0.9 bytes read per residual at 7 bits.  Design against both:
+// int32 operations, 7 per residual that the function needs (a shift and a
+// mask to take it out, three to unzigzag, a row and a column sum; the
+// 64-bit offsets and edge masks come on top), against 0.9 bytes read per
+// residual at 7 bits.  Design against both:
 //  - One unpack per residual per pass, from shared memory: the payload
 //    words of each tile row segment are copied in 16-byte pieces, eight
 //    threads a row so that all rows' 64-bit bit offsets are computed at

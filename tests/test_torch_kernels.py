@@ -168,19 +168,27 @@ def test_lorenzo_tile_edges_compose_to_prefixes(tile):
 #: columns) at ragged tiles, a plane shorter than one tile row, and small
 #: tilings with odd counts
 LZ_TILINGS = {(8, 4, 32, 4): [(70, 300), (5, 300), (33, 129)],
-              (3, 2, 4, 3): [(45, 37)], (2, 4, 5, 2): [(23, 41)]}
+              (3, 2, 4, 3): [(45, 37), (100, 37)],
+              (2, 4, 5, 2): [(23, 41), (23, 341)]}
 LZ_TILING_CASES = [(t, s) for t, shapes in LZ_TILINGS.items() for s in shapes]
+#: column segments of the edge scan kernel (256 threads / 32 columns a
+#: block); at 17 tile rows (100 x 37 above) segments of 3 rows leave the
+#: last two empty, and 35 tile columns (23 x 341) take two row-scan steps
+SCAN_SEGMENTS = 8
 
 
 def _lorenzo_tiles_emulated(p: torch.Tensor, tiling):
     """The Hopper Lorenzo kernels' decomposition written with torch ops
     (int64 sums, read modulo 2**32 at the end): the edge pass's per-thread
-    4 x 4 sums, warp reductions and cross-warp column sums; the last-tile
-    scans that turn them into edge prefixes (rows 32 tiles a step with a
-    carry, columns in two halves); and the stencil pass's in-thread
-    prefixes, lane scans, cross-warp column scan and halo row and column.
-    Returns the edges and, per tile, D0 with its next row and D1 with its
-    next column."""
+    4 x 4 sums, warp reductions and cross-warp column sums (two threads a
+    column, each over half the warps); the edge scan kernel that turns them
+    into edge prefixes (a warp per row of row sums, 32 tile columns a step
+    with a carry; per column of column sums, ``SCAN_SEGMENTS`` segments of
+    ceil(n_rt / SCAN_SEGMENTS) tile rows, each started from the totals of
+    the segments before it); and the stencil pass's in-thread prefixes,
+    lane scans, cross-warp column scan and halo row and column.  Returns
+    the edges and, per tile, D0 with its next row and D1 with its next
+    column."""
     W, R, L, C = tiling
     th, tw = W * R, L * C
     n0, n1 = p.shape
@@ -199,18 +207,27 @@ def _lorenzo_tiles_emulated(p: torch.Tensor, tiling):
             r1, c1 = min(th, n0 - i0), min(tw, n1 - j0)
             rowsum[i0:i0 + r1, tj] = rows[:r1]
             colsum[ti, j0:j0 + c1] = cols[:c1]
-    # the last tile of each tile row: 32 tiles a step, carried
+    # edge scan, row sums: per row, a lane's inclusive scan over 32 tile
+    # columns less its own value plus the carry of the steps before
     rowedge = torch.zeros_like(rowsum)
+    carry = torch.zeros((n0, 1), dtype=torch.int64)
     for c0 in range(0, n_ct, 32):
         step = rowsum[:, c0:c0 + 32]
-        carry = rowsum[:, :c0].sum(1, keepdim=True)
         rowedge[:, c0:c0 + 32] = carry + torch.cumsum(step, 1) - step
-    # the last tile of each tile column: two halves, the first's total
-    # starting the second
-    mid = (n_rt + 1) // 2
-    coledge = torch.cumsum(colsum, 0) - colsum
-    coledge[mid:] = (colsum[:mid].sum(0) + torch.cumsum(colsum[mid:], 0)
-                     - colsum[mid:])
+        carry = carry + step.sum(1, keepdim=True)
+    # edge scan, column sums: segment g holds tile rows [lo, hi) with
+    # lo = min(g * seg, n_rt), hi = min(lo + seg, n_rt); each sums its rows,
+    # then runs down them from the sums of the segments before it
+    seg = -(-n_rt // SCAN_SEGMENTS)
+    bounds = [(min(g * seg, n_rt), min(min(g * seg, n_rt) + seg, n_rt))
+              for g in range(SCAN_SEGMENTS)]
+    totals = [colsum[lo:hi].sum(0) for lo, hi in bounds]
+    coledge = torch.zeros_like(colsum)
+    for g, (lo, hi) in enumerate(bounds):
+        run = sum(totals[:g], torch.zeros(n1, dtype=torch.int64))
+        for r in range(lo, hi):
+            coledge[r] = run
+            run = run + colsum[r]
     re = torch.zeros((n_rt * th + 1, n_ct), dtype=torch.int64)
     re[:n0] = rowedge
     ce = torch.zeros((n_rt, n_ct * tw + 1), dtype=torch.int64)
