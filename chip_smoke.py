@@ -50,6 +50,7 @@ of standard output are a JSON object of per-kernel numbers and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import pathlib
@@ -97,6 +98,7 @@ CSRC = "src/repro_torch/kernels/csrc"
 #: kernel site -> (source in the repo, the Pallas call it replaces)
 SITES = {
     "unpack": (f"{CSRC}/unpack.cu", "src/repro/kernels/bitpack.py:94"),
+    "unpack.residuals": (f"{CSRC}/unpack.cu", "src/repro/kernels/bitpack.py:94"),
     "lorenzo_enc2d.edges": (f"{CSRC}/lorenzo_band.cu",
                             "src/repro/kernels/fused.py:288"),
     "lorenzo_enc2d.stencil": (f"{CSRC}/lorenzo_band.cu",
@@ -127,7 +129,8 @@ PATHS = {
     "entry point": ("pack", "unpack", "quant_lorenzo2d", "block_stats",
                     "grad2d", "laplacian2d", "prefix_stats2d.edges",
                     "prefix_stats2d.stats"),
-    "main path": ("unpack", "lorenzo_enc2d.edges", "lorenzo_enc2d.stencil",
+    "main path": ("unpack.residuals", "lorenzo_enc2d.edges",
+                  "lorenzo_enc2d.stencil",
                   "blockmean_enc2d", "lorenzo2d.edges", "lorenzo2d.stencil",
                   "blockmean2d"),
 }
@@ -255,23 +258,36 @@ def check_kernels(shape, seed: int, errs: dict) -> dict:
                 for k, v in (("blockmean2d", e1), ("blockmean_enc2d", e2)):
                     errs[k] = max(errs.get(k, 0.0), v)
         # unpack: the field's own payload, then several widths, ragged tail
-        n = pshape[0] * pshape[1]
-        errs["unpack"] = max(errs.get("unpack", 0.0), bitwise_err(
-            bitpack.unpack_plain(payload, n, bits),
-            bitpack.unpack(payload, n, bits), f"unpack {scheme} bits={bits}"))
+        check_unpack(payload, pshape[0] * pshape[1], bits, errs,
+                     f"{scheme} payload")
     rng = np.random.default_rng(seed)
     n = shape[0] * shape[1] - 3
-    for bits in (1, 5, 13, 31):
+    for bits in (1, 5, 13, 16, 17, 31):
         u = torch.as_tensor(rng.integers(0, 1 << bits, n, dtype=np.int64)
                             .astype(np.int32), device=DEVICE)
         words = encode.pack_uniform(u, bits)
-        errs["unpack"] = max(errs["unpack"], bitwise_err(
-            bitpack.unpack_plain(words, n, bits),
-            bitpack.unpack(words, n, bits), f"unpack bits={bits} n={n}"))
+        check_unpack(words, n, bits, errs, "random values")
+        # a payload address 4 bytes past a 16-byte boundary
+        shifted = torch.empty((words.numel() + 1,), dtype=torch.int32,
+                              device=DEVICE)
+        shifted[1:] = words
+        check_unpack(shifted[1:], n, bits, errs, "unaligned payload")
     torch.cuda.synchronize()
     say(f"kernels == plain versions, bitwise, at {shape} "
         f"(bits {out['hszp_nd'][1].bits} / {out['hszx_nd'][1].bits})")
     return out
+
+
+def check_unpack(words: torch.Tensor, n: int, bits: int, errs: dict,
+                 what: str) -> None:
+    """Both unpack instantiations against their plain versions, bitwise."""
+    _note(errs, "unpack", bitwise_err(
+        bitpack.unpack_plain(words, n, bits), bitpack.unpack(words, n, bits),
+        f"unpack {what} bits={bits} n={n}"))
+    _note(errs, "unpack.residuals", bitwise_err(
+        bitpack.unpack_residuals_plain(words, n, bits),
+        bitpack.unpack_residuals(words, n, bits),
+        f"unpack_residuals {what} bits={bits} n={n}"))
 
 
 #: block -> (plane near Ocean's size, payload width) for the block-mean
@@ -390,6 +406,20 @@ def stat_err(want, got, what: str) -> float:
     return err
 
 
+def exact_stats(p: torch.Tensor, got, what: str):
+    """prefix_stats2d against the exact (Σq, Σq²), summed in int64 on the
+    card and rounded once to f32: bitwise, where |q| < 2^26 and both totals
+    are below 2^53 (the f64 sums are then exact).  Returns the exact sums."""
+    q = torch.cumsum(torch.cumsum(p.to(torch.int64), 0), 1)
+    exact = (q.sum(), (q * q).sum())
+    if not (int(q.abs().max()) < 2 ** 26
+            and max(abs(int(e)) for e in exact) < 2 ** 53):
+        fail(f"{what}: |q| or the totals outside the exact range")
+    bitwise_err(tuple(e.to(torch.float64).to(torch.float32) for e in exact),
+                tuple(got), f"{what} vs exact (Σq, Σq²) rounded once")
+    return exact
+
+
 def check_entry_kernels(shape, seed: int, errs: dict) -> None:
     """Every kernel of the entry point against its plain version on the
     card, on the Ocean field u cut or padded to ``shape``."""
@@ -437,14 +467,19 @@ def check_entry_kernels(shape, seed: int, errs: dict) -> None:
         fused.lorenzo_edges(p, tuple(p.shape), 0, from_payload=False,
                             site="prefix_stats2d"),
         f"prefix_stats2d edges {shape}"))
+    rowedge, coledge, corners = prefix_stats.stats_edges(p)
+    bitwise_err(prefix_stats.corner_sums_plain(coledge), corners,
+                f"prefix_stats2d corner sums {shape}")
     first, again = K.prefix_stats2d(p), K.prefix_stats2d(p)
     bitwise_err(first, again, f"prefix_stats2d twice {shape}")
     _note(errs, "prefix_stats2d.stats", stat_err(
         prefix_stats.prefix_stats2d_plain(p), first,
         f"prefix_stats2d {shape}"))
+    exact_stats(p, first, f"prefix_stats2d {shape}")
     torch.cuda.synchronize()
     say(f"entry-point kernels == plain versions at {shape}: bitwise "
-        f"(prefix_stats2d within rtol 1e-5, repeatable bitwise)")
+        f"(prefix_stats2d within rtol 1e-5, repeatable bitwise, == the "
+        f"exact int64 sums rounded once to f32)")
 
 
 def entry_point_path(x: torch.Tensor, eps: torch.Tensor, bits: int) -> dict:
@@ -498,8 +533,7 @@ def check_entry_against_main(u: np.ndarray, r: dict) -> None:
                     f"grad2d d1 vs {scheme} {kind} deriv1@Q")
         bitwise_err(H.laplacian(c, Stage.Q), r["lap"],
                     f"laplacian2d vs {scheme} {kind} laplacian@Q")
-    q64 = q.to(torch.int64)
-    exact = (q64.sum(), (q64 * q64).sum())
+    exact = exact_stats(r["p"], r["stats"], "prefix_stats2d on u")
     gap = stat_err(exact, r["stats"], "prefix_stats2d vs exact (Σq, Σq²)")
     torch.cuda.synchronize()
     say(f"entry point == main path at {tuple(u.shape)}: residuals, block "
@@ -744,8 +778,8 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     z, q, p, blocked = entry["z"], entry["q"], entry["p"], entry["blocked"]
     nb, s_len = blocked.shape
     m = (n0 - 2) * (n1 - 2)
-    ps_rowedge, ps_top = prefix_stats.tile_edges(*fused.lorenzo_edges(
-        p, shape, 0, from_payload=False, site="prefix_stats2d"))
+    ps_edges = prefix_stats.stats_edges(p)
+    corner_bytes = 4 * ps_edges[2].numel()
     # Operations are those the function needs per element, not what an
     # implementation adds (64-bit bit offsets, edge masks, index math):
     # taking a value out of staged payload words is a shift and a mask (2;
@@ -760,6 +794,10 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
             lambda w: bitpack.unpack(w, n, lz_bits), (lz_words,),
             lambda: bitpack.unpack_plain(lz_words, n, lz_bits),
             pay(e_lz) + 4 * n, 2 * n),
+        "unpack.residuals": (  # take out 2, unzigzag 3
+            lambda w: bitpack.unpack_residuals(w, n, lz_bits), (lz_words,),
+            lambda: bitpack.unpack_residuals_plain(lz_words, n, lz_bits),
+            pay(e_lz) + 4 * n, 5 * n),
         "lorenzo_enc2d.edges": (  # take out 2, unzigzag 3, row and column sums 2
             lambda w: fused.lorenzo_edges(w, shape, lz_bits, from_payload=True,
                                           site="lorenzo_enc2d"), (lz_words,),
@@ -820,15 +858,14 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
             lambda: stencil_dq.laplacian2d_int_plain(q),
             4 * n + 4 * m, 5 * m),
         "prefix_stats2d.edges": (  # row and column sums 2
-            lambda v: fused.lorenzo_edges(v, shape, 0, from_payload=False,
-                                          site="prefix_stats2d"), (p,),
+            lambda v: prefix_stats.stats_edges(v), (p,),
             lambda: fused.lorenzo_edge_prefixes_plain(p, (th, tw)),
-            4 * n + edge_bytes, 2 * n),
+            4 * n + edge_bytes + corner_bytes, 2 * n),
         "prefix_stats2d.stats": (  # q from two prefixes 2; f32 cast, q², two
             # sums 4
-            prefix_stats.prefix_stats_tiles, (p, ps_rowedge, ps_top),
+            prefix_stats.prefix_stats_tiles, (p, *ps_edges),
             lambda: prefix_stats.prefix_stats2d_plain(p),
-            4 * n + edge_bytes + 8, 2 * n, 4 * n),
+            4 * n + edge_bytes + corner_bytes + 8, 2 * n, 4 * n),
     }
     out = {}
     for name, (fn, args, plain, n_bytes, *n_ops) in plans.items():
@@ -847,9 +884,35 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
             f"{h_ms * 1e3:.1f} us (plain {p_ms * 1e3:.1f} us, bound "
             f"{b_ms * 1e3:.1f} us by {b_by}, {n_bytes / 1e6:.1f} MB, "
             f"{n_bytes / (g_ms * 1e-3) / 1e9:.0f} GB/s device alone)")
+    time_decode(e_lz, reps, tag)
     time_blockmean_whats(bm_words, bm_bits, bm_plane, meta, reps, tag)
     time_lorenzo_whats(lz_words, lz_bits, lz_plane, reps, tag)
     return out
+
+
+def time_decode(e, reps: int, tag: str) -> None:
+    """Detail line: one ``decode_device`` of an ``Encoded`` field as a whole
+    (one ``unpack_residuals`` launch), against the decode it replaced — the
+    zigzag unpack followed by the torch ``unzigzag``, four elementwise
+    kernels that read and write the plane — and those four alone; device
+    time alone (cold) and enqueue per call."""
+    n = e.padded_shape[0] * e.padded_shape[1]
+    z = bitpack.unpack(e.payload, n, e.bits)
+
+    def before(w):
+        return encode.unzigzag(bitpack.unpack(w, n, e.bits))
+
+    rows = (("decode_device", lambda w: encode.decode_device(
+                 dataclasses.replace(e, payload=w)), (e.payload,)),
+            ("unpack + torch unzigzag", before, (e.payload,)),
+            ("torch unzigzag alone", encode.unzigzag, (z,)))
+    parts = []
+    for name, fn, args in rows:
+        g_ms = graph_ms(fn, reps, args)
+        h_ms = enqueue_ms(functools.partial(fn, *args), reps)
+        parts.append(f"{name} {g_ms * 1e3:.1f} us (enqueue {h_ms * 1e3:.1f} us)")
+    say(f"[{tag}] decode at {tuple(e.padded_shape)}, {e.bits} bits, device "
+        f"alone: " + "; ".join(parts))
 
 
 def time_blockmean_whats(words, bits, plane, meta, reps: int, tag: str) -> None:
@@ -934,28 +997,42 @@ def time_lorenzo_whats(words, bits, plane, reps: int, tag: str) -> None:
                 f"registers, {per_sm} blocks/SM)")
 
 
+def traced_kernels(fn) -> tuple[list[str], list]:
+    """The device kernels that one call of ``fn`` runs, in order, from a
+    ``torch.profiler`` trace (after two untraced calls): short names and
+    the profiler's events (``device_time`` in us)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        fail("torch.profiler recorded no device kernel")
+    names = [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.name)
+             for e in events]
+    return names, events
+
+
+def _listed(names, events) -> str:
+    return ", ".join(f"{k} {e.device_time:.1f} us"
+                     for k, e in zip(names, events))
+
+
 def query_kernels(fields, tag: str) -> dict:
     """The device kernels of one Lorenzo gradient@③ query per container, in
     order, from a ``torch.profiler`` trace: the Lorenzo kernels before the
     float tail (at most three, and no other kernel between them) and the
     float tail's kernels, each with its device time."""
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     for container in ("Encoded", "Compressed"):
         fu, fv = fields["hszp_nd"][container]
-        for _ in range(2):
-            run_cell("gradient", Stage.Q, fu, fv)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run_cell("gradient", Stage.Q, fu, fv)
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        if not events:
-            fail("torch.profiler recorded no device kernel")
-        names = [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.name)
-                 for e in events]
+        names, events = traced_kernels(
+            lambda: run_cell("gradient", Stage.Q, fu, fv))
         ours = 0
         while ours < len(names) and names[ours].startswith("lorenzo_"):
             ours += 1
@@ -964,18 +1041,41 @@ def query_kernels(fields, tag: str) -> dict:
             fail(f"Lorenzo gradient query ({container}): kernels {names}")
         out[container] = {"before_tail": ours, "total": len(names)}
         say(f"[{tag}] hszp_nd {container} gradient@Q device kernels: {ours} "
-            f"before the float tail (" + ", ".join(
-                f"{k} {e.device_time:.1f} us" for k, e in
-                zip(names[:ours], events[:ours]))
-            + f"), then {len(names) - ours} (" + ", ".join(
-                f"{k} {e.device_time:.1f} us" for k, e in
-                zip(names[ours:], events[ours:])) + ")")
+            f"before the float tail ({_listed(names[:ours], events[:ours])}), "
+            f"then {len(names) - ours} ({_listed(names[ours:], events[ours:])})")
     return out
+
+
+#: the torch unzigzag's elementwise kernels ((u >> 1) ^ -(u & 1))
+UNZIGZAG_KERNELS = re.compile(r"rshift|bitwise_and|bitwise_xor|neg_kernel")
+#: the kernels of one prefix_stats2d call, in order
+PREFIX_STATS_KERNELS = ("lorenzo_edges_kernel<false>", "lorenzo_scan_kernel<true>",
+                        "prefix_stats_tile_kernel", "prefix_stats_reduce_kernel")
+
+
+def decode_and_stats_kernels(fields, entry: dict, tag: str) -> None:
+    """Traces of one ``hszp_nd`` ``Encoded`` mean@② query, whose decode must
+    be one unpack kernel (``unpack_kernel<true>``) followed directly by the
+    op, with none of the torch unzigzag's elementwise kernels; and of one
+    ``prefix_stats2d`` call, which must be our four kernels and nothing
+    else."""
+    fu, fv = fields["hszp_nd"]["Encoded"]
+    names, events = traced_kernels(lambda: run_cell("mean", Stage.P, fu, fv))
+    unpacks = [k for k in names if k.startswith("unpack_kernel")]
+    if (unpacks != ["unpack_kernel<true>"]
+            or any(UNZIGZAG_KERNELS.search(k) for k in names)):
+        fail(f"Encoded mean@P: kernels {names}")
+    say(f"[{tag}] hszp_nd Encoded mean@P device kernels: "
+        f"{_listed(names, events)}")
+    names, events = traced_kernels(lambda: K.prefix_stats2d(entry["p"]))
+    if tuple(names) != PREFIX_STATS_KERNELS:
+        fail(f"prefix_stats2d: kernels {names}")
+    say(f"[{tag}] prefix_stats2d device kernels: {_listed(names, events)}")
 
 
 PER_QUERY = {
     # kernel site -> the query whose launches of it are counted
-    "unpack": ("hszp_nd", "Encoded", "mean", Stage.Q),
+    "unpack.residuals": ("hszp_nd", "Encoded", "mean", Stage.Q),
     "lorenzo_enc2d.edges": ("hszp_nd", "Encoded", "gradient", Stage.Q),
     "lorenzo_enc2d.stencil": ("hszp_nd", "Encoded", "gradient", Stage.Q),
     "blockmean_enc2d": ("hszx_nd", "Encoded", "gradient", Stage.Q),
@@ -1014,6 +1114,8 @@ def per_query_launches(fields, tag: str) -> dict:
 def per_call_launches(entry: dict, tag: str) -> dict:
     """Launches of each entry-point site per call of its wrapper."""
     calls = {
+        "unpack": lambda: K.unpack(entry["words"], entry["z"].numel(),
+                                   entry["bits"]),
         "pack": lambda: K.pack(entry["z"], entry["bits"]),
         "quant_lorenzo2d": lambda: K.quant_lorenzo2d(entry["x"], entry["eps"]),
         "block_stats": lambda: K.block_stats(entry["blocked"]),
@@ -1053,6 +1155,13 @@ def time_queries(fields, tag: str) -> None:
             off = host_ms(lambda: run_cell(op, stage, fu, fv), 10)
         say(f"[{tag}] e2e {scheme} {container} {op}@{stage.name}: "
             f"{on:.3f} ms (fused rules off: {off:.3f} ms), median of 10")
+    for scheme in SCHEMES:
+        comp = by_name(scheme, BLOCK)
+        eu = fields[scheme]["Encoded"][0]
+        for stage in (Stage.P, Stage.F):
+            t = host_ms(lambda: comp.decompress(eu, stage), 10)
+            say(f"[{tag}] e2e {scheme} Encoded decompress to {stage.name}: "
+                f"{t:.3f} ms, median of 10")
 
 
 # ===========================================================================
@@ -1114,9 +1223,31 @@ def lorenzo_build_lines() -> list[str]:
             lines.append(f"  lorenzo_band.cu {src} {what or 'edges'}: {smem} B "
                          f"shared memory, {regs} registers, {per_sm} blocks/SM, "
                          f"SASS instructions {n_sass or 'not read'}")
-    n_scan = [v for k, v in sass.items() if "lorenzo_scan_kernel" in k]
-    lines.append(f"  lorenzo_band.cu edge scan: SASS instructions "
-                 f"{n_scan or 'not read'}")
+    for flag, use in (("false", "Lorenzo"), ("true", "prefix_stats2d")):
+        n_scan = [v for k, v in sass.items()
+                  if f"lorenzo_scan_kernel<{flag}>" in k]
+        lines.append(f"  lorenzo_band.cu edge scan ({use}): SASS instructions "
+                     f"{n_scan or 'not read'}")
+    smem, regs, per_sm = prefix_stats.stats_launch_config()
+    n_sass = [v for k, v in sass.items() if "prefix_stats_tile_kernel" in k]
+    lines.append(f"  lorenzo_band.cu prefix_stats2d stats: {smem} B shared "
+                 f"memory, {regs} registers, {per_sm} blocks/SM, SASS "
+                 f"instructions {n_sass or 'not read'}")
+    return lines
+
+
+def unpack_build_lines() -> list[str]:
+    """Shared memory, registers, blocks per SM and SASS instructions of the
+    two unpack instantiations."""
+    sass = sass_counts(build.BUILD_DIR / "unpack.o")
+    lines = []
+    for residuals in (False, True):
+        smem, regs, per_sm = bitpack.unpack_config(residuals)
+        key = f"unpack_kernel<{str(residuals).lower()}>"
+        n_sass = [v for k, v in sass.items() if key in k]
+        lines.append(f"  unpack.cu {key}: {smem} B shared memory at 31 bits, "
+                     f"{regs} registers, {per_sm} blocks/SM, SASS "
+                     f"instructions {n_sass or 'not read'}")
     return lines
 
 
@@ -1165,7 +1296,8 @@ def main() -> None:
     for line in build.BUILD_LOG:
         if any(k in line for k in ("registers", "spill", "Compiling entry")):
             say(f"  {line}")
-    for line in blockmean_build_lines() + lorenzo_build_lines():
+    for line in (blockmean_build_lines() + lorenzo_build_lines()
+                 + unpack_build_lines()):
         say(line)
 
     # 3. main-path kernels against plain versions
@@ -1210,6 +1342,7 @@ def main() -> None:
     per_query = per_query_launches(fields, tag)
     per_query.update(per_call_launches(entry, tag))
     query_kernels(fields, tag)
+    decode_and_stats_kernels(fields, entry, tag)
     time_queries(fields, tag)
 
     kernels = []

@@ -153,15 +153,16 @@ def encode_device(c: Compressed, bits: int) -> Encoded:
 def decode_device(e: Encoded) -> Compressed:
     """Stage-2 decode: unpack the payload back to residuals (D_p).
 
-    The unpack runs the bitplane kernel for a CUDA payload and its plain
-    version for a CPU one (``kernels.bitpack.unpack``); both recover the
-    exact packed integers.
+    ``kernels.bitpack.unpack_residuals`` unpacks and unzigzags in one
+    launch of the bitplane kernel for a CUDA payload, and runs its plain
+    version (``unzigzag`` of the plain unpack) for a CPU one; both recover
+    the exact packed integers.
     """
     n = 1
     for s in e.padded_shape:
         n *= s
-    u = bitpack.unpack(e.payload, n, e.bits)
-    residuals = unzigzag(u).reshape(e.padded_shape)
+    residuals = bitpack.unpack_residuals(e.payload, n, e.bits).reshape(
+        e.padded_shape)
     return Compressed(
         residuals=residuals, metadata=e.metadata, bitwidths=e.bitwidths,
         eps=e.eps, valid_counts=e.valid_counts, scheme=e.scheme,

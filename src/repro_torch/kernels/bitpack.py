@@ -3,10 +3,14 @@ versions.
 
 Counterparts of ``repro/kernels/bitpack.py:pack`` and ``:unpack``.  Payload
 words are ``int32`` tensors holding the ``uint32`` bit pattern, and zigzag
-values are int32 bit patterns too (``encode.unzigzag`` follows an unpack).
-Every length ``n`` is accepted, as in the reference.
+values are int32 bit patterns too.  :func:`unpack_residuals` is the decode's
+unpack: the same kernel with the unzigzag applied in registers, so the
+residuals come out of one launch.  Every length ``n`` is accepted, as in the
+reference.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -69,17 +73,9 @@ def unpack_plain(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
     return ((lo | hi) & mask).to(torch.int32)
 
 
-def unpack(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
-    """``n`` zigzag values from a uniform-width payload.
-
-    A CUDA payload launches the Hopper kernel (``csrc/unpack.cu``) for widths
-    1..31; widths 0 and 32 are fast paths without a kernel, as in the
-    reference.  A CPU payload takes :func:`unpack_plain`.
-    """
-    if not ops.on_card(payload):
-        return unpack_plain(payload, n, bits)
-    if bits in (0, 32):
-        return unpack_plain(payload, n, bits)
+def _launch(payload: torch.Tensor, n: int, bits: int, residuals: bool,
+            site: str) -> torch.Tensor:
+    """Launch ``csrc/unpack.cu`` on a CUDA payload (widths 1..31)."""
     ops.check(payload, "payload", torch.int32)
     n_words = payload.shape[0]
     if n_words * 32 < n * bits:
@@ -87,6 +83,50 @@ def unpack(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
                          f"{n} values at {bits} bits")
     out = torch.empty((n,), dtype=torch.int32, device=payload.device)
     build.call("hsz_unpack", payload.data_ptr(), n_words, out.data_ptr(), n,
-               bits, ops.stream_ptr())
-    ops.count("unpack")
+               bits, int(residuals), ops.stream_ptr())
+    ops.count(site)
     return out
+
+
+def unpack(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    """``n`` zigzag values from a uniform-width payload.
+
+    A CUDA payload launches the Hopper kernel (``csrc/unpack.cu``) for widths
+    1..31; widths 0 and 32 are fast paths without a kernel, as in the
+    reference.  A CPU payload takes :func:`unpack_plain`.
+    """
+    if not ops.on_card(payload) or bits in (0, 32):
+        return unpack_plain(payload, n, bits)
+    return _launch(payload, n, bits, False, "unpack")
+
+
+def unpack_residuals_plain(payload: torch.Tensor, n: int,
+                           bits: int) -> torch.Tensor:
+    """Plain version of :func:`unpack_residuals`: ``encode.unzigzag`` of
+    :func:`unpack_plain`."""
+    from ..core import encode  # core.encode imports this module
+
+    return encode.unzigzag(unpack_plain(payload, n, bits))
+
+
+def unpack_residuals(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    """``n`` residuals (unzigzagged values) from a uniform-width payload: the
+    decode of an ``Encoded`` field.
+
+    A CUDA payload launches the Hopper kernel with the unzigzag fused in
+    (``csrc/unpack.cu``, ``unpack_kernel<true>``) for widths 1..31; widths 0
+    and 32 take :func:`unpack_residuals_plain` without a kernel, as
+    :func:`unpack` does.  A CPU payload takes :func:`unpack_residuals_plain`.
+    """
+    if not ops.on_card(payload) or bits in (0, 32):
+        return unpack_residuals_plain(payload, n, bits)
+    return _launch(payload, n, bits, True, "unpack.residuals")
+
+
+def unpack_config(residuals: bool) -> tuple[int, int, int]:
+    """(shared memory in bytes at 31 bits, registers per thread, resident
+    blocks per SM) of one unpack instantiation, read from the library."""
+    smem, regs, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.call("hsz_unpack_info", int(residuals), ctypes.addressof(smem),
+               ctypes.addressof(regs), ctypes.addressof(per_sm))
+    return smem.value, regs.value, per_sm.value

@@ -92,18 +92,10 @@ __device__ __forceinline__ float lap5(uint32_t c, uint32_t dn, uint32_t up,
   return acc;
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
+using hsz::cp_async4;
+using hsz::cp_async_commit;
+using hsz::cp_async_wait_prev;
+using hsz::store4;
 
 // Payload bits of halo row i (in the plane) of the tile at column j0: its
 // first plane column, its first bit and the words it touches.
@@ -235,20 +227,6 @@ __device__ __forceinline__ void load_row(const uint32_t* T, int r, int lane,
     const uint32_t rr = __shfl_down_sync(FULL, v.x, 1);
     x[0] = lane == 0 ? T[r * LD + 3] : l;
     x[5] = lane == 31 ? T[r * LD + 4 + TW] : rr;
-  }
-}
-
-// Four outputs at flat index k (plane column j), streaming stores; one
-// 16-byte store when the row is 16-byte aligned and all four lie in the
-// plane.
-__device__ __forceinline__ void store4(uint32_t* out, long long k, int j, int n1,
-                                       bool vec, const uint32_t (&v)[4]) {
-  if (vec && j + 3 < n1) {
-    __stcs(reinterpret_cast<uint4*>(out + k), make_uint4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (j + e < n1) __stcs(out + k + e, v[e]);
   }
 }
 

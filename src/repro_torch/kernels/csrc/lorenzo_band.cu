@@ -123,23 +123,11 @@ struct Args {
   bool vout;               // output rows are 16-byte aligned (16-byte stores)
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+using hsz::cp_async16;
+using hsz::cp_async4;
+using hsz::cp_async_commit;
+using hsz::cp_async_wait_all;
+using hsz::store4;
 
 // Start copying rows i0 .. i0+NR-1, columns j0 .. j0+NC-1 of the input into R
 // (row r at R + r*LD).  Rows outside the plane are left alone (row4 reads
@@ -289,19 +277,6 @@ __device__ __forceinline__ uint32_t warp_scan(uint32_t v, int lane) {
   return v;
 }
 
-// Four outputs at flat index k (plane column j), streaming stores; one
-// 16-byte store when the row is 16-byte aligned and all four lie in the plane.
-__device__ __forceinline__ void store4(uint32_t* out, long long k, int j, int n1, bool vec,
-                                       const uint32_t (&v)[4]) {
-  if (vec && j + 3 < n1) {
-    __stcs(reinterpret_cast<uint4*>(out + k), make_uint4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (j + e < n1) __stcs(out + k + e, v[e]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // edge pass
 // ---------------------------------------------------------------------------
@@ -380,11 +355,17 @@ __global__ void __launch_bounds__(NT, 5) lorenzo_edges_kernel(const Args a) {
 // in chunks of SCHUNK loads issued together (a loop with a short runtime
 // trip count would wait for each load in turn); a segment of one chunk
 // stays in registers for the second half.
+// CORNERS (prefix_stats2d): each column block also writes, per tile row ti,
+// the sum of its 32 column prefixes, corners[ti, b] (b = the block's
+// column group), by one warp reduction; the corner of tile (ti, tj),
+// sum p over i < 32 ti, j < 128 tj, is then the sum of corners[ti, b < 4 tj].
 constexpr int SCOLS = 32;            // coledge columns per block
 constexpr int SSEG = NT / SCOLS;     // segments per column
 constexpr int SCHUNK = 16;           // loads in flight per thread
 
-__global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb) {
+template <bool CORNERS>
+__global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb,
+                                                          int32_t* corners) {
   __shared__ uint32_t S[SSEG][SCOLS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if ((int)blockIdx.x < n_rb) {
@@ -417,18 +398,31 @@ __global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb
   }
   S[warp][lane] = s;
   __syncthreads();
-  if (!in) return;
+  if constexpr (!CORNERS) {
+    if (!in) return;
+  }
+  // (CORNERS: lanes right of the plane stay for the warp reductions, with
+  // run and v at 0)
   uint32_t run = 0u;
   for (int g = 0; g < warp; ++g) run += S[g][lane];
+  const int n_cb = gridDim.x - n_rb;
   for (int r0 = lo; r0 < hi; r0 += SCHUNK) {
     if (hi - lo > SCHUNK) {
 #pragma unroll
       for (int m = 0; m < SCHUNK; ++m)
-        v[m] = r0 + m < hi ? (uint32_t)col[(long long)(r0 + m) * a.n1] : 0u;
+        v[m] = (CORNERS ? in && r0 + m < hi : r0 + m < hi)
+                   ? (uint32_t)col[(long long)(r0 + m) * a.n1]
+                   : 0u;
     }
 #pragma unroll
     for (int m = 0; m < SCHUNK; ++m) {
-      if (r0 + m < hi) col[(long long)(r0 + m) * a.n1] = (int32_t)run;
+      if (r0 + m < hi) {
+        if (!CORNERS || in) col[(long long)(r0 + m) * a.n1] = (int32_t)run;
+        if constexpr (CORNERS) {
+          const uint32_t t = __reduce_add_sync(FULL, run);
+          if (lane == 0) corners[(long long)(r0 + m) * n_cb + blockIdx.x - n_rb] = (int32_t)t;
+        }
+      }
       run += v[m];
     }
   }
@@ -622,7 +616,12 @@ __global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
 // prefix_stats2d
 // ---------------------------------------------------------------------------
 
-constexpr int PS_LD = TW + 1;  // odd stride: row and column scans conflict free
+// Shared memory of the stats pass: column totals T, the warps' f64 sums,
+// then one or two buffers of a staged tile of p (R) and its edges (E).
+constexpr int PS_RED = 2 * NWARP * 2;              // words of 2 x NWARP doubles
+constexpr int PS_BUF = TH * LD + EW;               // words of one buffer
+constexpr int PS_HEAD = NWARP * LDT + PS_RED;      // words before the buffers
+static_assert(PS_HEAD % 4 == 0 && PS_BUF % 4 == 0, "16-byte aligned buffers");
 
 __device__ __forceinline__ void warp_sum2(double& a, double& b) {
 #pragma unroll
@@ -632,68 +631,147 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
   }
 }
 
-// (sum q, sum q^2) of one tile of q = cumsum(cumsum(p, 0), 1).  rowedge as
-// for the stencil pass; top[ti, j] = q[ti*TH - 1, j] (0 for the first tile row).
-__global__ void __launch_bounds__(NT)
-prefix_stats_tile_kernel(const int32_t* __restrict__ p, int n0, int n1, int n_ct,
-                         const int32_t* __restrict__ rowedge,
-                         const int32_t* __restrict__ top,
-                         double* __restrict__ partials) {
-  __shared__ int32_t A[TH][PS_LD];
-  __shared__ double red[2][NT / 32];
-  const int tj = blockIdx.x, ti = blockIdx.y;
-  const int i0 = ti * TH, j0 = tj * TW;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  for (int e = t; e < TH * TW; e += NT) {
-    const int r = e / TW, c = e % TW;
-    const int i = i0 + r, j = j0 + c;
-    A[r][c] = (i < n0 && j < n1) ? __ldg(p + (long long)i * n1 + j) : 0;
-  }
-  __syncthreads();
-  // row prefixes (D0) in place, one warp per row, 32 columns per step
-  for (int r = warp; r < TH; r += NT / 32) {
-    const int i = i0 + r;
-    uint32_t carry = (i < n0) ? (uint32_t)rowedge[(long long)i * n_ct + tj] : 0u;
-    for (int c0 = 0; c0 < TW; c0 += 32) {
-      uint32_t v = (uint32_t)A[r][c0 + lane];
+// sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
+// row ti over the 4 tj column groups left of the tile (every warp alike).
+__device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
+                                              int ti, int tj) {
+  const int lane = threadIdx.x & 31;
+  const int32_t* row = corners + (long long)ti * n_cb;
+  uint32_t c[4];
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const uint32_t prev = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += prev;
-      }
-      A[r][c0 + lane] = (int32_t)(carry + v);
-      carry += __shfl_sync(0xffffffffu, v, 31);
+  for (int m = 0; m < 4; ++m) {
+    const int b = lane + 32 * m;
+    c[m] = b < 4 * tj ? (uint32_t)__ldg(row + b) : 0u;
+  }
+  return __reduce_add_sync(FULL, (c[0] + c[1]) + (c[2] + c[3]));
+}
+
+// (sum q, sum q^2) of one tile of q = cumsum(cumsum(p, 0), 1), on the
+// stencil pass's register tile: D0 by an in-thread prefix, a lane scan and
+// the row edge; q by an in-thread prefix of D0 down the warp's 4 rows, the
+// totals of the warps above (T) and the row of q above the tile, itself
+// the corner plus a lane scan of the column edge.  Each thread sums its
+// 16 q and q^2 in f64, then a warp reduction and the 8 warps in order.
+__device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32_t corner,
+                                           const uint32_t* R, const uint32_t* E, uint32_t* T,
+                                           double* red, double* __restrict__ partials) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i0 = ti * TH, j0 = tj * TW;
+  const int r0 = warp * ROWS, c0 = 4 * lane;
+  uint32_t d[ROWS][4];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) row4<false>(a, R, i0, j0, r0 + k, c0, d[k]);
+  // D0
+  uint32_t inc[ROWS];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+#pragma unroll
+    for (int e = 1; e < 4; ++e) d[k][e] += d[k][e - 1];
+    inc[k] = d[k][3];
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const uint32_t x = __shfl_up_sync(FULL, inc[k], off);
+      if (lane >= off) inc[k] += x;
     }
   }
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const uint32_t carry = E[132 + r0 + k] + inc[k] - d[k][3];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[k][e] += carry;
+  }
+  // column prefix of D0 down the warp's rows; the warp's totals to T
+#pragma unroll
+  for (int k = 1; k < ROWS; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[k][e] += d[k - 1][e];
+  *reinterpret_cast<uint4*>(T + warp * LDT + c0) = make_uint4(d[3][0], d[3][1], d[3][2], d[3][3]);
+  // the row of q above the tile
+  const uint4 ce = *reinterpret_cast<const uint4*>(E + c0);
+  uint32_t top[4] = {ce.x, ce.y, ce.z, ce.w};
+#pragma unroll
+  for (int e = 1; e < 4; ++e) top[e] += top[e - 1];
+  const uint32_t incl = warp_scan(top[3], lane);
+  const uint32_t tcarry = corner + incl - top[3];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) top[e] += tcarry;
   __syncthreads();
-  // column prefixes from the row of q above the tile, summed as they go
+#pragma unroll
+  for (int w = 0; w < NWARP - 1; ++w) {
+    if (w < warp) {
+      const uint4 tw = *reinterpret_cast<const uint4*>(T + w * LDT + c0);
+      top[0] += tw.x;
+      top[1] += tw.y;
+      top[2] += tw.z;
+      top[3] += tw.w;
+    }
+  }
   double s1 = 0.0, s2 = 0.0;
-  const int j = j0 + t;
-  if (t < TW && j < n1) {
-    uint32_t acc = (uint32_t)top[(long long)ti * n1 + j];
-    const int rows = min(TH, n0 - i0);
-    for (int r = 0; r < rows; ++r) {
-      acc += (uint32_t)A[r][t];
-      const double qd = (double)(int32_t)acc;
-      s1 += qd;
-      s2 = fma(qd, qd, s2);
+  const int rows = min(ROWS, a.n0 - i0 - r0), cols = min(4, a.n1 - j0 - c0);
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (k < rows && e < cols) {
+        const double q = (double)(int32_t)(d[k][e] + top[e]);
+        s1 += q;
+        s2 = fma(q, q, s2);
+      }
     }
   }
   warp_sum2(s1, s2);
   if (lane == 0) {
-    red[0][warp] = s1;
-    red[1][warp] = s2;
+    red[warp] = s1;
+    red[NWARP + warp] = s2;
   }
   __syncthreads();
-  if (t == 0) {
-    double a = 0.0, b = 0.0;
-    for (int w = 0; w < NT / 32; ++w) {
-      a += red[0][w];
-      b += red[1][w];
+  if (threadIdx.x == 0) {
+    double x = 0.0, y = 0.0;
+    for (int w = 0; w < NWARP; ++w) {
+      x += red[w];
+      y += red[NWARP + w];
     }
-    const long long tile = (long long)ti * n_ct + tj;
-    partials[2 * tile] = a;
-    partials[2 * tile + 1] = b;
+    const long long tile = (long long)ti * a.n_ct + tj;
+    partials[2 * tile] = x;
+    partials[2 * tile + 1] = y;
+  }
+}
+
+// The stats pass over the tiles: a persistent grid that copies the next
+// tile's residuals and edges with cp.async while it sums the current one.
+__global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
+                                                               const int32_t* __restrict__ corners,
+                                                               double* __restrict__ partials) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* T = smem;
+  double* red = reinterpret_cast<double*>(smem + NWARP * LDT);
+  uint32_t* B = smem + PS_HEAD;
+  const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
+  int ti, tj;
+  tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
+  fetch<false, TH, TW>(a, ti * TH, tj * TW, B);
+  fetch_edges(a, ti, tj, B + TH * LD);
+  cp_async_commit();
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
+    tile_of(a, tile, ti, tj);
+    const uint32_t corner = corner_of(corners, n_cb, ti, tj);
+    cp_async_wait_all();
+    __syncthreads();
+    const int next = tile + gridDim.x;
+    if (next < a.n_tiles) {
+      int ni, nj;
+      tile_of(a, next, ni, nj);
+      uint32_t* N = B + (buf ^ 1) * PS_BUF;
+      fetch<false, TH, TW>(a, ni * TH, nj * TW, N);
+      fetch_edges(a, ni, nj, N + TH * LD);
+    }
+    cp_async_commit();
+    const uint32_t* R = B + buf * PS_BUF;
+    stats_tile(a, ti, tj, corner, R, R + TH * LD, T, red, partials);
   }
 }
 
@@ -730,8 +808,8 @@ prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_tile
 // launch configuration
 // ---------------------------------------------------------------------------
 
-// Static shared memory, registers and resident blocks per SM of one kernel,
-// read once.
+// Shared memory (static and dynamic), registers and resident blocks per SM
+// of one kernel, read once.
 struct Config {
   cudaError_t err;
   int smem;
@@ -740,14 +818,14 @@ struct Config {
 };
 
 template <typename K>
-Config config_of(K kernel) {
+Config config_of(K kernel, int dynamic_smem = 0) {
   Config c{cudaSuccess, 0, 0, 0};
   cudaFuncAttributes fa;
   c.err = cudaFuncGetAttributes(&fa, kernel);
   if (c.err == cudaSuccess) {
-    c.smem = (int)fa.sharedSizeBytes;
+    c.smem = (int)fa.sharedSizeBytes + dynamic_smem;
     c.regs = fa.numRegs;
-    c.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel, NT, 0);
+    c.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kernel, NT, dynamic_smem);
   }
   return c;
 }
@@ -764,6 +842,13 @@ const Config& stencil_config() {
   return c;
 }
 
+constexpr int PS_SMEM = (PS_HEAD + 2 * PS_BUF) * (int)sizeof(uint32_t);
+
+const Config& stats_config() {
+  static const Config c = config_of(prefix_stats_tile_kernel, PS_SMEM);
+  return c;
+}
+
 template <bool PAYLOAD>
 const Config& stencil_config(int what) {
   switch (what) {
@@ -775,9 +860,10 @@ const Config& stencil_config(int what) {
 }
 
 // The edge sums on a persistent grid (as many blocks as can be resident, at
-// most one a tile), then their prefixes.
+// most one a tile), then their prefixes (and the corner sums if corners is
+// not null).
 template <bool PAYLOAD>
-int launch_edges(const Args& a, cudaStream_t s) {
+int launch_edges(const Args& a, int32_t* corners, cudaStream_t s) {
   const Config& c = edges_config<PAYLOAD>();
   if (c.err != cudaSuccess) return (int)c.err;
   int dev = 0, sms = 0;
@@ -788,7 +874,10 @@ int launch_edges(const Args& a, cudaStream_t s) {
   lorenzo_edges_kernel<PAYLOAD><<<grid, NT, 0, s>>>(a);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   const int n_rb = (a.n0 + NWARP - 1) / NWARP, n_cb = (a.n1 + SCOLS - 1) / SCOLS;
-  lorenzo_scan_kernel<<<n_rb + n_cb, NT, 0, s>>>(a, n_rb);
+  if (corners)
+    lorenzo_scan_kernel<true><<<n_rb + n_cb, NT, 0, s>>>(a, n_rb, corners);
+  else
+    lorenzo_scan_kernel<false><<<n_rb + n_cb, NT, 0, s>>>(a, n_rb, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -857,16 +946,18 @@ extern "C" int hsz_lorenzo_info(int from_payload, int what, int* smem_bytes, int
 // Edge pass: two launches on one stream, the per-tile sums and their
 // exclusive prefixes.  rowedge: (n0, ceil(n1/TW)) int32, the sum of p left of
 // each tile in each row; coledge: (ceil(n0/TH), n1) int32, the sum of p above
-// each tile in each column.
+// each tile in each column; corners: null, or (ceil(n0/TH), ceil(n1/32))
+// int32 for prefix_stats2d, the column edge summed over each 32 columns.
 extern "C" int hsz_lorenzo_edges(int from_payload, const void* src, long long n_words,
                                  int bits, int n0, int n1, void* rowedge, void* coledge,
-                                 void* stream) {
+                                 void* corners, void* stream) {
   if (bad_shape(from_payload, bits, n0, n1)) return (int)cudaErrorInvalidValue;
   Args a = make_args(from_payload, src, n_words, bits, n0, n1);
   a.rowedge = static_cast<int32_t*>(rowedge);
   a.coledge = static_cast<int32_t*>(coledge);
+  auto c = static_cast<int32_t*>(corners);
   auto s = (cudaStream_t)stream;
-  return from_payload ? launch_edges<true>(a, s) : launch_edges<false>(a, s);
+  return from_payload ? launch_edges<true>(a, c, s) : launch_edges<false>(a, c, s);
 }
 
 // Stencil pass.  rowedge / coledge as the edge pass leaves them; out0/out1:
@@ -887,22 +978,39 @@ extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long 
   return from_payload ? dispatch_stencil<true>(a, what, s) : dispatch_stencil<false>(a, what, s);
 }
 
-// p: (n0, n1) int32; rowedge: (n0, ceil(n1/TW)) int32; top: (ceil(n0/TH), n1)
-// int32; partials: 2 * ceil(n0/TH) * ceil(n1/TW) f64 scratch; out: 2 f32.
-// Launches the tile pass and the fixed-order reduction on one stream.
+// p: (n0, n1) int32; rowedge, coledge, corners as the edge pass leaves them
+// for prefix_stats2d; partials: 2 * ceil(n0/TH) * ceil(n1/TW) f64 scratch;
+// out: 2 f32.  Launches the tile pass and the fixed-order reduction on one
+// stream.
 extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowedge,
-                                const void* top, void* partials, void* out,
-                                void* stream) {
-  if (n0 <= 0 || n1 <= 0) return (int)cudaErrorInvalidValue;
-  const int n_ct = (n1 + TW - 1) / TW, n_rt = (n0 + TH - 1) / TH;
+                                const void* coledge, const void* corners, void* partials,
+                                void* out, void* stream) {
+  if (bad_shape(0, 0, n0, n1)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(0, p, 0, 0, n0, n1);
+  a.rowedge = const_cast<int32_t*>(static_cast<const int32_t*>(rowedge));
+  a.coledge = const_cast<int32_t*>(static_cast<const int32_t*>(coledge));
   auto s = (cudaStream_t)stream;
-  prefix_stats_tile_kernel<<<dim3(n_ct, n_rt), NT, 0, s>>>(
-      static_cast<const int32_t*>(p), n0, n1, n_ct, static_cast<const int32_t*>(rowedge),
-      static_cast<const int32_t*>(top), static_cast<double*>(partials));
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  const Config& c = stats_config();
+  if (c.err != cudaSuccess) return (int)c.err;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
+  prefix_stats_tile_kernel<<<grid, NT, PS_SMEM, s>>>(a, static_cast<const int32_t*>(corners),
+                                                     static_cast<double*>(partials));
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
   prefix_stats_reduce_kernel<<<1, NT, 0, s>>>(static_cast<const double*>(partials),
-                                              (long long)n_ct * n_rt,
-                                              static_cast<float*>(out));
+                                              (long long)a.n_tiles, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// Shared memory (bytes), registers per thread and resident blocks per SM of
+// the prefix_stats2d stats pass.
+extern "C" int hsz_prefix_stats_info(int* smem_bytes, int* regs, int* blocks_per_sm) {
+  const Config& c = stats_config();
+  *smem_bytes = c.smem;
+  *regs = c.regs;
+  *blocks_per_sm = c.per_sm;
+  return (int)c.err;
 }

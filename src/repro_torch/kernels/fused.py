@@ -152,10 +152,14 @@ def lorenzo_edge_prefixes_plain(p: torch.Tensor, tile: tuple[int, int]):
 
 
 def lorenzo_edges(src: torch.Tensor, shape: tuple, bits: int, *,
-                  from_payload: bool, site: str):
+                  from_payload: bool, site: str,
+                  corners: torch.Tensor | None = None):
     """Edge pass (kernels): the row and column edges of
     :func:`lorenzo_edge_prefixes_plain`, from payload words or from the
-    residual plane: the per-tile sums, then their prefixes, on the card."""
+    residual plane: the per-tile sums, then their prefixes, on the card.
+    With ``corners`` (``(n_rt, ceil(n1/32))`` int32, ``prefix_stats2d``)
+    the prefix kernel also writes the column edge summed over each 32
+    columns there."""
     n0, n1 = shape
     th, tw = lorenzo_tile()
     n_rt, n_ct = -(-n0 // th), -(-n1 // tw)
@@ -163,7 +167,9 @@ def lorenzo_edges(src: torch.Tensor, shape: tuple, bits: int, *,
     coledge = torch.empty((n_rt, n1), dtype=torch.int32, device=src.device)
     build.call("hsz_lorenzo_edges", int(from_payload), src.data_ptr(),
                src.shape[0] if from_payload else 0, bits, n0, n1,
-               rowedge.data_ptr(), coledge.data_ptr(), ops.stream_ptr())
+               rowedge.data_ptr(), coledge.data_ptr(),
+               None if corners is None else corners.data_ptr(),
+               ops.stream_ptr())
     ops.count(f"{site}.edges")
     return rowedge, coledge
 

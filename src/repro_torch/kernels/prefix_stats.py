@@ -3,16 +3,19 @@
 
 Counterpart of ``repro/kernels/prefix_stats.py:prefix_stats2d``.  The TPU
 kernel carries the previous row of ``q`` across a sequential grid; Hopper
-blocks run in no order, so nothing is carried.  Instead (``csrc/lorenzo_band.cu``):
+blocks run in no order, so nothing is carried.  Instead four kernels of
+``csrc/lorenzo_band.cu`` run, and no torch op sits between them:
 
 1. the Lorenzo edge pass (:func:`fused.lorenzo_edges`, plane input) writes
    the row edge (Σp left of each 32 × 128 tile, per row) and the column edge
    (Σp above each tile, per column);
-2. one small torch cumsum along columns of the column edge gives the row of
-   ``q`` just above each tile;
-3. the stats pass rebuilds ``q`` per tile in shared memory (modular int32),
-   sums ``q`` and ``q²`` in f64, and writes one pair per tile; a second
-   launch of one block sums the pairs in a fixed order and rounds to f32.
+2. its prefix kernel, in the mode that also writes the corner sums: per
+   tile row, the column edge summed over each :data:`CORNER_COLS` columns;
+3. the stats pass rebuilds ``q`` per tile on a register tile (modular
+   int32): the row of ``q`` above the tile is the tile's corner
+   (``Σ p[i < i0, j < j0]``, the corner sums left of it) plus a scan of its
+   column edge; each tile sums ``q`` and ``q²`` in f64 and writes one pair;
+4. one block sums the pairs in a fixed order and rounds to f32.
 
 No float atomics, so a launch gives the same bits run after run.  The f64
 sums are exact integers while ``|q| < 2^26`` and the totals stay below
@@ -24,9 +27,15 @@ its 64-row TPU band, every 2-D shape is accepted.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build, fused, ops
+
+#: columns per corner sum: the edge prefix kernel's column block
+#: (``SCOLS`` in ``csrc/lorenzo_band.cu``; 4 of them span a tile)
+CORNER_COLS = 32
 
 
 def prefix_stats2d_plain(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -38,14 +47,34 @@ def prefix_stats2d_plain(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.sum(qf), torch.sum(qf * qf)
 
 
-def tile_edges(rowedge: torch.Tensor, coledge: torch.Tensor):
-    """(row edge, row of q above each tile) from the edge pass's row edge
-    ``(n0, n_ct)`` and column edge ``(n_rt, n1)``."""
-    return rowedge, torch.cumsum(coledge, dim=1, dtype=torch.int32)
+def corner_sums_plain(coledge: torch.Tensor) -> torch.Tensor:
+    """Plain version of the corner sums: the column edge ``(n_rt, n1)``
+    summed over each :data:`CORNER_COLS` columns, ``(n_rt, ceil(n1/32))``
+    int32, modular."""
+    n_rt, n1 = coledge.shape
+    n_cb = -(-n1 // CORNER_COLS)
+    z = torch.zeros((n_rt, n_cb * CORNER_COLS), dtype=torch.int64,
+                    device=coledge.device)
+    z[:, :n1] = coledge
+    return z.reshape(n_rt, n_cb, CORNER_COLS).sum(2).to(torch.int32)
+
+
+def stats_edges(p: torch.Tensor):
+    """Edge pass of the stats (kernels): the row edge, the column edge and
+    the corner sums of :func:`corner_sums_plain`."""
+    n0, n1 = p.shape
+    th, _ = fused.lorenzo_tile()
+    corners = torch.empty((-(-n0 // th), -(-n1 // CORNER_COLS)),
+                          dtype=torch.int32, device=p.device)
+    rowedge, coledge = fused.lorenzo_edges(p, (n0, n1), 0, from_payload=False,
+                                           site="prefix_stats2d",
+                                           corners=corners)
+    return rowedge, coledge, corners
 
 
 def prefix_stats_tiles(p: torch.Tensor, rowedge: torch.Tensor,
-                       top: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                       coledge: torch.Tensor, corners: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stats pass (kernel): per-tile f64 pairs, then the fixed-order sum."""
     n0, n1 = p.shape
     th, tw = fused.lorenzo_tile()
@@ -53,10 +82,19 @@ def prefix_stats_tiles(p: torch.Tensor, rowedge: torch.Tensor,
     partials = torch.empty((n_tiles, 2), dtype=torch.float64, device=p.device)
     out = torch.empty((2,), dtype=torch.float32, device=p.device)
     build.call("hsz_prefix_stats", p.data_ptr(), n0, n1, rowedge.data_ptr(),
-               top.data_ptr(), partials.data_ptr(), out.data_ptr(),
-               ops.stream_ptr())
+               coledge.data_ptr(), corners.data_ptr(), partials.data_ptr(),
+               out.data_ptr(), ops.stream_ptr())
     ops.count("prefix_stats2d.stats")
     return out[0], out[1]
+
+
+def stats_launch_config() -> tuple[int, int, int]:
+    """(shared memory in bytes, registers per thread, resident blocks per SM)
+    of the stats pass, read from the library."""
+    smem, regs, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.call("hsz_prefix_stats_info", ctypes.addressof(smem),
+               ctypes.addressof(regs), ctypes.addressof(per_sm))
+    return smem.value, regs.value, per_sm.value
 
 
 def prefix_stats2d(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -68,6 +106,4 @@ def prefix_stats2d(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if p.ndim != 2 or p.numel() == 0:
         raise ValueError(f"prefix_stats2d takes a non-empty 2-D plane, got "
                          f"{tuple(p.shape)}")
-    edges = fused.lorenzo_edges(p, tuple(p.shape), 0, from_payload=False,
-                                site="prefix_stats2d")
-    return prefix_stats_tiles(p, *tile_edges(*edges))
+    return prefix_stats_tiles(p, *stats_edges(p))

@@ -19,6 +19,7 @@ from repro.core import by_name as jax_by_name
 from repro.core import encode as jax_encode
 from repro.kernels import bitpack as jax_bitpack
 from repro.kernels import fused as jax_fk
+from repro_torch import convert
 from repro_torch import kernels as K
 from repro_torch.core import encode
 from repro_torch.kernels import bitpack, fused, ops
@@ -95,6 +96,140 @@ def test_unpack_matches_reference_kernel(bits):
     got = bitpack.unpack(_t(words), n, bits)
     _same(np.asarray(want).view(np.int32), got, f"unpack bits={bits}")
     np.testing.assert_array_equal(got.numpy().view(np.uint32), u)
+
+
+#: (threads, 4-value steps per thread) of a span: the Hopper unpack
+#: kernel's 256 threads x 2 steps (2048 values, 16 chunks of 128), and a
+#: small tiling whose spans of one chunk put several spans in short inputs
+UNPACK_TILINGS = ((256, 2), (16, 2))
+#: words the kernel's buffers hold past a span's last word (PAD in
+#: csrc/unpack.cu): the windows of the last values reach into them
+UNPACK_PAD = 4
+UNPACK_WIDTHS = (1, 2, 7, 13, 16, 17, 31)
+UNPACK_NS = (1, 127, 128, 129, 128 * 37 - 1, 128 * 37 + 1, 2401 * 3599)
+UNPACK_CASES = [(b, n) for b in UNPACK_WIDTHS for n in UNPACK_NS]
+_U32 = 0xFFFFFFFF
+
+
+def _funnel(lo: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``__funnelshift_r(lo, hi, s)`` on uint32 values held in int64."""
+    return (((hi << 32) | lo) >> (s & 31)) & _U32
+
+
+def _pattern(u: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> their int32 bit patterns."""
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+
+
+def _unpack_emulated(words: torch.Tensor, n: int, bits: int, tiling,
+                     residuals: bool = False) -> torch.Tensor:
+    """The Hopper unpack kernel's decomposition with torch int64 ops: spans
+    of ``threads * 4 * steps`` values (whole chunks of 128 values = 4·bits
+    words, so each span's words start 16-byte aligned) staged in a buffer
+    of ``span_words + UNPACK_PAD`` words, of which those past the span or
+    past the payload's last needed word hold stale bits (here a hash, so a
+    value that read them would differ); each thread takes 4 consecutive
+    values from a window of staged words (up to 16 bits one 64-bit window
+    of two funnel shifts, above that a funnel shift each), then unzigzags
+    them for ``residuals``; the values past ``n`` (the masked tail) are
+    dropped."""
+    threads, steps = tiling
+    span = threads * 4 * steps
+    assert span % 128 == 0
+    sw = span // 32 * bits
+    n_need = -(-n * bits // 32)
+    w = words[:n_need].to(torch.int64) & _U32
+    v0 = 4 * torch.arange(-(-n // 4), dtype=torch.int64)   # each thread's first
+    s, off = v0 // span, (v0 % span) * bits
+
+    def staged(k: torch.Tensor) -> torch.Tensor:
+        assert int(k.max()) < sw + UNPACK_PAD
+        idx = s * sw + k
+        copied = (k < sw) & (idx < n_need)
+        stale = (idx * 0x9E3779B1 + 0x7F4A7C15) & _U32
+        return torch.where(copied, w[idx.clamp(max=n_need - 1)], stale)
+
+    mask = (1 << bits) - 1
+    if bits <= 16:
+        k = off >> 5
+        w0, w1, w2 = staged(k), staged(k + 1), staged(k + 2)
+        x = (_funnel(w1, w2, off) << 32) | _funnel(w0, w1, off)
+        u = [(x >> (e * bits)) & mask for e in range(4)]
+    else:
+        u = [_funnel(staged(o >> 5), staged((o >> 5) + 1), o) & mask
+             for o in (off + e * bits for e in range(4))]
+    out = _pattern(torch.stack(u, 1).reshape(-1)[:n])
+    return encode.unzigzag(out) if residuals else out
+
+
+@pytest.mark.parametrize("bits,n", UNPACK_CASES,
+                         ids=[f"{b}bits-{n}" for b, n in UNPACK_CASES])
+def test_unpack_spans_rebuild_values(bits, n):
+    """The Hopper unpack kernel's spans, windows and masked tail, emulated
+    at both tilings, equal the plain unpack and the reference's Pallas
+    kernel (interpret mode) bitwise: zigzag values and, with the unzigzag
+    fused in, residuals; also from a payload sliced one word in (an
+    address that is not 16-byte aligned, so the kernel copies 4-byte
+    pieces)."""
+    rng = np.random.default_rng(bits * 7919 + n)
+    u = torch.as_tensor(rng.integers(0, 1 << bits, n, dtype=np.int64)
+                        .astype(np.int32))
+    words = encode.pack_uniform(u, bits)
+    want = jax_bitpack.unpack(jnp.asarray(words.numpy().view(np.uint32)), n,
+                              bits, interpret=True)
+    plain = bitpack.unpack_plain(words, n, bits)
+    _same(np.asarray(want).view(np.int32), plain, "plain vs reference")
+    assert torch.equal(plain, u)
+    shifted = torch.empty((words.numel() + 1,), dtype=torch.int32)
+    shifted[1:] = words
+    sliced = shifted[1:]
+    assert sliced.data_ptr() % 16 != 0 or words.numel() == 0
+    for tiling in UNPACK_TILINGS:
+        for src in (words, sliced):
+            assert torch.equal(_unpack_emulated(src, n, bits, tiling), plain)
+            assert torch.equal(_unpack_emulated(src, n, bits, tiling,
+                                                residuals=True),
+                               encode.unzigzag(plain))
+    assert torch.equal(bitpack.unpack(sliced, n, bits), plain)
+    assert torch.equal(bitpack.unpack_residuals(sliced, n, bits),
+                       encode.unzigzag(plain))
+
+
+@pytest.mark.parametrize("bits", [0, 1, 7, 13, 16, 17, 31, 32])
+def test_unpack_residuals_matches_reference(bits):
+    """``unpack_residuals`` (the decode's unpack, unzigzag fused in) on the
+    CPU equals ``unzigzag`` of the reference's Pallas unpack bitwise, at
+    every width class (0 and 32 are fast paths) and a ragged tail."""
+    n = (100, 4097, 5000)[bits % 3]
+    rng = np.random.default_rng(bits * 101 + n + 1)
+    maxv = (1 << bits) - 1 if bits < 32 else 0xFFFFFFFF
+    u = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    u &= np.uint32(maxv)
+    words = np.asarray(jax_encode.pack_uniform(jnp.asarray(u), bits))
+    want = jax_encode.unzigzag(
+        jax_bitpack.unpack(jnp.asarray(words), n, bits, interpret=True))
+    got = bitpack.unpack_residuals(_t(words), n, bits)
+    _same(np.asarray(want).view(np.int32), got, f"residuals bits={bits}")
+    assert torch.equal(got, bitpack.unpack_residuals_plain(_t(words), n, bits))
+
+
+@pytest.mark.parametrize("scheme", ["hszp_nd", "hszx_nd"])
+def test_decode_device_matches_reference(scheme):
+    """``decode_device`` (now one ``unpack_residuals`` call) equals the
+    reference's decode of the same container bitwise, and on the CPU
+    launches nothing."""
+    _, e = _field(scheme)
+    arrays = {k: np.asarray(getattr(e, k)) for k in
+              ("payload", "metadata", "bitwidths", "eps", "valid_counts")}
+    meta = {"scheme": e.scheme.value, "shape": e.shape,
+            "padded_shape": e.padded_shape, "block": e.block,
+            "orig_dtype": np.dtype(e.orig_dtype).name, "bits": e.bits}
+    te = convert.from_arrays("Encoded", arrays, meta, device="cpu")
+    ops.reset_launches()
+    got = encode.decode_device(te)
+    assert set(ops.LAUNCHES.values()) == {0}
+    want = jax_encode.decode_device(e)
+    _same(np.asarray(want.residuals), got.residuals, f"{scheme} residuals")
 
 
 # ===========================================================================
@@ -320,6 +455,7 @@ def test_cpu_wrappers_launch_nothing():
     c, e = _field("hszx_nd")
     ops.reset_launches()
     encode.unzigzag(bitpack.unpack(_t(np.asarray(e.payload)), 400 * 48, e.bits))
+    bitpack.unpack_residuals(_t(np.asarray(e.payload)), 400 * 48, e.bits)
     fused.blockmean_enc2d(_t(np.asarray(e.payload)), _t(np.asarray(c.metadata)),
                           (400, 48), BLOCK, e.bits, what="grad")
     fused.lorenzo2d(_t(np.asarray(c.residuals)), what="lap")
@@ -378,6 +514,36 @@ def test_unpack_kernel_matches_plain_on_card(bits):
     assert ops.LAUNCHES["unpack"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, bitpack.unpack_plain(words, n, bits))
+
+
+#: unpack on the card: the Ocean shape, the padded one, a short ragged
+#: input, at several widths; each also from a payload sliced one word in
+UNPACK_CARD_CASES = [(b, n) for b in (1, 7, 13, 16, 17, 31)
+                     for n in (2400 * 3600, 2401 * 3599, 129)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,n", UNPACK_CARD_CASES,
+                         ids=[f"{b}bits-{n}" for b, n in UNPACK_CARD_CASES])
+def test_unpack_residuals_kernel_matches_plain_on_card(bits, n):
+    """Both unpack instantiations against their plain versions, bitwise,
+    aligned and sliced to a payload address that is not 16-byte aligned."""
+    dev = _card()
+    rng = np.random.default_rng(bits + n)
+    u = torch.as_tensor(rng.integers(0, 1 << bits, n, dtype=np.int64)
+                        .astype(np.int32), device=dev)
+    words = encode.pack_uniform(u, bits)
+    shifted = torch.empty((words.numel() + 1,), dtype=torch.int32, device=dev)
+    shifted[1:] = words
+    for src in (words, shifted[1:]):
+        before = dict(ops.LAUNCHES)
+        z = bitpack.unpack(src, n, bits)
+        r = bitpack.unpack_residuals(src, n, bits)
+        assert ops.LAUNCHES["unpack"] == before["unpack"] + 1
+        assert ops.LAUNCHES["unpack.residuals"] == before["unpack.residuals"] + 1
+        torch.cuda.synchronize()
+        assert torch.equal(z, u)
+        assert torch.equal(r, bitpack.unpack_residuals_plain(src, n, bits))
 
 
 @pytest.mark.gpu
