@@ -996,8 +996,8 @@ extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowed
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
-  prefix_stats_tile_kernel<<<grid, NT, PS_SMEM, s>>>(a, static_cast<const int32_t*>(corners),
+  const int grid = a.n_tiles;
+  prefix_stats_tile_kernel<<<grid, NT, (PS_HEAD + PS_BUF) * 4, s>>>(a, static_cast<const int32_t*>(corners),
                                                      static_cast<double*>(partials));
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   prefix_stats_reduce_kernel<<<1, NT, 0, s>>>(static_cast<const double*>(partials),
