@@ -654,7 +654,7 @@ __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corner
 // 16 q and q^2 in f64, then a warp reduction and the 8 warps in order.
 __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32_t corner,
                                            const uint32_t* R, const uint32_t* E, uint32_t* T,
-                                           double* red, double* __restrict__ partials) {
+                                           double& s1, double& s2) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i0 = ti * TH, j0 = tj * TW;
   const int r0 = warp * ROWS, c0 = 4 * lane;
@@ -709,7 +709,6 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
       top[3] += tw.w;
     }
   }
-  double s1 = 0.0, s2 = 0.0;
   const int rows = min(ROWS, a.n0 - i0 - r0), cols = min(4, a.n1 - j0 - c0);
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
@@ -722,26 +721,12 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
       }
     }
   }
-  warp_sum2(s1, s2);
-  if (lane == 0) {
-    red[warp] = s1;
-    red[NWARP + warp] = s2;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double x = 0.0, y = 0.0;
-    for (int w = 0; w < NWARP; ++w) {
-      x += red[w];
-      y += red[NWARP + w];
-    }
-    const long long tile = (long long)ti * a.n_ct + tj;
-    partials[2 * tile] = x;
-    partials[2 * tile + 1] = y;
-  }
 }
 
 // The stats pass over the tiles: a persistent grid that copies the next
 // tile's residuals and edges with cp.async while it sums the current one.
+// Each thread carries its f64 sums over the block's tiles; at the end a
+// warp reduction and the 8 warps in order give one pair per block.
 __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
                                                                const int32_t* __restrict__ corners,
                                                                double* __restrict__ partials) {
@@ -755,6 +740,7 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
   fetch<false, TH, TW>(a, ti * TH, tj * TW, B);
   fetch_edges(a, ti, tj, B + TH * LD);
   cp_async_commit();
+  double s1 = 0.0, s2 = 0.0;
   int buf = 0;
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
     tile_of(a, tile, ti, tj);
@@ -771,7 +757,23 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
     }
     cp_async_commit();
     const uint32_t* R = B + buf * PS_BUF;
-    stats_tile(a, ti, tj, corner, R, R + TH * LD, T, red, partials);
+    stats_tile(a, ti, tj, corner, R, R + TH * LD, T, s1, s2);
+  }
+  warp_sum2(s1, s2);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    red[warp] = s1;
+    red[NWARP + warp] = s2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double x = 0.0, y = 0.0;
+    for (int w = 0; w < NWARP; ++w) {
+      x += red[w];
+      y += red[NWARP + w];
+    }
+    partials[2 * blockIdx.x] = x;
+    partials[2 * blockIdx.x + 1] = y;
   }
 }
 
@@ -996,12 +998,12 @@ extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowed
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int grid = a.n_tiles;
-  prefix_stats_tile_kernel<<<grid, NT, (PS_HEAD + PS_BUF) * 4, s>>>(a, static_cast<const int32_t*>(corners),
+  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
+  prefix_stats_tile_kernel<<<grid, NT, PS_SMEM, s>>>(a, static_cast<const int32_t*>(corners),
                                                      static_cast<double*>(partials));
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  prefix_stats_reduce_kernel<<<1, NT, 0, s>>>(static_cast<const double*>(partials),
-                                              (long long)a.n_tiles, static_cast<float*>(out));
+  prefix_stats_reduce_kernel<<<1, NT, 0, s>>>(static_cast<const double*>(partials), grid,
+                                              static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
