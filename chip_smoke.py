@@ -13,13 +13,16 @@ Phases (any failure raises, so the exit code is non-zero):
    instantiation's shared memory, registers, blocks per SM and SASS count;
 3. every kernel of the main path against its plain PyTorch version on the
    card, at the Ocean shape (2400 x 3600, blocks 16 x 16) and a padded one
-   (2401 x 3599): bitwise, for every ``what`` and several unpack widths;
+   (2401 x 3599): bitwise, for every ``what``; both unpack instantiations
+   (zigzag values and residuals) at several widths, a ragged length and a
+   payload address that is not 16-byte aligned;
    then the block-mean kernels on random planes near Ocean's size at blocks
    (8, 8), (5, 7) and (4, 48), whose edges straddle the kernel's tiles;
 4. the kernel entry point (``repro_torch.kernels``: quant_lorenzo2d, pack,
    unpack, block_stats, grad2d, laplacian2d, prefix_stats2d): each kernel
    against its plain version at both shapes (bitwise; prefix_stats2d rtol
-   1e-5 and bitwise between two launches), then the entry point driven on
+   1e-5, bitwise between two launches and bitwise against the exact int64
+   sums rounded once to f32), then the entry point driven on
    the Ocean field u and held against the main path's containers and
    stage-③ results on the card;
 5. the main path: the two Ocean fields (u, v) through ``compress`` ->
@@ -35,9 +38,12 @@ Phases (any failure raises, so the exit code is non-zero):
    from device memory, not the L2) and as host enqueue per call, its plain
    version, the bound (bytes over 3.35 TB/s or the operations the function
    needs over the card's int32 / f32 lane rates, the larger), launches per
-   query, the device kernels of a Lorenzo
-   gradient query from a ``torch.profiler`` trace, and end-to-end ms per
-   query; detail lines time the band kernels for every ``what``.
+   query, the device kernels of a Lorenzo gradient query, an ``Encoded``
+   mean@② query (its decode one unpack kernel) and a ``prefix_stats2d``
+   call (our four kernels only) from ``torch.profiler`` traces, and
+   end-to-end ms per query and per decompress; detail lines time the
+   decode against unpack + torch unzigzag and the band kernels for every
+   ``what``.
 
 Launch counters are reset just before each path (entry point, main path)
 and read just after it: each path must launch every kernel site it runs,

@@ -616,11 +616,13 @@ __global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
 // prefix_stats2d
 // ---------------------------------------------------------------------------
 
-// Shared memory of the stats pass: column totals T, the warps' f64 sums,
-// then one or two buffers of a staged tile of p (R) and its edges (E).
+// Shared memory of the stats pass: column totals T (one row per warp, then
+// the row of q above the tile), the warps' f64 sums, then two buffers of a
+// staged tile of p (R) and its edges (E).
+constexpr int PS_T = (NWARP + 1) * LDT;            // words of T
 constexpr int PS_RED = 2 * NWARP * 2;              // words of 2 x NWARP doubles
 constexpr int PS_BUF = TH * LD + EW;               // words of one buffer
-constexpr int PS_HEAD = NWARP * LDT + PS_RED;      // words before the buffers
+constexpr int PS_HEAD = PS_T + PS_RED;             // words before the buffers
 static_assert(PS_HEAD % 4 == 0 && PS_BUF % 4 == 0, "16-byte aligned buffers");
 
 __device__ __forceinline__ void warp_sum2(double& a, double& b) {
@@ -632,7 +634,7 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
 }
 
 // sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
-// row ti over the 4 tj column groups left of the tile (every warp alike).
+// row ti over the 4 tj column groups left of the tile.
 __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
                                               int ti, int tj) {
   const int lane = threadIdx.x & 31;
@@ -646,12 +648,44 @@ __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corner
   return __reduce_add_sync(FULL, (c[0] + c[1]) + (c[2] + c[3]));
 }
 
-// (sum q, sum q^2) of one tile of q = cumsum(cumsum(p, 0), 1), on the
-// stencil pass's register tile: D0 by an in-thread prefix, a lane scan and
-// the row edge; q by an in-thread prefix of D0 down the warp's 4 rows, the
-// totals of the warps above (T) and the row of q above the tile, itself
-// the corner plus a lane scan of the column edge.  Each thread sums its
-// 16 q and q^2 in f64, then a warp reduction and the 8 warps in order.
+// q as a double, exactly: the bits of 2^52 + 2^31 + q less 2^52 + 2^31 (one
+// f64 add, where a conversion instruction runs at a quarter of its rate).
+__device__ __forceinline__ double exact_double(uint32_t q) {
+  return __hiloint2double(0x43300000, (int)(q ^ 0x80000000u)) - 4503601774854144.0;
+}
+
+// Add the tile's q and q^2 to (s1, s2), f64; rows and columns outside the
+// plane are skipped (the full-tile case without masks).
+__device__ __forceinline__ void sum_q(const uint32_t (&d)[ROWS][4], const uint32_t (&top)[4],
+                                      int rows, int cols, double& s1, double& s2) {
+  if (rows == ROWS && cols == 4) {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const double q = exact_double(d[k][e] + top[e]);
+        s1 += q;
+        s2 = fma(q, q, s2);
+      }
+  } else {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k < rows && e < cols) {
+          const double q = exact_double(d[k][e] + top[e]);
+          s1 += q;
+          s2 = fma(q, q, s2);
+        }
+  }
+}
+
+// Add (sum q, sum q^2) of one tile of q = cumsum(cumsum(p, 0), 1) to the
+// thread's (s1, s2), on the stencil pass's register tile: D0 by an
+// in-thread prefix, a lane scan and the row edge; q by an in-thread prefix
+// of D0 down the warp's 4 rows, the totals of the warps above (T) and the
+// row of q above the tile, which warp 0 makes from the corner (`corner`,
+// its lanes only) and a lane scan of the column edge.
 __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32_t corner,
                                            const uint32_t* R, const uint32_t* E, uint32_t* T,
                                            double& s1, double& s2) {
@@ -689,38 +723,29 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[k][e] += d[k - 1][e];
   *reinterpret_cast<uint4*>(T + warp * LDT + c0) = make_uint4(d[3][0], d[3][1], d[3][2], d[3][3]);
-  // the row of q above the tile
-  const uint4 ce = *reinterpret_cast<const uint4*>(E + c0);
-  uint32_t top[4] = {ce.x, ce.y, ce.z, ce.w};
+  if (warp == 0) {  // the row of q above the tile, to T row NWARP
+    const uint4 ce = *reinterpret_cast<const uint4*>(E + c0);
+    uint32_t top[4] = {ce.x, ce.y, ce.z, ce.w};
 #pragma unroll
-  for (int e = 1; e < 4; ++e) top[e] += top[e - 1];
-  const uint32_t incl = warp_scan(top[3], lane);
-  const uint32_t tcarry = corner + incl - top[3];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) top[e] += tcarry;
+    for (int e = 1; e < 4; ++e) top[e] += top[e - 1];
+    const uint32_t carry = corner + warp_scan(top[3], lane) - top[3];
+    *reinterpret_cast<uint4*>(T + NWARP * LDT + c0) =
+        make_uint4(top[0] + carry, top[1] + carry, top[2] + carry, top[3] + carry);
+  }
   __syncthreads();
+  const uint4 tt = *reinterpret_cast<const uint4*>(T + NWARP * LDT + c0);
+  uint32_t base[4] = {tt.x, tt.y, tt.z, tt.w};
 #pragma unroll
   for (int w = 0; w < NWARP - 1; ++w) {
     if (w < warp) {
       const uint4 tw = *reinterpret_cast<const uint4*>(T + w * LDT + c0);
-      top[0] += tw.x;
-      top[1] += tw.y;
-      top[2] += tw.z;
-      top[3] += tw.w;
+      base[0] += tw.x;
+      base[1] += tw.y;
+      base[2] += tw.z;
+      base[3] += tw.w;
     }
   }
-  const int rows = min(ROWS, a.n0 - i0 - r0), cols = min(4, a.n1 - j0 - c0);
-#pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (k < rows && e < cols) {
-        const double q = (double)(int32_t)(d[k][e] + top[e]);
-        s1 += q;
-        s2 = fma(q, q, s2);
-      }
-    }
-  }
+  sum_q(d, base, min(ROWS, a.n0 - i0 - r0), min(4, a.n1 - j0 - c0), s1, s2);
 }
 
 // The stats pass over the tiles: a persistent grid that copies the next
@@ -732,9 +757,10 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
                                                                double* __restrict__ partials) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* T = smem;
-  double* red = reinterpret_cast<double*>(smem + NWARP * LDT);
+  double* red = reinterpret_cast<double*>(smem + PS_T);
   uint32_t* B = smem + PS_HEAD;
   const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int ti, tj;
   tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
   fetch<false, TH, TW>(a, ti * TH, tj * TW, B);
@@ -743,13 +769,12 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
   double s1 = 0.0, s2 = 0.0;
   int buf = 0;
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
-    tile_of(a, tile, ti, tj);
-    const uint32_t corner = corner_of(corners, n_cb, ti, tj);
+    const uint32_t corner = warp == 0 ? corner_of(corners, n_cb, ti, tj) : 0u;
     cp_async_wait_all();
     __syncthreads();
+    int ni = ti, nj = tj;
     const int next = tile + gridDim.x;
     if (next < a.n_tiles) {
-      int ni, nj;
       tile_of(a, next, ni, nj);
       uint32_t* N = B + (buf ^ 1) * PS_BUF;
       fetch<false, TH, TW>(a, ni * TH, nj * TW, N);
@@ -758,9 +783,10 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
     cp_async_commit();
     const uint32_t* R = B + buf * PS_BUF;
     stats_tile(a, ti, tj, corner, R, R + TH * LD, T, s1, s2);
+    ti = ni;
+    tj = nj;
   }
   warp_sum2(s1, s2);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
     red[warp] = s1;
     red[NWARP + warp] = s2;
