@@ -756,6 +756,8 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
                                                                const int32_t* __restrict__ corners,
                                                                double* __restrict__ partials) {
   extern __shared__ __align__(16) uint32_t smem[];
+  // let the reduction's one block be scheduled now; it waits for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
   uint32_t* T = smem;
   double* red = reinterpret_cast<double*>(smem + PS_T);
   uint32_t* B = smem + PS_HEAD;
@@ -808,6 +810,9 @@ __global__ void __launch_bounds__(NT)
 prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_tiles,
                            float* __restrict__ out) {
   __shared__ double red[2][NT / 32];
+  // launched early (programmatic dependent launch): wait here until the
+  // tile pass has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   double a = 0.0, b = 0.0;
   for (long long k = t; k < n_tiles; k += NT) {
@@ -1028,9 +1033,18 @@ extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowed
   prefix_stats_tile_kernel<<<grid, NT, PS_SMEM, s>>>(a, static_cast<const int32_t*>(corners),
                                                      static_cast<double*>(partials));
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  prefix_stats_reduce_kernel<<<1, NT, 0, s>>>(static_cast<const double*>(partials), grid,
-                                              static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(NT);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, prefix_stats_reduce_kernel,
+                                 static_cast<const double*>(partials), (long long)grid,
+                                 static_cast<float*>(out));
 }
 
 // Shared memory (bytes), registers per thread and resident blocks per SM of
