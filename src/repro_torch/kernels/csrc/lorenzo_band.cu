@@ -9,6 +9,7 @@
 //                                                   for the band sums the reference
 //                                                   takes outside its kernel)
 //   prefix_stats.py:prefix_stats2d (_kernel)    -> lorenzo_edges_kernel<false>
+//                                                   + lorenzo_scan_kernel<true>
 //                                                   + prefix_stats_tile_kernel
 //                                                   + prefix_stats_reduce_kernel
 // With D0 = cumsum(p, 1) and D1 = cumsum(p, 0) (D0 = 0 below the last row, D1 = 0
@@ -78,17 +79,18 @@
 //
 // prefix_stats2d (paper Algorithm 4) gives (sum q, sum q^2) of
 // q = cumsum(cumsum(p, 0), 1) without writing q.  The TPU kernel carries the
-// previous row of q across a sequential grid; here nothing is carried.  From
-// the same edge pass, the row edge and the row of q just above the tile (an
-// inclusive cumsum along columns of the column edge, a torch op in the
-// wrapper) are enough to rebuild q in each 32 x 128 tile independently:
-// warps scan the tile's rows with shuffles starting from the row edge, then
-// 128 threads scan its columns starting from the row above, summing q and q^2
-// in f64 (exact for |q| < 2^26) as they go.  Each tile writes one f64
-// (sum q, sum q^2) pair; a second launch of one block sums the pairs in a
-// fixed order and rounds to f32 once.  No float atomics: the result is the
-// same bits run after run.  Bound: memory, p read twice (edge pass and tile
-// pass), 4n bytes each.
+// previous row of q across a sequential grid; here nothing is carried.  The
+// same edge pass runs, its scan kernel in a mode that also writes corner
+// sums (the column edge summed over each 32 columns, per tile row), so that
+// the row of q above a tile is its corner (sum p above and left of it) plus
+// a lane scan of its column edge, all on the card.  The stats pass rebuilds
+// q on the stencil pass's register tile (D0, then a column prefix from that
+// row and the warps above) and sums q and q^2 in f64, exact for
+// |q| < 2^26; each block carries its threads' sums over its tiles and
+// writes one pair, and a one-block kernel sums the pairs in a fixed order
+// and rounds to f32 once.  No float atomics: the result is the same bits
+// run after run.  Bound: memory, p read twice (edge pass and stats pass),
+// 4n bytes each.
 #include "common.cuh"
 
 namespace {

@@ -14,10 +14,12 @@ blocks run in no order, so nothing is carried.  Instead four kernels of
 3. the stats pass rebuilds ``q`` per tile on a register tile (modular
    int32): the row of ``q`` above the tile is the tile's corner
    (``Σ p[i < i0, j < j0]``, the corner sums left of it) plus a scan of its
-   column edge; each tile sums ``q`` and ``q²`` in f64 and writes one pair;
+   column edge; a persistent grid carries each thread's f64 sums of ``q``
+   and ``q²`` over its block's tiles and writes one pair per block;
 4. one block sums the pairs in a fixed order and rounds to f32.
 
-No float atomics, so a launch gives the same bits run after run.  The f64
+No float atomics, so a launch gives the same bits run after run (on one
+card: the grid is as many blocks as the card holds at once).  The f64
 sums are exact integers while ``|q| < 2^26`` and the totals stay below
 ``2^53``, so the result is the exact ``(Σq, Σq²)`` rounded once to f32; the
 reference's f32 sums round at every step (its tests allow rtol 1e-5).
@@ -75,7 +77,7 @@ def stats_edges(p: torch.Tensor):
 def prefix_stats_tiles(p: torch.Tensor, rowedge: torch.Tensor,
                        coledge: torch.Tensor, corners: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stats pass (kernel): per-tile f64 pairs, then the fixed-order sum."""
+    """Stats pass (kernel): per-block f64 pairs, then the fixed-order sum."""
     n0, n1 = p.shape
     th, tw = fused.lorenzo_tile()
     n_tiles = -(-n0 // th) * -(-n1 // tw)
