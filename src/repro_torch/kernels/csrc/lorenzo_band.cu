@@ -754,7 +754,9 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
 // tile's residuals and edges with cp.async while it sums the current one.
 // Each thread carries its f64 sums over the block's tiles; at the end a
 // warp reduction and the 8 warps in order give one pair per block.
-__global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
+// Held to 51 registers so that the 5 blocks per SM that shared memory
+// allows fit.
+__global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
                                                                const int32_t* __restrict__ corners,
                                                                double* __restrict__ partials) {
   extern __shared__ __align__(16) uint32_t smem[];
