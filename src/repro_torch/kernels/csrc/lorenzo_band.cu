@@ -657,29 +657,18 @@ __device__ __forceinline__ double exact_double(uint32_t q) {
 }
 
 // Add the tile's q and q^2 to (s1, s2), f64; rows and columns outside the
-// plane are skipped (the full-tile case without masks).
+// plane are skipped.
 __device__ __forceinline__ void sum_q(const uint32_t (&d)[ROWS][4], const uint32_t (&top)[4],
                                       int rows, int cols, double& s1, double& s2) {
-  if (rows == ROWS && cols == 4) {
 #pragma unroll
-    for (int k = 0; k < ROWS; ++k)
+  for (int k = 0; k < ROWS; ++k)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < 4; ++e)
+      if (k < rows && e < cols) {
         const double q = exact_double(d[k][e] + top[e]);
         s1 += q;
         s2 = fma(q, q, s2);
       }
-  } else {
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k < rows && e < cols) {
-          const double q = exact_double(d[k][e] + top[e]);
-          s1 += q;
-          s2 = fma(q, q, s2);
-        }
-  }
 }
 
 // Add (sum q, sum q^2) of one tile of q = cumsum(cumsum(p, 0), 1) to the
