@@ -650,25 +650,38 @@ __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corner
   return __reduce_add_sync(FULL, (c[0] + c[1]) + (c[2] + c[3]));
 }
 
-// q as a double, exactly: the bits of 2^52 + 2^31 + q less 2^52 + 2^31 (one
-// f64 add, where a conversion instruction runs at a quarter of its rate).
-__device__ __forceinline__ double exact_double(uint32_t q) {
-  return __hiloint2double(0x43300000, (int)(q ^ 0x80000000u)) - 4503601774854144.0;
+// q as a double, exactly, from qb = q + 2^31 (mod 2^32): the bits of
+// 2^52 + qb less 2^52 + 2^31 (one f64 add, where a conversion instruction
+// runs at a quarter of its rate).
+__device__ __forceinline__ double exact_double(uint32_t qb) {
+  return __hiloint2double(0x43300000, (int)qb) - 4503601774854144.0;
 }
 
-// Add the tile's q and q^2 to (s1, s2), f64; rows and columns outside the
-// plane are skipped.
-__device__ __forceinline__ void sum_q(const uint32_t (&d)[ROWS][4], const uint32_t (&top)[4],
+// Add the tile's q and q^2 to (s1, s2), f64, from D0's column prefixes d
+// and the biased base (q + 2^31 = d + base); rows and columns outside the
+// plane are skipped (the full-tile case without masks).
+__device__ __forceinline__ void sum_q(const uint32_t (&d)[ROWS][4], const uint32_t (&base)[4],
                                       int rows, int cols, double& s1, double& s2) {
+  if (rows == ROWS && cols == 4) {
 #pragma unroll
-  for (int k = 0; k < ROWS; ++k)
+    for (int k = 0; k < ROWS; ++k)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (k < rows && e < cols) {
-        const double q = exact_double(d[k][e] + top[e]);
+      for (int e = 0; e < 4; ++e) {
+        const double q = exact_double(d[k][e] + base[e]);
         s1 += q;
         s2 = fma(q, q, s2);
       }
+  } else {
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k < rows && e < cols) {
+          const double q = exact_double(d[k][e] + base[e]);
+          s1 += q;
+          s2 = fma(q, q, s2);
+        }
+  }
 }
 
 // Add (sum q, sum q^2) of one tile of q = cumsum(cumsum(p, 0), 1) to the
@@ -714,28 +727,30 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[k][e] += d[k - 1][e];
   *reinterpret_cast<uint4*>(T + warp * LDT + c0) = make_uint4(d[3][0], d[3][1], d[3][2], d[3][3]);
-  if (warp == 0) {  // the row of q above the tile, to T row NWARP
+  if (warp == 0) {  // the row of q above the tile (+ 2^31, the bias), to T row NWARP
     const uint4 ce = *reinterpret_cast<const uint4*>(E + c0);
     uint32_t top[4] = {ce.x, ce.y, ce.z, ce.w};
 #pragma unroll
     for (int e = 1; e < 4; ++e) top[e] += top[e - 1];
-    const uint32_t carry = corner + warp_scan(top[3], lane) - top[3];
+    const uint32_t carry = 0x80000000u + corner + warp_scan(top[3], lane) - top[3];
     *reinterpret_cast<uint4*>(T + NWARP * LDT + c0) =
         make_uint4(top[0] + carry, top[1] + carry, top[2] + carry, top[3] + carry);
   }
   __syncthreads();
-  const uint4 tt = *reinterpret_cast<const uint4*>(T + NWARP * LDT + c0);
-  uint32_t base[4] = {tt.x, tt.y, tt.z, tt.w};
+  // each column's base for every warp: the row above plus the warps above,
+  // one thread a column
+  if (threadIdx.x < TW) {
+    uint32_t run = T[NWARP * LDT + threadIdx.x];
 #pragma unroll
-  for (int w = 0; w < NWARP - 1; ++w) {
-    if (w < warp) {
-      const uint4 tw = *reinterpret_cast<const uint4*>(T + w * LDT + c0);
-      base[0] += tw.x;
-      base[1] += tw.y;
-      base[2] += tw.z;
-      base[3] += tw.w;
+    for (int w = 0; w < NWARP; ++w) {
+      const uint32_t x = T[w * LDT + threadIdx.x];
+      T[w * LDT + threadIdx.x] = run;
+      run += x;
     }
   }
+  __syncthreads();
+  const uint4 b = *reinterpret_cast<const uint4*>(T + warp * LDT + c0);
+  const uint32_t base[4] = {b.x, b.y, b.z, b.w};
   sum_q(d, base, min(ROWS, a.n0 - i0 - r0), min(4, a.n1 - j0 - c0), s1, s2);
 }
 
@@ -756,8 +771,9 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
   uint32_t* B = smem + PS_HEAD;
   const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int ti, tj;
+  int ti, tj, step_i, step_j;
   tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
+  tile_of(a, gridDim.x, step_i, step_j);
   fetch<false, TH, TW>(a, ti * TH, tj * TW, B);
   fetch_edges(a, ti, tj, B + TH * LD);
   cp_async_commit();
@@ -767,10 +783,13 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
     const uint32_t corner = warp == 0 ? corner_of(corners, n_cb, ti, tj) : 0u;
     cp_async_wait_all();
     __syncthreads();
-    int ni = ti, nj = tj;
-    const int next = tile + gridDim.x;
-    if (next < a.n_tiles) {
-      tile_of(a, next, ni, nj);
+    // the next tile, gridDim.x further in row-major order
+    int ni = ti + step_i, nj = tj + step_j;
+    if (nj >= a.n_ct) {
+      nj -= a.n_ct;
+      ++ni;
+    }
+    if (tile + (int)gridDim.x < a.n_tiles) {
       uint32_t* N = B + (buf ^ 1) * PS_BUF;
       fetch<false, TH, TW>(a, ni * TH, nj * TW, N);
       fetch_edges(a, ni, nj, N + TH * LD);
