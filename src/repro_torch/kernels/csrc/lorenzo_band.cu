@@ -755,8 +755,7 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
 }
 
 // The stats pass over the tiles: a persistent grid that copies the next
-// tile's residuals and edges with cp.async while it waits for and sums the
-// current one.
+// tile's residuals and edges with cp.async while it sums the current one.
 // Each thread carries its f64 sums over the block's tiles; at the end a
 // warp reduction and the 8 warps in order give one pair per block.
 // Held to 51 registers so that the 5 blocks per SM that shared memory
@@ -782,9 +781,9 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
   int buf = 0;
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
     const uint32_t corner = warp == 0 ? corner_of(corners, n_cb, ti, tj) : 0u;
-    // the next tile, gridDim.x further in row-major order: its copies go
-    // out before this tile's have to land (the other buffer's last reads,
-    // by the previous tile, came before that tile's first barrier)
+    cp_async_wait_all();
+    __syncthreads();
+    // the next tile, gridDim.x further in row-major order
     int ni = ti + step_i, nj = tj + step_j;
     if (nj >= a.n_ct) {
       nj -= a.n_ct;
@@ -796,8 +795,6 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
       fetch_edges(a, ni, nj, N + TH * LD);
     }
     cp_async_commit();
-    hsz::cp_async_wait_prev();
-    __syncthreads();
     const uint32_t* R = B + buf * PS_BUF;
     stats_tile(a, ti, tj, corner, R, R + TH * LD, T, s1, s2);
     ti = ni;
