@@ -635,6 +635,23 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
   }
 }
 
+// Start copying the tile of p at (i0, j0) into R (row r at R + r*LD): a
+// tile inside the plane with 16-byte rows as four 16-byte copies a thread
+// (warp w rows w, w + 8, w + 16, w + 24, a lane 4 residuals), any other by
+// the plane path of fetch (4-byte pieces, 0 outside the plane).
+__device__ __forceinline__ void fetch_p(const Args& a, int i0, int j0, uint32_t* R) {
+  if (a.vin && i0 + TH <= a.n0 && j0 + TW <= a.n1) {
+    const int warp = threadIdx.x >> 5, c = 4 * (threadIdx.x & 31);
+    const uint32_t* src =
+        static_cast<const uint32_t*>(a.src) + ((long long)(i0 + warp) * a.n1 + j0 + c);
+    const long long step = (long long)NWARP * a.n1;
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m) cp_async16(R + (warp + NWARP * m) * LD + c, src + m * step);
+  } else {
+    fetch<false, TH, TW>(a, i0, j0, R);
+  }
+}
+
 // sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
 // row ti over the 4 tj column groups left of the tile.
 __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
@@ -774,7 +791,7 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
   int ti, tj, step_i, step_j;
   tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
   tile_of(a, gridDim.x, step_i, step_j);
-  fetch<false, TH, TW>(a, ti * TH, tj * TW, B);
+  fetch_p(a, ti * TH, tj * TW, B);
   fetch_edges(a, ti, tj, B + TH * LD);
   cp_async_commit();
   double s1 = 0.0, s2 = 0.0;
@@ -791,7 +808,7 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
     }
     if (tile + (int)gridDim.x < a.n_tiles) {
       uint32_t* N = B + (buf ^ 1) * PS_BUF;
-      fetch<false, TH, TW>(a, ni * TH, nj * TW, N);
+      fetch_p(a, ni * TH, nj * TW, N);
       fetch_edges(a, ni, nj, N + TH * LD);
     }
     cp_async_commit();
