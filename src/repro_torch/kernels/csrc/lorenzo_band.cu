@@ -87,10 +87,11 @@
 // q on the stencil pass's register tile (D0, then a column prefix from that
 // row and the warps above) and sums q and q^2 in f64, exact for
 // |q| < 2^26; each block carries its threads' sums over its tiles and
-// writes one pair, and a one-block kernel sums the pairs in a fixed order
-// and rounds to f32 once.  No float atomics: the result is the same bits
-// run after run.  Bound: memory, p read twice (edge pass and stats pass),
-// 4n bytes each.
+// writes one pair, and a one-block kernel, launched early to wait for the
+// tile pass (programmatic dependent launch), sums the pairs in a fixed
+// order and rounds to f32 once.  No float atomics: the result is the same
+// bits run after run.  Bound: memory, p read twice (edge pass and stats
+// pass), 4n bytes each.
 #include "common.cuh"
 
 namespace {
@@ -635,23 +636,6 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
   }
 }
 
-// Start copying the tile of p at (i0, j0) into R (row r at R + r*LD): a
-// tile inside the plane with 16-byte rows as four 16-byte copies a thread
-// (warp w rows w, w + 8, w + 16, w + 24, a lane 4 residuals), any other by
-// the plane path of fetch (4-byte pieces, 0 outside the plane).
-__device__ __forceinline__ void fetch_p(const Args& a, int i0, int j0, uint32_t* R) {
-  if (a.vin && i0 + TH <= a.n0 && j0 + TW <= a.n1) {
-    const int warp = threadIdx.x >> 5, c = 4 * (threadIdx.x & 31);
-    const uint32_t* src =
-        static_cast<const uint32_t*>(a.src) + ((long long)(i0 + warp) * a.n1 + j0 + c);
-    const long long step = (long long)NWARP * a.n1;
-#pragma unroll
-    for (int m = 0; m < ROWS; ++m) cp_async16(R + (warp + NWARP * m) * LD + c, src + m * step);
-  } else {
-    fetch<false, TH, TW>(a, i0, j0, R);
-  }
-}
-
 // sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
 // row ti over the 4 tj column groups left of the tile.
 __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
@@ -667,38 +651,25 @@ __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corner
   return __reduce_add_sync(FULL, (c[0] + c[1]) + (c[2] + c[3]));
 }
 
-// q as a double, exactly, from qb = q + 2^31 (mod 2^32): the bits of
-// 2^52 + qb less 2^52 + 2^31 (one f64 add, where a conversion instruction
-// runs at a quarter of its rate).
-__device__ __forceinline__ double exact_double(uint32_t qb) {
-  return __hiloint2double(0x43300000, (int)qb) - 4503601774854144.0;
+// q as a double, exactly: the bits of 2^52 + 2^31 + q less 2^52 + 2^31 (one
+// f64 add, where a conversion instruction runs at a quarter of its rate).
+__device__ __forceinline__ double exact_double(uint32_t q) {
+  return __hiloint2double(0x43300000, (int)(q ^ 0x80000000u)) - 4503601774854144.0;
 }
 
-// Add the tile's q and q^2 to (s1, s2), f64, from D0's column prefixes d
-// and the biased base (q + 2^31 = d + base); rows and columns outside the
-// plane are skipped (the full-tile case without masks).
-__device__ __forceinline__ void sum_q(const uint32_t (&d)[ROWS][4], const uint32_t (&base)[4],
+// Add the tile's q and q^2 to (s1, s2), f64; rows and columns outside the
+// plane are skipped.
+__device__ __forceinline__ void sum_q(const uint32_t (&d)[ROWS][4], const uint32_t (&top)[4],
                                       int rows, int cols, double& s1, double& s2) {
-  if (rows == ROWS && cols == 4) {
 #pragma unroll
-    for (int k = 0; k < ROWS; ++k)
+  for (int k = 0; k < ROWS; ++k)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const double q = exact_double(d[k][e] + base[e]);
+    for (int e = 0; e < 4; ++e)
+      if (k < rows && e < cols) {
+        const double q = exact_double(d[k][e] + top[e]);
         s1 += q;
         s2 = fma(q, q, s2);
       }
-  } else {
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k < rows && e < cols) {
-          const double q = exact_double(d[k][e] + base[e]);
-          s1 += q;
-          s2 = fma(q, q, s2);
-        }
-  }
 }
 
 // Add (sum q, sum q^2) of one tile of q = cumsum(cumsum(p, 0), 1) to the
@@ -744,30 +715,28 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[k][e] += d[k - 1][e];
   *reinterpret_cast<uint4*>(T + warp * LDT + c0) = make_uint4(d[3][0], d[3][1], d[3][2], d[3][3]);
-  if (warp == 0) {  // the row of q above the tile (+ 2^31, the bias), to T row NWARP
+  if (warp == 0) {  // the row of q above the tile, to T row NWARP
     const uint4 ce = *reinterpret_cast<const uint4*>(E + c0);
     uint32_t top[4] = {ce.x, ce.y, ce.z, ce.w};
 #pragma unroll
     for (int e = 1; e < 4; ++e) top[e] += top[e - 1];
-    const uint32_t carry = 0x80000000u + corner + warp_scan(top[3], lane) - top[3];
+    const uint32_t carry = corner + warp_scan(top[3], lane) - top[3];
     *reinterpret_cast<uint4*>(T + NWARP * LDT + c0) =
         make_uint4(top[0] + carry, top[1] + carry, top[2] + carry, top[3] + carry);
   }
   __syncthreads();
-  // each column's base for every warp: the row above plus the warps above,
-  // one thread a column
-  if (threadIdx.x < TW) {
-    uint32_t run = T[NWARP * LDT + threadIdx.x];
+  const uint4 tt = *reinterpret_cast<const uint4*>(T + NWARP * LDT + c0);
+  uint32_t base[4] = {tt.x, tt.y, tt.z, tt.w};
 #pragma unroll
-    for (int w = 0; w < NWARP; ++w) {
-      const uint32_t x = T[w * LDT + threadIdx.x];
-      T[w * LDT + threadIdx.x] = run;
-      run += x;
+  for (int w = 0; w < NWARP - 1; ++w) {
+    if (w < warp) {
+      const uint4 tw = *reinterpret_cast<const uint4*>(T + w * LDT + c0);
+      base[0] += tw.x;
+      base[1] += tw.y;
+      base[2] += tw.z;
+      base[3] += tw.w;
     }
   }
-  __syncthreads();
-  const uint4 b = *reinterpret_cast<const uint4*>(T + warp * LDT + c0);
-  const uint32_t base[4] = {b.x, b.y, b.z, b.w};
   sum_q(d, base, min(ROWS, a.n0 - i0 - r0), min(4, a.n1 - j0 - c0), s1, s2);
 }
 
@@ -775,9 +744,7 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
 // tile's residuals and edges with cp.async while it sums the current one.
 // Each thread carries its f64 sums over the block's tiles; at the end a
 // warp reduction and the 8 warps in order give one pair per block.
-// Held to 51 registers so that the 5 blocks per SM that shared memory
-// allows fit.
-__global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
+__global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
                                                                const int32_t* __restrict__ corners,
                                                                double* __restrict__ partials) {
   extern __shared__ __align__(16) uint32_t smem[];
@@ -788,10 +755,9 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
   uint32_t* B = smem + PS_HEAD;
   const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int ti, tj, step_i, step_j;
+  int ti, tj;
   tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
-  tile_of(a, gridDim.x, step_i, step_j);
-  fetch_p(a, ti * TH, tj * TW, B);
+  fetch<false, TH, TW>(a, ti * TH, tj * TW, B);
   fetch_edges(a, ti, tj, B + TH * LD);
   cp_async_commit();
   double s1 = 0.0, s2 = 0.0;
@@ -800,15 +766,12 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
     const uint32_t corner = warp == 0 ? corner_of(corners, n_cb, ti, tj) : 0u;
     cp_async_wait_all();
     __syncthreads();
-    // the next tile, gridDim.x further in row-major order
-    int ni = ti + step_i, nj = tj + step_j;
-    if (nj >= a.n_ct) {
-      nj -= a.n_ct;
-      ++ni;
-    }
-    if (tile + (int)gridDim.x < a.n_tiles) {
+    int ni = ti, nj = tj;
+    const int next = tile + gridDim.x;
+    if (next < a.n_tiles) {
+      tile_of(a, next, ni, nj);
       uint32_t* N = B + (buf ^ 1) * PS_BUF;
-      fetch_p(a, ni * TH, nj * TW, N);
+      fetch<false, TH, TW>(a, ni * TH, nj * TW, N);
       fetch_edges(a, ni, nj, N + TH * LD);
     }
     cp_async_commit();
@@ -834,9 +797,9 @@ __global__ void __launch_bounds__(NT, 5) prefix_stats_tile_kernel(const Args a,
   }
 }
 
-// One block: the tiles' (sum q, sum q^2) pairs summed in a fixed order.
+// One block: the stats pass's (sum q, sum q^2) pairs summed in a fixed order.
 __global__ void __launch_bounds__(NT)
-prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_tiles,
+prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_pairs,
                            float* __restrict__ out) {
   __shared__ double red[2][NT / 32];
   // launched early (programmatic dependent launch): wait here until the
@@ -844,7 +807,7 @@ prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_tile
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   double a = 0.0, b = 0.0;
-  for (long long k = t; k < n_tiles; k += NT) {
+  for (long long k = t; k < n_pairs; k += NT) {
     a += partials[2 * k];
     b += partials[2 * k + 1];
   }
@@ -1041,9 +1004,10 @@ extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long 
 }
 
 // p: (n0, n1) int32; rowedge, coledge, corners as the edge pass leaves them
-// for prefix_stats2d; partials: 2 * ceil(n0/TH) * ceil(n1/TW) f64 scratch;
-// out: 2 f32.  Launches the tile pass and the fixed-order reduction on one
-// stream.
+// for prefix_stats2d; partials: 2 * ceil(n0/TH) * ceil(n1/TW) f64 scratch
+// (two per block of a grid of at most one block a tile); out: 2 f32.
+// Launches the tile pass on a persistent grid and the fixed-order reduction
+// on one stream, the reduction by programmatic dependent launch.
 extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowedge,
                                 const void* coledge, const void* corners, void* partials,
                                 void* out, void* stream) {
