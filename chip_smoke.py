@@ -1140,7 +1140,12 @@ def per_call_launches(entry: dict, tag: str) -> dict:
     return out
 
 
-def host_ms(fn, reps: int) -> float:
+#: host-clock repetitions of each end-to-end reading
+E2E_REPS = 30
+
+
+def host_ms(fn, reps: int) -> list[float]:
+    """Host ms of ``reps`` calls, each ending in a synchronize, sorted."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -1150,24 +1155,30 @@ def host_ms(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return sorted(times)
+
+
+def _spread(times: list[float]) -> str:
+    q1, med, q3 = statistics.quantiles(times, n=4)
+    return f"{med:.3f} ms (quartiles {q1:.3f}-{q3:.3f})"
 
 
 def time_queries(fields, tag: str) -> None:
     for scheme, container, op, stage in E2E:
         fu, fv = fields[scheme][container]
-        on = host_ms(lambda: run_cell(op, stage, fu, fv), 10)
+        on = host_ms(lambda: run_cell(op, stage, fu, fv), E2E_REPS)
         with ops.override_mode("off"):
-            off = host_ms(lambda: run_cell(op, stage, fu, fv), 10)
+            off = host_ms(lambda: run_cell(op, stage, fu, fv), E2E_REPS)
         say(f"[{tag}] e2e {scheme} {container} {op}@{stage.name}: "
-            f"{on:.3f} ms (fused rules off: {off:.3f} ms), median of 10")
+            f"{_spread(on)} (fused rules off: {_spread(off)}), median of "
+            f"{E2E_REPS}")
     for scheme in SCHEMES:
         comp = by_name(scheme, BLOCK)
         eu = fields[scheme]["Encoded"][0]
         for stage in (Stage.P, Stage.F):
-            t = host_ms(lambda: comp.decompress(eu, stage), 10)
+            t = host_ms(lambda: comp.decompress(eu, stage), E2E_REPS)
             say(f"[{tag}] e2e {scheme} Encoded decompress to {stage.name}: "
-                f"{t:.3f} ms, median of 10")
+                f"{_spread(t)}, median of {E2E_REPS}")
 
 
 # ===========================================================================
