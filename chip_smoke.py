@@ -1055,7 +1055,7 @@ def query_kernels(fields, tag: str) -> dict:
 #: the torch unzigzag's elementwise kernels ((u >> 1) ^ -(u & 1))
 UNZIGZAG_KERNELS = re.compile(r"rshift|bitwise_and|bitwise_xor|neg_kernel")
 #: the kernels of one prefix_stats2d call, in order
-PREFIX_STATS_KERNELS = ("lorenzo_edges_kernel<false>", "lorenzo_scan_kernel<true>",
+PREFIX_STATS_KERNELS = ("lorenzo_edges_kernel<false>", "corner_scan_kernel",
                         "prefix_stats_tile_kernel", "prefix_stats_reduce_kernel")
 
 
@@ -1240,9 +1240,9 @@ def lorenzo_build_lines() -> list[str]:
             lines.append(f"  lorenzo_band.cu {src} {what or 'edges'}: {smem} B "
                          f"shared memory, {regs} registers, {per_sm} blocks/SM, "
                          f"SASS instructions {n_sass or 'not read'}")
-    for flag, use in (("false", "Lorenzo"), ("true", "prefix_stats2d")):
-        n_scan = [v for k, v in sass.items()
-                  if f"lorenzo_scan_kernel<{flag}>" in k]
+    for kernel, use in (("lorenzo_scan_kernel", "Lorenzo"),
+                        ("corner_scan_kernel", "prefix_stats2d")):
+        n_scan = [v for k, v in sass.items() if kernel in k]
         lines.append(f"  lorenzo_band.cu edge scan ({use}): SASS instructions "
                      f"{n_scan or 'not read'}")
     smem, regs, per_sm = prefix_stats.stats_launch_config()

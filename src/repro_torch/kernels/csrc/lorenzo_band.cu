@@ -9,7 +9,7 @@
 //                                                   for the band sums the reference
 //                                                   takes outside its kernel)
 //   prefix_stats.py:prefix_stats2d (_kernel)    -> lorenzo_edges_kernel<false>
-//                                                   + lorenzo_scan_kernel<true>
+//                                                   + corner_scan_kernel
 //                                                   + prefix_stats_tile_kernel
 //                                                   + prefix_stats_reduce_kernel
 // With D0 = cumsum(p, 1) and D1 = cumsum(p, 0) (D0 = 0 below the last row, D1 = 0
@@ -367,8 +367,7 @@ constexpr int SSEG = NT / SCOLS;     // segments per column
 constexpr int SCHUNK = 16;           // loads in flight per thread
 
 template <bool CORNERS>
-__global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb,
-                                                          int32_t* corners) {
+__device__ __forceinline__ void scan_edges(const Args& a, int n_rb, int32_t* corners) {
   __shared__ uint32_t S[SSEG][SCOLS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if ((int)blockIdx.x < n_rb) {
@@ -429,6 +428,16 @@ __global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb
       run += v[m];
     }
   }
+}
+
+__global__ void __launch_bounds__(NT) lorenzo_scan_kernel(const Args a, int n_rb) {
+  scan_edges<false>(a, n_rb, nullptr);
+}
+
+// The same with the corner sums, for prefix_stats2d.
+__global__ void __launch_bounds__(NT) corner_scan_kernel(const Args a, int n_rb,
+                                                         int32_t* corners) {
+  scan_edges<true>(a, n_rb, corners);
 }
 
 // ---------------------------------------------------------------------------
@@ -900,9 +909,9 @@ int launch_edges(const Args& a, int32_t* corners, cudaStream_t s) {
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   const int n_rb = (a.n0 + NWARP - 1) / NWARP, n_cb = (a.n1 + SCOLS - 1) / SCOLS;
   if (corners)
-    lorenzo_scan_kernel<true><<<n_rb + n_cb, NT, 0, s>>>(a, n_rb, corners);
+    corner_scan_kernel<<<n_rb + n_cb, NT, 0, s>>>(a, n_rb, corners);
   else
-    lorenzo_scan_kernel<false><<<n_rb + n_cb, NT, 0, s>>>(a, n_rb, nullptr);
+    lorenzo_scan_kernel<<<n_rb + n_cb, NT, 0, s>>>(a, n_rb);
   return (int)cudaGetLastError();
 }
 
