@@ -22,7 +22,8 @@ Phases (any failure raises, so the exit code is non-zero):
    unpack, block_stats, grad2d, laplacian2d, prefix_stats2d): each kernel
    against its plain version at both shapes (bitwise; prefix_stats2d rtol
    1e-5, bitwise between two launches and bitwise against the exact int64
-   sums rounded once to f32), then the entry point driven on
+   sums rounded once to f32; the same for prefix_stats2d on two planes
+   wider than 4224 columns), then the entry point driven on
    the Ocean field u and held against the main path's containers and
    stage-③ results on the card;
 5. the main path: the two Ocean fields (u, v) through ``compress`` ->
@@ -474,7 +475,9 @@ def check_entry_kernels(shape, seed: int, errs: dict) -> None:
                             site="prefix_stats2d"),
         f"prefix_stats2d edges {shape}"))
     rowedge, coledge, corners = prefix_stats.stats_edges(p)
-    bitwise_err(prefix_stats.corner_sums_plain(coledge), corners,
+    bitwise_err(prefix_stats.corner_sums_plain(coledge,
+                                               prefix_stats.corner_cols()),
+                corners,
                 f"prefix_stats2d corner sums {shape}")
     first, again = K.prefix_stats2d(p), K.prefix_stats2d(p)
     bitwise_err(first, again, f"prefix_stats2d twice {shape}")
@@ -486,6 +489,38 @@ def check_entry_kernels(shape, seed: int, errs: dict) -> None:
     say(f"entry-point kernels == plain versions at {shape}: bitwise "
         f"(prefix_stats2d within rtol 1e-5, repeatable bitwise, == the "
         f"exact int64 sums rounded once to f32)")
+
+
+#: prefix_stats2d on planes wider than 33 tiles (4224 columns), where the
+#: stats pass sums a tile's corner over more than one step of 128 corner sums
+PS_WIDE = ((64, 8300), (2400, 8200))
+
+
+def check_prefix_stats_wide(seed: int, errs: dict) -> None:
+    """prefix_stats2d at ``PS_WIDE``: the corner sums bitwise, the sums
+    within rtol 1e-5 of the plain f32 version, bitwise on a second launch and
+    bitwise against the exact int64 sums rounded once to f32.  p is the
+    Lorenzo residual plane of a bounded q, so that |q| < 2^26 and both
+    totals stay below 2^53."""
+    rng = np.random.default_rng(seed)
+    for shape in PS_WIDE:
+        q0 = rng.integers(-2 ** 12, 2 ** 12, shape)
+        d = np.diff(np.pad(q0, ((1, 0), (1, 0))), axis=0)
+        p = torch.as_tensor(np.diff(d, axis=1).astype(np.int32), device=DEVICE)
+        _, coledge, corners = prefix_stats.stats_edges(p)
+        bitwise_err(prefix_stats.corner_sums_plain(coledge,
+                                                   prefix_stats.corner_cols()),
+                    corners, f"prefix_stats2d corner sums {shape}")
+        first, again = K.prefix_stats2d(p), K.prefix_stats2d(p)
+        bitwise_err(first, again, f"prefix_stats2d twice {shape}")
+        _note(errs, "prefix_stats2d.stats", stat_err(
+            prefix_stats.prefix_stats2d_plain(p), first,
+            f"prefix_stats2d {shape}"))
+        exact_stats(p, first, f"prefix_stats2d {shape}")
+    torch.cuda.synchronize()
+    say("prefix_stats2d on wide planes "
+        + ", ".join(map(str, PS_WIDE)) + ": == the exact int64 sums rounded "
+        "once to f32, within rtol 1e-5 of the plain version, repeatable")
 
 
 def entry_point_path(x: torch.Tensor, eps: torch.Tensor, bits: int) -> dict:
@@ -1328,6 +1363,7 @@ def main() -> None:
     # and held against the main path's containers and stage-3 results
     check_entry_kernels(OCEAN, args.seed, errs)
     check_entry_kernels(PADDED, args.seed, errs)
+    check_prefix_stats_wide(args.seed, errs)
     u = synth_field("Ocean", 0, OCEAN, args.seed)
     v = synth_field("Ocean", 1, OCEAN, args.seed)
     x = torch.as_tensor(u, device=DEVICE)

@@ -38,6 +38,8 @@ SIGNATURES = {
     "hsz_unpack_info": (_I, _P, _P, _P),
     # &th, &tw
     "hsz_lorenzo_tile": (_P, _P),
+    # &cols
+    "hsz_corner_cols": (_P,),
     # from_payload, what (-1: edge pass), &smem_bytes, &regs, &blocks_per_sm
     "hsz_lorenzo_info": (_I, _I, _P, _P, _P),
     # from_payload, src, n_words, bits, n0, n1, rowedge, coledge, corners

@@ -361,8 +361,10 @@ __global__ void __launch_bounds__(NT, 5) lorenzo_edges_kernel(const Args a) {
 // CORNERS (prefix_stats2d): each column block also writes, per tile row ti,
 // the sum of its 32 column prefixes, corners[ti, b] (b = the block's
 // column group), by one warp reduction; the corner of tile (ti, tj),
-// sum p over i < 32 ti, j < 128 tj, is then the sum of corners[ti, b < 4 tj].
+// sum p over i < 32 ti, j < 128 tj, is then the sum of corners[ti, b < TGROUPS tj].
 constexpr int SCOLS = 32;            // coledge columns per block
+constexpr int TGROUPS = TW / SCOLS;  // column blocks (corner sums) per tile
+static_assert(TW % SCOLS == 0, "a tile spans whole column blocks");
 constexpr int SSEG = NT / SCOLS;     // segments per column
 constexpr int SCHUNK = 16;           // loads in flight per thread
 
@@ -646,18 +648,24 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
 }
 
 // sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
-// row ti over the 4 tj column groups left of the tile.
+// row ti over the TGROUPS * tj column groups left of the tile, 128 groups a
+// step (4 loads a lane, issued together; one step up to 4224 columns).
 __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
                                               int ti, int tj) {
   const int lane = threadIdx.x & 31;
   const int32_t* row = corners + (long long)ti * n_cb;
-  uint32_t c[4];
+  const int n = TGROUPS * tj;
+  uint32_t s = 0u;
+  for (int b0 = 0; b0 < n; b0 += 128) {
+    uint32_t c[4];
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int b = lane + 32 * m;
-    c[m] = b < 4 * tj ? (uint32_t)__ldg(row + b) : 0u;
+    for (int m = 0; m < 4; ++m) {
+      const int b = b0 + lane + 32 * m;
+      c[m] = b < n ? (uint32_t)__ldg(row + b) : 0u;
+    }
+    s += (c[0] + c[1]) + (c[2] + c[3]);
   }
-  return __reduce_add_sync(FULL, (c[0] + c[1]) + (c[2] + c[3]));
+  return __reduce_add_sync(FULL, s);
 }
 
 // q as a double, exactly: the bits of 2^52 + 2^31 + q less 2^52 + 2^31 (one
@@ -960,6 +968,13 @@ bool bad_shape(int from_payload, int bits, int n0, int n1) {
 extern "C" int hsz_lorenzo_tile(int* th, int* tw) {
   *th = TH;
   *tw = TW;
+  return 0;
+}
+
+// Columns per corner sum (the scan kernel's column block): the corners
+// buffer of hsz_lorenzo_edges is (ceil(n0/TH), ceil(n1/cols)).
+extern "C" int hsz_corner_cols(int* cols) {
+  *cols = SCOLS;
   return 0;
 }
 

@@ -157,9 +157,9 @@ def lorenzo_edges(src: torch.Tensor, shape: tuple, bits: int, *,
     """Edge pass (kernels): the row and column edges of
     :func:`lorenzo_edge_prefixes_plain`, from payload words or from the
     residual plane: the per-tile sums, then their prefixes, on the card.
-    With ``corners`` (``(n_rt, ceil(n1/32))`` int32, ``prefix_stats2d``)
-    the prefix kernel also writes the column edge summed over each 32
-    columns there."""
+    With ``corners`` (``(n_rt, ceil(n1/cols))`` int32, ``prefix_stats2d``,
+    ``cols`` from :func:`prefix_stats.corner_cols`) the prefix kernel also
+    writes the column edge summed over each ``cols`` columns there."""
     n0, n1 = shape
     th, tw = lorenzo_tile()
     n_rt, n_ct = -(-n0 // th), -(-n1 // tw)

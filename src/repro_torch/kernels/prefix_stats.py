@@ -10,7 +10,7 @@ blocks run in no order, so nothing is carried.  Instead four kernels of
    the row edge (Σp left of each 32 × 128 tile, per row) and the column edge
    (Σp above each tile, per column);
 2. its prefix kernel, in the mode that also writes the corner sums: per
-   tile row, the column edge summed over each :data:`CORNER_COLS` columns;
+   tile row, the column edge summed over each :func:`corner_cols` columns;
 3. the stats pass rebuilds ``q`` per tile on a register tile (modular
    int32): the row of ``q`` above the tile is the tile's corner
    (``Σ p[i < i0, j < j0]``, the corner sums left of it) plus a scan of its
@@ -30,14 +30,11 @@ its 64-row TPU band, every 2-D shape is accepted.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build, fused, ops
-
-#: columns per corner sum: the edge prefix kernel's column block
-#: (``SCOLS`` in ``csrc/lorenzo_band.cu``; 4 of them span a tile)
-CORNER_COLS = 32
 
 
 def prefix_stats2d_plain(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -49,24 +46,33 @@ def prefix_stats2d_plain(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.sum(qf), torch.sum(qf * qf)
 
 
-def corner_sums_plain(coledge: torch.Tensor) -> torch.Tensor:
+@functools.cache
+def corner_cols() -> int:
+    """Columns per corner sum, the edge prefix kernel's column block, read
+    from the library once."""
+    cols = ctypes.c_int()
+    build.call("hsz_corner_cols", ctypes.addressof(cols))
+    return cols.value
+
+
+def corner_sums_plain(coledge: torch.Tensor, cols: int) -> torch.Tensor:
     """Plain version of the corner sums: the column edge ``(n_rt, n1)``
-    summed over each :data:`CORNER_COLS` columns, ``(n_rt, ceil(n1/32))``
-    int32, modular."""
+    summed over each ``cols`` columns, ``(n_rt, ceil(n1/cols))`` int32,
+    modular."""
     n_rt, n1 = coledge.shape
-    n_cb = -(-n1 // CORNER_COLS)
-    z = torch.zeros((n_rt, n_cb * CORNER_COLS), dtype=torch.int64,
+    n_cb = -(-n1 // cols)
+    z = torch.zeros((n_rt, n_cb * cols), dtype=torch.int64,
                     device=coledge.device)
     z[:, :n1] = coledge
-    return z.reshape(n_rt, n_cb, CORNER_COLS).sum(2).to(torch.int32)
+    return z.reshape(n_rt, n_cb, cols).sum(2).to(torch.int32)
 
 
 def stats_edges(p: torch.Tensor):
     """Edge pass of the stats (kernels): the row edge, the column edge and
-    the corner sums of :func:`corner_sums_plain`."""
+    the corner sums of :func:`corner_sums_plain` at :func:`corner_cols`."""
     n0, n1 = p.shape
     th, _ = fused.lorenzo_tile()
-    corners = torch.empty((-(-n0 // th), -(-n1 // CORNER_COLS)),
+    corners = torch.empty((-(-n0 // th), -(-n1 // corner_cols())),
                           dtype=torch.int32, device=p.device)
     rowedge, coledge = fused.lorenzo_edges(p, (n0, n1), 0, from_payload=False,
                                            site="prefix_stats2d",
