@@ -648,23 +648,22 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
 }
 
 // sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
-// row ti over the TGROUPS * tj column groups left of the tile, 128 groups a
-// step (4 loads a lane, issued together; one step up to 4224 columns).
+// row ti over the TGROUPS * tj column groups left of the tile.  The first
+// 128 groups (4224 columns) take 4 loads a lane, issued together; groups
+// past them, one load a lane a step.
 __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
                                               int ti, int tj) {
   const int lane = threadIdx.x & 31;
   const int32_t* row = corners + (long long)ti * n_cb;
   const int n = TGROUPS * tj;
-  uint32_t s = 0u;
-  for (int b0 = 0; b0 < n; b0 += 128) {
-    uint32_t c[4];
+  uint32_t c[4];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int b = b0 + lane + 32 * m;
-      c[m] = b < n ? (uint32_t)__ldg(row + b) : 0u;
-    }
-    s += (c[0] + c[1]) + (c[2] + c[3]);
+  for (int m = 0; m < 4; ++m) {
+    const int b = lane + 32 * m;
+    c[m] = b < n ? (uint32_t)__ldg(row + b) : 0u;
   }
+  uint32_t s = (c[0] + c[1]) + (c[2] + c[3]);
+  for (int b = 128 + lane; b < n; b += 32) s += (uint32_t)__ldg(row + b);
   return __reduce_add_sync(FULL, s);
 }
 
