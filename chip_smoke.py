@@ -1091,7 +1091,8 @@ def query_kernels(fields, tag: str) -> dict:
 UNZIGZAG_KERNELS = re.compile(r"rshift|bitwise_and|bitwise_xor|neg_kernel")
 #: the kernels of one prefix_stats2d call, in order
 PREFIX_STATS_KERNELS = ("lorenzo_edges_kernel<false>", "corner_scan_kernel",
-                        "prefix_stats_tile_kernel", "prefix_stats_reduce_kernel")
+                        "prefix_stats_tile_kernel<false>",
+                        "prefix_stats_reduce_kernel")
 
 
 def decode_and_stats_kernels(fields, entry: dict, tag: str) -> None:
@@ -1281,10 +1282,14 @@ def lorenzo_build_lines() -> list[str]:
         lines.append(f"  lorenzo_band.cu edge scan ({use}): SASS instructions "
                      f"{n_scan or 'not read'}")
     smem, regs, per_sm = prefix_stats.stats_launch_config()
-    n_sass = [v for k, v in sass.items() if "prefix_stats_tile_kernel" in k]
+    n_sass = {wide: [v for k, v in sass.items()
+                     if f"prefix_stats_tile_kernel<{wide}>" in k]
+              for wide in ("false", "true")}
     lines.append(f"  lorenzo_band.cu prefix_stats2d stats: {smem} B shared "
                  f"memory, {regs} registers, {per_sm} blocks/SM, SASS "
-                 f"instructions {n_sass or 'not read'}")
+                 f"instructions {n_sass['false'] or 'not read'}; planes wider "
+                 f"than 4224 columns: SASS instructions "
+                 f"{n_sass['true'] or 'not read'}")
     return lines
 
 

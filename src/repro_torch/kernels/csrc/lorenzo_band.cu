@@ -10,7 +10,7 @@
 //                                                   takes outside its kernel)
 //   prefix_stats.py:prefix_stats2d (_kernel)    -> lorenzo_edges_kernel<false>
 //                                                   + corner_scan_kernel
-//                                                   + prefix_stats_tile_kernel
+//                                                   + prefix_stats_tile_kernel<WIDE>
 //                                                   + prefix_stats_reduce_kernel
 // With D0 = cumsum(p, 1) and D1 = cumsum(p, 0) (D0 = 0 below the last row, D1 = 0
 // right of the last column) the planes are
@@ -649,8 +649,10 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
 
 // sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
 // row ti over the TGROUPS * tj column groups left of the tile.  The first
-// 128 groups (4224 columns) take 4 loads a lane, issued together; groups
-// past them, one load a lane a step.
+// 128 groups take 4 loads a lane, issued together; WIDE (a tile right of
+// column 4224, see wide_stats) reads the groups past them, one load a lane
+// a step.
+template <bool WIDE>
 __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
                                               int ti, int tj) {
   const int lane = threadIdx.x & 31;
@@ -663,7 +665,9 @@ __device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corner
     c[m] = b < n ? (uint32_t)__ldg(row + b) : 0u;
   }
   uint32_t s = (c[0] + c[1]) + (c[2] + c[3]);
-  for (int b = 128 + lane; b < n; b += 32) s += (uint32_t)__ldg(row + b);
+  if constexpr (WIDE) {
+    for (int b = 128 + lane; b < n; b += 32) s += (uint32_t)__ldg(row + b);
+  }
   return __reduce_add_sync(FULL, s);
 }
 
@@ -759,7 +763,10 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
 // The stats pass over the tiles: a persistent grid that copies the next
 // tile's residuals and edges with cp.async while it sums the current one.
 // Each thread carries its f64 sums over the block's tiles; at the end a
-// warp reduction and the 8 warps in order give one pair per block.
+// warp reduction and the 8 warps in order give one pair per block.  WIDE:
+// corner_of's loop past 128 corner sums, compiled only for planes that need
+// it (in the narrow kernel it cost registers and 5 blocks/SM for 4).
+template <bool WIDE>
 __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
                                                                const int32_t* __restrict__ corners,
                                                                double* __restrict__ partials) {
@@ -779,7 +786,7 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
   double s1 = 0.0, s2 = 0.0;
   int buf = 0;
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
-    const uint32_t corner = warp == 0 ? corner_of(corners, n_cb, ti, tj) : 0u;
+    const uint32_t corner = warp == 0 ? corner_of<WIDE>(corners, n_cb, ti, tj) : 0u;
     cp_async_wait_all();
     __syncthreads();
     int ni = ti, nj = tj;
@@ -885,10 +892,14 @@ const Config& stencil_config() {
 
 constexpr int PS_SMEM = (PS_HEAD + 2 * PS_BUF) * (int)sizeof(uint32_t);
 
+template <bool WIDE>
 const Config& stats_config() {
-  static const Config c = config_of(prefix_stats_tile_kernel, PS_SMEM);
+  static const Config c = config_of(prefix_stats_tile_kernel<WIDE>, PS_SMEM);
   return c;
 }
+
+// Whether a tile lies right of the first 128 corner sums (4224 columns).
+bool wide_stats(const Args& a) { return TGROUPS * (a.n_ct - 1) > 128; }
 
 template <bool PAYLOAD>
 const Config& stencil_config(int what) {
@@ -1039,15 +1050,20 @@ extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowed
   a.rowedge = const_cast<int32_t*>(static_cast<const int32_t*>(rowedge));
   a.coledge = const_cast<int32_t*>(static_cast<const int32_t*>(coledge));
   auto s = (cudaStream_t)stream;
-  const Config& c = stats_config();
+  const bool wide = wide_stats(a);
+  const Config& c = wide ? stats_config<true>() : stats_config<false>();
   if (c.err != cudaSuccess) return (int)c.err;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
-  prefix_stats_tile_kernel<<<grid, NT, PS_SMEM, s>>>(a, static_cast<const int32_t*>(corners),
-                                                     static_cast<double*>(partials));
+  const auto c_in = static_cast<const int32_t*>(corners);
+  const auto pairs = static_cast<double*>(partials);
+  if (wide)
+    prefix_stats_tile_kernel<true><<<grid, NT, PS_SMEM, s>>>(a, c_in, pairs);
+  else
+    prefix_stats_tile_kernel<false><<<grid, NT, PS_SMEM, s>>>(a, c_in, pairs);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(1);
@@ -1064,9 +1080,9 @@ extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowed
 }
 
 // Shared memory (bytes), registers per thread and resident blocks per SM of
-// the prefix_stats2d stats pass.
+// the prefix_stats2d stats pass (planes up to 4224 columns).
 extern "C" int hsz_prefix_stats_info(int* smem_bytes, int* regs, int* blocks_per_sm) {
-  const Config& c = stats_config();
+  const Config& c = stats_config<false>();
   *smem_bytes = c.smem;
   *regs = c.regs;
   *blocks_per_sm = c.per_sm;

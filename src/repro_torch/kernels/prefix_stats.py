@@ -98,7 +98,8 @@ def prefix_stats_tiles(p: torch.Tensor, rowedge: torch.Tensor,
 
 def stats_launch_config() -> tuple[int, int, int]:
     """(shared memory in bytes, registers per thread, resident blocks per SM)
-    of the stats pass, read from the library."""
+    of the stats pass on planes up to 4224 columns, read from the
+    library."""
     smem, regs, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     build.call("hsz_prefix_stats_info", ctypes.addressof(smem),
                ctypes.addressof(regs), ctypes.addressof(per_sm))

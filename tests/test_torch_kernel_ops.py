@@ -245,26 +245,226 @@ def test_prefix_stats(shape):
 def test_prefix_stats_tiles_rebuild_q(tile):
     """The Hopper stats pass rebuilds q tile by tile from the edge pass: the
     row-prefix edge starts each tile row's scan, and the row of q above the
-    tile (a cumsum of the column-prefix edge) starts each column's.
-    Emulating that tiling with the plain edge pass must give
+    tile — the tile's corner (Σp above and left of it, from the corner sums
+    of the column edge) plus a scan of its column edge — starts each
+    column's.  Emulating that tiling with the plain edge pass must give
     ``cumsum(cumsum(p, 0), 1)`` exactly, int32 wrap-around included."""
     rng = np.random.default_rng(sum(tile))
     p = _t(rng.integers(-2 ** 31, 2 ** 31, (45, 37), dtype=np.int64)
            .astype(np.int32))
-    rowedge, top = prefix_stats.tile_edges(
-        *fused.lorenzo_edge_prefixes_plain(p, tile))
     th, tw = tile
+    rowedge, coledge = fused.lorenzo_edge_prefixes_plain(p, tile)
     q = torch.empty_like(p)
-    for ti in range(top.shape[0]):
+    for ti in range(coledge.shape[0]):
         for tj in range(rowedge.shape[1]):
             rs, cs = slice(ti * th, (ti + 1) * th), slice(tj * tw, (tj + 1) * tw)
+            corner = coledge[ti, :tj * tw].sum(dtype=torch.int64).to(torch.int32)
+            top = corner + torch.cumsum(coledge[ti, cs], 0, dtype=torch.int32)
             d0 = rowedge[rs, tj:tj + 1] + torch.cumsum(p[rs, cs], 1,
                                                        dtype=torch.int32)
-            q[rs, cs] = top[ti:ti + 1, cs] + torch.cumsum(d0, 0,
-                                                          dtype=torch.int32)
+            q[rs, cs] = top + torch.cumsum(d0, 0, dtype=torch.int32)
     want = torch.cumsum(torch.cumsum(p, 0, dtype=torch.int32), 1,
                         dtype=torch.int32)
     assert torch.equal(q, want)
+
+
+#: the stats pass's register tile: 8 warps of 4 rows, 32 lanes of 4 columns
+PS_TILING = (8, 4, 32, 4)
+#: columns per corner sum (the edge prefix kernel's column block)
+PS_CORNER_COLS = 32
+#: ragged tiles, a plane shorter than one tile row, many tile columns, odd
+#: sizes, whole tiles; wider than 33 tiles (4224 columns), where a tile's
+#: corner takes more than one step of 128 corner sums
+PS_SHAPES = [(33, 129), (31, 127), (5, 4099), (97, 300), (64, 256),
+             (33, 4225), (64, 8300)]
+
+
+def _butterfly(x: np.ndarray) -> np.ndarray:
+    """A warp's xor-shuffle sum (offsets 16, 8, 4, 2, 1) along the last axis
+    (32 lanes), in that order, every lane ending with the same value."""
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ off]
+    return x
+
+
+def _corner_of(row: torch.Tensor, tj: int, groups: int) -> int:
+    """The stats pass's corner of tile column ``tj`` from its tile row's
+    corner sums ``row``: lane l adds groups l + 32·m (m < 4) below
+    ``groups·tj``, then (the kernel's wide instantiation, launched where a
+    tile lies right of the first 128 groups) groups 128 + l, 160 + l, ...
+    below it; then a warp sum.  Not wrapped."""
+    n = groups * tj
+    r = row.to(torch.int64).numpy()
+    lane = np.arange(32)
+    lanes = np.zeros(32, dtype=np.int64)
+    for m in range(4):
+        b = lane + 32 * m
+        lanes += np.where(b < n, r[np.minimum(b, len(r) - 1)], 0)
+    for b0 in range(128, n, 32):
+        b = b0 + lane
+        lanes += np.where(b < n, r[np.minimum(b, len(r) - 1)], 0)
+    return int(lanes.sum())
+
+
+def _prefix_stats_emulated(p: torch.Tensor, grid: int):
+    """The redesigned stats pass with torch and numpy ops: the corner sums
+    that the edge prefix kernel writes (the column edge summed over each 32
+    columns by a warp reduction), then per tile the register tile — D0 by an
+    in-thread prefix, a lane scan of the lanes' totals and the row edge; the
+    row of q above the tile as the corner plus an in-thread prefix and a
+    lane scan of the column edge; q by an in-thread prefix of D0 down the
+    warp's rows plus the totals of the warps above, biased by 2**31 and
+    turned into a double by one f64 subtraction.  A persistent grid of
+    ``grid`` blocks takes tiles b, b + grid, ...; each thread adds its valid
+    q and q² to f64 sums (tile by tile, row by row, column by column); at
+    the end a warp butterfly and the 8 warps in order give one pair per
+    block; the reduction kernel: 256 threads each over blocks t, t + 256,
+    ..., a butterfly, the 8 warps in order, one rounding to f32.  Returns
+    (Σq, Σq²) and q."""
+    W, R, L, C = PS_TILING
+    th, tw = W * R, L * C
+    n0, n1 = p.shape
+    n_rt, n_ct = -(-n0 // th), -(-n1 // tw)
+    rowedge, coledge = fused.lorenzo_edge_prefixes_plain(p, (th, tw))
+    corners = prefix_stats.corner_sums_plain(coledge, PS_CORNER_COLS)
+    z = torch.zeros((n_rt * th, n_ct * tw), dtype=torch.int64)
+    z[:n0, :n1] = p
+    re = torch.zeros((n_rt * th, n_ct), dtype=torch.int64)
+    re[:n0] = rowedge
+    ce = torch.zeros((n_rt, n_ct * tw), dtype=torch.int64)
+    ce[:, :n1] = coledge
+    valid = torch.zeros((n_rt * th, n_ct * tw), dtype=torch.bool)
+    valid[:n0, :n1] = True
+    q_all = torch.zeros((n_rt * th, n_ct * tw), dtype=torch.int64)
+    groups = tw // PS_CORNER_COLS
+    n_tiles = n_rt * n_ct
+    grid = min(grid, n_tiles)
+    partials = np.zeros((grid, 2))
+    for b in range(grid):
+        s1 = np.zeros((W, L))
+        s2 = np.zeros((W, L))
+        for tile in range(b, n_tiles, grid):
+            ti, tj = divmod(tile, n_ct)
+            i0, j0 = ti * th, tj * tw
+            P = z[i0:i0 + th, j0:j0 + tw].reshape(W, R, L, C)
+            s = torch.cumsum(P, 3)
+            tot = s[..., -1]
+            d0 = (s + (torch.cumsum(tot, 2) - tot)[..., None]
+                  + re[i0:i0 + th, tj].reshape(W, R, 1, 1))
+            d0 = torch.cumsum(d0, 1)                    # down the warp's rows
+            wt = d0[:, -1]                              # (W, L, C) to T
+            corner = _corner_of(corners[ti], tj, groups)
+            pre = torch.cumsum(ce[ti, j0:j0 + tw].reshape(L, C), 1)
+            pt = pre[:, -1]
+            top = pre + (torch.cumsum(pt, 0) - pt)[:, None] + corner
+            base = top + torch.cumsum(wt, 0) - wt       # warps above
+            q = _i32(d0 + base[:, None])                # modulo 2**32
+            q_all[i0:i0 + th, j0:j0 + tw] = q.reshape(th, tw)
+            # q + 2**31 as the low word of a double 2**52 + qb, less 2**52 +
+            # 2**31: the kernel's exact conversion
+            qb = ((d0 + base[:, None] + 2 ** 31) % 2 ** 32).numpy()
+            qd = (qb.astype(np.float64) + 2.0 ** 52) - (2.0 ** 52 + 2.0 ** 31)
+            ok = valid[i0:i0 + th, j0:j0 + tw].reshape(W, R, L, C).numpy()
+            for k in range(R):
+                for e in range(C):
+                    x = np.where(ok[:, k, :, e], qd[:, k, :, e], 0.0)
+                    s1 = s1 + x
+                    s2 = s2 + x * x   # the kernel's fma; exact at these |q|
+        s1, s2 = _butterfly(s1)[:, 0], _butterfly(s2)[:, 0]
+        x1 = x2 = 0.0
+        for w in range(W):
+            x1, x2 = x1 + s1[w], x2 + s2[w]
+        partials[b] = (x1, x2)
+    acc = np.zeros((2, 256))
+    for t in range(0, grid, 256):
+        chunk = partials[t:t + 256]
+        acc[:, :len(chunk)] += chunk.T
+    red = _butterfly(acc.reshape(2, 8, 32))[..., 0]
+    out = [0.0, 0.0]
+    for w in range(8):
+        out = [out[0] + red[0, w], out[1] + red[1, w]]
+    return (torch.tensor(np.float32(out[0])), torch.tensor(np.float32(out[1])),
+            q_all[:n0, :n1])
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2**32, as the kernels' uint32 sums wrap."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+#: persistent grids of the emulation: fewer blocks than tiles (several
+#: tiles a block, some blocks one more than others) and one block a tile
+PS_GRIDS = (3, 660)
+PS_CASES = [(s, g) for s in PS_SHAPES for g in PS_GRIDS]
+
+
+@pytest.mark.parametrize("shape,grid", PS_CASES,
+                         ids=[f"{a}x{b}-grid{g}" for (a, b), g in PS_CASES])
+def test_prefix_stats_register_tiles(shape, grid):
+    """The redesigned stats pass, emulated: q from the register tile equals
+    ``cumsum(cumsum(p, 0), 1)`` bitwise; the sums equal the plain f32
+    version and the reference (its kernel where it takes the shape, its
+    oracle where not) within rtol 1e-5, and equal the exact int64 sums
+    rounded once to f32 bitwise (|q| < 2**26, totals below 2**53)."""
+    rng = np.random.default_rng(shape[0] * shape[1])
+    p_np = rng.integers(-8, 8, shape, dtype=np.int32)
+    p = _t(p_np)
+    s1, s2, q = _prefix_stats_emulated(p, grid)
+    want_q = torch.cumsum(torch.cumsum(p, 0, dtype=torch.int32), 1,
+                          dtype=torch.int32)
+    assert torch.equal(_i32(q), want_q)
+    q64 = want_q.to(torch.int64)
+    assert int(q64.abs().max()) < 2 ** 26
+    exact = (int(q64.sum()), int((q64 * q64).sum()))
+    assert max(map(abs, exact)) < 2 ** 53
+    for got, ex in zip((s1, s2), exact):
+        assert got.numpy().tobytes() == np.float32(np.float64(ex)).tobytes()
+    _close(prefix_stats.prefix_stats2d_plain(p), (s1, s2))
+    rows = min(64, shape[0])
+    if shape[0] % rows == 0:
+        _close(jops.prefix_stats2d(jnp.asarray(p_np)), (s1, s2))
+    else:
+        with pytest.raises(ValueError, match="multiple"):
+            jops.prefix_stats2d(jnp.asarray(p_np))
+        _close(jref.prefix_stats2d(jnp.asarray(p_np)), (s1, s2))
+
+
+def test_corner_sums_make_tile_corners():
+    """Σ of the corner sums left of a tile, ``corners[ti, :4·tj]``, is the sum
+    of p above and left of the tile, int32 wrap-around included."""
+    rng = np.random.default_rng(7)
+    p = _t(rng.integers(-2 ** 31, 2 ** 31, (100, 700), dtype=np.int64)
+           .astype(np.int32))
+    th, tw = 32, 128  # the kernels' tile
+    _, coledge = fused.lorenzo_edge_prefixes_plain(p, (th, tw))
+    corners = prefix_stats.corner_sums_plain(coledge, PS_CORNER_COLS)
+    assert corners.shape == (4, -(-700 // PS_CORNER_COLS))
+    groups = tw // PS_CORNER_COLS
+    for ti in range(4):
+        for tj in range(-(-700 // tw)):
+            want = p[:ti * th, :tj * tw].sum(dtype=torch.int64)
+            got = corners[ti, :groups * tj].sum(dtype=torch.int64)
+            assert _i32(got) == _i32(want)
+
+
+@pytest.mark.parametrize("n1", [4224, 4225, 8300, 17000])
+def test_corner_of_reads_every_group(n1):
+    """The stats pass's corner read (128 corner sums a step, 4 a lane) gives
+    Σp above and left of every tile, on planes of up to 133 tile columns
+    (several steps), int32 wrap-around included."""
+    rng = np.random.default_rng(n1)
+    p = _t(rng.integers(-2 ** 31, 2 ** 31, (70, n1), dtype=np.int64)
+           .astype(np.int32))
+    th, tw = 32, 128  # the kernels' tile
+    _, coledge = fused.lorenzo_edge_prefixes_plain(p, (th, tw))
+    corners = prefix_stats.corner_sums_plain(coledge, PS_CORNER_COLS)
+    csum = torch.cumsum(torch.cumsum(p.to(torch.int64), 0), 1)
+    for ti in range(1, coledge.shape[0]):
+        for tj in range(1, -(-n1 // tw)):
+            want = csum[ti * th - 1, tj * tw - 1]
+            got = _corner_of(corners[ti], tj, tw // PS_CORNER_COLS)
+            assert _i32(torch.tensor(got)) == _i32(want)
 
 
 # ===========================================================================
@@ -431,3 +631,36 @@ def test_prefix_stats_kernels_on_card(shape):
     # q drifts to |q| ~ 4e6 here: Σq² overflows int64 but not f64's exact range
     q = torch.cumsum(torch.cumsum(p.to(torch.int64), 0), 1).to(torch.float64)
     _close((q.sum(), (q * q).sum()), got)
+
+
+PS_CARD_SHAPES = PS_SHAPES + [(2400, 3600), (2401, 3599), (2400, 8200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PS_CARD_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in PS_CARD_SHAPES])
+def test_prefix_stats_register_tiles_on_card(shape):
+    """The redesigned stats pass on the card: the edge pass's corner sums
+    equal their plain version, and (Σq, Σq²) equals the exact int64 sums
+    rounded once to f32 bitwise, the plain f32 version within rtol 1e-5,
+    and itself on a second launch."""
+    dev = _card()
+    # p = the Lorenzo residuals of a bounded q, so that |q| < 2**26 and both
+    # totals stay below 2**53 at every shape (random residuals drift)
+    q0 = np.random.default_rng(shape[1]).integers(-2 ** 12, 2 ** 12, shape)
+    d = np.diff(np.pad(q0, ((1, 0), (1, 0))), axis=0)
+    p = _on(np.diff(d, axis=1).astype(np.int32), dev)
+    rowedge, coledge, corners = prefix_stats.stats_edges(p)
+    th, tw = fused.lorenzo_tile()
+    _same_card(fused.lorenzo_edge_prefixes_plain(p, (th, tw)) + (
+        prefix_stats.corner_sums_plain(coledge, prefix_stats.corner_cols()),),
+        (rowedge, coledge, corners))
+    got = _launched("prefix_stats2d.stats", lambda: K.prefix_stats2d(p))
+    _same_card(got, K.prefix_stats2d(p))
+    q = torch.cumsum(torch.cumsum(p.to(torch.int64), 0), 1)
+    assert torch.equal(q.cpu(), torch.as_tensor(q0))
+    sums = (q.sum(), (q * q).sum())
+    assert max(abs(int(x)) for x in sums) < 2 ** 53
+    exact = tuple(x.to(torch.float64).to(torch.float32) for x in sums)
+    _same_card(exact, got)
+    _close(prefix_stats.prefix_stats2d_plain(p), got)
