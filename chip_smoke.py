@@ -34,6 +34,14 @@ Phases (any failure raises, so the exit code is non-zero):
    then the Lorenzo kernels on seeded full-range int32 planes and payloads
    at widths 1, 7, 13, 31 over six shapes (ragged tiles, n1 % 4 != 0, a
    tile row shorter than 32 rows), both passes and every ``what``;
+5b. region queries on the same fields (``WINDOWS``: an unaligned sub-basin,
+   a three-row transect, windows at the origin and the far corner; an
+   aligned one for the stage-① mean): every feasible cell on the first two,
+   the stencils and stage-② derivatives on the others, held against the
+   port on the CPU; seeded queries (``materialize`` at ② and ③) and queries
+   from pre-gathered payload words against the plain region queries,
+   bitwise; an A/B pass with the fused rules off; every gathered sub-plane
+   fed to ``lorenzo2d`` / ``blockmean2d`` against their plain versions;
 6. times: each kernel with CUDA events, as device time alone (a CUDA graph
    of the calls, taking turns over copies of the inputs so that they come
    from device memory, not the L2) and as host enqueue per call, its plain
@@ -42,13 +50,17 @@ Phases (any failure raises, so the exit code is non-zero):
    query, the device kernels of a Lorenzo gradient query, an ``Encoded``
    mean@② query (its decode one unpack kernel) and a ``prefix_stats2d``
    call (our four kernels only) from ``torch.profiler`` traces, and
-   end-to-end ms per query and per decompress; detail lines time the
-   decode against unpack + torch unzigzag and the band kernels for every
-   ``what``.
+   end-to-end ms per query and per decompress, and per region query beside
+   the full-field one with the plan's closure fraction; the kernels of an
+   ``Encoded`` sub-basin gradient@③ query (the gather-unpack's torch ops,
+   then the three residual-plane Lorenzo kernels); the stats pass on a
+   plane wider than 4224 columns; detail lines time the decode against
+   unpack + torch unzigzag and the band kernels for every ``what``.
 
-Launch counters are reset just before each path (entry point, main path)
-and read just after it: each path must launch every kernel site it runs,
-and every site must be launched on some path.
+Launch counters are reset just before each path (entry point, main path,
+region path) and read just after it: each path must launch every kernel
+site it runs, every site must be launched on some path, and the region path
+must launch no payload kernel and no unpack (it decodes no full field).
 
 Per-cell detail goes to ``chiprun_out/chip_smoke.log``.  The last two lines
 of standard output are a JSON object of per-kernel numbers and
@@ -75,11 +87,13 @@ import torch  # noqa: E402
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import Stage, by_name, encode, error_analysis  # noqa: E402
-from repro_torch.core import blocking, quantize  # noqa: E402
+from repro_torch.core import blocking, oplib, quantize  # noqa: E402
 from repro_torch.core import homomorphic as H  # noqa: E402
+from repro_torch.core import region as R  # noqa: E402
 from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, stencil_dq)
+from repro_torch.store import materialize  # noqa: E402
 
 #: published H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -140,6 +154,7 @@ PATHS = {
                   "lorenzo_enc2d.stencil",
                   "blockmean_enc2d", "lorenzo2d.edges", "lorenzo2d.stencil",
                   "blockmean2d"),
+    "region path": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d"),
 }
 
 LOG: list[str] = []
@@ -496,6 +511,14 @@ def check_entry_kernels(shape, seed: int, errs: dict) -> None:
 PS_WIDE = ((64, 8300), (2400, 8200))
 
 
+def bounded_plane(shape, rng) -> torch.Tensor:
+    """The Lorenzo residual plane, on the card, of a random q with |q| <
+    2^12 (so |q| < 2^26 and the (Σq, Σq²) totals stay below 2^53)."""
+    q0 = rng.integers(-2 ** 12, 2 ** 12, shape)
+    d = np.diff(np.pad(q0, ((1, 0), (1, 0))), axis=0)
+    return torch.as_tensor(np.diff(d, axis=1).astype(np.int32), device=DEVICE)
+
+
 def check_prefix_stats_wide(seed: int, errs: dict) -> None:
     """prefix_stats2d at ``PS_WIDE``: the corner sums bitwise, the sums
     within rtol 1e-5 of the plain f32 version, bitwise on a second launch and
@@ -504,9 +527,7 @@ def check_prefix_stats_wide(seed: int, errs: dict) -> None:
     totals stay below 2^53."""
     rng = np.random.default_rng(seed)
     for shape in PS_WIDE:
-        q0 = rng.integers(-2 ** 12, 2 ** 12, shape)
-        d = np.diff(np.pad(q0, ((1, 0), (1, 0))), axis=0)
-        p = torch.as_tensor(np.diff(d, axis=1).astype(np.int32), device=DEVICE)
+        p = bounded_plane(shape, rng)
         _, coledge, corners = prefix_stats.stats_edges(p)
         bitwise_err(prefix_stats.corner_sums_plain(coledge,
                                                    prefix_stats.corner_cols()),
@@ -602,18 +623,18 @@ def feasible(scheme: str):
     return cells
 
 
-def run_cell(op: str, stage: Stage, fu, fv):
+def run_cell(op: str, stage: Stage, fu, fv, region=None):
     if op == "mean":
-        return H.mean(fu, stage)
+        return H.mean(fu, stage, region=region)
     if op == "std":
-        return H.std(fu, stage)
+        return H.std(fu, stage, region=region)
     if op.startswith("deriv"):
-        return H.derivative(fu, stage, int(op[-1]))
+        return H.derivative(fu, stage, int(op[-1]), region=region)
     if op == "gradient":
-        return H.gradient(fu, stage)
+        return H.gradient(fu, stage, region=region)
     if op == "laplacian":
-        return H.laplacian(fu, stage)
-    return getattr(H, op)([fu, fv], stage)
+        return H.laplacian(fu, stage, region=region)
+    return getattr(H, op)([fu, fv], stage, region=region)
 
 
 def main_path(u: np.ndarray, v: np.ndarray):
@@ -641,15 +662,18 @@ def to_cpu(x):
     return tuple(t.cpu() for t in x) if isinstance(x, tuple) else x.cpu()
 
 
-def check_main_path(u, v, fields, decomp, results):
-    """Hold the card's main path against the port on the CPU."""
+def check_main_path(u, v, fields, decomp, results) -> dict:
+    """Hold the card's main path against the port on the CPU; returns the
+    CPU containers (scheme -> container -> (u, v))."""
     worst = {}
+    hosts = {}
     for scheme in SCHEMES:
         comp = by_name(scheme, BLOCK)
         hu = comp.compress(u, rel_eb=REL_EB, device="cpu")
         hv = comp.compress(v, rel_eb=REL_EB, device="cpu")
         host = {"Compressed": (hu, hv),
                 "Encoded": (comp.encode(hu), comp.encode(hv))}
+        hosts[scheme] = host
         for container, pair in host.items():
             for cf, hf in zip(fields[scheme][container], pair):
                 leaves = ("payload" if container == "Encoded" else "residuals",
@@ -687,6 +711,7 @@ def check_main_path(u, v, fields, decomp, results):
                 detail(f"  {what}: card vs CPU max |diff| {gap:.3g}")
     say(f"main path == CPU port: stencils bitwise, max |diff| "
         f"div/curl {worst['vector']:.3g}, mean/std {worst['stat']:.3g}")
+    return hosts
 
 
 def check_ab(fields):
@@ -704,6 +729,276 @@ def check_ab(fields):
                     n += 1
     torch.cuda.synchronize()
     say(f"A/B: {n} cells with the fused rules off == fused, bitwise")
+
+
+# ===========================================================================
+# phase 5b: region queries
+# ===========================================================================
+
+#: the region phase's windows of the Ocean fields: an unaligned interior
+#: sub-basin (block-mean cover 1216 x 1808, Lorenzo hull 1808 x 2704), a
+#: three-row transect (cover and stage-② axis-0 band 16 x 3600, hull 1216 x
+#: 3600), an aligned window for the stage-① mean, a window near the origin
+#: (hull 32 x 32) and one at the far corner (hull: the whole field)
+R_BASIN = ((600, 1801), (900, 2703))
+R_TRANSECT = ((1200, 1203), (0, 3600))
+R_ALIGNED = ((800, 1600), (1600, 2400))
+R_ORIGIN = ((5, 20), (7, 30))
+R_CORNER = ((2390, 2400), (3590, 3600))
+WINDOWS = {"basin": R_BASIN, "transect": R_TRANSECT, "origin": R_ORIGIN,
+           "corner": R_CORNER}
+#: the cells of the origin and corner windows: the stencils whose closures
+#: reach the hull's edges, and the stage-② derivatives (bands)
+EDGE_CELLS = ([(op, st) for st in (Stage.P, Stage.Q, Stage.F)
+               for op in ("gradient", "laplacian")]
+              + [("deriv0", Stage.P), ("deriv1", Stage.P)])
+#: the op set the seeded and pre-gathered-word queries run
+SEED_SET = ("mean", "std", "gradient", "laplacian")
+#: kernel sites a region query must never launch: it decodes no full field
+NOT_ON_REGIONS = ("lorenzo_enc2d.edges", "lorenzo_enc2d.stencil",
+                  "blockmean_enc2d", "unpack.residuals")
+
+
+def region_cells(scheme: str, name: str):
+    if name in ("basin", "transect"):
+        return [(op, st) for op, st in feasible(scheme) if st != Stage.M]
+    return EDGE_CELLS
+
+
+def _words(e, region, closure):
+    """The region plan's gathered payload words of ``e``, on its device."""
+    gi = R.plan_region(e, region, closure).device_gather(e.bits,
+                                                         e.payload.device)
+    return e.payload.index_select(0, gi.word_idx)
+
+
+def region_path(fields) -> dict:
+    """The user's region calls, all on the card: every cell of
+    :func:`region_cells` on each window, the stage-① mean of the aligned
+    window, then ``materialize`` at ② and ③ with seeded queries at ②③④, and
+    the queries from pre-gathered payload words, on the sub-basin and the
+    transect.  The caller reads the launch counters right after."""
+    out = {"cells": {}, "plain": {}, "seeded": {}, "words": {}}
+    for scheme in SCHEMES:
+        for container, (fu, fv) in fields[scheme].items():
+            for name, window in WINDOWS.items():
+                for op, stage in region_cells(scheme, name):
+                    out["cells"][(scheme, container, name, op, stage)] = \
+                        run_cell(op, stage, fu, fv, window)
+            if scheme == "hszx_nd":
+                out["cells"][(scheme, container, "aligned", "mean",
+                              Stage.M)] = H.mean(fu, Stage.M, region=R_ALIGNED)
+            for name in ("basin", "transect"):
+                window = WINDOWS[name]
+                seeds = {}
+                for stage in (Stage.P, Stage.Q):
+                    cl = oplib.set_closure(SEED_SET, fu.scheme, stage)
+                    seeds[stage] = materialize(fu, stage, region=window,
+                                               closure=cl)
+                for stage in (Stage.P, Stage.Q, Stage.F):
+                    key = (scheme, container, name, stage)
+                    out["plain"][key] = H.compute(fu, SEED_SET, stage,
+                                                  region=window)
+                    out["seeded"][key] = H.compute(
+                        fu, SEED_SET, stage, region=window,
+                        seed=seeds[min(stage, Stage.Q)])
+                    if container == "Encoded":
+                        cl = oplib.set_closure(SEED_SET, fu.scheme, stage)
+                        out["words"][key] = H.compute(
+                            fu, SEED_SET, stage, region=window,
+                            payload_words=_words(fu, window, cl))
+    torch.cuda.synchronize()
+    return out
+
+
+def _exact_stat(q_host: torch.Tensor, window, eps: float, op: str) -> float:
+    w = q_host[tuple(slice(s, e) for s, e in window)].double()
+    v = w.mean() if op == "mean" else w.std()
+    return float(v) * 2.0 * eps
+
+
+def check_region_path(fields, hosts, out) -> None:
+    """Hold the card's region cells against the port on the CPU (op sets
+    there: one prelude per window and stage), with the tolerances of
+    :func:`check_main_path`; a statistic also passes when the card lies no
+    farther than the CPU from the exact window statistic (float64 over the
+    stage-③ integers).  Seeded and pre-gathered-word queries equal the
+    plain region queries bitwise."""
+    worst, n, by_exact = {}, 0, 0
+    for scheme in SCHEMES:
+        comp = by_name(scheme, BLOCK)
+        q_host = comp.decompress(hosts[scheme]["Compressed"][0], Stage.Q)
+        for container, (hu, hv) in hosts[scheme].items():
+            eps = float(hu.eps.item())
+            windows = dict(WINDOWS, aligned=R_ALIGNED)
+            for name, window in windows.items():
+                cells = [k for k in out["cells"]
+                         if k[:3] == (scheme, container, name)]
+                want = {}
+                for stage in {k[4] for k in cells}:
+                    if stage == Stage.M:
+                        want[("mean", stage)] = H.mean(hu, stage, region=window)
+                        continue
+                    names = [o for o in ("mean", "std", "gradient", "laplacian")
+                             if (scheme, container, name, o, stage) in out["cells"]]
+                    if names:
+                        got = H.compute(hu, names, stage, region=window)
+                        want.update({(o, stage): got[o] for o in names})
+                    for axis in (0, 1):
+                        if (scheme, container, name, f"deriv{axis}",
+                                stage) in out["cells"]:
+                            want[(f"deriv{axis}", stage)] = H.derivative(
+                                hu, stage, axis, region=window)
+                    if (scheme, container, name, "curl", stage) in out["cells"]:
+                        got = H.compute([hu, hv], ("divergence", "curl"), stage,
+                                        region=window)
+                        want[("divergence", stage)] = got["divergence"]
+                        want[("curl", stage)] = got["curl"]
+                for key in cells:
+                    op, stage = key[3], key[4]
+                    w, g = want[(op, stage)], to_cpu(out["cells"][key])
+                    what = f"region {scheme} {container} {name} {op}@{stage.name}"
+                    if op in ("mean", "std"):
+                        kind = "stat"
+                        try:
+                            gap = close_stat(w, g, hu, stage, op, what)
+                        except RuntimeError:
+                            exact = _exact_stat(q_host, window, eps, op)
+                            if abs(float(g) - exact) > abs(float(w) - exact):
+                                raise
+                            gap = abs(float(g) - float(w))
+                            by_exact += 1
+                    elif op in ("divergence", "curl"):
+                        gap, kind = close_vector(w, g, what), "vector"
+                    else:
+                        gap, kind = bitwise_err(w, g, what), "stencil"
+                    worst[kind] = max(worst.get(kind, 0.0), gap)
+                    n += 1
+                    detail(f"  {what}: card vs CPU max |diff| {gap:.3g}")
+    for kind in ("seeded", "words"):
+        for key, got in out[kind].items():
+            for op in SEED_SET:
+                bitwise_err(out["plain"][key][op], got[op],
+                            f"{kind} {key} {op}")
+    say(f"region path == CPU port: {n} cells on windows "
+        f"{dict(WINDOWS, aligned=R_ALIGNED)}: stencils bitwise, max |diff| "
+        f"div/curl {worst['vector']:.3g}, mean/std {worst['stat']:.3g} "
+        f"({by_exact} statistics over the tolerance but no farther than the "
+        f"CPU from the exact value); seeded ({len(out['seeded'])} at ②③④) and pre-gathered-word "
+        f"({len(out['words'])}) op sets == plain region queries, bitwise")
+
+
+def check_region_ab(fields) -> None:
+    """Covered region cells with the fused rules off equal the fused
+    results, bitwise."""
+    n = 0
+    for scheme in SCHEMES:
+        for container, (fu, fv) in fields[scheme].items():
+            for name, window in WINDOWS.items():
+                for op, stage in region_cells(scheme, name):
+                    if op in ("mean", "std"):
+                        continue
+                    got = run_cell(op, stage, fu, fv, window)
+                    with ops.override_mode("off"):
+                        want = run_cell(op, stage, fu, fv, window)
+                    bitwise_err(want, got, f"A/B region {scheme} {container} "
+                                f"{name} {op}@{stage.name}")
+                    n += 1
+    torch.cuda.synchronize()
+    say(f"A/B: {n} region cells with the fused rules off == fused, bitwise")
+
+
+def region_closures(scheme: str):
+    return ("cover",) if scheme == "hszx_nd" else ("hull", ("band", 0),
+                                                     ("band", 1))
+
+
+def check_region_kernels(fields, errs: dict) -> None:
+    """Every sub-plane the region path gathers (each window and closure),
+    from both containers (equal, bitwise), fed to ``fused.lorenzo2d`` (both
+    passes) or ``fused.blockmean2d`` for every ``what`` and held bitwise
+    against their plain versions."""
+    shapes = []
+    tile = fused.lorenzo_tile()
+    for scheme in SCHEMES:
+        c, e = fields[scheme]["Compressed"][0], fields[scheme]["Encoded"][0]
+        for name, window in WINDOWS.items():
+            for closure in region_closures(scheme):
+                plan = R.plan_region(c, window, closure)
+                sub = R.extract(c, plan)
+                bitwise_err(sub.residuals, R.extract(e, plan).residuals,
+                            f"{scheme} {name} {closure} sub-plane: Encoded "
+                            f"vs Compressed")
+                p = sub.residuals
+                shapes.append(f"{scheme} {name} {closure} {tuple(p.shape)}")
+                if scheme == "hszx_nd":
+                    for what in fused.BLOCKMEAN_WHATS:
+                        _note(errs, "blockmean2d", bitwise_err(
+                            fused.blockmean_core(p, sub.metadata, BLOCK, what),
+                            fused.blockmean2d(p, sub.metadata, BLOCK, what=what),
+                            f"blockmean2d {what} region {name} {tuple(p.shape)}"))
+                    continue
+                _note(errs, "lorenzo2d.edges", bitwise_err(
+                    fused.lorenzo_edge_prefixes_plain(p, tile),
+                    fused.lorenzo_edges(p, tuple(p.shape), 0, from_payload=False,
+                                        site="lorenzo2d"),
+                    f"lorenzo2d edges region {name} {tuple(p.shape)}"))
+                for what in fused.LORENZO_WHATS:
+                    _note(errs, "lorenzo2d.stencil", bitwise_err(
+                        fused.lorenzo_core(p, what), fused.lorenzo2d(p, what=what),
+                        f"lorenzo2d {what} region {name} {tuple(p.shape)}"))
+    torch.cuda.synchronize()
+    say("region sub-planes: lorenzo2d / blockmean2d == plain versions, "
+        "bitwise, every what: " + "; ".join(shapes))
+
+
+def time_region_queries(fields, tag: str) -> None:
+    """Host-clock ms per region query (median and quartiles of
+    ``E2E_REPS``), gradient@③ and mean@② on the sub-basin and the transect,
+    beside the full-field query of the same cell and the plan's
+    ``closure_fraction``."""
+    for scheme in SCHEMES:
+        for container, (fu, fv) in fields[scheme].items():
+            for op, stage in (("gradient", Stage.Q), ("mean", Stage.P)):
+                full = host_ms(lambda: run_cell(op, stage, fu, fv), E2E_REPS)
+                parts = [f"full field {_spread(full)}"]
+                for name in ("basin", "transect"):
+                    window = WINDOWS[name]
+                    t = host_ms(lambda: run_cell(op, stage, fu, fv, window),
+                                E2E_REPS)
+                    frac = R.closure_fraction(fu, op, stage, window)
+                    parts.append(f"{name} {_spread(t)} (closure fraction "
+                                 f"{frac:.4f})")
+                say(f"[{tag}] e2e region {scheme} {container} {op}@{stage.name}: "
+                    + "; ".join(parts) + f", median of {E2E_REPS}")
+
+
+#: the Lorenzo kernels of a region gradient@③ query, in order (residual
+#: plane instantiations: no payload kernel, no unpack)
+REGION_LZ_KERNELS = ("lorenzo_edges_kernel<false>", "lorenzo_scan_kernel",
+                     "lorenzo_stencil_kernel<false")
+
+
+def region_query_kernels(fields, tag: str) -> None:
+    """The device kernels of one ``Encoded`` sub-basin Lorenzo gradient@③
+    query from a ``torch.profiler`` trace: the gather-unpack's torch ops,
+    then the three residual-plane Lorenzo kernels, then the float tail."""
+    eu, ev = fields["hszp_nd"]["Encoded"]
+    names, events = traced_kernels(
+        lambda: run_cell("gradient", Stage.Q, eu, ev, R_BASIN))
+    first = next((i for i, k in enumerate(names)
+                  if k.startswith("lorenzo_")), None)
+    ours = names[first:first + 3] if first is not None else []
+    if (len(ours) != 3
+            or any(not k.startswith(w) for k, w in zip(ours, REGION_LZ_KERNELS))
+            or any(k.startswith(("unpack_kernel", "blockmean_kernel"))
+                   or "<true" in k for k in names)):
+        fail(f"Encoded region gradient@Q: kernels {names}")
+    say(f"[{tag}] hszp_nd Encoded gradient@Q on the sub-basin, device "
+        f"kernels: {first} of the gather-unpack "
+        f"({_listed(names[:first], events[:first])}); then "
+        f"{_listed(names[first:first + 3], events[first:first + 3])}; then "
+        f"{len(names) - first - 3} ({_listed(names[first + 3:], events[first + 3:])})")
 
 
 # ===========================================================================
@@ -791,6 +1086,10 @@ def bound_ms(n_bytes: int, int_ops: int, f32_ops: int = 0) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: time_kernels' name for the stats pass at ``PS_WIDE[1]``
+WIDE_STATS = "prefix_stats2d.stats (2400 x 8200)"
+
+
 def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     """Kernel and plain-version times at the Ocean shape (what = grad for
     the band kernels: the gradient query's call; the entry point's kernels
@@ -821,6 +1120,11 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     m = (n0 - 2) * (n1 - 2)
     ps_edges = prefix_stats.stats_edges(p)
     corner_bytes = 4 * ps_edges[2].numel()
+    # the stats pass on a plane wider than 4224 columns launches
+    # prefix_stats_tile_kernel<true>
+    pw = bounded_plane(PS_WIDE[1], np.random.default_rng(0))
+    nw = pw.numel()
+    pw_edges = prefix_stats.stats_edges(pw)
     # Operations are those the function needs per element, not what an
     # implementation adds (64-bit bit offsets, edge masks, index math):
     # taking a value out of staged payload words is a shift and a mask (2;
@@ -907,6 +1211,10 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
             prefix_stats.prefix_stats_tiles, (p, *ps_edges),
             lambda: prefix_stats.prefix_stats2d_plain(p),
             4 * n + edge_bytes + corner_bytes + 8, 2 * n, 4 * n),
+        WIDE_STATS: (  # as above, at PS_WIDE[1]
+            prefix_stats.prefix_stats_tiles, (pw, *pw_edges),
+            lambda: prefix_stats.prefix_stats2d_plain(pw),
+            4 * nw + 4 * sum(t.numel() for t in pw_edges) + 8, 2 * nw, 4 * nw),
     }
     out = {}
     for name, (fn, args, plain, n_bytes, *n_ops) in plans.items():
@@ -1385,6 +1693,18 @@ def main() -> None:
     fields, decomp, results = main_path(u, v)
     path_launches["main path"] = dict(ops.LAUNCHES)
     require_launches("main path", path_launches["main path"])
+    hosts = check_main_path(u, v, fields, decomp, results)
+    check_ab(fields)
+
+    # 5b. region queries: no full-field decode, the residual-plane kernels
+    # on the gathered sub-planes
+    ops.reset_launches()
+    region_out = region_path(fields)
+    path_launches["region path"] = dict(ops.LAUNCHES)
+    require_launches("region path", path_launches["region path"])
+    stray = [k for k in NOT_ON_REGIONS if path_launches["region path"][k]]
+    if stray:
+        fail(f"the region path launched full-field kernels: {stray}")
     never = [k for k in ops.LAUNCHES
              if all(counts[k] == 0 for counts in path_launches.values())]
     if never:
@@ -1392,8 +1712,9 @@ def main() -> None:
     # each site's launches on its path (unpack runs on both: the main path's)
     launches = {k: path_launches["main path" if k in PATHS["main path"]
                                  else "entry point"][k] for k in SITES}
-    check_main_path(u, v, fields, decomp, results)
-    check_ab(fields)
+    check_region_path(fields, hosts, region_out)
+    check_region_ab(fields)
+    check_region_kernels(fields, errs)
 
     # 6. times
     times = time_kernels(cont, entry, REPS, tag)
@@ -1401,7 +1722,9 @@ def main() -> None:
     per_query.update(per_call_launches(entry, tag))
     query_kernels(fields, tag)
     decode_and_stats_kernels(fields, entry, tag)
+    region_query_kernels(fields, tag)
     time_queries(fields, tag)
+    time_region_queries(fields, tag)
 
     kernels = []
     for name, (source, replaces) in SITES.items():
@@ -1413,7 +1736,11 @@ def main() -> None:
             "max_abs_err": errs[name], "ms": t["ms"],
             "graph_ms": t["graph_ms"], "enqueue_ms": t["enqueue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": None,
+            "region_launches": path_launches["region path"][name]})
+        if name == "prefix_stats2d.stats":
+            kernels[-1]["wide"] = dict(times[WIDE_STATS],
+                                       shape=list(PS_WIDE[1]))
     say(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -5,15 +5,20 @@ container crosses between the JAX reference and the port as a kind
 (``"Compressed"`` or ``"Encoded"``), a dict of numpy data leaves and a dict
 of layout metadata.  Payload words are ``uint32`` on the numpy side and the
 ``int32`` bit pattern on the torch side.  (The serialized ``HSZ2`` blob of
-``core.encode`` is the second bridge.)
+``core.encode`` is the second bridge.)  A materialized seed
+(``store.MaterializedStage``) crosses as its key — stage, closure, region —
+and either its stage-② sub-field as such a container triple or its stage-③
+integers as one numpy array, so a seed the reference materialized serves
+the port's ``compute(..., seed=)``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.stages import Compressed, Encoded, Scheme
+from .core.stages import Compressed, Encoded, Scheme, Stage
 from .kernels import ops as kernel_ops
+from .store import MaterializedStage
 
 _KINDS = {"Compressed": Compressed, "Encoded": Encoded}
 _LEAVES = {
@@ -63,3 +68,33 @@ def to_arrays(c: Compressed | Encoded) -> tuple[str, dict[str, np.ndarray], dict
     if kind == "Encoded":
         meta["bits"] = c.bits
     return kind, arrays, meta
+
+
+def _key(closure, region):
+    """The seed key in the port's canonical form: closures ``"cover"`` /
+    ``"hull"`` / ``("band", axis)``, regions tuples of int pairs."""
+    if not isinstance(closure, str):
+        closure = (str(closure[0]), int(closure[1]))
+    if region is not None:
+        region = tuple((int(s), int(e)) for s, e in region)
+    return closure, region
+
+
+def seed_from_arrays(stage, closure, region, *, sub=None, q_spatial=None,
+                     device="cuda") -> MaterializedStage:
+    """Build the port's :class:`~repro_torch.store.MaterializedStage` from a
+    seed's key and its numpy data: ``sub`` a ``(kind, arrays, meta)``
+    triple as :func:`from_arrays` takes (stage ②), or ``q_spatial`` an
+    integer array (stage ③).  Exactly one of them is given."""
+    if (sub is None) == (q_spatial is None):
+        raise ValueError("a seed holds exactly one of sub and q_spatial")
+    closure, region = _key(closure, region)
+    dev = kernel_ops.resolve_device(device)
+    if sub is not None:
+        sub = from_arrays(*sub, device=dev)
+    else:
+        q_spatial = torch.as_tensor(
+            np.ascontiguousarray(q_spatial).astype(np.int32), device=dev)
+    return MaterializedStage(sub=sub, q_spatial=q_spatial,
+                             stage=Stage(int(stage)), closure=closure,
+                             region=region)

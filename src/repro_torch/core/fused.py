@@ -23,10 +23,12 @@ The lorenzo ③④ laplacian stays uncovered, as in the reference.
 The kernels emit exact-integer stencil planes (or, for the block-mean
 laplacians, the pre-eps f32 accumulation in a fixed order); the rules here
 apply the float tail — the same ``float()`` / eps multiply the torch rules
-end with — on the sliced interior, so each covered cell equals its torch
-rule bit for bit.  Full-field :class:`Encoded` contexts with 0 < bits < 32
-take the payload-input kernels (the residual plane never exists in device
-memory); everything else takes the residual-plane kernels on ``ctx.sub``.
+end with — on the sliced window interior, so each covered cell equals its
+torch rule bit for bit, full-field and region-windowed.  Full-field
+:class:`Encoded` contexts with 0 < bits < 32 and no seed take the
+payload-input kernels (the residual plane never exists in device memory);
+everything else — ``Compressed`` containers, region plans, seeds — takes
+the residual-plane kernels on ``ctx.sub``.
 """
 from __future__ import annotations
 
@@ -59,15 +61,24 @@ def _covers_2d(ctx) -> bool:
 def _payload2(ctx) -> bool:
     """Can this context take the single-pass payload kernels?  Full-field
     :class:`Encoded` queries with 0 < bits < 32 (bits == 0 is the all-zero
-    fast path, bits == 32 stores raw words)."""
-    return isinstance(ctx.field, Encoded) and 0 < ctx.field.bits < 32
+    fast path, bits == 32 stores raw words) and no materialized seed.
+    Region plans keep the gather-then-unpack path (the plan's word gather
+    already reads only the closure's payload) and run the residual-plane
+    kernels on the gathered sub-field."""
+    return (isinstance(ctx.field, Encoded) and ctx.plan is None
+            and ctx._seed is None and 0 < ctx.field.bits < 32)
 
 
 def _window2(ctx) -> tuple[slice, slice]:
-    """The stencil interior of the unpadded field inside the kernels'
-    full padded-shape outputs."""
-    s0, s1 = ctx.field.shape
-    return slice(1, s0 - 1), slice(1, s1 - 1)
+    """The stencil-interior slices into the kernels' full padded-shape
+    outputs: the region window in sub-field coordinates (or the padding
+    crop) shrunk by one at each end, so slicing after the kernel reads
+    exactly the elements the torch rules' window-then-stencil path reads."""
+    if ctx.plan is not None:
+        w0, w1 = ctx.plan.window
+    else:
+        w0, w1 = (slice(0, s) for s in ctx.field.shape)
+    return slice(w0.start + 1, w0.stop - 1), slice(w1.start + 1, w1.stop - 1)
 
 
 # -- lorenzo family ---------------------------------------------------------

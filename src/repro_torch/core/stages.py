@@ -146,3 +146,15 @@ class Encoded(_Layout):
 
 
 Field = Compressed | Encoded
+
+
+def layout_key(c: Field) -> tuple:
+    """Hashable static layout of a field: the kind, scheme, shapes, block,
+    original dtype and, for :class:`Encoded`, the packed width — everything
+    two fields must share for one program to serve both (the reference's
+    pytree-meta fields).  The dtype is named by its string (``"float32"``)."""
+    key: tuple = (type(c).__name__, c.scheme, c.shape, c.padded_shape,
+                  c.block, str(c.orig_dtype).removeprefix("torch."))
+    if isinstance(c, Encoded):
+        key = key + (c.bits,)
+    return key

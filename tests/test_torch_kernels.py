@@ -613,3 +613,40 @@ def _same_card(want, got):
     for w, g in zip(want, got):
         assert w.dtype == g.dtype and torch.equal(w.view(torch.int32),
                                                   g.view(torch.int32))
+
+
+#: region sub-planes of an Ocean field (2400 x 3600, blocks 16 x 16): a
+#: transect's stage-② axis-0 band, one block, the hull of a window near the
+#: origin, a transect's hull, a sub-basin's cover and hull, the far-corner
+#: hull (the whole field); rows under the 32-row tile, planes narrower than
+#: the 128-column tile; 16 x 16 blocks keep n1 % 4 == 0, so (48, 1810) at
+#: blocks 16 x 5 adds a plane whose rows end off the 16-byte stores
+REGION_PLANES = [(16, 3600), (16, 16), (32, 32), (1216, 3600), (1216, 1808),
+                 (1808, 2704), (2400, 3600)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", REGION_PLANES + [(48, 1810)],
+                         ids=[f"{a}x{b}" for a, b in REGION_PLANES + [(48, 1810)]])
+def test_residual_plane_kernels_on_region_sub_planes(shape):
+    """``lorenzo2d`` (both passes) and ``blockmean2d`` on the sub-planes a
+    region plan gathers, every ``what``, bitwise against their plain
+    versions: full-range int32 residuals (sums wrap) and random block
+    means."""
+    dev = _card()
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    plane = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+                            .astype(np.int32), device=dev)
+    _same_card(fused.lorenzo_edge_prefixes_plain(plane, fused.lorenzo_tile()),
+               fused.lorenzo_edges(plane, shape, 0, from_payload=False,
+                                   site="lorenzo2d"))
+    for what in fused.LORENZO_WHATS:
+        _same_card(fused.lorenzo_core(plane, what),
+                   fused.lorenzo2d(plane, what=what))
+    block = BLOCK if shape[1] % BLOCK[1] == 0 else (16, 5)
+    grid = (shape[0] // block[0], shape[1] // block[1])
+    meta = torch.as_tensor(rng.integers(-2 ** 20, 2 ** 20, grid, dtype=np.int64)
+                           .astype(np.int32), device=dev)
+    for what in fused.BLOCKMEAN_WHATS:
+        _same_card(fused.blockmean_core(plane, meta, block, what),
+                   fused.blockmean2d(plane, meta, block, what=what))
