@@ -42,6 +42,26 @@ Phases (any failure raises, so the exit code is non-zero):
    from pre-gathered payload words against the plain region queries,
    bitwise; an A/B pass with the fused rules off; every gathered sub-plane
    fed to ``lorenzo2d`` / ``blockmean2d`` against their plain versions;
+5c. the engine path (``repro_torch.analytics``) on eight same-layout Ocean
+   fields per scheme (u and v of ``synth_field`` seeds 0-3), ``Compressed``
+   and ``Encoded``: (a) ``BatchedAnalytics().run`` of mean / std / gradient
+   / laplacian at "auto" and each stage; (b) divergence and curl over four
+   (u, v) pairs at ② and ③; (c) ``query(exprs=...)`` of curl, divergence,
+   laplacian(u) - laplacian(v) and 2·mean(u) + std(v) over one pair, over a
+   ``Compressed`` u beside an ``Encoded`` v, and the flat op set over a
+   mixed batch; (d) a ``FieldStore`` holding the eight fields by id: the ③
+   op set twice (8 misses, then 8 hits), the ② stencils twice (misses,
+   then seeded).  Every result bitwise the per-field ``homomorphic`` calls
+   on the card; (a) at "auto", (b) and (c) over the first (u, v) pair
+   against the CPU port's same queries; an A/B pass with the fused rules
+   off; every query's launches exactly what its plan implies under the
+   reference's fused cells (``FUSED_CELLS``: one band-kernel set per field
+   and covered op, on a stage-③ seed the stage-③ difference kernel or the
+   block-mean kernel over its integers, at most one decode per ``Encoded``
+   leaf, no unpack and
+   no payload kernel in a seeded or store-hit run); ``n_batches`` /
+   ``n_dispatches`` and the store's hits and misses as the reference's
+   rules give;
 6. times: each kernel with CUDA events, as device time alone (a CUDA graph
    of the calls, taking turns over copies of the inputs so that they come
    from device memory, not the L2) and as host enqueue per call, its plain
@@ -55,12 +75,20 @@ Phases (any failure raises, so the exit code is non-zero):
    ``Encoded`` sub-basin gradient@③ query (the gather-unpack's torch ops,
    then the three residual-plane Lorenzo kernels); the stats pass on a
    plane wider than 4224 columns; detail lines time the decode against
-   unpack + torch unzigzag and the band kernels for every ``what``.
+   unpack + torch unzigzag and the band kernels for every ``what``; the
+   engine's host ms ((a) as one ``run`` against eight single-field
+   ``compute`` calls, (c) against the sum of its single-op queries, (d) a
+   store miss, and the ③ hit under the port's rule, the reference's rule
+   (decode again, then the band kernels) and the torch rules, bitwise
+   equal) and a ``torch.profiler`` trace of one (a) call
+   per scheme: its kernels, their device µs and the device's busy share of
+   the call's window.
 
 Launch counters are reset just before each path (entry point, main path,
-region path) and read just after it: each path must launch every kernel
-site it runs, every site must be launched on some path, and the region path
-must launch no payload kernel and no unpack (it decodes no full field).
+region path; on the engine path, each query) and read just after it: each
+path must launch every kernel site it runs, every site must be launched on
+some path, and the region path must launch no payload kernel and no unpack
+(it decodes no full field).
 
 Per-cell detail goes to ``chiprun_out/chip_smoke.log``.  The last two lines
 of standard output are a JSON object of per-kernel numbers and
@@ -69,6 +97,7 @@ of standard output are a JSON object of per-kernel numbers and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -78,6 +107,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -85,15 +115,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import analytics  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import Stage, by_name, encode, error_analysis  # noqa: E402
-from repro_torch.core import blocking, oplib, quantize  # noqa: E402
+from repro_torch.core import blocking, expr, oplib, quantize  # noqa: E402
+from repro_torch.core import fused as rules  # noqa: E402
 from repro_torch.core import homomorphic as H  # noqa: E402
 from repro_torch.core import region as R  # noqa: E402
 from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, stencil_dq)
-from repro_torch.store import materialize  # noqa: E402
+from repro_torch.core.stages import LEAVES, Encoded, layout_key  # noqa: E402
+from repro_torch.store import FieldStore, materialize  # noqa: E402
 
 #: published H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -154,7 +187,12 @@ PATHS = {
                   "lorenzo_enc2d.stencil",
                   "blockmean_enc2d", "lorenzo2d.edges", "lorenzo2d.stencil",
                   "blockmean2d"),
-    "region path": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d"),
+    "region path": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
+                    "grad2d"),
+    "engine path": ("unpack.residuals", "lorenzo_enc2d.edges",
+                    "lorenzo_enc2d.stencil", "blockmean_enc2d",
+                    "lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
+                    "grad2d"),
 }
 
 LOG: list[str] = []
@@ -212,14 +250,20 @@ def close_vector(want, got, what: str) -> float:
     return err
 
 
-def close_stat(want, got, field, stage, op: str, what: str) -> float:
+def stat_tol(want, field, stage, op: str) -> float:
     """mean / std: rtol 1e-5, or half of the paper's bias bound (1e-3 of it
     where the bound is eps): the f32 reductions run in another order."""
-    w, g = float(want), float(got)
     eps = float(field.eps.item())
     bound = (error_analysis.mean_bias_bound if op == "mean"
              else error_analysis.std_bias_bound)(field, stage)
-    tol = max(1e-5 * abs(w), (1e-3 if bound >= eps else 0.5) * bound)
+    return max(1e-5 * abs(float(want)),
+               (1e-3 if bound >= eps else 0.5) * bound)
+
+
+def close_stat(want, got, field, stage, op: str, what: str) -> float:
+    """mean / std within :func:`stat_tol`; returns the gap."""
+    w, g = float(want), float(got)
+    tol = stat_tol(w, field, stage, op)
     if not abs(g - w) <= tol:
         fail(f"{what}: |{g} - {w}| = {abs(g - w)} > {tol}")
     return abs(g - w)
@@ -1002,6 +1046,613 @@ def region_query_kernels(fields, tag: str) -> None:
 
 
 # ===========================================================================
+# phase 5c: the engine path — batched op sets, expression DAGs, the store
+# ===========================================================================
+
+#: synth_field seeds (added to --seed) of the engine phase's fields: u and v
+#: of each, eight same-layout fields per scheme and container
+ENGINE_SEEDS = (0, 1, 2, 3)
+#: query (a)'s op set, at "auto" and at each of its feasible stages
+ENGINE_SET = ("mean", "std", "gradient", "laplacian")
+SET_STAGES = (Stage.P, Stage.Q, Stage.F)
+#: query (b)'s op set over the four (u, v) pairs, and its stages
+VECTOR_SET = ("divergence", "curl")
+VECTOR_STAGES = (Stage.P, Stage.Q)
+#: query (d)'s runs over the store, in order: (op set, stage)
+STORE_RUNS = {"Q miss": (ENGINE_SET, Stage.Q), "Q hit": (ENGINE_SET, Stage.Q),
+              "P miss": (("gradient", "laplacian"), Stage.P),
+              "P seeded": (("gradient", "laplacian"), Stage.P)}
+#: the store's budget: the eight fields' ③ and ② materializations fit
+STORE_BYTES = 1 << 30
+#: kernel sites a seeded or store-hit run must never launch
+PAYLOAD_SITES = ("lorenzo_enc2d.edges", "lorenzo_enc2d.stencil",
+                 "blockmean_enc2d", "unpack.residuals")
+
+
+def engine_fields(seed: int) -> dict:
+    """scheme -> container -> eight fields ``[u0, v0, u1, v1, ...]`` on the
+    card (``synth_field`` seeds ``seed + ENGINE_SEEDS``), the ``Encoded``
+    ones packed at the widest of their eight widths so that all eight share
+    one layout."""
+    data = [synth_field("Ocean", f, OCEAN, seed + s)
+            for s in ENGINE_SEEDS for f in (0, 1)]
+    out = {}
+    for scheme in SCHEMES:
+        comp = by_name(scheme, BLOCK)
+        cs = [comp.compress(d, rel_eb=REL_EB, device=DEVICE) for d in data]
+        bits = max(comp.max_bits(c) for c in cs)
+        out[scheme] = {"Compressed": cs,
+                       "Encoded": [comp.encode(c, bits=bits) for c in cs]}
+    return out
+
+
+def on_host(c):
+    """A container's copy on the CPU, leaf for leaf."""
+    return dataclasses.replace(c, **{n: getattr(c, n).cpu()
+                                     for n in LEAVES[type(c).__name__]})
+
+
+def engine_exprs(u, v) -> list:
+    """Query (c)'s roots over one (u, v) pair."""
+    return [expr.curl((u, v)), expr.divergence((u, v)),
+            expr.laplacian(u) - expr.laplacian(v),
+            expr.scale(expr.mean(u), 2.0) + expr.std(v)]
+
+
+def composed(u, v, stage) -> list:
+    """The per-field homomorphic calls query (c)'s roots compose, in the
+    expressions' order of operations."""
+    return [H.curl([u, v], stage), H.divergence([u, v], stage),
+            H.laplacian(u, stage) - H.laplacian(v, stage),
+            H.mean(u, stage) * 2.0 + H.std(v, stage)]
+
+
+def flat_query(*args, **kw):
+    """The flat form of ``query`` (op sets grouped by layout; deprecated in
+    favour of expressions), its warning silenced."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return analytics.query(*args, **kw)
+
+
+def counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counters set to 0 just before it
+    and read just after: ``(result, launches)``."""
+    ops.reset_launches()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES)
+
+
+def mixed_batch(fields, scheme) -> list:
+    """The flat mixed-layout batch of query (c): Compressed and Encoded
+    fields taking turns."""
+    f = fields[scheme]
+    return [f["Compressed"][0], f["Encoded"][1], f["Compressed"][2],
+            f["Encoded"][3]]
+
+
+def engine_path(fields, eng) -> dict:
+    """The user's engine-layer calls on the card, each counted on its own:
+    (a) the op set over the eight fields per scheme and container, at
+    "auto" and at each explicit stage; (b) divergence and curl over the four
+    ``Encoded`` (u, v) pairs at ② and ③; (c) the expression queries over
+    one ``Encoded`` pair, then over a ``Compressed`` u beside an ``Encoded``
+    v, and the flat op set over a mixed batch; (d) a ``FieldStore`` holding
+    the eight ``Encoded`` fields by id: the ③ op set twice (misses, then
+    hits), then the ② stencil set twice (misses, then the seeded run)."""
+    out = {}
+    for scheme in SCHEMES:
+        enc, cmp_ = fields[scheme]["Encoded"], fields[scheme]["Compressed"]
+        for container, fs in (("Encoded", enc), ("Compressed", cmp_)):
+            for st in ("auto",) + SET_STAGES:
+                out[("a", scheme, container, st)] = counted(
+                    eng.run, fs, ENGINE_SET, st)
+        pairs = list(zip(enc[0::2], enc[1::2]))
+        for st in VECTOR_STAGES:
+            out[("b", scheme, st)] = counted(eng.run, pairs, VECTOR_SET, st)
+        for name, (u, v) in (("Encoded", (enc[0], enc[1])),
+                             ("mixed", (cmp_[0], enc[1]))):
+            out[("c", scheme, name)] = counted(
+                analytics.query, exprs=engine_exprs(u, v), engine=eng)
+        out[("c", scheme, "flat")] = counted(
+            flat_query, mixed_batch(fields, scheme), ENGINE_SET, engine=eng)
+        store = FieldStore(cache_bytes=STORE_BYTES)
+        ids = [store.put(f"{scheme}/{i}", f) for i, f in enumerate(enc)]
+        for run, (ops_, st) in STORE_RUNS.items():
+            out[("d", scheme, run)] = counted(
+                flat_query, ids, list(ops_), st, engine=eng, store=store)
+    return out
+
+
+# -- what the plans imply ---------------------------------------------------
+
+#: the fused cells of the reference's Table I rules
+#: (``src/repro/core/fused.py``, its DERIVATIVE / GRADIENT / LAPLACIAN
+#: registries): op -> the (stage, family) cells a kernel serves on 2-D n-D
+#: fields.  Written out here, not read from the port's registry, so that a
+#: cell dropped from the port shows as a launch count off its plan.
+FUSED_CELLS = {
+    "derivative": {(s, f) for s in (Stage.P, Stage.Q, Stage.F)
+                   for f in ("lorenzo", "blockmean")},
+    "gradient": {(s, f) for s in (Stage.P, Stage.Q, Stage.F)
+                 for f in ("lorenzo", "blockmean")},
+    "laplacian": {(Stage.P, "lorenzo"), (Stage.P, "blockmean"),
+                  (Stage.Q, "blockmean"), (Stage.F, "blockmean")},
+}
+
+
+def _band_sites(scheme: str, payload: bool) -> tuple[str, ...]:
+    if scheme == "hszp_nd":
+        site = "lorenzo_enc2d" if payload else "lorenzo2d"
+        return (f"{site}.edges", f"{site}.stencil")
+    return ("blockmean_enc2d",) if payload else ("blockmean2d",)
+
+
+def _op_sites(op: str, container: str, scheme: str, stage: Stage,
+              seed) -> tuple[str, ...]:
+    """The kernel sites one application of ``op`` (a field op, or
+    ``derivative`` for a vector op's component) launches once each; empty
+    where its torch rule runs.  A covered cell runs the payload kernels on
+    an unseeded ``Encoded`` field and the plane kernels on residuals
+    otherwise; on a stage-③ seed, the derivatives and gradients run the
+    stage-③ difference kernel on the resident integers and the (block-mean)
+    laplacian the block-mean kernel over them (``core/fused.py``)."""
+    family = "lorenzo" if scheme == "hszp_nd" else "blockmean"
+    if (Stage(stage), family) not in FUSED_CELLS.get(op, ()):
+        return ()
+    if seed == Stage.Q:
+        return ("blockmean2d",) if op == "laplacian" else ("grad2d",)
+    return _band_sites(scheme, container == "Encoded" and seed is None)
+
+
+def expected_launches(contexts) -> dict:
+    """Launches per site that a list of stage contexts implies.  A context
+    ``(container, scheme, stage, seed, ops)`` (``seed`` None or the seed's
+    stage; ``ops`` its op applications, a vector op as one ``derivative``
+    per differentiated axis) launches :func:`_op_sites` per application,
+    and decodes its payload once when an op whose torch rule runs reads
+    the residuals or integers (every torch rule but the stage-① mean) and
+    no seed holds them."""
+    want = dict.fromkeys(PATHS["engine path"], 0)
+    for container, scheme, stage, seed, ops_ in contexts:
+        for op in ops_:
+            for site in _op_sites(op, container, scheme, stage, seed):
+                want[site] += 1
+        if container == "Encoded" and seed is None and any(
+                not _op_sites(op, container, scheme, stage, seed)
+                and not (op == "mean" and stage == Stage.M) for op in ops_):
+            want["unpack.residuals"] += 1
+    return want
+
+
+def _component_ops(ops_, n: int = 2) -> list[list[str]]:
+    """A vector op set's derivative applications on each component."""
+    per = [[] for _ in range(n)]
+    for op in ops_:
+        for i, axes in enumerate(oplib.OPS[op].component_axes(n)):
+            per[i] += ["derivative"] * len(axes)
+    return per
+
+
+def plan_contexts(key, res, fields) -> list:
+    """The stage contexts a query's plan implies (see
+    :func:`expected_launches`)."""
+    kind, scheme = key[0], key[1]
+    if kind == "a":
+        stage = analytics.plan_stages(scheme, ENGINE_SET, key[3]).fused
+        return [(key[2], scheme, stage, None, ENGINE_SET)] * 8
+    if kind == "b":
+        return [("Encoded", scheme, key[2], None, ops_)
+                for _ in range(4) for ops_ in _component_ops(VECTOR_SET)]
+    if kind == "c" and key[2] == "flat":
+        return [(type(f).__name__, scheme, res.stages[i]["mean"], None,
+                 ENGINE_SET) for i, f in enumerate(mixed_batch(fields, scheme))]
+    if kind == "c":
+        program = expr.analyze(res.exprs)
+        bindings = [lf.source for lf in program.leaves]
+        stages = analytics.plan_expr(program, bindings).stages
+        out = []
+        for slot, b in enumerate(bindings):
+            stage = stages[program.leaf_component[slot]]
+            names = [n for n, _ in program.leaf_consumers(slot)]
+            if isinstance(b, tuple):
+                out += [(type(c).__name__, scheme, stage, None, o)
+                        for c, o in zip(b, _component_ops(names, len(b)))]
+            else:
+                out.append((type(b).__name__, scheme, stage, None, names))
+        return out
+    ops_, stage = STORE_RUNS[key[2]]
+    seeded = [("Encoded", scheme, stage, min(stage, Stage.Q), ops_)] * 8
+    if key[2].endswith("miss"):
+        # each miss materializes the field once: one decode, no band kernel
+        return [("Encoded", scheme, stage, None, ["std"])] * 8 + seeded
+    return seeded
+
+
+def check_engine_launches(fields, out) -> dict:
+    """Every query's launches against what its plan implies; returns the
+    engine path's launches per site (summed over its queries)."""
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for key, (res, got) in out.items():
+        want = expected_launches(plan_contexts(key, res, fields))
+        bad = {k: (got[k], want.get(k, 0)) for k in got
+               if got[k] != want.get(k, 0)}
+        if bad:
+            fail(f"engine {key}: launches (got, plan) {bad}")
+        if key[0] == "d" and not key[2].endswith("miss"):
+            stray = [k for k in PAYLOAD_SITES if got[k]]
+            if stray:
+                fail(f"engine {key}: a seeded run launched {stray}")
+        if key[0] == "c" and key[2] != "flat":
+            leaves = [lf.source for lf in expr.analyze(res.exprs).leaves]
+            n_enc = sum(isinstance(c, Encoded) for b in leaves
+                        for c in (b if isinstance(b, tuple) else (b,)))
+            if got["unpack.residuals"] > n_enc:
+                fail(f"engine {key}: {got['unpack.residuals']} decodes for "
+                     f"{n_enc} Encoded leaf contexts")
+        for k, n in got.items():
+            total[k] += n
+        detail(f"  engine {key}: launches "
+               f"{json.dumps({k: n for k, n in got.items() if n})}")
+    say(f"engine path: the launches of its {len(out)} queries == their "
+        f"plans' (one band-kernel set per field and covered op, at most one "
+        f"decode per Encoded leaf, no unpack and no payload kernel in the "
+        f"seeded and store-hit runs)")
+    return total
+
+
+def expected_counts(items, ops_, store_backed: bool) -> tuple[int, int]:
+    """``(n_batches, n_dispatches)`` of a flat query by the reference's
+    rules: one batch per (layout, store-backed) group, and per batch one
+    dispatch when the op set has a shared feasible stage, else one per op."""
+    scheme = items[0].scheme
+    shared = set.intersection(*(set(analytics.feasible_stages(scheme, o))
+                                for o in ops_))
+    groups = {(layout_key(i), store_backed) for i in items}
+    return len(groups), len(groups) * (1 if shared else len(ops_))
+
+
+# -- values -------------------------------------------------------------------
+
+def _per_field_set(f, stage) -> dict:
+    """The homomorphic calls (a) batches, one field at a time."""
+    return {"mean": H.mean(f, stage), "std": H.std(f, stage),
+            "gradient": H.gradient(f, stage),
+            "laplacian": H.laplacian(f, stage)}
+
+
+def _item(batched, i):
+    return (tuple(x[i] for x in batched) if isinstance(batched, tuple)
+            else batched[i])
+
+
+def check_engine_values(fields, out) -> None:
+    """Every engine-path result bitwise the per-field homomorphic calls on
+    the card (query (d) against (a)'s results at its stage); the counts and
+    the store's hits and misses those of the reference's rules."""
+    n = 0
+    for scheme in SCHEMES:
+        for container in ("Encoded", "Compressed"):
+            for st in ("auto",) + SET_STAGES:
+                got = out[("a", scheme, container, st)][0]
+                stage = analytics.plan_stages(scheme, ENGINE_SET, st).fused
+                for i, f in enumerate(fields[scheme][container]):
+                    want = _per_field_set(f, stage)
+                    for op in ENGINE_SET:
+                        n += 1
+                        bitwise_err(want[op], _item(got[op], i),
+                                    f"(a) {scheme} {container} {st} {op} {i}")
+        enc, cmp_ = fields[scheme]["Encoded"], fields[scheme]["Compressed"]
+        for st in VECTOR_STAGES:
+            got = out[("b", scheme, st)][0]
+            for i, (u, v) in enumerate(zip(enc[0::2], enc[1::2])):
+                for op in VECTOR_SET:
+                    n += 1
+                    bitwise_err(getattr(H, op)([u, v], st), got[op][i],
+                                f"(b) {scheme} {op}@{st.name} pair {i}")
+        for name, (u, v) in (("Encoded", (enc[0], enc[1])),
+                             ("mixed", (cmp_[0], enc[1]))):
+            res = out[("c", scheme, name)][0]
+            if (res.n_batches, res.n_dispatches) != (1, 1):
+                fail(f"(c) {scheme} {name}: counts {res.n_batches}, "
+                     f"{res.n_dispatches}, the reference's rules give 1, 1")
+            for i, (w, g) in enumerate(zip(composed(u, v, res.stages[0]),
+                                           res.values, strict=True)):
+                n += 1
+                bitwise_err(w, g, f"(c) {scheme} {name} root {i}")
+        res = out[("c", scheme, "flat")][0]
+        batch = mixed_batch(fields, scheme)
+        if (res.n_batches, res.n_dispatches) != expected_counts(
+                batch, ENGINE_SET, False):
+            fail(f"(c) {scheme} flat mixed: counts {res.n_batches}, "
+                 f"{res.n_dispatches}")
+        for i, f in enumerate(batch):
+            want = _per_field_set(f, res.stages[i]["mean"])
+            for op in ENGINE_SET:
+                n += 1
+                bitwise_err(want[op], res.values[i][op],
+                            f"(c) {scheme} flat mixed {op} {i}")
+        for run, (ops_, st) in STORE_RUNS.items():
+            res = out[("d", scheme, run)][0]
+            hits = 0 if run.endswith("miss") else 8
+            if ((res.store_hits, res.store_misses) != (hits, 8 - hits)
+                    or (res.n_batches, res.n_dispatches) != expected_counts(
+                        enc, ops_, True)):
+                fail(f"(d) {scheme} {run}: hits {res.store_hits}, misses "
+                     f"{res.store_misses}, counts {res.n_batches}, "
+                     f"{res.n_dispatches}")
+            ref = out[("a", scheme, "Encoded", st)][0]
+            for i in range(8):
+                for op in ops_:
+                    n += 1
+                    bitwise_err(_item(ref[op], i), res.values[i][op],
+                                f"(d) {scheme} {run} {op} {i}")
+    torch.cuda.synchronize()
+    say(f"engine path == per-field homomorphic calls on the card, bitwise "
+        f"({n} results); counts and store hits/misses as the reference's "
+        f"rules give")
+
+
+#: fields of each engine batch that the CPU port recomputes: the first
+#: (u, v) pair.  All eight are held bitwise to the per-field calls on the
+#: card, which the main path holds to the CPU port cell by cell.
+CPU_FIELDS = 2
+
+
+def check_engine_cpu(fields, out) -> None:
+    """The CPU port's same queries over the first (u, v) pair of each
+    batch: (a) at "auto", (b) at ② and ③, (c); stencils bitwise, div/curl
+    and combinations rtol 1e-6, statistics the slice tolerances.  (a)'s
+    other stages are held to the per-field calls on the card."""
+    hosts = {s: {c: [on_host(f) for f in fs[:CPU_FIELDS]]
+                 for c, fs in d.items()} for s, d in fields.items()}
+    cpu = analytics.BatchedAnalytics()
+    worst = {"stat": 0.0, "vector": 0.0}
+    for scheme in SCHEMES:
+        for container, hs in hosts[scheme].items():
+            got = out[("a", scheme, container, "auto")][0]
+            stage = analytics.plan_stages(scheme, ENGINE_SET, "auto").fused
+            want = cpu.run(hs, ENGINE_SET, "auto")
+            for op in ENGINE_SET:
+                for i, h in enumerate(hs):
+                    what = f"(a) CPU {scheme} {container} auto {op} {i}"
+                    if op in ("mean", "std"):
+                        worst["stat"] = max(worst["stat"], close_stat(
+                            want[op][i], got[op][i].cpu(), h, stage, op,
+                            what))
+                    else:
+                        bitwise_err(_item(want[op], i),
+                                    to_cpu(_item(got[op], i)), what)
+        henc, hcmp = hosts[scheme]["Encoded"], hosts[scheme]["Compressed"]
+        for st in VECTOR_STAGES:
+            got = out[("b", scheme, st)][0]
+            want = cpu.run(list(zip(henc[0::2], henc[1::2])), VECTOR_SET, st)
+            for op in VECTOR_SET:
+                for i in range(CPU_FIELDS // 2):
+                    worst["vector"] = max(worst["vector"], close_vector(
+                        want[op][i], got[op][i].cpu(),
+                        f"(b) CPU {scheme} {op}@{st.name} pair {i}"))
+        for name, (hu, hv) in (("Encoded", (henc[0], henc[1])),
+                               ("mixed", (hcmp[0], henc[1]))):
+            res = out[("c", scheme, name)][0]
+            stage = res.stages[0]
+            cres = analytics.query(exprs=engine_exprs(hu, hv), engine=cpu)
+            for i, (g, c) in enumerate(zip(res.values, cres.values,
+                                           strict=True)):
+                what = f"(c) CPU {scheme} {name} root {i}"
+                if i < 3:
+                    worst["vector"] = max(worst["vector"],
+                                          close_vector(c, g.cpu(), what))
+                    continue
+                # 2·mean(u) + std(v): the two statistics' tolerances
+                tol = (2 * stat_tol(H.mean(hu, stage), hu, stage, "mean")
+                       + stat_tol(H.std(hv, stage), hv, stage, "std"))
+                gap = abs(float(g) - float(c))
+                if not gap <= tol:
+                    fail(f"{what}: |{float(g)} - {float(c)}| > {tol}")
+                worst["stat"] = max(worst["stat"], gap)
+    say(f"engine path == the CPU port's same queries: stencils bitwise, max "
+        f"|diff| div/curl and combinations {worst['vector']:.3g}, mean/std "
+        f"{worst['stat']:.3g}")
+
+
+def check_engine_ab(fields, out) -> None:
+    """Queries (a)-(c) with the fused rules off (a fresh engine: the kernel
+    mode is in the program key) equal the fused results, bitwise."""
+    n = 0
+    with ops.override_mode("off"):
+        eng = analytics.BatchedAnalytics()
+        for key, (res, _) in out.items():
+            if key[0] == "a":
+                f = fields[key[1]][key[2]]
+                got = eng.run(f, ENGINE_SET, key[3])
+                for op in ("gradient", "laplacian"):
+                    bitwise_err(got[op], res[op], f"A/B engine {key} {op}")
+            elif key[0] == "b":
+                enc = fields[key[1]]["Encoded"]
+                got = eng.run(list(zip(enc[0::2], enc[1::2])), VECTOR_SET,
+                              key[2])
+                for op in VECTOR_SET:
+                    bitwise_err(got[op], res[op], f"A/B engine {key} {op}")
+            elif key[0] == "c" and key[2] != "flat":
+                got = analytics.query(exprs=list(res.exprs), engine=eng)
+                for i, (g, w) in enumerate(zip(got.values, res.values)):
+                    bitwise_err(g, w, f"A/B engine {key} root {i}")
+            else:
+                continue
+            n += 1
+    torch.cuda.synchronize()
+    say(f"A/B: {n} engine queries with the fused rules off == fused, bitwise")
+
+
+# -- times --------------------------------------------------------------------
+
+def _compute_each(fields, ops_, stage) -> list:
+    """One ``oplib.compute`` call per field: the loop a batch replaces."""
+    return [oplib.compute(f, ops_, stage) for f in fields]
+
+
+def _store_query(fields, ops_, stage, eng, store=None):
+    """The flat op set by id over ``fields`` through ``store``; with no
+    store, through a fresh one holding them, so that every field misses."""
+    if store is None:
+        store = FieldStore(cache_bytes=STORE_BYTES)
+        for i, f in enumerate(fields):
+            store.put(f"f{i}", f)
+    return flat_query([f"f{i}" for i in range(len(fields))], list(ops_),
+                      stage, engine=eng, store=store)
+
+
+def time_engine(fields, tag: str) -> None:
+    """Host ms (median and quartiles of ``E2E_REPS``): (a) as one ``run``
+    against eight single-field ``compute`` calls; (c) against the sum of its
+    single-op queries; (d) a store miss (fresh store) against a hit."""
+    eng = analytics.BatchedAnalytics()
+    part = functools.partial
+    for scheme in SCHEMES:
+        for container in ("Encoded", "Compressed"):
+            fs = fields[scheme][container]
+            batch = host_ms(part(eng.run, fs, ENGINE_SET, "auto"), E2E_REPS)
+            single = host_ms(part(_compute_each, fs, ENGINE_SET, Stage.P),
+                             E2E_REPS)
+            one = host_ms(part(oplib.compute, fs[0], ENGINE_SET, Stage.P),
+                          E2E_REPS)
+            say(f"[{tag}] engine (a) {scheme} {container} {list(ENGINE_SET)}"
+                f"@auto(②) over 8 fields: one run {_spread(batch)}; 8 "
+                f"compute calls {_spread(single)}; one compute call "
+                f"{_spread(one)}; median of {E2E_REPS}")
+        enc = fields[scheme]["Encoded"]
+        u, v = enc[0], enc[1]
+        whole = host_ms(part(analytics.query, exprs=engine_exprs(u, v),
+                             engine=eng), E2E_REPS)
+        parts = [host_ms(fn, E2E_REPS) for fn in (
+            part(H.curl, [u, v], Stage.P), part(H.divergence, [u, v], Stage.P),
+            part(H.laplacian, u, Stage.P), part(H.laplacian, v, Stage.P),
+            part(H.mean, u, Stage.P), part(H.std, v, Stage.P))]
+        total = sum(statistics.median(t) for t in parts)
+        say(f"[{tag}] engine (c) {scheme} Encoded 4 roots @auto(②): one "
+            f"query {_spread(whole)}; its 6 single-op queries, summed "
+            f"medians {total:.3f} ms; median of {E2E_REPS}")
+        hot = FieldStore(cache_bytes=STORE_BYTES)
+        for i, f in enumerate(enc):
+            hot.put(f"f{i}", f)
+        t_miss = host_ms(part(_store_query, enc, ENGINE_SET, Stage.Q, eng),
+                         E2E_REPS)
+        say(f"[{tag}] engine (d) {scheme} Encoded ③ op set by id over 8 "
+            f"fields: miss (fresh store) {_spread(t_miss)}; median of "
+            f"{E2E_REPS}")
+        time_q_hit(enc, hot, eng, scheme, tag)
+
+
+@contextlib.contextmanager
+def reference_rule():
+    """The reference's rule for a stage-③ seed: every covered stencil
+    decodes the field again for its residuals and runs the residual-plane
+    band kernels."""
+    real = rules._q_seeded
+    rules._q_seeded = lambda ctx: False
+    try:
+        yield
+    finally:
+        rules._q_seeded = real
+
+
+def time_q_hit(enc, store, eng, scheme: str, tag: str) -> None:
+    """The ③ store hit of query (d) under three rules, in one process:
+    the stage-③ difference kernel on the resident integers (the port's),
+    the reference's rule, and the torch rules (``override_mode("off")``).
+    Each rule's results equal the port's bitwise; host ms, median and
+    quartiles of ``E2E_REPS``, and the launches of one hit beside them."""
+    want = _store_query(enc, ENGINE_SET, Stage.Q, eng, store).values
+    parts = []
+    for name, mode in (("resident-integer kernels", contextlib.nullcontext),
+                       ("reference's rule", reference_rule),
+                       ("torch rules", functools.partial(ops.override_mode,
+                                                         "off"))):
+        with mode():
+            res, got = counted(_store_query, enc, ENGINE_SET, Stage.Q, eng,
+                               store)
+            if res.store_hits != 8:
+                fail(f"(d) {scheme} ③ hit under the {name}: "
+                     f"{res.store_hits} hits")
+            for i in range(8):
+                for op in ENGINE_SET:
+                    bitwise_err(want[i][op], res.values[i][op],
+                                f"(d) {scheme} ③ hit, {name}, {op} {i}")
+            t = host_ms(functools.partial(_store_query, enc, ENGINE_SET,
+                                          Stage.Q, eng, store), E2E_REPS)
+        parts.append(f"{name} {_spread(t)}, launches "
+                     f"{json.dumps({k: n for k, n in got.items() if n})}")
+    say(f"[{tag}] engine (d) {scheme} Encoded ③ hit over 8 fields, results "
+        f"equal bitwise: " + "; ".join(parts) + f"; median of {E2E_REPS}")
+
+
+def trace_window(fn, label: str) -> tuple[list, float, float]:
+    """``fn()`` and a synchronize under one ``record_function`` in a
+    ``torch.profiler`` trace: ``(device kernels, busy µs, window µs)``,
+    busy being the union of the kernels' spans inside the window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = next(e for e in events if e.name == label
+                  and e.device_type == torch.autograd.DeviceType.CPU)
+    w0, w1 = window.time_range.start, window.time_range.end
+    kernels = [e for e in events if e.name != label
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        fail(f"torch.profiler recorded no device kernel for {label}")
+    spans = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
+                   for e in kernels)
+    busy, end = 0.0, w0
+    for s, e in spans:  # the union of the kernels' spans
+        s = max(s, end)
+        if e > s:
+            busy += e - s
+            end = e
+    return kernels, busy, w1 - w0
+
+
+def engine_trace(fields, tag: str) -> None:
+    """A ``torch.profiler`` trace of one (a) call per scheme (``Encoded``,
+    "auto") and of one (d) ③ hit: the device kernels by name with their
+    count and device µs, and the device's busy share of the call's
+    window."""
+    eng = analytics.BatchedAnalytics()
+    for scheme in SCHEMES:
+        fs = fields[scheme]["Encoded"]
+        hot = FieldStore(cache_bytes=STORE_BYTES)
+        for i, f in enumerate(fs):
+            hot.put(f"f{i}", f)
+        calls = {"(a) {} Encoded @auto(②)": functools.partial(
+                     eng.run, fs, ENGINE_SET, "auto"),
+                 "(d) {} Encoded ③ hit": functools.partial(
+                     _store_query, fs, ENGINE_SET, Stage.Q, eng, hot)}
+        for what, fn in calls.items():
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            kernels, busy, span = trace_window(fn, "engine.query")
+            by_name_ = {}
+            for e in kernels:
+                name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                              e.name)
+                cnt, us = by_name_.get(name, (0, 0.0))
+                by_name_[name] = (cnt + 1, us + e.device_time)
+            top = sorted(by_name_.items(), key=lambda kv: -kv[1][1])
+            say(f"[{tag}] engine {what.format(scheme)} trace: "
+                f"{len(kernels)} kernels, device busy {busy:.1f} of "
+                f"{span:.1f} us ({busy / span:.1%}); by device time: "
+                + ", ".join(f"{k} x{c} {us:.1f} us"
+                            for k, (c, us) in top[:10])
+                + (f"; {len(top) - 10} more names" if len(top) > 10 else ""))
+
+
+# ===========================================================================
 # phase 6: times
 # ===========================================================================
 
@@ -1630,6 +2281,7 @@ def main() -> None:
                     help="seed of the synthetic Ocean fields")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    phase_s: dict[str, float] = {"1-2": t_start}
 
     if set(SITES) != set(ops.LAUNCHES) or set(SITES) != {
             k for sites in PATHS.values() for k in sites}:
@@ -1665,6 +2317,7 @@ def main() -> None:
                  + unpack_build_lines()):
         say(line)
 
+    phase_s["3"] = time.perf_counter()
     # 3. main-path kernels against plain versions
     errs: dict[str, float] = {}
     cont = check_kernels(OCEAN, args.seed, errs)
@@ -1672,6 +2325,7 @@ def main() -> None:
     check_blockmean_tiling(args.seed, errs)
     check_lorenzo_tiling(args.seed, errs)
 
+    phase_s["4"] = time.perf_counter()
     # 4. the kernel entry point: against plain versions, then driven on u
     # and held against the main path's containers and stage-3 results
     check_entry_kernels(OCEAN, args.seed, errs)
@@ -1688,6 +2342,7 @@ def main() -> None:
     require_launches("entry point", path_launches["entry point"])
     check_entry_against_main(u, entry)
 
+    phase_s["5"] = time.perf_counter()
     # 5. main path
     ops.reset_launches()
     fields, decomp, results = main_path(u, v)
@@ -1696,6 +2351,7 @@ def main() -> None:
     hosts = check_main_path(u, v, fields, decomp, results)
     check_ab(fields)
 
+    phase_s["5b"] = time.perf_counter()
     # 5b. region queries: no full-field decode, the residual-plane kernels
     # on the gathered sub-planes
     ops.reset_launches()
@@ -1716,6 +2372,21 @@ def main() -> None:
     check_region_ab(fields)
     check_region_kernels(fields, errs)
 
+    phase_s["5c fields"] = time.perf_counter()
+    # 5c. the engine path: batched op sets, expressions, the store; each
+    # query counted on its own and held against its plan
+    efields = engine_fields(args.seed)
+    phase_s["5c path"] = time.perf_counter()
+    engine_out = engine_path(efields, analytics.BatchedAnalytics())
+    path_launches["engine path"] = check_engine_launches(efields, engine_out)
+    require_launches("engine path", path_launches["engine path"])
+    check_engine_values(efields, engine_out)
+    check_engine_ab(efields, engine_out)
+    phase_s["5c CPU"] = time.perf_counter()
+    check_engine_cpu(efields, engine_out)
+    del engine_out
+
+    phase_s["6"] = time.perf_counter()
     # 6. times
     times = time_kernels(cont, entry, REPS, tag)
     per_query = per_query_launches(fields, tag)
@@ -1725,6 +2396,8 @@ def main() -> None:
     region_query_kernels(fields, tag)
     time_queries(fields, tag)
     time_region_queries(fields, tag)
+    time_engine(efields, tag)
+    engine_trace(efields, tag)
 
     kernels = []
     for name, (source, replaces) in SITES.items():
@@ -1737,10 +2410,15 @@ def main() -> None:
             "graph_ms": t["graph_ms"], "enqueue_ms": t["enqueue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "region_launches": path_launches["region path"][name]})
+            "region_launches": path_launches["region path"][name],
+            "engine_launches": path_launches["engine path"][name]})
         if name == "prefix_stats2d.stats":
             kernels[-1]["wide"] = dict(times[WIDE_STATS],
                                        shape=list(PS_WIDE[1]))
+    phase_s["end"] = time.perf_counter()
+    names = list(phase_s)
+    say("seconds per phase: " + ", ".join(
+        f"{a} {phase_s[b] - phase_s[a]:.1f}" for a, b in zip(names, names[1:])))
     say(f"total {time.perf_counter() - t_start:.1f} s; card: {card}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

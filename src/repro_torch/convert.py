@@ -16,15 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.stages import Compressed, Encoded, Scheme, Stage
+from .core.stages import LEAVES, Compressed, Encoded, Scheme, Stage
 from .kernels import ops as kernel_ops
 from .store import MaterializedStage
 
 _KINDS = {"Compressed": Compressed, "Encoded": Encoded}
-_LEAVES = {
-    "Compressed": ("residuals", "metadata", "bitwidths", "eps", "valid_counts"),
-    "Encoded": ("payload", "metadata", "bitwidths", "eps", "valid_counts"),
-}
 
 
 def from_arrays(kind: str, arrays: dict[str, np.ndarray], meta: dict,
@@ -39,7 +35,7 @@ def from_arrays(kind: str, arrays: dict[str, np.ndarray], meta: dict,
         raise ValueError(f"kind {kind!r}: expected one of {tuple(_KINDS)}")
     dev = kernel_ops.resolve_device(device)
     leaves = {}
-    for name in _LEAVES[kind]:
+    for name in LEAVES[kind]:
         a = np.ascontiguousarray(arrays[name])
         if name == "payload":
             a = a.astype(np.uint32).view(np.int32)
@@ -59,7 +55,7 @@ def to_arrays(c: Compressed | Encoded) -> tuple[str, dict[str, np.ndarray], dict
     """Inverse of :func:`from_arrays`: ``(kind, arrays, meta)`` on the host."""
     kind = type(c).__name__
     arrays = {}
-    for name in _LEAVES[kind]:
+    for name in LEAVES[kind]:
         a = getattr(c, name).cpu().numpy()
         arrays[name] = a.view(np.uint32) if name == "payload" else a
     meta = {"scheme": c.scheme.value, "shape": tuple(c.shape),

@@ -27,8 +27,15 @@ end with — on the sliced window interior, so each covered cell equals its
 torch rule bit for bit, full-field and region-windowed.  Full-field
 :class:`Encoded` contexts with 0 < bits < 32 and no seed take the
 payload-input kernels (the residual plane never exists in device memory);
-everything else — ``Compressed`` containers, region plans, seeds — takes
-the residual-plane kernels on ``ctx.sub``.
+``Compressed`` containers, region plans and stage-② seeds take the
+residual-plane kernels on ``ctx.sub``.  A stage-③ seed (serving ③ and ④)
+holds the integers and no residuals, so its covered cells read those
+instead of decoding the field again (the reference's rules decode):
+derivatives and gradients take the stage-③ difference kernel
+(``kernels.stencil_dq.grad2d_int``), the block-mean laplacian the
+block-mean kernel's f32 ``lap_q`` over the integers as one block of mean 0.
+(``laplacian2d`` would round the exact integer stencil once where the rule
+rounds each f32 add: they differ once the partial sums pass 2^24.)
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import fused as fk
+from ..kernels import stencil_dq as sk
 from .stages import Encoded, Stage
 
 
@@ -56,6 +64,11 @@ def _covers_2d(ctx) -> bool:
     """Rank-2 nd fields only, judged on the container layout (coverage never
     forces a decode)."""
     return ctx.scheme.is_nd and len(ctx.field.padded_shape) == 2
+
+
+def _q_seeded(ctx) -> bool:
+    """Is the context seeded with the stage-③ integers alone?"""
+    return ctx._seed is not None and ctx._seed.sub is None
 
 
 def _payload2(ctx) -> bool:
@@ -91,12 +104,35 @@ def _lz(ctx, what: str):
     return fk.lorenzo2d(ctx.sub.residuals, what=what)
 
 
+# -- stage-③ seeds: kernels on the resident integers -------------------------
+
+def _grad_seeded(ctx) -> tuple[torch.Tensor, ...]:
+    """Both central differences of the seed's (cropped or windowed)
+    integers: the interior the torch rules' ``_central_diff`` reads."""
+    d0, d1 = sk.grad2d_int(ctx.q_spatial.contiguous())
+    return d0.to(torch.float32) * ctx.eps, d1.to(torch.float32) * ctx.eps
+
+
+def _lap_seeded(ctx) -> torch.Tensor:
+    """The f32 5-point laplacian of the seed's integers in the torch rule's
+    order (``-4c``, then the neighbours): ``lap_q`` of ``q + 0``, the plane
+    one block whose mean is 0."""
+    q = ctx.q_spatial.contiguous()
+    zero = torch.zeros((1, 1), dtype=torch.int32, device=q.device)
+    acc = fk.blockmean2d(q, zero, tuple(q.shape), what="lap_q")
+    return acc[1:-1, 1:-1] * (2.0 * ctx.eps)
+
+
 def _deriv_lorenzo(ctx, axis: int) -> torch.Tensor:
+    if _q_seeded(ctx):
+        return _grad_seeded(ctx)[axis]
     out = _lz(ctx, f"deriv{axis}")
     return out[_window2(ctx)].to(torch.float32) * ctx.eps
 
 
 def _grad_lorenzo(ctx, axis: int) -> tuple[torch.Tensor, ...]:
+    if _q_seeded(ctx):
+        return _grad_seeded(ctx)
     d0, d1 = _lz(ctx, "grad")
     w = _window2(ctx)
     return (d0[w].to(torch.float32) * ctx.eps,
@@ -122,11 +158,15 @@ def _bm(ctx, what: str):
 
 
 def _deriv_blockmean(ctx, axis: int) -> torch.Tensor:
+    if _q_seeded(ctx):
+        return _grad_seeded(ctx)[axis]
     out = _bm(ctx, f"deriv{axis}")
     return out[_window2(ctx)].to(torch.float32) * ctx.eps
 
 
 def _grad_blockmean(ctx, axis: int) -> tuple[torch.Tensor, ...]:
+    if _q_seeded(ctx):
+        return _grad_seeded(ctx)
     d0, d1 = _bm(ctx, "grad")
     w = _window2(ctx)
     return (d0[w].to(torch.float32) * ctx.eps,
@@ -138,6 +178,8 @@ def _lap_blockmean_p(ctx, axis: int) -> torch.Tensor:
 
 
 def _lap_blockmean_q(ctx, axis: int) -> torch.Tensor:
+    if _q_seeded(ctx):
+        return _lap_seeded(ctx)
     return _bm(ctx, "lap_q")[_window2(ctx)] * (2.0 * ctx.eps)
 
 

@@ -18,8 +18,10 @@
 This module ports the spatial half of the reference
 (``repro/core/oplib.py``); the float tails keep the reference's order of
 operations, which is what the bit-identity of the stencil results rests on.
-The full-field path is the region path with ``region=None``.  Temporal ops
-arrive with the stream slice of the port.
+The full-field path is the region path with ``region=None``.
+:func:`compute_exprs` lowers expression DAGs (:mod:`repro_torch.core.expr`)
+onto one prelude per leaf.  Temporal ops arrive with the stream slice of the
+port.
 """
 from __future__ import annotations
 
@@ -577,6 +579,14 @@ _DERIV_RULES: dict[tuple[Stage, str], Rule] = {
 }
 
 
+def kernel_sig() -> str:
+    """The kernel mode the lowering rules are selected under: ``"on"``
+    (fused rules where they cover) or ``"off"`` (``kernels.ops.
+    override_mode("off")``).  The engine's program keys include it, as the
+    reference's jit keys include its backend mode."""
+    return "on" if kernel_ops.kernels_enabled() else "off"
+
+
 def _select(fused: Mapping, lower: Mapping, stage: Stage, family: str,
             ctx: StageContext) -> Rule:
     """The one dispatch rule: the cell's fused rule when fused rules are
@@ -955,3 +965,37 @@ def compute(target, ops: str | Sequence[str], stage: Stage, *,
     family = family_of(c.scheme)
     return {spec.name: select_rule(spec, stage, family, ctx)(ctx, axis)
             for spec in specs}
+
+
+def compute_exprs(exprs, stage: Stage, *,
+                  region: R.RegionSpec | None = None, seeds=None):
+    """Lower expression DAGs (:mod:`repro_torch.core.expr`) at one explicit
+    stage.
+
+    The core-level, storeless entry: every leaf must carry its data directly
+    (containers or component bundles; string ids need the store-aware
+    ``repro_torch.analytics.query(exprs=..., store=...)``).  Each leaf gets
+    exactly one :class:`StageContext` prelude shared by all consuming
+    expressions.  Returns one result per expression (a single expression
+    returns its value directly), each bit-identical to composing the
+    corresponding single-op results.  ``seeds`` optionally maps leaf slots
+    to resident ``MaterializedStage`` intermediates, as in :func:`compute`.
+    """
+    from . import expr as expr_mod
+
+    single = isinstance(exprs, expr_mod.Expr)
+    program = expr_mod.analyze([exprs] if single else list(exprs))
+    bindings = []
+    for lf in program.leaves:
+        src = lf.source
+        flat = src if isinstance(src, tuple) else (src,)
+        if any(isinstance(c, str) for c in flat):
+            raise ValueError(
+                f"leaf {lf.key} names a field id; ids resolve through a "
+                "store — use repro_torch.analytics.query(exprs=..., store=...)")
+        bindings.append(src)
+    expr_mod.validate_bound(program, bindings, region=region)
+    out = expr_mod.lower(program, bindings,
+                         (Stage(stage),) * program.n_components,
+                         region=region, seeds=seeds, precomputed={})
+    return out[0] if single else list(out)

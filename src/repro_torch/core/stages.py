@@ -158,3 +158,10 @@ def layout_key(c: Field) -> tuple:
     if isinstance(c, Encoded):
         key = key + (c.bits,)
     return key
+
+
+#: the tensor leaves of each container kind (its data; the rest is layout)
+LEAVES = {
+    "Compressed": ("residuals", "metadata", "bitwidths", "eps", "valid_counts"),
+    "Encoded": ("payload", "metadata", "bitwidths", "eps", "valid_counts"),
+}
