@@ -62,6 +62,21 @@ Phases (any failure raises, so the exit code is non-zero):
    no payload kernel in a seeded or store-hit run); ``n_batches`` /
    ``n_dispatches`` and the store's hits and misses as the reference's
    rules give;
+5d. the stream path (``repro_torch.stream``): 64 Ocean timesteps
+   (cos(ωt)·u + sin(ωt)·v + noise) appended in 8 slabs of 8 x 2400 x 3600
+   to four ``TemporalField`` streams (both n-D schemes, ``Encoded`` and
+   ``Compressed``), each in a ``StreamFieldStore`` whose two resident cells
+   (full field, sub-basin) are built after the first slab and merged into
+   on every later append: after every append the cells equal
+   ``summary_from_q`` of the full decompression leaf for leaf and the five
+   ops (tdelta, tmean, tmin, tmax, tstd) its postludes, bitwise, and after
+   the last ``TemporalField.reference``; storeless queries at "auto", ②, ③
+   and ④, a 256 MiB store that evicts and recomputes, and a store-backed
+   temporal expression give the same bits; the CPU port on the same slabs
+   cropped to 600 x 900 gives the same summaries bitwise; the unpack
+   kernel on one slab's payload (69.1 M values) equals its plain version;
+   every append and query launches exactly one ``unpack.residuals`` per
+   full-field ``Encoded`` slab it summarizes and nothing else;
 6. times: each kernel with CUDA events, as device time alone (a CUDA graph
    of the calls, taking turns over copies of the inputs so that they come
    from device memory, not the L2) and as host enqueue per call, its plain
@@ -82,10 +97,15 @@ Phases (any failure raises, so the exit code is non-zero):
    (decode again, then the band kernels) and the torch rules, bitwise
    equal) and a ``torch.profiler`` trace of one (a) call
    per scheme: its kernels, their device µs and the device's busy share of
-   the call's window.
+   the call's window; the stream path's host ms per append (with its two
+   merges), per hot query (a resident hit of the five ops) and per cold
+   storeless query over 8 slabs, ``torch.profiler`` traces of one append
+   and one cold query, and the unpack kernel alone at slab size beside its
+   bound.
 
 Launch counters are reset just before each path (entry point, main path,
-region path; on the engine path, each query) and read just after it: each
+region path; on the engine and stream paths, each query and append) and
+read just after it: each
 path must launch every kernel site it runs, every site must be launched on
 some path, and the region path must launch no payload kernel and no unpack
 (it decodes no full field).
@@ -97,6 +117,7 @@ of standard output are a JSON object of per-kernel numbers and
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -127,6 +148,9 @@ from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, stencil_dq)
 from repro_torch.core.stages import LEAVES, Encoded, layout_key  # noqa: E402
 from repro_torch.store import FieldStore, materialize  # noqa: E402
+from repro_torch.core.oplib import map_summaries  # noqa: E402
+from repro_torch.stream import StreamFieldStore, TemporalField  # noqa: E402
+from repro_torch.stream.query import _cold_summary, query_temporal  # noqa: E402
 
 #: published H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -193,6 +217,7 @@ PATHS = {
                     "lorenzo_enc2d.stencil", "blockmean_enc2d",
                     "lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
                     "grad2d"),
+    "stream path": ("unpack.residuals",),
 }
 
 LOG: list[str] = []
@@ -1637,19 +1662,401 @@ def engine_trace(fields, tag: str) -> None:
                 fn()
             torch.cuda.synchronize()
             kernels, busy, span = trace_window(fn, "engine.query")
-            by_name_ = {}
-            for e in kernels:
-                name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
-                              e.name)
-                cnt, us = by_name_.get(name, (0, 0.0))
-                by_name_[name] = (cnt + 1, us + e.device_time)
-            top = sorted(by_name_.items(), key=lambda kv: -kv[1][1])
             say(f"[{tag}] engine {what.format(scheme)} trace: "
-                f"{len(kernels)} kernels, device busy {busy:.1f} of "
-                f"{span:.1f} us ({busy / span:.1%}); by device time: "
-                + ", ".join(f"{k} x{c} {us:.1f} us"
-                            for k, (c, us) in top[:10])
-                + (f"; {len(top) - 10} more names" if len(top) > 10 else ""))
+                + trace_lines(kernels, busy, span))
+
+
+# ===========================================================================
+# phase 5d: the stream path — TemporalField, StreamFieldStore, query_temporal
+# ===========================================================================
+
+#: 64 Ocean timesteps in 8 slabs of k = 8 (the 3-D block's time extent, so
+#: the time axis has no padding).  Timestep t is cos(ωt)·u + sin(ωt)·v plus
+#: noise N(0, (0.01·std u)²) from numpy's generator seeded with --seed.
+STREAM_SLABS, STREAM_K = 8, 8
+STREAM_OMEGA = 2 * np.pi / (STREAM_SLABS * STREAM_K)
+TOPS = ("tdelta", "tmean", "tmin", "tmax", "tstd")
+#: the ingest store's two cells per stream: the full field and the sub-basin
+STREAM_CELLS = {"full": None, "basin": R_BASIN}
+#: container -> the stream's payload policy
+STREAM_BITS = {"Encoded": "auto", "Compressed": None}
+#: the ingest store's budget: one stream's full-field cell (6 int32 planes
+#: of 2400 x 3600, 207.36 MB) and its sub-basin cell (51.97 MB)
+STREAM_STORE_BYTES = 512 << 20
+#: the eviction check's budget: the store's default, 256 MiB, holds one
+#: stream's two cells (259.3 MB) but not two streams' four
+EVICT_BYTES = 256 << 20
+#: the CPU parity check: the same slabs cropped to 8 x 600 x 900, and a
+#: window of the crop
+STREAM_CROP = (600, 900)
+CROP_WINDOW = ((150, 451), (225, 676))
+#: repetitions of the hot (resident) and cold (storeless) query timings
+HOT_REPS, COLD_REPS = 30, 10
+
+
+def stream_slabs(u: np.ndarray, v: np.ndarray, seed: int):
+    """The 8 slabs, made on the card one at a time: (STREAM_K, *OCEAN) f32.
+    One worker thread draws the next slab's noise while the card works on
+    this one (one generator, drawn in order: the same numbers every run)."""
+    rng = np.random.default_rng(seed)
+    ud = torch.as_tensor(u, device=DEVICE)
+    vd = torch.as_tensor(v, device=DEVICE)
+    sigma = np.float32(0.01 * np.std(u, dtype=np.float64))
+
+    def draw():
+        return rng.standard_normal((STREAM_K,) + OCEAN, dtype=np.float32)
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(draw)
+        for i in range(STREAM_SLABS):
+            noise = torch.as_tensor(pending.result(), device=DEVICE)
+            if i + 1 < STREAM_SLABS:
+                pending = pool.submit(draw)
+            t = STREAM_OMEGA * np.arange(i * STREAM_K, (i + 1) * STREAM_K)
+            c = torch.as_tensor(np.cos(t), dtype=torch.float32, device=DEVICE)
+            s = torch.as_tensor(np.sin(t), dtype=torch.float32, device=DEVICE)
+            yield (c[:, None, None] * ud + s[:, None, None] * vd
+                   + sigma * noise)
+
+
+def stream_query(store, fid: str, region=None, stage="auto"):
+    """The five temporal ops by id through ``store`` (the flat form)."""
+    return flat_query([fid], list(TOPS), stage, store=store,
+                      region=region).values[0]
+
+
+def stream_expected(container: str, full_slabs: int) -> dict:
+    """Launches of a stream call that summarizes ``full_slabs`` slabs over
+    the full field: one ``unpack.residuals`` each for an ``Encoded``
+    stream; a region cell gathers its words with torch ops, a
+    ``Compressed`` slab has nothing to decode, no band kernel runs."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if container == "Encoded":
+        want["unpack.residuals"] = full_slabs
+    return want
+
+
+def check_stream_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        fail(f"{what}: launches (got, want) {diff}")
+
+
+def _window(region) -> tuple:
+    return (slice(None),) + tuple(slice(s, e) for s, e in region)
+
+
+def oracle_summaries(tf) -> dict:
+    """cell -> ``summary_from_q`` of the stream's full decompression on the
+    card (± the window): what the merged summaries must equal bitwise."""
+    q = tf.decompress_q()
+    return {cell: oplib.summary_from_q(q if region is None
+                                       else q[_window(region)])
+            for cell, region in STREAM_CELLS.items()}
+
+
+def same_summary(want, got, what: str) -> None:
+    for name in ("count", "q_sum", "q_sumsq", "q_min", "q_max", "last2"):
+        bitwise_err(getattr(want, name), getattr(got, name), f"{what} {name}")
+
+
+def same_ops(want: dict, got: dict, what: str) -> None:
+    for op in TOPS:
+        bitwise_err(want[op], got[op], f"{what} {op}")
+
+
+def stream_path(u, v, seed: int) -> dict:
+    """Ingest the 64 timesteps into four streams (both n-D schemes,
+    ``Encoded`` and ``Compressed``), each in its own ``StreamFieldStore``:
+    after the first slab the five ops over the full field and the sub-basin
+    build the two resident cells; each later append merges the new slab
+    into both, and the same queries hit them.  Every append and query is
+    counted on its own and held to its plan's launches; after every append
+    the resident summaries equal, leaf for leaf and bitwise, the reduction
+    over the stream's full decompression, and the served ops its postludes.
+    """
+    eng = analytics.BatchedAnalytics()
+    keys = [(s, c) for s in SCHEMES for c in STREAM_BITS]
+    out = {"eng": eng, "streams": {}, "stores": {}, "served": {},
+           "append_ms": {k: [] for k in keys}, "crops": [],
+           "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+    for scheme, container in keys:
+        tf = TemporalField(scheme, rel_eb=REL_EB, bits=STREAM_BITS[container],
+                           device=DEVICE)
+        store = StreamFieldStore(STREAM_STORE_BYTES, engine=eng)
+        store.put_temporal(f"{scheme}/{container}", tf)
+        out["streams"][(scheme, container)] = tf
+        out["stores"][(scheme, container)] = store
+
+    def count(what, want, fn, *args, **kw):
+        res, got = counted(fn, *args, **kw)
+        check_stream_launches(what, got, want)
+        for k, n in got.items():
+            out["launches"][k] += n
+        return res
+
+    for i, slab in enumerate(stream_slabs(u, v, seed)):
+        out["crops"].append(slab[:, :STREAM_CROP[0], :STREAM_CROP[1]].cpu()
+                            .numpy())
+        for key in keys:
+            scheme, container = key
+            tf, store = out["streams"][key], out["stores"][key]
+            fid = f"{scheme}/{container}"
+            merges0 = store.incremental_merges
+            t0 = time.perf_counter()
+            count(f"5d {fid} append {i}",
+                  stream_expected(container, 1 if i else 0),
+                  store.append, fid, slab)
+            if i:
+                out["append_ms"][key].append((time.perf_counter() - t0) * 1e3)
+            if store.incremental_merges - merges0 != (2 if i else 0):
+                fail(f"5d {fid} append {i}: {store.incremental_merges - merges0}"
+                     " incremental merges, want 2 per append after the first")
+            for cell, region in STREAM_CELLS.items():
+                full = 1 if i == 0 and region is None else 0
+                out["served"][(key, cell)] = count(
+                    f"5d {fid} {cell} query after append {i}",
+                    stream_expected(container, full),
+                    stream_query, store, fid, region)
+            if store.summary_rebuilds != 2:
+                fail(f"5d {fid}: {store.summary_rebuilds} summary rebuilds "
+                     "after the first queries, want 2")
+            oracle = oracle_summaries(tf)
+            for cell, region in STREAM_CELLS.items():
+                what = f"5d {fid} {cell} after append {i}"
+                same_summary(oracle[cell],
+                             store.temporal_summary(fid, region=region), what)
+                same_ops(oplib.temporal_postlude(TOPS, oracle[cell], tf.eps),
+                         out["served"][(key, cell)], what)
+            del oracle
+    for key, tf in out["streams"].items():
+        if tf.n_steps != STREAM_SLABS * STREAM_K or tf.n_slabs != STREAM_SLABS:
+            fail(f"5d {key}: {tf.n_slabs} slabs, {tf.n_steps} steps")
+        for cell, region in STREAM_CELLS.items():
+            same_ops(tf.reference(TOPS, region=region),
+                     out["served"][(key, cell)],
+                     f"5d {key} {cell} served == TemporalField.reference")
+    widths = {k: [s.bits for s in tf.slabs] for k, tf in out["streams"].items()
+              if k[1] == "Encoded"}
+    say(f"stream path: 4 streams x {STREAM_SLABS} slabs of {STREAM_K} x "
+        f"{OCEAN[0]} x {OCEAN[1]}; after every append both resident cells == "
+        f"summary_from_q of the full decompression leaf for leaf and the five "
+        f"ops == its postludes, bitwise; after the last == "
+        f"TemporalField.reference, bitwise; eps "
+        + ", ".join(f"{k[0]} {float(tf.eps):.6g}"
+                    for k, tf in out["streams"].items() if k[1] == "Encoded")
+        + f"; Encoded slab widths {json.dumps({k[0]: w for k, w in widths.items()})}"
+        + f"; |q| <= {max(tf._q_abs_max for tf in out['streams'].values())}")
+    return out
+
+
+def check_stream_storeless(out) -> None:
+    """Storeless ``query_temporal`` at "auto" and explicit ②, ③, ④ give the
+    served bits for every stream and cell, each with its plan's launches
+    (eight decodes for a full-field ``Encoded`` query, none otherwise)."""
+    eng = out["eng"]
+    n = 0
+    for key, tf in out["streams"].items():
+        for cell, region in STREAM_CELLS.items():
+            for stage in ("auto", Stage.P, Stage.Q, Stage.F):
+                res, got = counted(query_temporal, [tf], list(TOPS), stage,
+                                   region=region, engine=eng)
+                check_stream_launches(
+                    f"5d storeless {key} {cell} @{stage}", got,
+                    stream_expected(key[1], STREAM_SLABS if region is None
+                                    else 0))
+                same_ops(out["served"][(key, cell)], res.values[0],
+                         f"5d storeless {key} {cell} @{stage}")
+                n += 1
+    say(f"stream path: {n} storeless queries (auto, ②, ③, ④) == the served "
+        "results, bitwise, with their plans' launches")
+
+
+def check_stream_eviction(out) -> None:
+    """A store at the default 256 MiB holding both ``Encoded`` streams: the
+    four cells (518.7 MB) do not fit, so each query of two rounds evicts and
+    the next recomputes — to the served bits."""
+    store = StreamFieldStore(EVICT_BYTES, engine=out["eng"])
+    keys = [(s, "Encoded") for s in SCHEMES]
+    for key in keys:
+        store.put_temporal(f"{key[0]}/x", out["streams"][key])
+    for rnd in range(2):
+        for key in keys:
+            for cell, region in STREAM_CELLS.items():
+                fid = f"{key[0]}/x"
+                res = flat_query([fid], list(TOPS), store=store,
+                                 region=region)
+                if rnd and res.store_misses != 1:
+                    fail(f"5d eviction {fid} {cell}: not recomputed")
+                same_ops(out["served"][(key, cell)], res.values[0],
+                         f"5d eviction {fid} {cell} round {rnd}")
+    if store.stats.evictions == 0:
+        fail("5d eviction: the 256 MiB store evicted nothing")
+    say(f"stream path: 256 MiB store, 2 streams x 2 cells, 2 rounds: "
+        f"{store.summary_rebuilds} rebuilds, {store.stats.evictions} "
+        f"evictions, every recomputed result == served, bitwise")
+
+
+def check_stream_exprs(out) -> None:
+    """``query(exprs=[tmean("a") - tmean("b"), tdelta(stream)])``, a and b
+    by id in a store, the stream a raw ``Compressed`` one: equal to the
+    served values composed by hand, bitwise; its launches: the two
+    ``Encoded`` ids' summaries (8 decodes each), nothing for the raw
+    ``Compressed`` stream."""
+    store = StreamFieldStore(1 << 30, engine=out["eng"])
+    a, b = ("hszp_nd", "Encoded"), ("hszx_nd", "Encoded")
+    c = ("hszp_nd", "Compressed")
+    store.put_temporal("a", out["streams"][a])
+    store.put_temporal("b", out["streams"][b])
+    res, got = counted(analytics.query, exprs=[
+        expr.tmean("a") - expr.tmean("b"),
+        expr.tdelta(out["streams"][c])], store=store, engine=out["eng"])
+    check_stream_launches("5d expressions", got,
+                          stream_expected("Encoded", 2 * STREAM_SLABS))
+    sa, sb = out["served"][(a, "full")], out["served"][(b, "full")]
+    bitwise_err(sa["tmean"] - sb["tmean"], res.values[0],
+                "5d tmean(a) - tmean(b)")
+    bitwise_err(out["served"][(c, "full")]["tdelta"], res.values[1],
+                "5d tdelta(stream)")
+    say(f"stream path: query(exprs=[tmean(a) - tmean(b), tdelta(stream)]) "
+        f"store-backed == composed by hand, bitwise; {res.n_dispatches} "
+        "program calls")
+
+
+def check_stream_cpu(out) -> None:
+    """The crop streams (8 slabs of 8 x 600 x 900) on the card and in the
+    CPU port from the same numpy slabs: summaries bitwise (full crop and a
+    window), the five ops within ``error_analysis.temporal_round_bound``."""
+    worst = 0.0
+    eng_cpu = analytics.BatchedAnalytics()
+    for scheme in SCHEMES:
+        for container, bits in STREAM_BITS.items():
+            card = TemporalField(scheme, rel_eb=REL_EB, bits=bits,
+                                 device=DEVICE)
+            cpu = TemporalField(scheme, rel_eb=REL_EB, bits=bits,
+                                device="cpu")
+            for crop in out["crops"]:
+                card.append(crop)
+                cpu.append(crop)
+            for region in (None, CROP_WINDOW):
+                what = f"5d CPU {scheme} {container} crop {region}"
+                stage = analytics.plan_stage(card.scheme, "tmean", "auto")
+                s_card = _cold_summary(card, stage, region, out["eng"])[0]
+                s_cpu = _cold_summary(cpu, stage, region, eng_cpu)[0]
+                same_summary(s_cpu, map_summaries(lambda x: x.cpu(), s_card),
+                             what)
+                v_card = out["eng"].run_temporal(TOPS, s_card, card.eps)
+                v_cpu = eng_cpu.run_temporal(TOPS, s_cpu, cpu.eps)
+                for op in TOPS:
+                    tol = error_analysis.temporal_round_bound(op, s_cpu,
+                                                              cpu.eps)
+                    diff = (v_card[op].cpu().double()
+                            - v_cpu[op].double()).abs()
+                    if bool((diff > tol).any()):
+                        fail(f"{what} {op}: max |diff| {float(diff.max())}")
+                    worst = max(worst, float(diff.max()))
+    say(f"stream path == the CPU port on the same numpy slabs cropped to "
+        f"{STREAM_SLABS} x {STREAM_K} x {STREAM_CROP[0]} x {STREAM_CROP[1]}: "
+        f"summaries bitwise, max |diff| of the five ops {worst:.3g}")
+
+
+def check_stream_unpack(out, errs: dict) -> dict:
+    """``unpack_kernel<true>`` on one full slab's payload (69.1 M values) at
+    the slab's width, against its plain version; returns the slab's
+    payload for the timing."""
+    e = out["streams"][("hszp_nd", "Encoded")].slabs[-1]
+    n = int(np.prod(e.padded_shape))
+    got = bitpack.unpack_residuals(e.payload, n, e.bits)
+    want = bitpack.unpack_residuals_plain(e.payload, n, e.bits)
+    _note(errs, "unpack.residuals",
+          bitwise_err(want, got, f"unpack.residuals slab ({n} values, "
+                                 f"{e.bits} bits)"))
+    say(f"unpack.residuals on one slab payload ({n} values at {e.bits} bits)"
+        " == its plain version, bitwise")
+    return {"payload": e.payload, "n": n, "bits": e.bits}
+
+
+def time_stream(out, slab: dict, tag: str) -> dict:
+    """Host ms of the appends (7 per stream), the hot query (resident hit)
+    of the five ops and the cold storeless query over 8 slabs; the unpack
+    kernel alone at slab size beside its bound.  Returns the slab-size
+    kernel row."""
+    for key, tf in out["streams"].items():
+        fid = f"{key[0]}/{key[1]}"
+        store = out["stores"][key]
+        t = sorted(out["append_ms"][key])
+        parts = [f"append with its 2 merges {_spread(t)} over "
+                 f"{len(t)} appends"]
+        for cell, region in STREAM_CELLS.items():
+            hot = host_ms(functools.partial(stream_query, store, fid, region),
+                          HOT_REPS)
+            parts.append(f"hot {cell} query {_spread(hot)} of {HOT_REPS}")
+        cold = host_ms(functools.partial(query_temporal, [tf], list(TOPS),
+                                         engine=out["eng"]), COLD_REPS)
+        parts.append(f"cold storeless full-field query over {STREAM_SLABS} "
+                     f"slabs {_spread(cold)} of {COLD_REPS}")
+        say(f"[{tag}] stream {fid}: " + "; ".join(parts))
+    w, n, bits = slab["payload"], slab["n"], slab["bits"]
+    fn = functools.partial(bitpack.unpack_residuals, w, n, bits)
+    k_ms = cuda_ms(fn, REPS)
+    g_ms = graph_ms(lambda x: bitpack.unpack_residuals(x, n, bits), REPS, (w,))
+    p_ms = cuda_ms(functools.partial(bitpack.unpack_residuals_plain, w, n,
+                                     bits), 3)
+    n_bytes = 4 * w.numel() + 4 * n
+    b_ms, b_by = bound_ms(n_bytes, 5 * n)  # take out 2, unzigzag 3
+    say(f"[{tag}] unpack.residuals at slab size ({n} values, {bits} bits): "
+        f"{k_ms * 1e3:.1f} us by events, device alone {g_ms * 1e3:.1f} us "
+        f"(plain {p_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us by {b_by}, "
+        f"{n_bytes / 1e6:.1f} MB, {n_bytes / (g_ms * 1e-3) / 1e9:.0f} GB/s "
+        "device alone)")
+    return {"values": n, "bits": bits, "ms": k_ms, "graph_ms": g_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": n_bytes}
+
+
+def trace_lines(kernels, busy: float, span: float, top_n: int = 10) -> str:
+    """One trace's kernels by name with count and device µs, and the
+    device's busy share of its window."""
+    by_name_ = {}
+    for e in kernels:
+        name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.name)
+        cnt, us = by_name_.get(name, (0, 0.0))
+        by_name_[name] = (cnt + 1, us + e.device_time)
+    top = sorted(by_name_.items(), key=lambda kv: -kv[1][1])
+    return (f"{len(kernels)} kernels, device busy {busy:.1f} of {span:.1f} us "
+            f"({busy / span:.1%}); by device time: "
+            + ", ".join(f"{k} x{c} {us:.1f} us" for k, (c, us) in top[:top_n])
+            + (f"; {len(top) - top_n} more names" if len(top) > top_n else ""))
+
+
+def stream_trace(out, tag: str) -> None:
+    """``torch.profiler`` traces of one append (both cells resident, so two
+    merges) and of one cold storeless query over 8 slabs, per ``Encoded``
+    stream: the device ops by name and the device's busy share."""
+    for scheme in SCHEMES:
+        tf = out["streams"][(scheme, "Encoded")]
+        # a scratch stream on the last slab's data: the traced append must
+        # not change the checked streams
+        slab = tf.compressor.decompress(tf.slabs[-1], Stage.F)
+        scratch = TemporalField(scheme, eps=tf.eps, bits=tf._bits,
+                                device=DEVICE)
+        store = StreamFieldStore(STREAM_STORE_BYTES, engine=out["eng"])
+        store.put_temporal("s", scratch)
+        store.append("s", slab)
+        for region in STREAM_CELLS.values():
+            stream_query(store, "s", region)
+        store.append("s", slab)
+        torch.cuda.synchronize()
+        kernels, busy, span = trace_window(
+            functools.partial(store.append, "s", slab), "stream.append")
+        say(f"[{tag}] stream {scheme} Encoded append trace: "
+            + trace_lines(kernels, busy, span))
+        kernels, busy, span = trace_window(
+            functools.partial(query_temporal, [tf], list(TOPS),
+                              engine=out["eng"]), "stream.cold")
+        say(f"[{tag}] stream {scheme} Encoded cold query trace: "
+            + trace_lines(kernels, busy, span))
+        del slab, scratch, store
 
 
 # ===========================================================================
@@ -2386,6 +2793,23 @@ def main() -> None:
     check_engine_cpu(efields, engine_out)
     del engine_out
 
+    phase_s["5d"] = time.perf_counter()
+    # 5d. the stream path: 64 Ocean timesteps appended to four streams, each
+    # append and query counted on its own and held against its plan
+    stream_out = stream_path(u, v, args.seed)
+    path_launches["stream path"] = stream_out["launches"]
+    require_launches("stream path", path_launches["stream path"])
+    check_stream_storeless(stream_out)
+    check_stream_eviction(stream_out)
+    check_stream_exprs(stream_out)
+    phase_s["5d CPU"] = time.perf_counter()
+    check_stream_cpu(stream_out)
+    slab_payload = check_stream_unpack(stream_out, errs)
+    phase_s["5d times"] = time.perf_counter()
+    slab_times = time_stream(stream_out, slab_payload, tag)
+    stream_trace(stream_out, tag)
+    del stream_out, slab_payload
+
     phase_s["6"] = time.perf_counter()
     # 6. times
     times = time_kernels(cont, entry, REPS, tag)
@@ -2411,7 +2835,10 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "region_launches": path_launches["region path"][name],
-            "engine_launches": path_launches["engine path"][name]})
+            "engine_launches": path_launches["engine path"][name],
+            "stream_launches": path_launches["stream path"][name]})
+        if name == "unpack.residuals":
+            kernels[-1]["slab"] = slab_times
         if name == "prefix_stats2d.stats":
             kernels[-1]["wide"] = dict(times[WIDE_STATS],
                                        shape=list(PS_WIDE[1]))

@@ -23,7 +23,9 @@ live.  This package turns that into an engine:
   stages.  The flat op-set spelling ``query(fields, op_or_ops)`` remains as
   a deprecated bit-identical shim.
 
-Temporal ops (``TEMPORAL`` is empty) arrive with the stream slice.
+Temporal op sets (``TEMPORAL``: ``tdelta`` / ``tmean`` / ``tmin`` /
+``tmax`` / ``tstd``) run through the same ``query()`` over appended
+streams (:mod:`repro_torch.stream`).
 """
 from .engine import BatchedAnalytics, batch_key
 from .planner import (FEASIBILITY, MULTIVARIATE, OPS, TEMPORAL, CostModel,

@@ -23,6 +23,14 @@ same entry.  Store-seeded programs (``run(..., seeds=)``) take the fields'
 materialized intermediates and run no stage reconstruction; they are cached
 separately from their cold twins.
 
+Streams (``repro_torch.stream``) run three more programs through the same
+cache, under the reference's keys: the per-slab summarizer
+(:meth:`BatchedAnalytics.summarize`), the pairwise merge
+(:meth:`BatchedAnalytics.merge_summaries`) and the temporal op-set postlude
+(:meth:`BatchedAnalytics.run_temporal`), keyed on slab layout and summary
+signature but never on how many slabs a stream holds, so the cache does not
+grow as a stream does.
+
 Stage resolution is layered, not repeated: the engine plans only when given
 ``stage="auto"`` (or another directive string).  A resolved :class:`Stage`
 or :class:`StageSetPlan` — e.g. from :func:`repro_torch.analytics.query.
@@ -31,6 +39,7 @@ explicit stages raise from the ops themselves.
 """
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from collections.abc import Callable, Mapping, Sequence
 
@@ -139,30 +148,93 @@ class BatchedAnalytics:
                 self._programs.pop(key, None)
             raise
 
+    # -- temporal (streaming) programs ---------------------------------------
+    def summarize(self, slabs: Sequence[Field], stage: Stage, *,
+                  region=None) -> oplib.TemporalSummary:
+        """Per-slab temporal summaries of same-layout slabs: one cached
+        program per ``(slab layout, stage, region, bucketed batch)``.
+
+        The key never includes the stream's total slab count or the slab
+        index, so every append of a same-layout slab reuses the same program
+        (``repro_torch.stream``, DESIGN.md §9).  Returns a
+        :class:`~repro_torch.core.oplib.TemporalSummary` whose leaves carry a
+        leading batch axis (``len(slabs)``), the per-slab summaries stacked;
+        merging is the caller's job — summaries are order-sensitive
+        (``last2``).
+        """
+        if not slabs:
+            raise ValueError("empty slab batch")
+        _check_batch(slabs)
+        first = slabs[0]
+        stage = Stage(stage)
+        norm = (region_mod.normalize_region(region, first.shape[1:])
+                if region is not None else None)
+        key = layout_key(first) + ("__temporal_summary__", stage, norm,
+                                   self._bucket(len(slabs)),
+                                   oplib.kernel_sig())
+
+        def build():
+            def run(items):
+                parts = [oplib.summarize_slab(c, stage, region=norm)
+                         for c in items]
+                return oplib.map_summaries(lambda *xs: torch.stack(xs),
+                                           *parts)
+            return run
+
+        return self._call(key, build, list(slabs))
+
+    def merge_summaries(self, a: oplib.TemporalSummary,
+                        b: oplib.TemporalSummary) -> oplib.TemporalSummary:
+        """Pairwise summary merge: one program per summary signature, reused
+        for every append and every fold step."""
+        key = ("__temporal_merge__", a.sig(), b.sig())
+        return self._call(key, lambda: oplib.merge_summaries, a, b)
+
+    def run_temporal(self, ops: str | Sequence[str],
+                     summary: oplib.TemporalSummary, eps):
+        """Temporal op postludes on one merged summary: one program per
+        (canonical op set, summary signature), independent of how many
+        slabs the summary merged."""
+        names = oplib.canonical_ops(ops)
+        if not oplib.is_temporal_ops(names):
+            raise ValueError(f"{names} is not a temporal op set")
+        key = ("__temporal_post__", names, summary.sig())
+
+        def build():
+            return functools.partial(oplib.temporal_postlude, names)
+
+        return self._call(key, build, summary, eps)
+
     # -- expression DAGs ------------------------------------------------------
     def run_expr(self, program, bindings: Sequence, stages: Sequence[Stage],
-                 *, region=None, seeds: Sequence | None = None):
+                 *, region=None, seeds: Sequence | None = None,
+                 precomputed: Mapping[str, torch.Tensor] | None = None):
         """Execute one analyzed expression DAG as a single cached program.
 
-        ``bindings`` holds one entry per leaf slot — a field or a component
-        tuple; ``stages`` is the joint per-component plan
+        ``bindings`` holds one entry per leaf slot — a field, a component
+        tuple, or ``None`` for temporal slots whose op values arrive through
+        ``precomputed`` (keyed by canonical node serialization); ``stages``
+        is the joint per-component plan
         (:class:`~repro_torch.analytics.planner.ExprPlan`); ``seeds``
         optionally store-seeds individual slots.  The key is the program's
         structural hash plus every static input signature, so two
         structurally identical DAGs over same-layout fields share one
         program whichever tensors they bind.
         """
+        precomputed = dict(precomputed or {})
         seeds = list(seeds) if seeds is not None else [None] * len(bindings)
         if len(seeds) != len(bindings):
             raise ValueError(f"{len(seeds)} seeds for {len(bindings)} slots")
 
         def slot_layout(b):
+            if b is None:
+                return None
             if isinstance(b, tuple):
                 return tuple(layout_key(c) for c in b)
             return layout_key(b)
 
         def slot_region(b):
-            if region is None:
+            if b is None or region is None:
                 return None
             f = b[0] if isinstance(b, tuple) else b
             return region_mod.normalize_region(region, f.shape)
@@ -175,21 +247,26 @@ class BatchedAnalytics:
             return s.sig()
 
         stages = tuple(Stage(s) for s in stages)
+        pre_sig = tuple((k, tuple(v.shape),
+                         str(v.dtype).removeprefix("torch."))
+                        for k, v in sorted(precomputed.items()))
         key = ("__expr__", program.key,
                tuple(slot_layout(b) for b in bindings), stages,
                tuple(slot_region(b) for b in bindings),
-               tuple(slot_seed_sig(s) for s in seeds), oplib.kernel_sig())
+               tuple(slot_seed_sig(s) for s in seeds), pre_sig,
+               oplib.kernel_sig())
 
         def build():
             # the program takes the analyzed DAG as an argument rather than
             # holding it: a cached program must not pin the fields of the
             # query that built it
-            def run(prog, binds, sds):
+            def run(prog, binds, sds, pre):
                 return expr_mod.lower(prog, binds, stages, region=region,
-                                      seeds=sds)
+                                      seeds=sds, precomputed=pre)
             return run
 
-        return self._call(key, build, program, list(bindings), seeds)
+        return self._call(key, build, program, list(bindings), seeds,
+                          precomputed)
 
     # -- stage resolution -----------------------------------------------------
     def _resolve(self, scheme, names: tuple[str, ...], stage: StageLike,

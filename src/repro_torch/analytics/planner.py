@@ -45,20 +45,20 @@ from ..core import region as region_mod
 
 #: planned operations, in the op registry's canonical order.
 OPS: tuple[str, ...] = tuple(oplib.OPS)
-#: temporal (time-axis) operations over appended streams: none until the
-#: stream slice of the port adds its registry.
-TEMPORAL: tuple[str, ...] = ()
+#: temporal (time-axis) operations over appended streams (repro_torch.stream).
+TEMPORAL: tuple[str, ...] = tuple(oplib.TEMPORAL_OPS)
 #: ops that take a sequence of component fields instead of a single field
 MULTIVARIATE = frozenset(
     name for name, spec in oplib.OPS.items() if spec.arity == "vector")
 
 
 def _build_matrix() -> dict[tuple[Scheme, str], tuple[Stage, ...]]:
-    """Table I as data, derived from the op registry's own feasibility rows
-    (one source of truth: :data:`repro_torch.core.oplib.OPS`)."""
+    """Table I as data, derived from the op registries' own feasibility rows
+    (one source of truth: :data:`repro_torch.core.oplib.OPS` plus the
+    temporal registry :data:`repro_torch.core.oplib.TEMPORAL_OPS`)."""
     return {(scheme, name): spec.feasible(scheme)
             for scheme in Scheme
-            for name, spec in oplib.OPS.items()}
+            for name, spec in oplib._ALL_OPS.items()}
 
 
 #: Table I: (scheme, op) -> stages the op is defined at, cheapest first.
@@ -81,11 +81,11 @@ def feasible_stages(scheme: Scheme, op: str) -> tuple[Stage, ...]:
     try:
         return FEASIBILITY[(Scheme(scheme), op)]
     except KeyError:
-        spec = oplib.OPS.get(op)
+        spec = oplib._ALL_OPS.get(op)
         if spec is None:
             raise ValueError(
                 f"unknown operation {op!r}; expected one of "
-                f"{tuple(oplib.OPS)}") from None
+                f"{tuple(oplib._ALL_OPS)}") from None
         # registered after the matrix was derived (oplib.register_op):
         # resolve straight from the spec — same source of truth
         return spec.feasible(Scheme(scheme))
@@ -592,7 +592,7 @@ def plan_expr(program, bindings: Sequence, stage="auto",
 @dataclasses.dataclass(frozen=True)
 class RefreshPlan:
     """How to bring a temporal field's resident summary up to date after an
-    append (the stream slice; DESIGN.md §9).
+    append (``repro_torch.stream``, DESIGN.md §9).
 
     ``mode`` is ``"incremental"`` (reconstruct only the appended slab and
     merge it into the resident summary) or ``"recompute"`` (reconstruct

@@ -22,6 +22,13 @@ with the resident intermediates — a cache hit pays only the op postludes.
 A miss materializes through the store (one reconstruction per field
 lifetime, LRU/byte-budget permitting).  Results are bit-identical to the
 storeless path at the same stage.
+
+Temporal op sets (``tdelta`` / ``tmean`` / ``tmin`` / ``tmax`` / ``tstd``)
+run over appended streams (:mod:`repro_torch.stream`) through the same
+``query()``: the flat form delegates to
+:func:`repro_torch.stream.query.query_temporal`, and expressions join
+temporal op values (store-backed or cold summaries) into their pointwise
+tails.
 """
 from __future__ import annotations
 
@@ -63,12 +70,6 @@ class QueryResult:
 
     def __len__(self):
         return len(self.values)
-
-
-def _spatial_only(c) -> None:
-    """A stream-like input (``layout_sig``) waits for the stream slice."""
-    if hasattr(c, "layout_sig"):
-        raise NotImplementedError(expr_mod.TEMPORAL_UNPORTED)
 
 
 def _group_signature(item: FieldOrVector, vector: bool) -> tuple:
@@ -154,9 +155,9 @@ def query(fields: Sequence[FieldOrVector] | None = None,
     the expression form.  Migration: ``query([f1, f2], "mean")`` becomes
     ``query(exprs=[expr.mean(f1), expr.mean(f2)])``.
 
-    Temporal ops and ``TemporalField`` streams arrive with the stream slice
-    of the port: a temporal op name is an unknown op, and a stream-like
-    input raises :class:`NotImplementedError`.
+    A temporal op set runs over ``TemporalField`` streams (or their ids in a
+    :class:`repro_torch.stream.StreamFieldStore`), in the flat form and in
+    expressions alike.
     """
     if exprs is not None:
         if fields is not None or op is not None or ops is not None:
@@ -230,6 +231,13 @@ def _query_opset(fields: Sequence[FieldOrVector],
     """
     single = isinstance(op, str)
     names = oplib.canonical_ops(op)
+    if oplib.is_temporal_ops(names):
+        # temporal op sets run over appended streams: same query() surface,
+        # streaming execution path (slab-count-stable cached programs)
+        from ..stream.query import query_temporal
+        return query_temporal(fields, op, stage, axis=axis, region=region,
+                              cost_model=cost_model, engine=engine,
+                              store=store)
     vector = oplib.is_vector_ops(names)
     if engine is None:
         engine = default_engine
@@ -240,7 +248,11 @@ def _query_opset(fields: Sequence[FieldOrVector],
     for item in fields:
         r, fid = _resolve_item(item, store, vector)
         for c in (r if vector else (r,)):
-            _spatial_only(c)
+            if hasattr(c, "layout_sig"):  # TemporalField (repro_torch.stream)
+                raise TypeError(
+                    f"spatial op set {names} takes Compressed/Encoded "
+                    "fields; a temporal field answers temporal ops "
+                    f"({', '.join(oplib.TEMPORAL_OPS)}) instead")
         resolved.append(r)
         ids.append(fid)
 
@@ -338,9 +350,11 @@ def _query_exprs(exprs, stage="auto", *, region=None,
 
     ``values[i]`` is root ``i``'s result and ``stages[i]`` its component's
     jointly-planned stage; ``op`` is ``"expr"`` and ``exprs`` carries the
-    roots.  ``n_dispatches`` counts program calls actually issued (one);
-    store counters mirror the flat path.  Results are bit-identical to
-    composing the corresponding single-op queries at the same stage.
+    roots.  ``n_dispatches`` counts program calls actually issued — one for
+    the spatial DAG program (skipped when every root is purely temporal),
+    plus the temporal summarize / merge / postlude calls; store counters
+    mirror the flat path.  Results are bit-identical to composing the
+    corresponding single-op queries at the same stage.
     """
     if engine is None:
         engine = default_engine
@@ -352,17 +366,28 @@ def _query_exprs(exprs, stage="auto", *, region=None,
 
     bindings: list = []
     slot_ids: list = []
-    for lf in program.leaves:
+    for slot, lf in enumerate(program.leaves):
         b, fid = _resolve_leaf(lf, store)
+        temporal = program.leaf_is_temporal(slot)
         for c in (b if isinstance(b, tuple) else (b,)):
-            _spatial_only(c)
+            if hasattr(c, "layout_sig") != temporal:
+                consumers = ", ".join(n for n, _ in
+                                      program.leaf_consumers(slot))
+                raise TypeError(
+                    f"leaf {lf.key} binds a {type(c).__name__} but its "
+                    f"consumers ({consumers}) are "
+                    f"{'temporal' if temporal else 'spatial'} ops")
+        if temporal and not b.slabs:
+            raise ValueError("temporal field has no appended slabs"
+                             + (f" (id {fid!r})" if fid else ""))
         bindings.append(b)
         slot_ids.append(fid)
     expr_mod.validate_bound(program, bindings, region=region)
 
     def slot_cached(slot: int) -> frozenset:
         fid = slot_ids[slot]
-        if fid is None or not hasattr(store, "is_resident"):
+        if (fid is None or program.leaf_is_temporal(slot)
+                or not hasattr(store, "is_resident")):
             return frozenset()
         b = bindings[slot]
         out = set()
@@ -388,11 +413,38 @@ def _query_exprs(exprs, stage="auto", *, region=None,
                      cost_model or engine.cost_model,
                      region=region, cached=cached)
 
+    # temporal op nodes: summaries reduce outside the spatial program (one
+    # shared summary per stream slot), values join the DAG via `precomputed`
+    n_dispatches = 0
+    precomputed: dict[str, object] = {}
+    summaries: dict[int, object] = {}
+    for node in program.temporal_nodes:
+        slot = program.slot_of(node.operand)
+        tf = bindings[slot]
+        s = plan.stages[program.leaf_component[slot]]
+        if slot not in summaries:
+            fid = slot_ids[slot]
+            if fid is not None:
+                if not hasattr(store, "temporal_summary"):
+                    raise TypeError(
+                        "temporal ids need a StreamFieldStore "
+                        "(repro_torch.stream.StreamFieldStore)")
+                summaries[slot] = store.temporal_summary(fid, region=region,
+                                                         stage=s)
+            else:
+                from ..stream.query import _cold_summary
+                summaries[slot], n_cold = _cold_summary(tf, s, region,
+                                                        engine)
+                n_dispatches += n_cold
+        out = engine.run_temporal((node.name,), summaries[slot], tf.eps)
+        n_dispatches += 1
+        precomputed[program.serial(node)] = out[node.name]
+
     seeds: list = [None] * len(bindings)
     if store is not None and hasattr(store, "seed"):
         for slot in range(len(program.leaves)):
             fid = slot_ids[slot]
-            if fid is None:
+            if fid is None or program.leaf_is_temporal(slot):
                 continue
             s = plan.stages[program.leaf_component[slot]]
             if s == Stage.M:
@@ -408,8 +460,14 @@ def _query_exprs(exprs, stage="auto", *, region=None,
                 cl = expr_mod.leaf_closure(program, slot, b.scheme, s)
                 seeds[slot] = store.seed(fid, s, region=region, closure=cl)
 
-    out = engine.run_expr(program, bindings, plan.stages, region=region,
-                          seeds=seeds)
+    if all(program.serial(r) in precomputed for r in program.roots):
+        out = tuple(precomputed[program.serial(r)] for r in program.roots)
+    else:
+        spatial = [None if program.leaf_is_temporal(sl) else b
+                   for sl, b in enumerate(bindings)]
+        out = engine.run_expr(program, spatial, plan.stages, region=region,
+                              seeds=seeds, precomputed=precomputed)
+        n_dispatches += 1
 
     store_hits = store_misses = 0
     if stats is not None:
@@ -418,6 +476,6 @@ def _query_exprs(exprs, stage="auto", *, region=None,
     stages = [plan.stages[program.root_component[i]]
               for i in range(len(program.roots))]
     return QueryResult(values=list(out), stages=stages, op="expr",
-                       n_batches=1, n_dispatches=1,
+                       n_batches=1, n_dispatches=n_dispatches,
                        store_hits=store_hits, store_misses=store_misses,
                        exprs=program.roots)

@@ -9,16 +9,24 @@ of layout metadata.  Payload words are ``uint32`` on the numpy side and the
 (``store.MaterializedStage``) crosses as its key — stage, closure, region —
 and either its stage-② sub-field as such a container triple or its stage-③
 integers as one numpy array, so a seed the reference materialized serves
-the port's ``compute(..., seed=)``.
+the port's ``compute(..., seed=)``.  A temporal stream crosses as its slabs'
+container triples plus its pinned quantization step, payload-width policy,
+headroom and measured |q| bound (:func:`temporal_from_arrays`), and a
+``TemporalSummary`` as its six integer leaves (:func:`summary_from_arrays`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from collections.abc import Sequence
+
+from .core import by_name
+from .core.oplib import TemporalSummary
 from .core.stages import LEAVES, Compressed, Encoded, Scheme, Stage
 from .kernels import ops as kernel_ops
 from .store import MaterializedStage
+from .stream import TemporalField
 
 _KINDS = {"Compressed": Compressed, "Encoded": Encoded}
 
@@ -94,3 +102,39 @@ def seed_from_arrays(stage, closure, region, *, sub=None, q_spatial=None,
     return MaterializedStage(sub=sub, q_spatial=q_spatial,
                              stage=Stage(int(stage)), closure=closure,
                              region=region)
+
+
+def temporal_from_arrays(scheme: str, slabs: Sequence[tuple], *, eps,
+                         bits: str | int | None, headroom: int = 2,
+                         q_abs_max: int = 0, block=None,
+                         device="cuda") -> TemporalField:
+    """Build the port's :class:`~repro_torch.stream.TemporalField` from a
+    stream's state: ``slabs`` as ``(kind, arrays, meta)`` triples in append
+    order (each taken through :func:`from_arrays`), the pinned ``eps``, the
+    payload-width policy ``bits`` as the stream holds it after its appends
+    (``"auto"`` is resolved to an int at the first append), ``headroom``
+    and the measured |q| bound ``q_abs_max`` the capacity guard runs
+    against.  Appends to the result continue the stream."""
+    dev = kernel_ops.resolve_device(device)
+    comp = by_name(scheme, None if block is None else tuple(block))
+    tf = TemporalField(comp, eps=None if eps is None else float(eps),
+                       bits=bits, headroom=headroom, device=dev)
+    tf.slabs = [from_arrays(*s, device=dev) for s in slabs]
+    if tf.slabs:
+        first = tf.slabs[0]
+        tf._spatial_shape = tuple(first.shape[1:])
+        tf._dtype = first.orig_dtype
+    tf._q_abs_max = int(q_abs_max)
+    return tf
+
+
+def summary_from_arrays(arrays: dict[str, np.ndarray],
+                        device="cuda") -> TemporalSummary:
+    """Build a :class:`~repro_torch.core.oplib.TemporalSummary` from its
+    numpy leaves (``count``, ``q_sum``, ``q_sumsq``, ``q_min``, ``q_max``,
+    ``last2``), as int32 tensors on ``device``."""
+    dev = kernel_ops.resolve_device(device)
+    return TemporalSummary(**{
+        name: torch.as_tensor(np.array(arrays[name], dtype=np.int32),
+                              device=dev)
+        for name in ("count", "q_sum", "q_sumsq", "q_min", "q_max", "last2")})

@@ -8,8 +8,9 @@ a small expression language:
 
 * **Leaves** (:class:`Leaf`) name compressed inputs: a store field id, a raw
   :class:`~repro_torch.core.stages.Compressed` /
-  :class:`~repro_torch.core.stages.Encoded` container, or a component bundle
-  (tuple of fields/ids, for ``divergence``/``curl``).
+  :class:`~repro_torch.core.stages.Encoded` container, a component bundle
+  (tuple of fields/ids, for ``divergence``/``curl``), or a
+  ``repro_torch.stream.TemporalField``.
 * **Op nodes** (:class:`Op`) apply one registered
   :class:`~repro_torch.core.oplib.OpSpec` to a leaf.  Ops apply to leaves
   *only* — they lower against the leaf's stage prelude; derived values are
@@ -19,7 +20,8 @@ a small expression language:
   with a static Python scalar).
 
 :func:`analyze` validates a batch of root expressions (arity vs leaf kind,
-component-count checks, duplicate ids inside a bundle, cycle detection) and
+component-count checks, duplicate ids inside a bundle, cycle detection,
+temporal/spatial consumer consistency) and
 compiles them into an :class:`ExprProgram`: leaves deduplicated into
 *slots*, a canonical structural hash for program-cache keys (``add`` is
 canonically commuted, so ``x + y`` and ``y + x`` share one program — IEEE
@@ -31,12 +33,9 @@ joint stages to.
 ops, op nodes are CSE'd on their canonical serialization and lowered by the
 rule :func:`~repro_torch.core.oplib.compute` would select, and combinators
 are pointwise float tails — so every root is bit-identical to composing the
-single-op results at the same stage.
-
-Temporal ops (``tdelta``, ``tmean``, ``tmin``, ``tmax``, ``tstd``) and
-``TemporalField`` leaves arrive with the stream slice of the port: a
-temporal op name is an unknown op here, and an op over a stream-like leaf
-(anything with ``layout_sig``) raises :class:`NotImplementedError`.
+single-op results at the same stage.  Temporal op values (``tdelta``,
+``tmean``, ``tmin``, ``tmax``, ``tstd`` over a stream) are summarized
+outside the spatial program and join it through ``precomputed``.
 """
 from __future__ import annotations
 
@@ -56,14 +55,8 @@ __all__ = [
     "leaf", "op", "add", "sub", "scale", "analyze", "lower",
     "leaf_closure", "vector_closures", "validate_bound",
     "mean", "std", "derivative", "gradient", "laplacian",
-    "divergence", "curl",
+    "divergence", "curl", "tdelta", "tmean", "tmin", "tmax", "tstd",
 ]
-
-#: what a stream-like input raises until the stream slice is ported
-TEMPORAL_UNPORTED = (
-    "TemporalField streams and the temporal ops (tdelta, tmean, tmin, tmax, "
-    "tstd) arrive with the stream slice of repro_torch; this slice answers "
-    "spatial ops over Compressed/Encoded fields")
 
 
 # ===========================================================================
@@ -115,9 +108,10 @@ class Leaf(Expr):
     A string id is resolved against the query's store at execution time.  A
     tuple/list bundles vector components for ``divergence``/``curl`` (each
     component a field or id; duplicate ids are rejected — a vector field's
-    components are distinct physical quantities).  A stream-like source
-    (anything with ``layout_sig``) is accepted as a ``"temporal"`` leaf, for
-    the stream slice; no op of this slice consumes it.
+    components are distinct physical quantities).  A ``TemporalField``
+    (anything with ``layout_sig``) is a ``"temporal"`` leaf, consumed by the
+    temporal ops.  A bare id's kind (spatial field vs temporal stream) is
+    fixed by the ops consuming it.
     """
 
     __slots__ = ("source",)
@@ -140,7 +134,7 @@ class Leaf(Expr):
             self.source = comps
         elif isinstance(source, (str, Compressed, Encoded)):
             self.source = source
-        elif hasattr(source, "layout_sig"):  # a stream (stream slice)
+        elif hasattr(source, "layout_sig"):  # TemporalField (repro_torch.stream)
             self.source = source
         else:
             raise TypeError(
@@ -180,10 +174,10 @@ class Op(Expr):
     __slots__ = ("name", "operand", "axis")
 
     def __init__(self, name: str, operand, axis: int = 0):
-        if name not in oplib.OPS:
+        if name not in oplib._ALL_OPS:
             raise ValueError(
                 f"unknown operation {name!r}; expected one of "
-                f"{tuple(oplib.OPS)}")
+                f"{tuple(oplib._ALL_OPS)}")
         if not isinstance(operand, Expr):
             operand = Leaf(operand)
         if not isinstance(operand, Leaf):
@@ -191,16 +185,19 @@ class Op(Expr):
                 f"{name} lowers against a compressed leaf's stage prelude; "
                 "it cannot consume a derived expression — combine op results "
                 "with add/sub/scale instead")
-        spec = oplib.OPS[name]
+        spec = oplib._ALL_OPS[name]
         kind = operand.kind
-        if kind == "temporal":
-            raise NotImplementedError(TEMPORAL_UNPORTED)
         if spec.arity == "vector":
             if kind != "vector":
                 raise TypeError(
                     f"vector op {name!r} takes a component bundle; got a "
                     f"{kind} leaf — pass a tuple of component fields/ids")
             spec.component_axes(len(operand.source))  # validates e.g. curl
+        elif spec.arity == "temporal":
+            if kind not in ("temporal", "id"):
+                raise TypeError(
+                    f"temporal op {name!r} runs over a TemporalField stream "
+                    f"(or its store id); got a {kind} leaf")
         elif kind not in ("field", "id"):
             raise TypeError(
                 f"{name} takes a single Compressed/Encoded field (or its "
@@ -212,7 +209,7 @@ class Op(Expr):
 
     @property
     def spec(self) -> oplib.OpSpec:
-        return oplib.OPS[self.name]
+        return oplib._ALL_OPS[self.name]
 
     @property
     def tuple_valued(self) -> bool:
@@ -332,6 +329,26 @@ def curl(components) -> Op:
     return Op("curl", components)
 
 
+def tdelta(x) -> Op:
+    return Op("tdelta", x)
+
+
+def tmean(x) -> Op:
+    return Op("tmean", x)
+
+
+def tmin(x) -> Op:
+    return Op("tmin", x)
+
+
+def tmax(x) -> Op:
+    return Op("tmax", x)
+
+
+def tstd(x) -> Op:
+    return Op("tstd", x)
+
+
 # ===========================================================================
 # traversal / canonicalization
 # ===========================================================================
@@ -445,11 +462,20 @@ class ExprProgram:
                      for n, s in zip(self.op_nodes, self.op_slots)
                      if s == slot)
 
+    @property
+    def temporal_nodes(self) -> tuple[Op, ...]:
+        return tuple(n for n in self.op_nodes if n.spec.arity == "temporal")
+
+    def leaf_is_temporal(self, slot: int) -> bool:
+        return any(oplib._ALL_OPS[n].arity == "temporal"
+                   for n, _ in self.leaf_consumers(slot))
+
 
 def analyze(roots: Sequence[Expr]) -> ExprProgram:
     """Validate root expressions and build their canonical program.
 
-    Raises on: non-expression / bare-leaf roots, cycles, and any
+    Raises on: non-expression / bare-leaf roots, cycles, a leaf consumed by
+    both temporal and spatial ops (a stream cannot also be a field), and any
     constructor-level violation latent in the DAG.  The program key is the
     reference's for the same DAG (the same serialization, hashed alike).
     """
@@ -502,6 +528,17 @@ def analyze(roots: Sequence[Expr]) -> ExprProgram:
                                  f"{serials[id(node.b)]})")
         else:
             serials[id(node)] = f"scale({node.alpha!r},{serials[id(node.x)]})"
+
+    # a slot consumed by both temporal and spatial ops can never be bound
+    for slot in range(len(leaves)):
+        arities = {n.spec.arity for n, s in zip(op_nodes, op_slots)
+                   if s == slot}
+        if "temporal" in arities and len(arities) > 1:
+            raise TypeError(
+                f"leaf {leaves[slot].key} is consumed by both temporal and "
+                "spatial ops; a TemporalField stream answers temporal ops "
+                "only (register the concatenated field separately for "
+                "spatial analytics)")
 
     # connected components over leaf slots: every root unions its slots
     parent = list(range(len(leaves)))
@@ -586,8 +623,8 @@ def _window_shape(shape: tuple[int, ...], region) -> tuple[int, ...]:
 def validate_bound(program: ExprProgram, bindings: Sequence,
                    region=None) -> None:
     """Host-side layout check of a *bound* program: combinator operands must
-    agree in result shape (statistics are scalars and broadcast; stencil
-    results must match elementwise).  Catches e.g. vorticity from
+    agree in result shape (statistics are scalars and broadcast; stencil and
+    temporal results must match elementwise).  Catches e.g. vorticity from
     differently-shaped u and v before any device work."""
     shapes: dict[str, tuple[int, ...] | None] = {}
 
@@ -595,6 +632,8 @@ def validate_bound(program: ExprProgram, bindings: Sequence,
         if node.spec.category == "statistic":
             return None  # scalar: broadcasts against anything
         b = bindings[program.slot_of(node.operand)]
+        if node.spec.arity == "temporal":
+            return _window_shape(tuple(b.shape), region)
         base = b[0] if isinstance(b, tuple) else b
         w = _window_shape(tuple(base.shape), region)
         return tuple(n - 2 for n in w)  # stencils crop the interior
@@ -630,8 +669,9 @@ def lower(program: ExprProgram, bindings: Sequence,
     leaf slot; ``stages[comp]`` is the joint stage of each connected
     component; ``seeds[slot]`` optionally supplies the slot's resident
     ``MaterializedStage`` (a tuple for bundle slots).  ``precomputed`` maps
-    canonical node serializations to values computed outside the program
-    (the stream slice's temporal op values join here).  Every field op runs
+    canonical node serializations to values computed outside the program:
+    every temporal op node's value arrives there (its slot's binding may be
+    ``None``), summarized by the engine / store machinery.  Every field op runs
     the rule :func:`~repro_torch.core.oplib.compute` selects for its cell
     (the fused rule where it covers), so each root is bit-identical to
     composing the corresponding single-op results at the same stage.
@@ -663,6 +703,12 @@ def lower(program: ExprProgram, bindings: Sequence,
         spec = node.spec
         slot = program.slot_of(node.operand)
         stage = Stage(stages[program.leaf_component[slot]])
+        if spec.arity == "temporal":
+            raise ValueError(
+                f"temporal node {program.serial(node)} has no precomputed "
+                "value; temporal op results are summarized outside the "
+                "spatial program (see repro_torch.analytics.query / "
+                "oplib.compute_exprs)")
         if spec.arity == "vector":
             cs = ctx_for(slot)
             for c in cs:

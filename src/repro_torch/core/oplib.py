@@ -15,19 +15,22 @@
   into one gathered sub-field, builds the context(s) and runs every op's
   postlude, returning ``{op: result}``.
 
-This module ports the spatial half of the reference
-(``repro/core/oplib.py``); the float tails keep the reference's order of
-operations, which is what the bit-identity of the stencil results rests on.
-The full-field path is the region path with ``region=None``.
-:func:`compute_exprs` lowers expression DAGs (:mod:`repro_torch.core.expr`)
-onto one prelude per leaf.  Temporal ops arrive with the stream slice of the
-port.
+* :class:`TemporalSummary` — the integer-exact per-slab summary of a time
+  slab (``repro_torch.stream``): the temporal ops ``tdelta`` / ``tmean`` /
+  ``tmin`` / ``tmax`` / ``tstd`` are postludes on merged summaries
+  (:data:`TEMPORAL_OPS`).
+
+This module ports ``repro/core/oplib.py``; the float tails keep the
+reference's order of operations, which is what the bit-identity of the
+stencil and temporal results rests on.  The full-field path is the region
+path with ``region=None``.  :func:`compute_exprs` lowers expression DAGs
+(:mod:`repro_torch.core.expr`) onto one prelude per leaf.
 """
 from __future__ import annotations
 
 from collections.abc import Callable, Mapping, Sequence
-from dataclasses import dataclass, field as dc_field
-from functools import cached_property
+from dataclasses import dataclass, field as dc_field, fields as dc_fields
+from functools import cached_property, reduce
 
 import numpy as np
 import torch
@@ -529,12 +532,13 @@ class OpSpec:
     ``closure`` gives the region dependency closure of the op's prelude;
     vector ops instead declare ``component_axes`` (which derivative axes
     each component feeds), from which per-component closures derive, and
-    ``lower_vector``.
+    ``lower_vector``; temporal ops declare ``lower_temporal``, a postlude
+    on one merged :class:`TemporalSummary`.
     """
 
     name: str
-    arity: str                    # "field" | "vector"
-    category: str                 # "statistic" | "differentiation" | "multivariate"
+    arity: str                    # "field" | "vector" | "temporal"
+    category: str                 # "statistic" | "differentiation" | "multivariate" | "temporal"
     feasible: Callable[[Scheme], tuple[Stage, ...]]
     needs_axis: bool = False
     closure: Callable[[Scheme, Stage, int], R.Closure] | None = None
@@ -543,6 +547,7 @@ class OpSpec:
     fused: Mapping[tuple[Stage, str], fused_mod.FusedRule] = dc_field(
         default_factory=dict)
     lower_vector: Callable | None = None
+    lower_temporal: Callable | None = None  # (TemporalSummary, eps) -> result
 
 
 def _mean_stages(scheme: Scheme) -> tuple[Stage, ...]:
@@ -694,7 +699,240 @@ OPS: dict[str, OpSpec] = {
     )
 }
 
-_ORDER = {name: i for i, name in enumerate(OPS)}
+# ===========================================================================
+# temporal operations (streaming time-slab analytics)
+# ===========================================================================
+# A *temporal field* (``repro_torch.stream.TemporalField``) is an append-only
+# sequence of error-bounded-compressed time slabs, each an ordinary
+# Compressed/Encoded field of shape ``(k, *spatial)`` sharing one eps (one
+# quantization grid).  Temporal ops reduce over the time axis and lower as
+# homomorphic *merges* of per-slab integer summaries: every leaf of a
+# :class:`TemporalSummary` is integer-exact (int32, modular), so merging
+# slab summaries in any association is bit-identical to one reduction over
+# the fully decompressed concatenated field (DESIGN.md §9).
+
+
+@dataclass(frozen=True)
+class TemporalSummary:
+    """Integer-exact per-slab (or merged) temporal summary.
+
+    All leaves are ``int32`` tensors over the queried spatial extent, on the
+    slabs' device; sums are modular (two's-complement wrap), which keeps
+    merging associative and bit-exact in any order — results are
+    numerically meaningful while the true sums fit int32 (``|q| * T < 2^31``
+    for ``q_sum``, ``q^2 * T < 2^31`` for ``q_sumsq``; the stream's capacity
+    guard holds appends to that).  ``last2`` holds the quantization integers
+    of the final two timesteps (duplicated while only one exists), which is
+    what ``tdelta`` — the latest inter-timestep change — consumes.
+    """
+
+    count: torch.Tensor    # int32 0-d: timesteps summarized
+    q_sum: torch.Tensor    # int32 (*extent,): sum over time of q
+    q_sumsq: torch.Tensor  # int32 (*extent,): sum over time of q^2 (modular)
+    q_min: torch.Tensor    # int32 (*extent,)
+    q_max: torch.Tensor    # int32 (*extent,)
+    last2: torch.Tensor    # int32 (2, *extent): q at timesteps T-2, T-1
+
+    def leaves(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f.name) for f in dc_fields(self))
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes kept resident (store LRU accounting)."""
+        return sum(x.numel() * x.element_size() for x in self.leaves())
+
+    def sig(self) -> tuple:
+        """Hashable static signature (program-cache key component)."""
+        return tuple((tuple(x.shape), str(x.dtype).removeprefix("torch."))
+                     for x in self.leaves())
+
+
+def map_summaries(fn: Callable, *summaries: TemporalSummary) -> TemporalSummary:
+    """Apply ``fn`` leaf by leaf across summaries (the reference's
+    ``jax.tree.map`` over its summary pytree): ``fn(*leaves)``."""
+    return TemporalSummary(*(fn(*xs) for xs in
+                             zip(*(s.leaves() for s in summaries))))
+
+
+def summary_from_q(q: torch.Tensor) -> TemporalSummary:
+    """Summarize a time-major integer block ``q`` of shape ``(k, *extent)``.
+
+    The one reduction rule both paths share: per-slab summaries (this, per
+    slab, then merged) and the full-decompression reference (this, once,
+    over the concatenated field) are bit-identical because every reduction
+    is int32 (modular addition / min / max — associative, order-free).
+    ``q * q`` wraps modulo 2^32 as the reference's int32 product does.
+    """
+    k = int(q.shape[0])
+    last2 = q[-2:] if k >= 2 else torch.cat([q[-1:], q[-1:]], dim=0)
+    return TemporalSummary(
+        count=torch.tensor(k, dtype=torch.int32, device=q.device),
+        q_sum=torch.sum(q, dim=0, dtype=torch.int32),
+        q_sumsq=torch.sum(q * q, dim=0, dtype=torch.int32),
+        q_min=torch.amin(q, dim=0),
+        q_max=torch.amax(q, dim=0),
+        last2=last2.contiguous(),
+    )
+
+
+def merge_summaries(a: TemporalSummary, b: TemporalSummary) -> TemporalSummary:
+    """Homomorphic merge of two temporally *adjacent* summaries (a before b).
+
+    Integer-exact and associative — ``merge(s_1, merge(s_2, s_3))`` equals
+    one pass over the concatenation — but not commutative: ``last2`` tracks
+    the stream's final frames, so order is the append order.  Nothing is read
+    back to the host: ``last2`` is selected on the device.
+    """
+    last2 = torch.where(b.count >= 2, b.last2,
+                        torch.stack([a.last2[1], b.last2[1]]))
+    return TemporalSummary(
+        count=a.count + b.count,
+        q_sum=a.q_sum + b.q_sum,
+        q_sumsq=a.q_sumsq + b.q_sumsq,
+        q_min=torch.minimum(a.q_min, b.q_min),
+        q_max=torch.maximum(a.q_max, b.q_max),
+        last2=last2,
+    )
+
+
+def _slab_q_view(ctx: StageContext) -> torch.Tensor:
+    """Quantization integers of one slab on the queried extent, time-major.
+
+    Stage ③/④ read the shared ``q_spatial`` reconstruction; stage ② derives
+    q from the stage-② intermediates (block-mean: residuals + upsampled
+    means, elementwise; Lorenzo: the context's cumsum recorrelation — the
+    same stage-② work the spatial ``std@P`` lowerings do).  All paths
+    produce the *same integers*, which is why one summary serves every
+    feasible stage bit-identically.
+    """
+    if ctx.stage != Stage.P:
+        return ctx.q_spatial
+    if ctx.scheme.is_blockmean:
+        return ctx.spatial_window(ctx.sub.residuals + ctx.upsampled_means)
+    return ctx.spatial_window(ctx.lorenzo_q)
+
+
+def temporal_region(c: Field, region) -> tuple | None:
+    """Lift a *spatial* region to the slab layout (time axis 0 kept whole)."""
+    if region is None:
+        return None
+    if len(region) != len(c.shape) - 1:
+        raise ValueError(
+            f"temporal region is spatial-only: rank {len(c.shape) - 1} "
+            f"expected, got {len(region)}")
+    return ((0, c.shape[0]),) + tuple(region)
+
+
+def summarize_slab(c: Field, stage: Stage, *,
+                   region=None) -> TemporalSummary:
+    """One slab's integer temporal summary at ``stage`` (the per-append
+    reconstruction unit: appending a slab summarizes *only* that slab).
+
+    ``region`` is spatial (the slab's time axis is always axis 0 and always
+    fully covered).  Infeasible stages raise ``UnsupportedStageError`` with
+    the temporal ops' own error semantics.
+    """
+    stage = Stage(stage)
+    _check_feasible(TEMPORAL_OPS["tmean"], c.scheme, stage)
+    slab_region = temporal_region(c, region)
+    closure = R.op_closure(c.scheme, "mean", stage)
+    ctx = StageContext(c, stage, slab_region, closure)
+    return summary_from_q(_slab_q_view(ctx))
+
+
+def _temporal_cnt(s: TemporalSummary) -> torch.Tensor:
+    return s.count.to(torch.float32)
+
+
+def _tmean_rule(s: TemporalSummary, eps) -> torch.Tensor:
+    return s.q_sum.to(torch.float32) * (2.0 * eps) / _temporal_cnt(s)
+
+
+def _tstd_rule(s: TemporalSummary, eps) -> torch.Tensor:
+    n = _temporal_cnt(s)
+    s1 = s.q_sum.to(torch.float32)
+    s2 = s.q_sumsq.to(torch.float32)
+    # frame-at-a-time streams query after a single timestep: ddof=1 would be
+    # 0/0 there, so clamp the denominator — zero spread, not NaN, until a
+    # second timestep arrives
+    var = (s2 - s1 * s1 / n) / torch.clamp(n - 1.0, min=1.0)
+    return torch.sqrt(torch.clamp(var, min=0.0)) * (2.0 * eps)
+
+
+def _tmin_rule(s: TemporalSummary, eps) -> torch.Tensor:
+    return s.q_min.to(torch.float32) * (2.0 * eps)
+
+
+def _tmax_rule(s: TemporalSummary, eps) -> torch.Tensor:
+    return s.q_max.to(torch.float32) * (2.0 * eps)
+
+
+def _tdelta_rule(s: TemporalSummary, eps) -> torch.Tensor:
+    # latest inter-timestep change, exact integer difference scaled once
+    # (same single-rounding form as the spatial stage-④ stencils)
+    return (s.last2[1] - s.last2[0]).to(torch.float32) * (2.0 * eps)
+
+
+def _temporal_stages(scheme: Scheme) -> tuple[Stage, ...]:
+    # stage ② needs the (time, *spatial) layout; 1-D partitioning flattens
+    # it away, exactly like the spatial stencils (paper §V-B)
+    return tuple(([Stage.P] if scheme.is_nd else []) + [Stage.Q, Stage.F])
+
+
+#: temporal op registry: reductions over the time axis of an appended
+#: stream, each a postlude on one merged :class:`TemporalSummary`.
+TEMPORAL_OPS: dict[str, OpSpec] = {
+    spec.name: spec for spec in (
+        OpSpec("tdelta", "temporal", "temporal", _temporal_stages,
+               lower_temporal=_tdelta_rule),
+        OpSpec("tmean", "temporal", "temporal", _temporal_stages,
+               lower_temporal=_tmean_rule),
+        OpSpec("tmin", "temporal", "temporal", _temporal_stages,
+               lower_temporal=_tmin_rule),
+        OpSpec("tmax", "temporal", "temporal", _temporal_stages,
+               lower_temporal=_tmax_rule),
+        OpSpec("tstd", "temporal", "temporal", _temporal_stages,
+               lower_temporal=_tstd_rule),
+    )
+}
+
+
+def temporal_postlude(ops: str | Sequence[str], summary: TemporalSummary,
+                      eps) -> dict[str, torch.Tensor]:
+    """Lower a temporal op set onto one merged summary: ``{op: result}``.
+
+    The summary already paid every reconstruction; postludes are tiny
+    elementwise float tails, identical at every stage the summary serves
+    (②③④ — the integers are the same, ④'s dequantize is the final multiply).
+    """
+    names = canonical_ops(ops)
+    if not is_temporal_ops(names):
+        raise ValueError(f"{names} is not a temporal op set")
+    return {n: TEMPORAL_OPS[n].lower_temporal(summary, eps) for n in names}
+
+
+def _merge_registries(*registries: Mapping[str, OpSpec]) -> dict[str, OpSpec]:
+    """Combine op registries into the single lookup, rejecting name
+    collisions: a name shadowed across registries would make
+    ``canonical_ops`` / planning disagree about an op's arity and
+    feasibility, so the merge fails loudly instead."""
+    out: dict[str, OpSpec] = {}
+    for reg in registries:
+        for name, spec in reg.items():
+            if name in out:
+                raise ValueError(
+                    f"op name collision: {name!r} is registered more than "
+                    "once (the spatial OPS and temporal TEMPORAL_OPS "
+                    "registries — and any user-registered spec — must use "
+                    "unique names)")
+            out[name] = spec
+    return out
+
+
+#: single lookup across both registries (spatial + temporal).
+_ALL_OPS: dict[str, OpSpec] = _merge_registries(OPS, TEMPORAL_OPS)
+
+_ORDER = {name: i for i, name in enumerate(_ALL_OPS)}
 
 
 def family_of(scheme: Scheme) -> str:
@@ -739,12 +977,19 @@ def _closure_ok(value) -> bool:
 def spec_violations(spec: OpSpec) -> list:
     """Enumerate structural violations of one :class:`OpSpec` as
     ``(invariant, message)`` pairs; :func:`register_op` raises on the
-    rejecting subset.  Temporal arity arrives with the stream slice."""
+    rejecting subset."""
     out: list = []
-    if spec.arity not in ("field", "vector"):
+    if spec.arity not in ("field", "vector", "temporal"):
         out.append(("invalid-arity",
                     f"op {spec.name!r} has arity {spec.arity!r}; expected "
-                    "'field' or 'vector'"))
+                    "'field', 'vector', or 'temporal'"))
+        return out
+
+    if spec.arity == "temporal":
+        if spec.lower_temporal is None:
+            out.append(("missing-lowering-rule",
+                        f"temporal op {spec.name!r} has no lower_temporal "
+                        "rule"))
         return out
 
     if spec.arity == "vector":
@@ -846,8 +1091,9 @@ _REJECTING = frozenset({
 
 def register_op(spec: OpSpec) -> OpSpec:
     """Register a user-defined :class:`OpSpec` (collision-guarded): it joins
-    the registry and the canonical order, and plans like a built-in."""
-    if spec.name in OPS:
+    the arity-appropriate registry and the canonical order, and plans like a
+    built-in."""
+    if spec.name in _ALL_OPS:
         raise ValueError(
             f"op name collision: {spec.name!r} is already registered")
     bad = [(inv, msg) for inv, msg in spec_violations(spec)
@@ -858,7 +1104,9 @@ def register_op(spec: OpSpec) -> OpSpec:
             f"malformed OpSpec {spec.name!r}: {detail} "
             "(every feasible (stage, scheme-family) cell needs exactly one "
             "lowering rule and a region closure)")
-    OPS[spec.name] = spec
+    registry = TEMPORAL_OPS if spec.arity == "temporal" else OPS
+    registry[spec.name] = spec
+    _ALL_OPS[spec.name] = spec
     _ORDER[spec.name] = len(_ORDER)
     return spec
 
@@ -869,29 +1117,36 @@ def register_op(spec: OpSpec) -> OpSpec:
 
 def canonical_ops(ops: str | Sequence[str]) -> tuple[str, ...]:
     """Validate and canonicalize an op set: known names, de-duplicated,
-    registry order, single arity."""
+    registry order, single arity (field, vector and temporal ops consume
+    different arguments)."""
     names = [ops] if isinstance(ops, str) else list(ops)
     if not names:
         raise ValueError("empty op set")
     out = []
     for name in names:
-        if name not in OPS:
+        if name not in _ALL_OPS:
             raise ValueError(
-                f"unknown operation {name!r}; expected one of {tuple(OPS)}")
+                f"unknown operation {name!r}; expected one of "
+                f"{tuple(_ALL_OPS)}")
         if name not in out:
             out.append(name)
     out.sort(key=_ORDER.__getitem__)
-    if len({OPS[n].arity for n in out}) > 1:
-        detail = ", ".join(f"{n} ({OPS[n].arity})" for n in out)
+    if len({_ALL_OPS[n].arity for n in out}) > 1:
+        detail = ", ".join(f"{n} ({_ALL_OPS[n].arity})" for n in out)
         raise ValueError(
             f"cannot fuse ops of different arities in one set: {detail} "
-            "(field and vector ops consume different arguments)")
+            "(field, vector, and temporal ops consume different arguments)")
     return tuple(out)
 
 
 def is_vector_ops(ops: Sequence[str]) -> bool:
     """True when the (canonical) op set takes vector-field arguments."""
-    return OPS[ops[0]].arity == "vector"
+    return _ALL_OPS[ops[0]].arity == "vector"
+
+
+def is_temporal_ops(ops: Sequence[str]) -> bool:
+    """True when the (canonical) op set reduces over a temporal stream."""
+    return _ALL_OPS[ops[0]].arity == "temporal"
 
 
 def _check_feasible(spec: OpSpec, scheme: Scheme, stage: Stage) -> None:
@@ -902,6 +1157,13 @@ def _check_feasible(spec: OpSpec, scheme: Scheme, stage: Stage) -> None:
         if spec.name == "mean":
             raise UnsupportedStageError("stage-1 mean needs HSZx-family metadata")
         raise UnsupportedStageError("std needs pointwise info (stages 2-4)")
+    if spec.category == "temporal":
+        if stage == Stage.M:
+            raise UnsupportedStageError(
+                "temporal ops need pointwise info (stages 2-4)")
+        # 1-D partitioning flattens the (time, spatial) layout away, like
+        # the spatial stencils (paper §V-B)
+        raise UnsupportedStageError("stage-2 temporal ops require nd schemes")
     if stage == Stage.M:
         raise UnsupportedStageError("stencils need pointwise info")
     # paper §V-B: 1-D partitioning destroys multidimensional layout
@@ -936,6 +1198,11 @@ def compute(target, ops: str | Sequence[str], stage: Stage, *,
     """
     stage = Stage(stage)
     names = canonical_ops(ops)
+    if is_temporal_ops(names):
+        raise ValueError(
+            f"temporal op set {names} runs over an appended stream of time "
+            "slabs; use repro_torch.stream (TemporalField / query) instead "
+            "of compute()")
     specs = [OPS[n] for n in names]
 
     if is_vector_ops(names):
@@ -973,13 +1240,16 @@ def compute_exprs(exprs, stage: Stage, *,
     stage.
 
     The core-level, storeless entry: every leaf must carry its data directly
-    (containers or component bundles; string ids need the store-aware
-    ``repro_torch.analytics.query(exprs=..., store=...)``).  Each leaf gets
-    exactly one :class:`StageContext` prelude shared by all consuming
-    expressions.  Returns one result per expression (a single expression
-    returns its value directly), each bit-identical to composing the
-    corresponding single-op results.  ``seeds`` optionally maps leaf slots
-    to resident ``MaterializedStage`` intermediates, as in :func:`compute`.
+    (containers, component bundles or ``TemporalField`` streams; string ids
+    need the store-aware ``repro_torch.analytics.query(exprs=...,
+    store=...)``).  Each leaf gets exactly one :class:`StageContext` prelude
+    shared by all consuming expressions; temporal op nodes are summarized
+    over their stream's slabs (the integer-exact per-slab summaries, merged
+    in append order) and fed into the pointwise tail.  Returns one result
+    per expression (a single expression returns its value directly), each
+    bit-identical to composing the corresponding single-op results.
+    ``seeds`` optionally maps leaf slots to resident ``MaterializedStage``
+    intermediates, as in :func:`compute`.
     """
     from . import expr as expr_mod
 
@@ -995,7 +1265,20 @@ def compute_exprs(exprs, stage: Stage, *,
                 "store — use repro_torch.analytics.query(exprs=..., store=...)")
         bindings.append(src)
     expr_mod.validate_bound(program, bindings, region=region)
-    out = expr_mod.lower(program, bindings,
-                         (Stage(stage),) * program.n_components,
-                         region=region, seeds=seeds, precomputed={})
+    stage = Stage(stage)
+
+    precomputed = {}
+    for node in program.temporal_nodes:
+        tf = bindings[program.slot_of(node.operand)]
+        _check_feasible(node.spec, tf.scheme, stage)
+        if not tf.slabs:
+            raise ValueError("temporal field has no appended slabs")
+        summary = reduce(merge_summaries,
+                         [summarize_slab(s, stage, region=region)
+                          for s in tf.slabs])
+        precomputed[program.serial(node)] = node.spec.lower_temporal(
+            summary, tf.eps)
+
+    out = expr_mod.lower(program, bindings, (stage,) * program.n_components,
+                         region=region, seeds=seeds, precomputed=precomputed)
     return out[0] if single else list(out)

@@ -151,17 +151,16 @@ def test_feasibility_matrix_matches_ops(scheme, op, stage, field_2d):
 
 
 def test_matrix_holds_exactly_the_spatial_rows():
-    """The port's matrix is the reference's restricted to its spatial ops
-    (temporal rows arrive with the stream slice)."""
-    spatial = {k: v for k, v in janalytics.FEASIBILITY.items()
-               if k[1] not in janalytics.TEMPORAL}
+    """The port's matrix is the reference's whole matrix: the spatial rows
+    and, since the stream slice, the temporal ones."""
     assert {(k[0].value, k[1]): [int(s) for s in v]
-            for k, v in spatial.items()} == {
+            for k, v in janalytics.FEASIBILITY.items()} == {
         (k[0].value, k[1]): [int(s) for s in v]
         for k, v in analytics.FEASIBILITY.items()}
     assert analytics.OPS == janalytics.OPS
     assert analytics.MULTIVARIATE == janalytics.MULTIVARIATE
-    assert analytics.TEMPORAL == ()
+    assert analytics.TEMPORAL == janalytics.TEMPORAL == (
+        "tdelta", "tmean", "tmin", "tmax", "tstd")
     assert set(analytics.__all__) == set(janalytics.__all__)
 
 

@@ -22,8 +22,11 @@ What is held, with its tolerance:
 
 The DAG property test binds its strategy by keyword (``spec=``) and runs
 every drawn DAG through the port's ``compute_exprs``, the composed port
-oracle and the reference's ``compute_exprs``.  Temporal ops and streams
-arrive with the port's stream slice: their names are unknown ops here.
+oracle and the reference's ``compute_exprs``.  Temporal expressions
+(``tmean`` / ``tdelta`` / ... over streams, by object or by store id) equal
+the flat temporal queries composed, bitwise, and the reference's within
+``error_analysis.temporal_round_bound``; their dispatch counters are the
+reference's.
 """
 import functools
 import warnings
@@ -450,23 +453,38 @@ def test_duplicate_bundle_ids_rejected():
         expr.divergence(("u", "u"))
 
 
+def _raised(fn):
+    """``(exception type name, message)`` of ``fn()``, or its value."""
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 - compared across packages
+        return type(e).__name__, str(e)
+
+
 def test_temporal_ops_and_streams_wait_for_the_stream_slice():
-    """The reference's temporal ops are unknown names in this slice; a
-    stream-like leaf (``layout_sig``) raises NotImplementedError naming the
-    stream slice, from an op and from a store id alike."""
+    """The calls that waited for the stream slice now answer as the
+    reference's do: temporal op names build nodes with the reference's
+    serialization, mixed arities and spatial ops over a stream-like leaf
+    (``layout_sig``) raise the reference's exceptions — from an op, from a
+    store id in an expression and from the flat form alike."""
     for name in ("tdelta", "tmean", "tmin", "tmax", "tstd"):
         assert name in joplib.TEMPORAL_OPS
-        with pytest.raises(ValueError, match="unknown operation"):
-            expr.op(name, "s")
-    with pytest.raises(ValueError, match="different arities|unknown"):
-        oplib.canonical_ops(["mean", "tdelta"])
+        node, jnode = expr.op(name, "s"), jexpr.op(name, "s")
+        assert (node.spec.arity, node.spec.category) == (
+            jnode.spec.arity, jnode.spec.category) == ("temporal", "temporal")
+        assert expr.analyze([node]).key == jexpr.analyze([jnode]).key
+        assert getattr(expr, name)("s").name == name
+    for pkg in (oplib, joplib):
+        with pytest.raises(ValueError, match="different arities"):
+            pkg.canonical_ops(["mean", "tdelta"])
 
     class Stream:
         def layout_sig(self):
             return ("stream",)
 
-    with pytest.raises(NotImplementedError, match="stream slice"):
-        expr.mean(Stream())
+    got, want = _raised(lambda: expr.mean(Stream())), _raised(
+        lambda: jexpr.mean(Stream()))
+    assert got[0] == want[0] == "TypeError" and "temporal" in got[1]
 
     class StreamStore:
         stats = None
@@ -474,12 +492,14 @@ def test_temporal_ops_and_streams_wait_for_the_stream_slice():
         def get(self, fid):
             return Stream()
 
-    with pytest.raises(NotImplementedError, match="stream slice"):
-        query(exprs=[expr.mean("s")], store=StreamStore())
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError, match="stream slice"):
-            query(["s"], "mean", store=StreamStore())
+    for fn in (lambda q, e: q(exprs=[e.mean("s")], store=StreamStore()),
+               lambda q, e: q(["s"], "mean", store=StreamStore())):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            got = _raised(lambda: fn(query, expr))
+            want = _raised(lambda: fn(janalytics.query, jexpr))
+        assert got[0] == want[0] == "TypeError"
+        assert ("spatial" in got[1]) and ("spatial" in want[1])
 
 
 def test_unknown_op_and_bad_scale(field_2d):
@@ -509,6 +529,135 @@ def test_ids_need_a_store(field_2d):
         oplib.compute_exprs(expr.mean("u"), Stage.Q)
     with pytest.raises(ValueError, match="no store"):
         query(exprs=[expr.mean("u")])
+
+
+# ===========================================================================
+# temporal expressions and counter parity (the stream slice)
+# ===========================================================================
+
+def test_mixed_temporal_spatial_consumers_rejected():
+    for pkg in (expr, jexpr):
+        with pytest.raises(TypeError, match="temporal"):
+            pkg.analyze([pkg.add(pkg.tmean("s"), pkg.mean("s"))])
+
+
+def _streams(scheme, seed, slabs=3, k=4, n=24):
+    """(reference stream, port stream on the CPU) of the same numpy slabs."""
+    from repro.stream import TemporalField as JTF
+    from repro_torch.stream import TemporalField
+
+    rng = np.random.default_rng(seed)
+    jt = JTF(scheme, abs_eb=0.01)
+    tf = TemporalField(scheme, abs_eb=0.01, device="cpu")
+    for _ in range(slabs):
+        d = rng.random((k, n, n)).astype(np.float32)
+        jt.append(d)
+        tf.append(d)
+    return jt, tf
+
+
+def test_temporal_expression_matches_flat():
+    """tmean - tdelta as one expression equals the flat op set's values
+    composed, and the reference's (bitwise here: tmean's two roundings and
+    tdelta's one land identically on this stream)."""
+    from repro.stream.query import query_temporal as jquery_temporal
+    from repro_torch.stream.query import query_temporal
+
+    jt, tf = _streams("hszp_nd", 7)
+    res = query(exprs=[expr.tmean(tf) - expr.tdelta(tf)])
+    flat = query_temporal([tf], ["tmean", "tdelta"])
+    np.testing.assert_array_equal(
+        res.values[0].numpy(),
+        (flat.values[0]["tmean"] - flat.values[0]["tdelta"]).numpy())
+    jres = janalytics.query(exprs=[jexpr.tmean(jt) - jexpr.tdelta(jt)])
+    np.testing.assert_allclose(res.values[0].numpy(),
+                               np.asarray(jres.values[0]), rtol=1e-6,
+                               atol=1e-6)
+    # one summary per stream slot even with two consumers
+    assert res.n_dispatches == jres.n_dispatches >= 2
+    jflat = jquery_temporal([jt], ["tmean", "tdelta"])
+    np.testing.assert_array_equal(flat.values[0]["tdelta"].numpy(),
+                                  np.asarray(jflat.values[0]["tdelta"]))
+
+
+def test_temporal_counters_uniform_with_spatial():
+    """query_temporal reports dispatch / batch accounting like the spatial
+    path, as the reference's does: n_dispatches counts program calls
+    (summaries, merges, postludes), n_batches layout groups."""
+    from repro.stream.query import query_temporal as jquery_temporal
+    from repro_torch.stream.query import query_temporal
+
+    jt1, t1 = _streams("hszp_nd", 8)
+    jt2, t2 = _streams("hszp_nd", 9)  # same layout: one batch group
+    res = query_temporal([t1, t2], "tmean")
+    jres = jquery_temporal([jt1, jt2], "tmean")
+    assert res.n_batches == jres.n_batches == 1
+    # per stream: 1 batched summarize + 2 merges + 1 postlude = 4
+    assert res.n_dispatches == jres.n_dispatches == 8
+    assert res.store_hits == 0 and res.store_misses == 0
+    jt3, t3 = _streams("hszx_nd", 10)  # another scheme: a second group
+    assert query_temporal([t1, t3], "tmean").n_batches == jquery_temporal(
+        [jt1, jt3], "tmean").n_batches == 2
+
+
+def test_cross_stream_delta_store_backed():
+    """tmean(a) - tmean(b) by id through a StreamFieldStore equals the two
+    store-backed flat queries composed, bitwise; the reference's within the
+    tmean tolerance."""
+    from repro.stream import StreamFieldStore as JStore
+    from repro.stream import TemporalField as JTF
+    from repro_torch.core import error_analysis
+    from repro_torch.stream import StreamFieldStore, TemporalField
+    from repro_torch.stream.query import query_temporal
+
+    rng = np.random.default_rng(9)
+    store = StreamFieldStore(cache_bytes=1 << 30)
+    jstore = JStore(cache_bytes=1 << 30)
+    for fid in ("a", "b"):
+        store.put_temporal(fid, TemporalField("hszp_nd", abs_eb=0.01,
+                                              device="cpu"))
+        jstore.put_temporal(fid, JTF("hszp_nd", abs_eb=0.01))
+        for _ in range(3):
+            d = rng.random((4, 24, 24)).astype(np.float32)
+            store.append(fid, d)
+            jstore.append(fid, d)
+    res = query(exprs=[expr.sub(expr.tmean("a"), expr.tmean("b"))],
+                store=store)
+    a = query_temporal(["a"], "tmean", store=store).values[0]
+    b = query_temporal(["b"], "tmean", store=store).values[0]
+    np.testing.assert_array_equal(res.values[0].numpy(), (a - b).numpy())
+    jres = janalytics.query(
+        exprs=[jexpr.sub(jexpr.tmean("a"), jexpr.tmean("b"))], store=jstore)
+    tol = sum(error_analysis.temporal_round_bound(
+        "tmean", store.temporal_summary(f), store.get(f).eps).numpy()
+        for f in ("a", "b"))
+    assert np.all(np.abs(res.values[0].numpy().astype(np.float64)
+                         - np.asarray(jres.values[0], np.float64))
+                  <= tol + 4 * np.finfo(np.float32).eps
+                  * np.abs(res.values[0].numpy()))
+
+
+def test_temporal_and_spatial_roots_in_one_batch(field_2d):
+    """A batch mixing a temporal root and a spatial root: the spatial DAG
+    runs as one program, the temporal value joins through ``precomputed``;
+    each root equals its single query, and ``compute_exprs`` agrees."""
+    from repro_torch.stream.query import query_temporal
+
+    _, tf = _streams("hszx_nd", 11)
+    _, c = _pair("hszx_nd", field_2d[:N0, :N1], rel_eb=1e-3)
+    roots = [expr.tmax(tf) - expr.tmin(tf), expr.laplacian(c)]
+    res = query(exprs=roots, stage=Stage.Q)
+    flat = query_temporal([tf], ["tmax", "tmin"], Stage.Q).values[0]
+    np.testing.assert_array_equal(res.values[0].numpy(),
+                                  (flat["tmax"] - flat["tmin"]).numpy())
+    np.testing.assert_array_equal(
+        res.values[1].numpy(),
+        oplib.compute(c, "laplacian", Stage.Q)["laplacian"].numpy())
+    core = oplib.compute_exprs(roots, Stage.Q)
+    for g, w in zip(core, res.values):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    with pytest.raises(ValueError, match="precomputed"):
+        expr.lower(expr.analyze([expr.tmean(tf)]), [tf], (Stage.Q,))
 
 
 # ===========================================================================

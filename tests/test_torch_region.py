@@ -355,6 +355,7 @@ def test_registered_op_runs_on_regions(field_2d):
                 "fmax_region"], f.max())
     finally:
         oplib.OPS.pop("fmax_region", None)
+        oplib._ALL_OPS.pop("fmax_region", None)
         oplib._ORDER.pop("fmax_region", None)
 
 
