@@ -77,6 +77,26 @@ Phases (any failure raises, so the exit code is non-zero):
    kernel on one slab's payload (69.1 M values) equals its plain version;
    every append and query launches exactly one ``unpack.residuals`` per
    full-field ``Encoded`` slab it summarizes and nothing else;
+5e. the serve path (``repro_torch.serve``, ``repro_torch.shard``): the
+   ``Encoded`` (u, v) of both schemes by id in a ``ShardedFieldStore`` (8
+   shards on one card, then 1 shard; one shard per card where the machine
+   has several) and under ``local/`` ids in a ``StreamFieldStore``, each
+   with a temporal id, behind one ``StoreRouter`` and one
+   ``AnalyticsFrontend``: one step of 48 requests (two appends of phase
+   5d's slabs per temporal id; mean / std at auto, ②, ③; gradient and
+   laplacian at ③, ④; derivative on axis 1; an op set; divergence and curl
+   over vector ids; two expressions; a sub-basin and a transect; requests
+   on local ids; tmean / tstd / tdelta; four malformed requests) equals the
+   same step over one single-device store request by request, bitwise and
+   at the same stages; the malformed requests alone are rejected, with the
+   reference's exception types; each group issues its dispatch (one per
+   spatial group, one per temporal stream); every request replayed as its
+   own ``query()`` on fresh stores launches what the single-device query
+   launches and gives its bits; a per-shard budget evicts a region cell on
+   its home shard only and the cell recomputes bitwise; the word merge
+   launches none of the port's kernels; it prints host ms per warm step
+   beside the single-device store's, the merge's device µs and a profiler
+   trace of a warm step.  It runs last, after phase 6's traces;
 6. times: each kernel with CUDA events, as device time alone (a CUDA graph
    of the calls, taking turns over copies of the inputs so that they come
    from device memory, not the L2) and as host enqueue per call, its plain
@@ -104,7 +124,8 @@ Phases (any failure raises, so the exit code is non-zero):
    bound.
 
 Launch counters are reset just before each path (entry point, main path,
-region path; on the engine and stream paths, each query and append) and
+region path, the serve path's step; on the engine and stream paths and the
+serve path's replay, each query and append) and
 read just after it: each
 path must launch every kernel site it runs, every site must be launched on
 some path, and the region path must launch no payload kernel and no unpack
@@ -147,8 +168,13 @@ from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, stencil_dq)
 from repro_torch.core.stages import LEAVES, Encoded, layout_key  # noqa: E402
-from repro_torch.store import FieldStore, materialize  # noqa: E402
+from repro_torch.store import (  # noqa: E402
+    FieldStore, materialize, materialized_nbytes)
 from repro_torch.core.oplib import map_summaries  # noqa: E402
+from repro_torch.launch.mesh import make_analytics_mesh  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    AnalyticsFrontend, AnalyticsRequest, AppendRequest, StoreRouter)
+from repro_torch.shard import ShardedFieldStore  # noqa: E402
 from repro_torch.stream import StreamFieldStore, TemporalField  # noqa: E402
 from repro_torch.stream.query import _cold_summary, query_temporal  # noqa: E402
 
@@ -218,6 +244,8 @@ PATHS = {
                     "lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
                     "grad2d"),
     "stream path": ("unpack.residuals",),
+    "serve path": ("unpack.residuals", "lorenzo2d.edges", "lorenzo2d.stencil",
+                   "blockmean2d", "grad2d"),
 }
 
 LOG: list[str] = []
@@ -1694,8 +1722,10 @@ CROP_WINDOW = ((150, 451), (225, 676))
 HOT_REPS, COLD_REPS = 30, 10
 
 
-def stream_slabs(u: np.ndarray, v: np.ndarray, seed: int):
-    """The 8 slabs, made on the card one at a time: (STREAM_K, *OCEAN) f32.
+def stream_slabs(u: np.ndarray, v: np.ndarray, seed: int,
+                 n: int = STREAM_SLABS):
+    """The first ``n`` of the 8 slabs, made on the card one at a time:
+    (STREAM_K, *OCEAN) f32.
     One worker thread draws the next slab's noise while the card works on
     this one (one generator, drawn in order: the same numbers every run)."""
     rng = np.random.default_rng(seed)
@@ -1708,9 +1738,9 @@ def stream_slabs(u: np.ndarray, v: np.ndarray, seed: int):
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         pending = pool.submit(draw)
-        for i in range(STREAM_SLABS):
+        for i in range(n):
             noise = torch.as_tensor(pending.result(), device=DEVICE)
-            if i + 1 < STREAM_SLABS:
+            if i + 1 < n:
                 pending = pool.submit(draw)
             t = STREAM_OMEGA * np.arange(i * STREAM_K, (i + 1) * STREAM_K)
             c = torch.as_tensor(np.cos(t), dtype=torch.float32, device=DEVICE)
@@ -2057,6 +2087,430 @@ def stream_trace(out, tag: str) -> None:
         say(f"[{tag}] stream {scheme} Encoded cold query trace: "
             + trace_lines(kernels, busy, span))
         del slab, scratch, store
+
+
+# ===========================================================================
+# phase 5e: the serve path — AnalyticsFrontend over a StoreRouter of a
+# ShardedFieldStore and a StreamFieldStore
+# ===========================================================================
+
+#: the sharded store's meshes, by label: 8 shards on one card, then 1 shard
+#: (one shard per card is added where the machine has more than one)
+SERVE_MESHES = {"8 shards on cuda:0": ["cuda:0"] * 8, "1 shard": ["cuda:0"]}
+#: id prefix -> scheme of the Ocean (u, v) pair held by id
+SERVE_SCHEMES = {"p": "hszp_nd", "x": "hszx_nd"}
+#: budgets: every cell of the step stays resident in every store, so the
+#: residency that "auto" plans read evolves alike in all of them
+SERVE_SHARD_BYTES = 2 << 30
+SERVE_SINGLE_BYTES = 16 << 30
+#: appends per temporal id: phase 5d's first two slabs (8 timesteps each)
+SERVE_APPENDS = 2
+#: the temporal ids: sharded, local
+SERVE_TEMPORAL = ("s/T", "local/T")
+#: host-clock repetitions of a warm step
+STEP_REPS = 30
+#: the eviction check's region cells (hszx_nd u): block rows 0 and 1, homed
+#: on shards 0 and 1, and block row 8, homed on shard 0 again
+EVICT_ROWS = ((0, 16), (16, 32), (128, 144))
+#: malformed request -> the exception type the reference rejects it with
+#: (``tests/test_torch_serve.py`` holds the port's types equal to it)
+MALFORMED = {"unknown id": "KeyError", "empty op set": "ValueError",
+             "region out of bounds": "ValueError",
+             "duplicate component ids": "ValueError"}
+
+
+def _stage_name(st) -> str:
+    return st if isinstance(st, str) else st.name
+
+
+def serve_specs() -> list[tuple[str, dict]]:
+    """The step's analytics requests as (label, ``AnalyticsRequest``
+    fields): per scheme on sharded ids, mean and std at auto / ② / ③,
+    gradient and laplacian at ③ / ④, derivative on axis 1, an op set,
+    divergence and curl over vector ids, a sub-basin and a transect; two
+    expressions; requests on local ids; four malformed ones; tmean / tstd /
+    tdelta over each store's temporal id."""
+    specs = []
+    for k in SERVE_SCHEMES:
+        u, v = f"{k}/u", f"{k}/v"
+        for st in ("auto", Stage.P, Stage.Q):
+            for op in ("mean", "std"):
+                specs.append((f"{op}@{_stage_name(st)} {u}",
+                              dict(fields=u, op=op, stage=st)))
+        for op in ("gradient", "laplacian"):
+            for st in (Stage.Q, Stage.F):
+                specs.append((f"{op}@{st.name} {u}",
+                              dict(fields=u, op=op, stage=st)))
+        specs += [
+            (f"derivative axis 1@Q {u}",
+             dict(fields=u, op="derivative", stage=Stage.Q, axis=1)),
+            (f"op set mean+std+laplacian@Q {v}",
+             dict(fields=v, op=["mean", "std", "laplacian"], stage=Stage.Q)),
+            (f"divergence@Q ({u}, {v})",
+             dict(fields=(u, v), op="divergence", stage=Stage.Q)),
+            (f"curl@P ({u}, {v})",
+             dict(fields=(u, v), op="curl", stage=Stage.P)),
+            (f"sub-basin mean@Q {u}",
+             dict(fields=u, op="mean", stage=Stage.Q, region=R_BASIN)),
+            (f"transect gradient@P {u}",
+             dict(fields=u, op="gradient", stage=Stage.P,
+                  region=R_TRANSECT))]
+    specs += [("vorticity curl(p/u, p/v)",
+               dict(exprs=expr.curl(("p/u", "p/v")))),
+              ("mean(x/u) - mean(x/v)",
+               dict(exprs=expr.mean("x/u") - expr.mean("x/v")))]
+    for k in SERVE_SCHEMES:
+        specs += [(f"mean@Q local/{k}/u",
+                   dict(fields=f"local/{k}/u", op="mean", stage=Stage.Q)),
+                  (f"gradient@P local/{k}/u",
+                   dict(fields=f"local/{k}/u", op="gradient",
+                        stage=Stage.P))]
+    specs += [("unknown id", dict(fields="ghost", op="mean")),
+              ("empty op set", dict(fields="p/u", op=[])),
+              ("region out of bounds",
+               dict(fields="p/u", op="mean", region=((0, 5000), (0, 10)))),
+              ("duplicate component ids",
+               dict(fields=("p/u", "p/u"), op="curl"))]
+    for fid in SERVE_TEMPORAL:
+        specs.append((f"tmean+tstd+tdelta {fid}",
+                      dict(fields=fid, op=["tmean", "tstd", "tdelta"])))
+    return specs
+
+
+def serve_requests(slabs, appends: bool = True) -> list:
+    """Fresh request objects of one step: the appends (two slabs into each
+    temporal id), then the analytics requests of :func:`serve_specs`."""
+    pairs = [(slab, fid) for slab in slabs for fid in SERVE_TEMPORAL]
+    reqs = [AppendRequest(uid=i, field_id=fid, data=slab)
+            for i, (slab, fid) in enumerate(pairs if appends else ())]
+    n = len(reqs)
+    return reqs + [AnalyticsRequest(uid=n + i, **kw)
+                   for i, (_, kw) in enumerate(serve_specs())]
+
+
+def serve_temporal() -> TemporalField:
+    """A temporal id's stream: ``hszx_nd``, ``Compressed`` slabs (a banded
+    summary's region decode of an ``Encoded`` slab gathers its words with
+    host-built plans, one per band: 300 bands at Ocean size)."""
+    return TemporalField("hszx_nd", rel_eb=REL_EB, bits=None, device=DEVICE)
+
+
+def serve_stores(fields, devices, eng):
+    """A ``ShardedFieldStore`` over ``devices`` holding the ``Encoded`` (u,
+    v) of both schemes and ``s/T``, and a local ``StreamFieldStore`` holding
+    the same containers under ``local/`` ids and ``local/T``."""
+    sharded = ShardedFieldStore(make_analytics_mesh(devices=devices),
+                                SERVE_SHARD_BYTES, engine=eng)
+    local = StreamFieldStore(SERVE_SINGLE_BYTES, engine=eng)
+    for k, scheme in SERVE_SCHEMES.items():
+        for name, e in zip("uv", fields[scheme]["Encoded"]):
+            sharded.put(f"{k}/{name}", e)
+            local.put(f"local/{k}/{name}", e)
+    sharded.put_temporal(SERVE_TEMPORAL[0], serve_temporal())
+    local.put_temporal(SERVE_TEMPORAL[1], serve_temporal())
+    return sharded, local
+
+
+def single_store(fields, eng) -> StreamFieldStore:
+    """One single-device store holding every id of the step."""
+    store = StreamFieldStore(SERVE_SINGLE_BYTES, engine=eng)
+    for k, scheme in SERVE_SCHEMES.items():
+        for name, e in zip("uv", fields[scheme]["Encoded"]):
+            store.put(f"{k}/{name}", e)
+            store.put(f"local/{k}/{name}", e)
+    for fid in SERVE_TEMPORAL:
+        store.put_temporal(fid, serve_temporal())
+    return store
+
+
+@contextlib.contextmanager
+def group_queries():
+    """Record each group query the frontend issues: its ``n_dispatches``."""
+    mod = sys.modules["repro_torch.serve.analytics"]
+    seen, real = [], {n: getattr(mod, n) for n in ("_query_opset", "query")}
+
+    def spy(name):
+        def call(*args, **kw):
+            res = real[name](*args, **kw)
+            seen.append(res.n_dispatches)
+            return res
+        return call
+
+    for name in real:
+        setattr(mod, name, spy(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(mod, name, fn)
+
+
+def serve_step(fe, reqs) -> dict:
+    """One frontend step over ``reqs``: uid -> finished request."""
+    for r in reqs:
+        fe.add_request(r)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return {r.uid: r for r in fe.step()}
+
+
+def expected_dispatches(reqs, store) -> list[int]:
+    """The groups a step forms by the reference's rule, and the dispatches
+    each issues: analytics requests group by (canonical op set, stage, axis,
+    normalized region, layout), expression requests by (stage, region);
+    malformed ones form none.  A spatial or expression group issues one
+    dispatch; a temporal group one postlude per stream it holds."""
+    groups: dict[tuple, int] = {}
+    for r in reqs:
+        if isinstance(r, AppendRequest) or r.error is not None:
+            continue
+        if r.exprs is not None:
+            groups[("expr", str(r.stage), repr(r.region))] = 1
+            continue
+        ops_ = oplib.canonical_ops(r.op)
+        ids = r.fields if isinstance(r.fields, tuple) else (r.fields,)
+        items = [store.get(f) for f in ids]
+        lay = tuple(c.layout_sig() if hasattr(c, "layout_sig")
+                    else layout_key(c) for c in items)
+        sig = (ops_, str(r.stage), r.axis, r.region, lay)
+        temporal = oplib.is_temporal_ops(ops_)
+        groups[sig] = groups.get(sig, 0) + 1 if temporal else 1
+    return sorted(groups.values())
+
+
+def same_result(want, got, what: str) -> None:
+    if isinstance(want, dict):
+        if sorted(want) != sorted(got):
+            fail(f"{what}: ops {sorted(got)} vs {sorted(want)}")
+        for k in want:
+            bitwise_err(want[k], got[k], f"{what} {k}")
+    elif isinstance(want, list):
+        for i, (w, g) in enumerate(zip(want, got, strict=True)):
+            bitwise_err(w, g, f"{what} [{i}]")
+    else:
+        bitwise_err(want, got, what)
+
+
+def check_serve_step(done: dict, ref: dict, labels: dict, what: str) -> None:
+    """Every request answered or rejected; the malformed ones rejected with
+    the reference's exception type and nothing else rejected; every answer
+    bitwise the single-device frontend's, at the same stage."""
+    if sorted(done) != sorted(ref):
+        fail(f"{what}: finished uids {sorted(done)} vs {sorted(ref)}")
+    for uid, r in done.items():
+        label = labels.get(uid, "append")
+        if label in MALFORMED:
+            if r.error is None or not r.error.startswith(
+                    MALFORMED[label] + ": "):
+                fail(f"{what} {label}: rejected as {r.error!r}, want a "
+                     f"{MALFORMED[label]}")
+            continue
+        if r.error is not None:
+            fail(f"{what} {label}: rejected: {r.error}")
+        w = ref[uid]
+        if isinstance(r, AppendRequest):
+            if r.slab_index != w.slab_index:
+                fail(f"{what} append {uid}: slab {r.slab_index}")
+            continue
+        if repr(r.result_stage) != repr(w.result_stage):
+            fail(f"{what} {label}: stage {r.result_stage} vs "
+                 f"{w.result_stage}")
+        same_result(w.result, r.result, f"{what} {label}")
+
+
+def replay_query(store, kw: dict):
+    """One request's ``query()`` against ``store``."""
+    if "exprs" in kw:
+        return analytics.query(exprs=kw["exprs"], store=store)
+    return flat_query([kw["fields"]], kw["op"], kw.get("stage", "auto"),
+                      axis=kw.get("axis", 0), region=kw.get("region"),
+                      store=store)
+
+
+def replay(fields, slabs, devices, label: str) -> dict:
+    """Every request of the step as its own ``query()`` (appends as
+    ``append``) against fresh stores over ``devices`` behind a router and
+    against one fresh single-device store, in the step's order: the values
+    bitwise equal and the launches equal, request by request."""
+    eng = analytics.BatchedAnalytics()
+    sharded, local = serve_stores(fields, devices, eng)
+    router, single = StoreRouter(sharded, local), single_store(fields, eng)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    n = 0
+    for slab in slabs:
+        for fid in SERVE_TEMPORAL:
+            _, a = counted(single.append, fid, slab)
+            _, b = counted(router.append, fid, slab)
+            if a != b:
+                fail(f"5e {label} append {fid}: launches {b} vs {a}")
+    for name, kw in serve_specs():
+        if name in MALFORMED:
+            continue
+        want, a = counted(replay_query, single, kw)
+        got, b = counted(replay_query, router, kw)
+        if a != b:
+            diff = {k: (b[k], a[k]) for k in a if a[k] != b[k]}
+            fail(f"5e {label} {name}: launches (sharded, single) {diff}")
+        if got.stages != want.stages:
+            fail(f"5e {label} {name}: stages {got.stages} vs {want.stages}")
+        for i, (w, g) in enumerate(zip(want.values, got.values, strict=True)):
+            same_result(w, g, f"5e {label} {name} [{i}]")
+        for k, c in b.items():
+            total[k] += c
+        n += 1
+    detail(f"  5e replay {label}: {n} queries, launches "
+           f"{json.dumps({k: c for k, c in total.items() if c})}")
+    return {"queries": n, "launches": total}
+
+
+def check_eviction(fields, devices) -> str:
+    """At Ocean size, a per-shard budget of one region cell: the third cell
+    evicts the first on their shared home shard and leaves its sibling on
+    another shard resident; the evicted cell recomputes bitwise."""
+    e = fields["hszx_nd"]["Encoded"][0]
+    cells = [((a, b), (0, OCEAN[1])) for a, b in EVICT_ROWS]
+    budget = materialized_nbytes(e, Stage.Q, region=cells[0]) + 64
+    sv = ShardedFieldStore(make_analytics_mesh(devices=devices), budget)
+    sv.put("f", e)
+    homes = [sv.shard_of("f", Stage.Q, region=c) for c in cells]
+    if not (homes[0] != homes[1] and homes[0] == homes[2]):
+        fail(f"5e eviction: homes {homes}")
+    for c in cells[:2]:
+        sv.ensure("f", Stage.Q, region=c)
+    sv.ensure("f", Stage.Q, region=cells[2])
+    resident = [sv.is_resident("f", Stage.Q, region=c) for c in cells]
+    st = sv.shard_stats
+    if resident != [False, True, True] or sv.stats.evictions != 1 \
+            or st[homes[0]].evictions != 1 or st[homes[1]].evictions:
+        fail(f"5e eviction: resident {resident}, evictions "
+             f"{[s.evictions for s in st]}")
+    single = StreamFieldStore(SERVE_SINGLE_BYTES)
+    single.put("f", e)
+    want = flat_query(["f"], "mean", Stage.Q, region=cells[0], store=single)
+    got = flat_query(["f"], "mean", Stage.Q, region=cells[0], store=sv)
+    bitwise_err(want.values[0], got.values[0], "5e eviction recompute")
+    return (f"a {budget} B budget per shard: rows {EVICT_ROWS[0]} and "
+            f"{EVICT_ROWS[2]} homed on shard {homes[0]}, rows {EVICT_ROWS[1]}"
+            f" on shard {homes[1]}; the third cell evicted the first and only "
+            f"it, the sibling stayed; the evicted cell recomputed bitwise")
+
+
+def serve_path(fields, u, v, seed: int) -> dict:
+    """The step through a frontend over one single-device store (the
+    reference), then through a frontend over a router of a sharded store
+    and a local one, per mesh; each sharded step counted and held to the
+    reference; every request replayed one by one on fresh stores."""
+    slabs = list(stream_slabs(u, v, seed, n=SERVE_APPENDS))
+    single = single_store(fields, analytics.BatchedAnalytics())
+    ref_done = serve_step(AnalyticsFrontend(store=single),
+                          serve_requests(slabs))
+    n_app = len(slabs) * len(SERVE_TEMPORAL)
+    labels = {n_app + i: name for i, (name, _) in enumerate(serve_specs())}
+    meshes = dict(SERVE_MESHES)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes[f"1 shard per card ({min(8, n_cards)} cards)"] = [
+            f"cuda:{i}" for i in range(min(8, n_cards))]
+    else:
+        say("serve path: one shard per card skipped: 1 CUDA device")
+    out = {"slabs": slabs, "single": single, "runs": {}, "labels": labels,
+           "launches": None}
+    for label, devices in meshes.items():
+        eng = analytics.BatchedAnalytics()
+        sharded, local = serve_stores(fields, devices, eng)
+        fe = AnalyticsFrontend(store=StoreRouter(sharded, local))
+        reqs = serve_requests(slabs)
+        with group_queries() as groups:
+            done, launches = counted(serve_step, fe, reqs)
+        check_serve_step(done, ref_done, labels, f"5e {label}")
+        want = expected_dispatches(reqs, single)
+        if sorted(groups) != want:
+            fail(f"5e {label}: group queries with dispatches {groups}, "
+                 f"want {want} (one per spatial group, one per stream)")
+        if out["launches"] is None:
+            out["launches"] = launches
+        rep = replay(fields, slabs, devices, label)
+        out["runs"][label] = {"fe": fe, "sharded": sharded, "local": local,
+                              "groups": len(groups), "launches": launches,
+                              "replay": rep, "devices": devices}
+        n_rej = sum(r.error is not None for r in done.values())
+        say(f"serve path, {label}: {len(done)} requests in one step "
+            f"({n_app} appends) == the single-device "
+            f"frontend's, bitwise, at the same stages; {n_rej} malformed "
+            f"rejected with the reference's types, nothing else; "
+            f"{len(groups)} groups, {sum(groups)} dispatches (one per "
+            f"spatial group, one per temporal stream); launches "
+            f"{json.dumps({k: n for k, n in launches.items() if n})}; "
+            f"{rep['queries']} requests replayed one by one: launches and "
+            f"values == the single-device store's")
+    say("serve path eviction: " + check_eviction(
+        fields, SERVE_MESHES["8 shards on cuda:0"]))
+    return out
+
+
+def check_merge_launches(out) -> None:
+    """The word merge launches none of the port's kernels."""
+    sharded = out["runs"]["8 shards on cuda:0"]["sharded"]
+    progs = sharded.progs
+    for fid in ("p/u", "x/u"):
+        e = sharded.get(fid)
+        for region in (None, R_BASIN):
+            plan = None if region is None else R.plan_region(e, region,
+                                                              "hull")
+            routing = progs.routing(e, sharded.placement_of(fid), plan)
+            n_out = (plan.payload_gather(e.bits).n_words if plan is not None
+                     else int(e.payload.numel()))
+            _, got = counted(progs.merge_words, sharded._stripes[fid],
+                             routing, n_out)
+            if any(got.values()):
+                fail(f"5e merge {fid} {region}: launched "
+                     f"{ {k: n for k, n in got.items() if n} }")
+
+
+def time_serve(out, tag: str) -> None:
+    """Host ms per warm step (no appends) over the sharded router beside the
+    single-device store; the word merge's device µs, full field and
+    sub-basin; a ``torch.profiler`` trace of one warm sharded step."""
+    slabs = out["slabs"]
+    ref_fe = AnalyticsFrontend(store=out["single"])
+    n = len(serve_specs())
+    parts = []
+    for label, run in out["runs"].items():
+        t = host_ms(lambda fe=run["fe"]: serve_step(
+            fe, serve_requests(slabs, appends=False)), STEP_REPS)
+        parts.append(f"{label} {_spread(t)}")
+    t = host_ms(lambda: serve_step(ref_fe, serve_requests(slabs, False)),
+                STEP_REPS)
+    parts.append(f"single-device store {_spread(t)}")
+    say(f"[{tag}] serve step of {n} requests (warm stores, no appends), host "
+        f"ms, median of {STEP_REPS}: " + "; ".join(parts))
+    run = out["runs"]["8 shards on cuda:0"]
+    sharded = run["sharded"]
+    progs = sharded.progs
+    e = sharded.get("p/u")
+    for name, region in (("full field", None), ("sub-basin", R_BASIN)):
+        plan = None if region is None else R.plan_region(e, region, "hull")
+        routing = progs.routing(e, sharded.placement_of("p/u"), plan)
+        n_out = (plan.payload_gather(e.bits).n_words if plan is not None
+                 else int(e.payload.numel()))
+        fn = functools.partial(progs.merge_words, sharded._stripes["p/u"],
+                               routing, n_out)
+        ev = cuda_ms(fn, REPS)
+        alone = graph_ms(fn, REPS)
+        w_bytes = 4 * n_out
+        say(f"[{tag}] serve word merge, hszp_nd u {name} ({n_out} words of "
+            f"{e.bits} bits, 8 shards on one card): {alone * 1e3:.1f} us "
+            f"device alone (L2-warm graph of {REPS}), {ev * 1e3:.1f} us by "
+            f"events; the merged words {w_bytes / 1e6:.2f} MB")
+    fe = run["fe"]
+    for _ in range(2):
+        serve_step(fe, serve_requests(slabs, appends=False))
+    torch.cuda.synchronize()
+    kernels, busy, span = trace_window(
+        lambda: serve_step(fe, serve_requests(slabs, appends=False)),
+        "serve.step")
+    say(f"[{tag}] serve step trace (8 shards on one card, warm): "
+        + trace_lines(kernels, busy, span))
 
 
 # ===========================================================================
@@ -2823,6 +3277,20 @@ def main() -> None:
     time_engine(efields, tag)
     engine_trace(efields, tag)
 
+    phase_s["5e"] = time.perf_counter()
+    # 5e. the serve path: one frontend step over a router of a sharded store
+    # (8 shards on the card, then 1) and a local one, held to the same step
+    # over a single-device store and replayed query by query.  It runs after
+    # phase 6's traces: once it had run, the profiler dropped the first
+    # kernel of every later trace (PERF.md §7)
+    serve_out = serve_path(fields, u, v, args.seed)
+    path_launches["serve path"] = serve_out["launches"]
+    require_launches("serve path", path_launches["serve path"])
+    check_merge_launches(serve_out)
+    phase_s["5e times"] = time.perf_counter()
+    time_serve(serve_out, tag)
+    del serve_out
+
     kernels = []
     for name, (source, replaces) in SITES.items():
         t = times[name]
@@ -2836,7 +3304,8 @@ def main() -> None:
             "bound_by": t["bound_by"], "library_ms": None,
             "region_launches": path_launches["region path"][name],
             "engine_launches": path_launches["engine path"][name],
-            "stream_launches": path_launches["stream path"][name]})
+            "stream_launches": path_launches["stream path"][name],
+            "serve_launches": path_launches["serve path"][name]})
         if name == "unpack.residuals":
             kernels[-1]["slab"] = slab_times
         if name == "prefix_stats2d.stats":

@@ -395,11 +395,37 @@ class StageSetPlan:
         return 1 if self.fused is not None else len(self.ops)
 
 
+def _max_shard_fraction(field, op: str, stage: Stage, region, axis: int,
+                        placement) -> float:
+    """Sharded replacement for :func:`repro_torch.core.region
+    .closure_fraction`: the *max* over participating shards of each shard's
+    share of the stage's decode work — shards reconstruct their owned blocks
+    concurrently, so the critical path is the busiest shard, never the sum.
+    Stage ① touches metadata only (no payload decode), so it keeps the
+    spatial fraction."""
+    stage = Stage(stage)
+    if stage == Stage.M:
+        return (1.0 if region is None or field is None
+                else region_mod.closure_fraction(field, op, stage, region,
+                                                 axis=axis))
+    if op in ("divergence", "curl"):
+        nd = len(field.shape) if field is not None else 1
+        fr = [_max_shard_fraction(field, "derivative", stage, region, a,
+                                  placement) for a in range(nd)]
+        return sum(fr) / len(fr)
+    if region is None or field is None:
+        return placement.max_fraction(None)
+    closure = region_mod.op_closure(field.scheme, op, stage, axis)
+    plan = region_mod.plan_region(field, region, closure)
+    return placement.max_fraction(plan)
+
+
 def plan_stages(scheme: Scheme, ops: str | Sequence[str],
                 stage: Stage | str | int = "auto",
                 cost_model: CostModel | None = None, *,
                 region=None, field=None, axis: int = 0,
-                cached: AbstractSet[Stage] | None = None) -> StageSetPlan:
+                cached: AbstractSet[Stage] | None = None,
+                placement=None) -> StageSetPlan:
     """Jointly resolve the execution stage(s) for an op *set*.
 
     An explicit stage is validated against every op in the set.  With
@@ -413,6 +439,13 @@ def plan_stages(scheme: Scheme, ops: str | Sequence[str],
     ``cached`` stages (store-resident materializations) are priced without
     their reconstruction term, which can flip the shared stage to a higher
     one that is already resident.
+
+    ``placement`` (a :class:`repro_torch.shard.BlockPlacement`, duck-typed)
+    turns on the sharded cost rule: each op's reconstruction cost scales by
+    the **max** per-shard share of its closure instead of the whole-field
+    (or region) fraction — participating shards decode concurrently
+    (:func:`_max_shard_fraction`).  Only the calibrated totals change; the
+    feasibility and residency logic is placement-blind.
 
     ``plan_stages(scheme, [op])`` always agrees with ``plan_stage``.
     """
@@ -468,10 +501,14 @@ def plan_stages(scheme: Scheme, ops: str | Sequence[str],
         def cost(op: str, s: Stage) -> float:
             key = (op, s)
             if key not in fractions:
-                fractions[key] = (
-                    1.0 if region is None or field is None
-                    else region_mod.closure_fraction(field, op, s, region,
-                                                     axis=axis))
+                if placement is not None:
+                    fractions[key] = _max_shard_fraction(
+                        field, op, s, region, axis, placement)
+                else:
+                    fractions[key] = (
+                        1.0 if region is None or field is None
+                        else region_mod.closure_fraction(field, op, s, region,
+                                                         axis=axis))
             return (cost_model.cost(scheme, op, s, cached=s in cached)
                     * fractions[key])
 

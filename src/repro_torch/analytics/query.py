@@ -75,6 +75,8 @@ class QueryResult:
 def _group_signature(item: FieldOrVector, vector: bool) -> tuple:
     if vector:
         return tuple(layout_key(c) for c in item)
+    if hasattr(item, "layout_sig"):  # TemporalField (repro_torch.stream)
+        return item.layout_sig()
     return layout_key(item)
 
 
@@ -273,14 +275,23 @@ def _query_opset(fields: Sequence[FieldOrVector],
         group = [resolved[i] for i in indices]
         first = group[0][0] if vector else group[0]
         cached = None
+        placement = None
         if store_backed:
             sets = [store.cached_stages(ids[i], names, region=region,
                                         axis=d_axis) for i in indices]
             cached = frozenset.intersection(*sets)
+            # a sharded store prices reconstruction as the max over
+            # participating shards (repro_torch.shard); single-device stores
+            # don't expose placement_of and keep the spatial fraction
+            placement_of = getattr(store, "placement_of", None)
+            if placement_of is not None:
+                fid0 = ids[indices[0]]
+                placement = placement_of(fid0 if isinstance(fid0, str)
+                                         else fid0[0])
         plan = plan_stages(first.scheme, names, stage,
                            cost_model or engine.cost_model,
                            region=region, field=first, axis=d_axis,
-                           cached=cached)
+                           cached=cached, placement=placement)
         seeds = None
         if (store_backed and plan.fused is not None
                 and plan.fused != Stage.M):

@@ -1,0 +1,12 @@
+"""Serving: batched homomorphic analytics and streaming temporal ingest.
+
+:class:`AnalyticsFrontend` queues :class:`AnalyticsRequest` and
+:class:`AppendRequest` and serves each step's groups with one engine
+dispatch each; :class:`StoreRouter` puts a sharded store
+(``repro_torch.shard``) and a single-device store behind one id namespace.
+"""
+from .analytics import AnalyticsFrontend, AnalyticsRequest, AppendRequest
+from .routing import StoreRouter
+
+__all__ = ["AnalyticsFrontend", "AnalyticsRequest", "AppendRequest",
+           "StoreRouter"]

@@ -14,7 +14,8 @@ port with ``convert.from_arrays``.  What is held, with its tolerance:
   ``CostModel`` JSON in both directions (each package loads the other's
   ``save``), and the engine's ``cache_size`` after the same sequence.
 
-The serve-side tests of ``tests/test_store.py`` wait for the serving slice.
+The serve-side tests of ``tests/test_store.py`` are mirrored in
+``tests/test_torch_serve.py``.
 """
 import json
 

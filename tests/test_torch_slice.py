@@ -342,7 +342,9 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.core.homomorphic, "
             "repro_torch.kernels.fused, repro_torch.convert, "
-            "repro_torch.data.scientific")
+            "repro_torch.data.scientific, repro_torch.serve, "
+            "repro_torch.shard, repro_torch.launch.mesh; "
+            "assert not [m for m in sys.modules if m.split('.')[0] == 'repro']")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

@@ -21,8 +21,9 @@ What is held, with its tolerance:
 * the engine's program cache grows as the reference's jit cache does;
 * the same exception types for the same conditions.
 
-The reference's two ``test_serve_append_*`` tests wait for the serving
-slice.  The ``gpu`` tests need a card and skip without one.
+The reference's two ``test_serve_append_*`` tests are mirrored in
+``tests/test_torch_serve.py``.  The ``gpu`` tests need a card and skip
+without one.
 """
 import functools
 
