@@ -67,6 +67,11 @@ SIGNATURES = {
     "hsz_grad2d": (_P, _I, _I, _P, _P, _P),
     # q, n0, n1, out, stream
     "hsz_laplacian2d": (_P, _I, _I, _P, _P),
+    # kernel id (specs.KERNEL_IDS), &static_smem, &dynamic_smem, &regs,
+    # &blocks_per_sm
+    "hsz_func_attrs": (_I, _P, _P, _P, _P),
+    # &bytes: the card's shared memory per block with the opt-in
+    "hsz_smem_optin": (_P,),
 }
 
 _LOCK = threading.Lock()

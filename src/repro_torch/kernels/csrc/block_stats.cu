@@ -71,3 +71,10 @@ extern "C" int hsz_block_stats(const void* q, long long n_blocks, int s_len,
       static_cast<int32_t*>(maxu));
   return (int)cudaGetLastError();
 }
+
+namespace hsz {
+const KernelInfo block_stats_info[] = {
+    {"block_stats_kernel", (const void*)block_stats_kernel, NT, 0},
+};
+const KernelTable block_stats_kernels = {block_stats_info, 1};
+}  // namespace hsz

@@ -409,3 +409,29 @@ extern "C" int hsz_blockmean_info(int from_payload, int what, int* smem_bytes,
   *blocks_per_sm = c.per_sm;
   return (int)c.err;
 }
+
+namespace hsz {
+const KernelInfo blockmean_info[] = {
+    {"blockmean_kernel<false, DERIV0>", (const void*)blockmean_kernel<false, DERIV0>, NT,
+     smem_bytes(DERIV0)},
+    {"blockmean_kernel<false, DERIV1>", (const void*)blockmean_kernel<false, DERIV1>, NT,
+     smem_bytes(DERIV1)},
+    {"blockmean_kernel<false, GRAD>", (const void*)blockmean_kernel<false, GRAD>, NT,
+     smem_bytes(GRAD)},
+    {"blockmean_kernel<false, LAP_P>", (const void*)blockmean_kernel<false, LAP_P>, NT,
+     smem_bytes(LAP_P)},
+    {"blockmean_kernel<false, LAP_Q>", (const void*)blockmean_kernel<false, LAP_Q>, NT,
+     smem_bytes(LAP_Q)},
+    {"blockmean_kernel<true, DERIV0>", (const void*)blockmean_kernel<true, DERIV0>, NT,
+     smem_bytes(DERIV0)},
+    {"blockmean_kernel<true, DERIV1>", (const void*)blockmean_kernel<true, DERIV1>, NT,
+     smem_bytes(DERIV1)},
+    {"blockmean_kernel<true, GRAD>", (const void*)blockmean_kernel<true, GRAD>, NT,
+     smem_bytes(GRAD)},
+    {"blockmean_kernel<true, LAP_P>", (const void*)blockmean_kernel<true, LAP_P>, NT,
+     smem_bytes(LAP_P)},
+    {"blockmean_kernel<true, LAP_Q>", (const void*)blockmean_kernel<true, LAP_Q>, NT,
+     smem_bytes(LAP_Q)},
+};
+const KernelTable blockmean_kernels = {blockmean_info, 10};
+}  // namespace hsz

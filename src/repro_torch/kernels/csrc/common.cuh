@@ -53,4 +53,29 @@ __device__ __forceinline__ void store4(uint32_t* out, long long k, int j, int n1
   }
 }
 
+// One kernel instantiation of a source, as hsz_func_attrs reads it: its name
+// as kernels/specs.py lists it, the kernel, its threads per block and the
+// dynamic shared memory it is launched with (at its largest).
+struct KernelInfo {
+  const char* name;
+  const void* fn;
+  int threads;
+  int dynamic_smem;
+};
+
+struct KernelTable {
+  const KernelInfo* info;
+  int n;
+};
+
+// Every source's instantiations, each defined in its own source (attrs.cu
+// concatenates them in the order of specs.KERNEL_IDS).
+extern const KernelTable pack_kernels;
+extern const KernelTable quant_lorenzo_kernels;
+extern const KernelTable block_stats_kernels;
+extern const KernelTable stencil_dq_kernels;
+extern const KernelTable unpack_kernels;
+extern const KernelTable lorenzo_kernels;
+extern const KernelTable blockmean_kernels;
+
 }  // namespace hsz

@@ -1088,3 +1088,34 @@ extern "C" int hsz_prefix_stats_info(int* smem_bytes, int* regs, int* blocks_per
   *blocks_per_sm = c.per_sm;
   return (int)c.err;
 }
+
+namespace hsz {
+const KernelInfo lorenzo_info[] = {
+    {"lorenzo_edges_kernel<false>", (const void*)lorenzo_edges_kernel<false>, NT, 0},
+    {"lorenzo_edges_kernel<true>", (const void*)lorenzo_edges_kernel<true>, NT, 0},
+    {"lorenzo_scan_kernel", (const void*)lorenzo_scan_kernel, NT, 0},
+    {"corner_scan_kernel", (const void*)corner_scan_kernel, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV0>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV0>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV1>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV1>, NT, 0},
+    {"lorenzo_stencil_kernel<false, GRAD>", (const void*)
+     lorenzo_stencil_kernel<false, GRAD>, NT, 0},
+    {"lorenzo_stencil_kernel<false, LAP>", (const void*)
+     lorenzo_stencil_kernel<false, LAP>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV0>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV0>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV1>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV1>, NT, 0},
+    {"lorenzo_stencil_kernel<true, GRAD>", (const void*)
+     lorenzo_stencil_kernel<true, GRAD>, NT, 0},
+    {"lorenzo_stencil_kernel<true, LAP>", (const void*)
+     lorenzo_stencil_kernel<true, LAP>, NT, 0},
+    {"prefix_stats_tile_kernel<false>", (const void*)prefix_stats_tile_kernel<false>, NT,
+     PS_SMEM},
+    {"prefix_stats_tile_kernel<true>", (const void*)prefix_stats_tile_kernel<true>, NT,
+     PS_SMEM},
+    {"prefix_stats_reduce_kernel", (const void*)prefix_stats_reduce_kernel, NT, 0},
+};
+const KernelTable lorenzo_kernels = {lorenzo_info, 15};
+}  // namespace hsz

@@ -21,6 +21,8 @@
 
 namespace {
 
+constexpr int NT = 256;  // threads per block
+
 __global__ void pack_kernel(const uint32_t* __restrict__ u, long long n,
                             uint32_t* __restrict__ words, long long n_words, int bits) {
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -49,10 +51,16 @@ extern "C" int hsz_pack(const void* u, long long n, void* words, long long n_wor
   if (bits < 1 || bits > 31 || n < 0 || n_words != (n * bits + 31) / 32)
     return (int)cudaErrorInvalidValue;
   if (n_words == 0) return 0;
-  const int threads = 256;
-  long long blocks = (n_words + threads - 1) / threads;
+  long long blocks = (n_words + NT - 1) / NT;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  pack_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  pack_kernel<<<(unsigned)blocks, NT, 0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(u), n, static_cast<uint32_t*>(words), n_words, bits);
   return (int)cudaGetLastError();
 }
+
+namespace hsz {
+const KernelInfo pack_info[] = {
+    {"pack_kernel", (const void*)pack_kernel, NT, 0},
+};
+const KernelTable pack_kernels = {pack_info, 1};
+}  // namespace hsz

@@ -61,3 +61,10 @@ extern "C" int hsz_quant_lorenzo2d(const void* x, int n0, int n1, const void* in
       static_cast<int32_t*>(p));
   return (int)cudaGetLastError();
 }
+
+namespace hsz {
+const KernelInfo quant_lorenzo_info[] = {
+    {"quant_lorenzo2d_kernel", (const void*)quant_lorenzo2d_kernel, NT, 0},
+};
+const KernelTable quant_lorenzo_kernels = {quant_lorenzo_info, 1};
+}  // namespace hsz

@@ -85,3 +85,11 @@ extern "C" int hsz_laplacian2d(const void* q, int n0, int n1, void* out,
       static_cast<const int32_t*>(q), n1, m0, m1, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }
+
+namespace hsz {
+const KernelInfo stencil_dq_info[] = {
+    {"grad2d_kernel", (const void*)grad2d_kernel, NT, 0},
+    {"laplacian2d_kernel", (const void*)laplacian2d_kernel, NT, 0},
+};
+const KernelTable stencil_dq_kernels = {stencil_dq_info, 2};
+}  // namespace hsz

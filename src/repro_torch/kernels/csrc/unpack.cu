@@ -192,3 +192,13 @@ extern "C" int hsz_unpack_info(int unzigzag, int* smem_bytes, int* regs, int* bl
   *blocks_per_sm = c.per_sm;
   return (int)c.err;
 }
+
+namespace hsz {
+const KernelInfo unpack_info[] = {
+    {"unpack_kernel<false>", (const void*)unpack_kernel<false>, NT,
+     2 * buffer_words(31) * (int)sizeof(uint32_t)},
+    {"unpack_kernel<true>", (const void*)unpack_kernel<true>, NT,
+     2 * buffer_words(31) * (int)sizeof(uint32_t)},
+};
+const KernelTable unpack_kernels = {unpack_info, 2};
+}  // namespace hsz
