@@ -42,6 +42,10 @@ Phases (any failure raises, so the exit code is non-zero):
    from pre-gathered payload words against the plain region queries,
    bitwise; an A/B pass with the fused rules off; every gathered sub-plane
    fed to ``lorenzo2d`` / ``blockmean2d`` against their plain versions;
+   then the warm full-field and region cells once more under
+   ``torch.cuda.set_sync_debug_mode("warn")``: every distinct host sync is
+   printed with the port's frames that raised it, and one in a kernel
+   wrapper or under a ``FusedRule.fn`` fails;
 5c. the engine path (``repro_torch.analytics``) on eight same-layout Ocean
    fields per scheme (u and v of ``synth_field`` seeds 0-3), ``Compressed``
    and ``Encoded``: (a) ``BatchedAnalytics().run`` of mean / std / gradient
@@ -137,11 +141,36 @@ Phases (any failure raises, so the exit code is non-zero):
    65 537 and 65 539 rows; unpack and pack at 2048·k ± 1 values and widths
    1, 7, 16, 17, 31; Ocean): every window cell written, no guard word
    touched, the two launches bitwise equal and equal to the plain
-   versions (``prefix_stats2d``: to the exact sums rounded once).
+   versions (``prefix_stats2d``: to the exact sums rounded once);
+8. (a) the science store (``repro_torch.data.ScientificStore``) at scale 1,
+   Ocean at full size, ``hszp_nd`` and ``hszx_nd``, ``rel_eb`` 1e-3, on the
+   card: it synthesizes, compresses and writes the ``.hsz`` files; then
+   ``tests/test_system.py``'s pipeline (mean@① within 2·eps of the
+   decompressed mean, laplacian at ②③ and divergence at ③ within 1e-4 of
+   ④), ``stats``, ``derivative_features`` and ``raw``, held against the CPU
+   port reading the same bytes (integer-rounded outputs bitwise, statistics
+   and divergence with the slice tolerances); the path must launch the
+   ``lorenzo2d`` kernels and ``blockmean2d`` (the ``hszx_nd`` store's
+   gradient@③); host ms per ``stats`` / ``derivative_features``.
+   (b) LM serving at ``smollm-360m``'s published widths and depth (32
+   layers, d_model 960, 15 heads / kv 5, head_dim 64, d_ff 2560, vocab
+   49152), f32 params from a seeded generator on the card, bf16 compute:
+   ``Engine(slots=4, max_len=128)`` with ``launch/serve.py``'s defaults (8
+   requests, prompt 8, 16 new tokens), ``kv_quant`` off and on, every
+   request drained; one request's tokens == a manual greedy loop; at f32
+   compute, 8 teacher-forced decode steps against ``full_logits`` (top-1
+   ≥ 0.9, rtol 0.1 / atol 0.15) and prefill -> decode against step-by-step
+   decode; tokens per second, ms per warm decode step, KV bytes per slot,
+   and a profiler trace of one step with the layers' weight casts
+   (``cast_tree``) timed on their own; then the reduced ``qwen3-4b``,
+   ``granite-moe-3b-a800m``, ``deepseek-v3-671b`` and ``paligemma-3b`` at
+   f32 compute on the card against the CPU port with the same params
+   (logits rtol / atol 1e-4, greedy engine tokens equal).  Phase 8 runs
+   after phase 7 and before 5e.
 
 Launch counters are reset just before each path (entry point, main path,
-region path, the serve path's step; on the engine and stream paths and the
-serve path's replay, each query and append) and
+region path, the serve path's step, the science store's path; on the engine
+and stream paths and the serve path's replay, each query and append) and
 read just after it: each
 path must launch every kernel site it runs, every site must be launched on
 some path, and the region path must launch no payload kernel and no unpack
@@ -161,6 +190,7 @@ import functools
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -180,7 +210,11 @@ from repro_torch.core import blocking, expr, oplib, quantize  # noqa: E402
 from repro_torch.core import fused as rules  # noqa: E402
 from repro_torch.core import homomorphic as H  # noqa: E402
 from repro_torch.core import region as R  # noqa: E402
+from repro_torch.configs import ARCHS, reduced  # noqa: E402
+from repro_torch.data import ScientificStore  # noqa: E402
 from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
+from repro_torch.models import get_model, transformer  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, specs,
     stencil_dq)
@@ -190,7 +224,8 @@ from repro_torch.store import (  # noqa: E402
 from repro_torch.core.oplib import map_summaries  # noqa: E402
 from repro_torch.launch.mesh import make_analytics_mesh  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
-    AnalyticsFrontend, AnalyticsRequest, AppendRequest, StoreRouter)
+    AnalyticsFrontend, AnalyticsRequest, AppendRequest, Engine, Request,
+    StoreRouter)
 from repro_torch.shard import ShardedFieldStore  # noqa: E402
 from repro_torch.stream import StreamFieldStore, TemporalField  # noqa: E402
 from repro_torch.stream.query import _cold_summary, query_temporal  # noqa: E402
@@ -263,6 +298,7 @@ PATHS = {
     "stream path": ("unpack.residuals",),
     "serve path": ("unpack.residuals", "lorenzo2d.edges", "lorenzo2d.stencil",
                    "blockmean2d", "grad2d"),
+    "science store": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d"),
 }
 
 LOG: list[str] = []
@@ -2874,6 +2910,440 @@ def check_coverage(seed: int, cases=None) -> set[str]:
 
 
 # ===========================================================================
+# host syncs on the query path (phases 5 / 5b's warm queries)
+# ===========================================================================
+
+#: a frame of the port's kernel wrappers (``src/repro_torch/kernels/``)
+KERNEL_DIR = str(ROOT / "src" / "repro_torch" / "kernels")
+PORT_DIR = str(ROOT / "src" / "repro_torch")
+
+
+def _rule_codes() -> set:
+    """The code objects of every ``FusedRule.fn``."""
+    return {r.fn.__code__ for table in (rules.DERIVATIVE, rules.GRADIENT,
+                                        rules.LAPLACIAN)
+            for r in table.values()}
+
+
+def sync_audit(fields) -> None:
+    """The warm full-field cells of phase 5 and region cells of phase 5b
+    once more under ``torch.cuda.set_sync_debug_mode("warn")``: every
+    distinct host sync by the innermost frame of the port that raised it,
+    with its count and the port's frames above it.  A sync in a kernel
+    wrapper or under a ``FusedRule.fn`` fails: the audit's host-sync lint
+    says there is none there."""
+    calls = []
+    for scheme in SCHEMES:
+        for container, (fu, fv) in fields[scheme].items():
+            for op, stage in feasible(scheme):
+                calls.append(functools.partial(run_cell, op, stage, fu, fv))
+            for name, window in WINDOWS.items():
+                for op, stage in region_cells(scheme, name):
+                    calls.append(functools.partial(run_cell, op, stage, fu, fv,
+                                                   window))
+    for fn in calls:    # warm: plans, device caches, programs
+        fn()
+    torch.cuda.synchronize()
+    codes = _rule_codes()
+    found: dict[str, dict] = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frames, f = [], sys._getframe(1)
+        while f is not None:
+            frames.append(f)
+            f = f.f_back
+        port = [f for f in frames if f.f_code.co_filename.startswith(PORT_DIR)]
+        site = port[0] if port else frames[0]
+        path = site.f_code.co_filename.removeprefix(str(ROOT) + "/")
+        key = f"{path}:{site.f_lineno} {site.f_code.co_name}"
+        entry = found.setdefault(key, {
+            "count": 0, "message": str(message).splitlines()[0],
+            "chain": " <- ".join(f"{pathlib.Path(f.f_code.co_filename).name}:"
+                                 f"{f.f_lineno} {f.f_code.co_name}"
+                                 for f in port[:6]),
+            "in_wrapper": any(f.f_code.co_filename.startswith(KERNEL_DIR)
+                              for f in port),
+            "in_rule": any(f.f_code in codes for f in frames)})
+        entry["count"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    say(f"host syncs under set_sync_debug_mode('warn') over {len(calls)} warm "
+        f"full-field and region queries: {len(found)} distinct, "
+        f"{sum(e['count'] for e in found.values())} in all")
+    for key, e in sorted(found.items(), key=lambda kv: -kv[1]["count"]):
+        say(f"  sync x{e['count']} at {key}: {e['message']}; frames "
+            f"{e['chain']}")
+    bad = [k for k, e in found.items() if e["in_wrapper"] or e["in_rule"]]
+    if bad:
+        fail(f"host syncs in a kernel wrapper or a FusedRule.fn: {bad}")
+
+
+# ===========================================================================
+# phase 8: the science store at scale 1 and LM serving at full width
+# ===========================================================================
+
+#: where phase 8's stores keep their ``.hsz`` files (``build/`` is ignored)
+STORE_ROOT = ROOT / "build" / "hsz_store"
+#: the stores' scale: 1 is Ocean at full size (2400 x 3600)
+STORE_SCALE = 1
+#: host ms of ``stats`` / ``derivative_features``: each call deserializes
+#: the 6.3 MB blob on the host (0.7-0.9 s a call on the card's machine), so
+#: 3 calls, not 30, keep phase 8 near its time budget
+STORE_REPS = 3
+LM_ARCH = "smollm-360m"
+#: launch/serve.py's defaults
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_PROMPT, LM_NEW = 4, 128, 8, 8, 16
+LM_STEP_REPS = 20
+#: the reduced archs held against the CPU port at f32 compute
+LM_SMALL = ("qwen3-4b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+            "paligemma-3b")
+#: f32 compute, card vs CPU: the same arithmetic summed in another order
+LM_TOL = dict(rtol=1e-4, atol=1e-4)
+#: the reference test's tolerance between a decode and a full forward
+LM_LOOSE = dict(rtol=0.1, atol=0.15)
+
+
+def science_stores(seed: int, device) -> dict:
+    """``ScientificStore`` at scale 1 (Ocean at full size) for both n-D
+    schemes over ``STORE_ROOT``: ``hszp_nd`` holds (u, v), ``hszx_nd`` u."""
+    return {s: ScientificStore(compressor_name=s, scale=STORE_SCALE,
+                               rel_eb=REL_EB, seed=seed,
+                               root=str(STORE_ROOT / s), device=device)
+            for s in SCHEMES}
+
+
+def science_path(stores) -> dict:
+    """test_system's pipeline and the store's accessors on one device:
+    mean@① of the ``hszx_nd`` u, laplacian at ②③④ and divergence at ③④ of
+    the ``hszp_nd`` (u, v), then stats / derivative_features / raw."""
+    xs, ps = stores["hszx_nd"], stores["hszp_nd"]
+    cx = xs.get("Ocean", 0).open()
+    cu, cv = ps.get("Ocean", 0).open(), ps.get("Ocean", 1).open()
+    out = {"cx": cx, "cu": cu,
+           "mean@M": H.mean(cx, Stage.M), "raw x": xs.raw("Ocean", 0),
+           "div": {st: H.divergence([cu, cv], st) for st in (Stage.Q, Stage.F)},
+           "lap": {st: H.laplacian(cu, st)
+                   for st in (Stage.P, Stage.Q, Stage.F)}}
+    for s, st in stores.items():
+        out[s] = {"stats": st.stats("Ocean", 0), "raw": st.raw("Ocean", 0),
+                  "feat": st.derivative_features("Ocean", 0)}
+    out["feat v"] = ps.derivative_features("Ocean", 1)
+    return out
+
+
+def check_science(seed: int, tag: str) -> dict:
+    """8a: the stores on the card (they synthesize, compress and write the
+    ``.hsz`` files), test_system's checks on the card, everything held
+    against the CPU port reading the same bytes; host ms per accessor."""
+    shutil.rmtree(STORE_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    card = science_stores(seed, DEVICE)
+    for s, st in card.items():
+        st.get("Ocean", 0)
+    card["hszp_nd"].get("Ocean", 1)
+    t_put = time.perf_counter() - t0
+    ops.reset_launches()
+    got = science_path(card)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    require_launches("science store", launches)
+    # test_system's own checks, on the card
+    raw = got["raw x"].double()
+    eps = float(got["cx"].eps)
+    gap = abs(float(got["mean@M"]) - float(raw.mean()))
+    if not gap <= 2 * eps:
+        fail(f"science store: mean@M off the decompressed mean by {gap} > 2 eps")
+    lap_gap = max(float((got["lap"][st] - got["lap"][Stage.F]).abs().max())
+                  for st in (Stage.P, Stage.Q))
+    div_gap = float((got["div"][Stage.Q] - got["div"][Stage.F]).abs().max())
+    if not (lap_gap < 1e-4 and div_gap < 1e-4):
+        fail(f"science store: laplacian ②③ vs ④ {lap_gap}, divergence ③ vs "
+             f"④ {div_gap} (limit 1e-4)")
+    # the CPU port on the same bytes
+    host = science_path(science_stores(seed, "cpu"))
+    worst = {"stat": 0.0, "vector": 0.0}
+    bitwise_err(host["raw x"], got["raw x"].cpu(), "store raw hszx_nd")
+    worst["stat"] = close_stat(host["mean@M"], got["mean@M"].cpu(), host["cx"],
+                               Stage.M, "mean", "store mean@M")
+    for st, val in got["lap"].items():
+        bitwise_err(host["lap"][st], val.cpu(), f"store laplacian@{st.name}")
+    for st, val in got["div"].items():
+        worst["vector"] = max(worst["vector"], close_vector(
+            host["div"][st], val.cpu(), f"store divergence@{st.name}"))
+    for s in SCHEMES:
+        field = host["cx"] if s == "hszx_nd" else host["cu"]
+        stage1 = Stage.M if s == "hszx_nd" else Stage.P
+        for op, stage in (("mean", stage1), ("std", Stage.P)):
+            worst["stat"] = max(worst["stat"], close_stat(
+                host[s]["stats"][op], got[s]["stats"][op], field, stage, op,
+                f"store {s} stats {op}"))
+        bitwise_err(host[s]["raw"], got[s]["raw"].cpu(), f"store {s} raw")
+        bitwise_err(host[s]["feat"], to_cpu(got[s]["feat"]),
+                    f"store {s} derivative_features")
+    bitwise_err(host["feat v"], to_cpu(got["feat v"]),
+                "store hszp_nd derivative_features (v)")
+    say(f"[{tag}] science store at scale {STORE_SCALE} (Ocean "
+        f"{tuple(got['cu'].shape)}, rel_eb {REL_EB}): "
+        f"stores written in {t_put:.1f} s; mean@① - decompressed mean "
+        f"{gap:.3g} <= 2 eps {2 * eps:.3g}; laplacian ②③ vs ④ {lap_gap:.3g}, "
+        f"divergence ③ vs ④ {div_gap:.3g} (< 1e-4); == CPU port on the same "
+        f".hsz bytes: laplacian ②③④, gradient@③, raw bitwise, divergence "
+        f"{worst['vector']:.3g}, stats {worst['stat']:.3g}")
+    for s, st in card.items():   # warm: every accessor ran above
+        for name, fn in (("stats", lambda: st.stats("Ocean", 0)),
+                         ("derivative_features",
+                          lambda: st.derivative_features("Ocean", 0))):
+            t = []
+            for _ in range(STORE_REPS):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            t.sort()
+            say(f"[{tag}] science store {s} {name}: median "
+                f"{statistics.median(t):.3f} ms of {STORE_REPS} (min "
+                f"{t[0]:.3f}, max {t[-1]:.3f}; host deserialize included)")
+    return launches
+
+
+def _drain(eng, reqs) -> dict:
+    for r in reqs:
+        eng.add_request(r)
+    return {r.uid: r.out_tokens for r in eng.run_until_drained()}
+
+
+def _lm_requests(vocab: int, seed: int, n=LM_REQUESTS, prompt=LM_PROMPT,
+                 new=LM_NEW) -> list:
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(1, vocab, prompt).astype(np.int32),
+                    max_new_tokens=new) for i in range(n)]
+
+
+def _loose(want, got, what: str, agree_min: float) -> float:
+    """The reference test's check between a decode and a full forward:
+    top-1 agreement and rtol 0.1 / atol 0.15."""
+    agree = float((want.argmax(-1) == got.argmax(-1)).double().mean())
+    if agree < agree_min or not torch.allclose(got, want, **LM_LOOSE):
+        fail(f"{what}: top-1 agreement {agree}, max |diff| "
+             f"{float((got - want).abs().max())}")
+    return agree
+
+
+def cast_trace(model, params, toks, cache) -> dict:
+    """One warm decode step in a ``torch.profiler`` trace with
+    ``transformer.cast_tree`` under a ``record_function``: the step's device
+    events (kernels, copies, fills) and their device µs, the µs of those
+    launched under the layers' weight casts (``cast_tree``) and under every
+    ``aten::_to_copy``, and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = transformer.cast_tree
+    label = "cast_tree"
+
+    def traced(tree, dtype):
+        with record_function(label):
+            return real(tree, dtype)
+
+    transformer.cast_tree = traced
+    try:
+        for _ in range(2):
+            model.decode_step(params, toks, cache)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, toks, cache)
+            torch.cuda.synchronize()
+    finally:
+        transformer.cast_tree = real
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the annotation's own span on the device timeline is not a kernel
+    kernels = [e for e in events if e.device_type == cuda and e.name != label]
+    total = sum(e.device_time for e in kernels)
+    if not kernels or total <= 0:
+        fail("torch.profiler recorded no device time for a decode step")
+    under = lambda name: [e for e in events
+                          if e.name == name and e.device_type != cuda]
+    by_name_ = {}
+    for e in kernels:
+        short = re.sub(r"^void |\(anonymous namespace\)::|\(.*$|<.*$", "",
+                       e.name)[:48]
+        n, us = by_name_.get(short, (0, 0.0))
+        by_name_[short] = (n + 1, us + e.device_time)
+    return {"cast_tree_us": sum(e.device_time_total for e in under(label)),
+            "to_copy_us": sum(e.device_time_total
+                              for e in under("aten::_to_copy")),
+            "n_cast_tree": len(under(label)), "launches": len(kernels),
+            "device_us": total,
+            "top": sorted(((k, n, us) for k, (n, us) in by_name_.items()),
+                          key=lambda t: -t[2])[:6]}
+
+
+def lm_full_width(seed: int, tag: str) -> None:
+    """8b: ``smollm-360m`` at its published widths and depth, f32 params
+    from a seeded generator on the card, bf16 compute: the engine with
+    launch/serve.py's defaults, ``kv_quant`` off and on; engine == manual
+    greedy decode; f32-compute decode == full forward; prefill -> decode ==
+    step-by-step decode; times."""
+    cfg = ARCHS[LM_ARCH]
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params, _ = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    say(f"[{tag}] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv} kv (group {cfg.n_heads // cfg.n_kv}), "
+        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{n_params:,} f32 params ({n_params * 4 / 1e9:.3f} GB; param_count "
+        f"{cfg.param_count:,} without the norms) initialised on the card in "
+        f"{t_init:.2f} s")
+    for kv_quant in (False, True):
+        m = get_model(dataclasses.replace(cfg, kv_quant=kv_quant))
+        eng = Engine(m, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                     device=DEVICE)
+        n_steps = [0]
+        real_decode = eng._decode
+
+        def counted_decode(*a, _real=real_decode):
+            n_steps[0] += 1
+            return _real(*a)
+
+        eng._decode = counted_decode
+        reqs = _lm_requests(cfg.vocab, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = _drain(eng, reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if sorted(done) != list(range(LM_REQUESTS)) or any(
+                len(t) != LM_NEW or not all(0 <= x < cfg.vocab for x in t)
+                for t in done.values()):
+            fail(f"{LM_ARCH} kv_quant={kv_quant}: the engine did not drain "
+                 f"{LM_REQUESTS} requests of {LM_NEW} tokens in [0, vocab)")
+        kv_bytes = sum(t.nbytes for t in tree_leaves(eng.cache["layers"]))
+        toks = torch.as_tensor(np.asarray([[r.prompt[0]] for r in reqs[:LM_SLOTS]],
+                                          np.int32), device=DEVICE)
+        cache = eng.cache
+        step = host_ms(lambda: m.decode_step(params, toks, cache), LM_STEP_REPS)
+        n_tok = sum(len(t) for t in done.values())
+        say(f"[{tag}] {LM_ARCH} Engine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}) "
+            f"kv_quant={kv_quant}: {LM_REQUESTS} requests x {LM_NEW} tokens "
+            f"(prompt {LM_PROMPT}) drained, {n_tok} tokens in {dt:.3f} s = "
+            f"{n_tok / dt:.1f} tokens/s over {n_steps[0]} decode steps; warm "
+            f"decode step of {LM_SLOTS} slots {_spread(step)}, median of "
+            f"{LM_STEP_REPS}; KV cache {kv_bytes // LM_SLOTS:,} bytes per slot")
+        if not kv_quant:
+            trace = cast_trace(m, params, toks, cache)
+            cast_bytes = n_params * 6   # f32 read + bf16 written, once per step
+            dev = trace["device_us"]
+            say(f"[{tag}] {LM_ARCH} decode step trace: {trace['launches']} "
+                f"device kernels and copies, {dev:.1f} us of device time "
+                f"({dev / 1e3 / statistics.median(step):.1%} of the warm "
+                f"step's median); the layers' weight casts (cast_tree "
+                f"x{trace['n_cast_tree']}) {trace['cast_tree_us']:.1f} us "
+                f"({trace['cast_tree_us'] / dev:.1%}), every aten::_to_copy "
+                f"{trace['to_copy_us']:.1f} us ({trace['to_copy_us'] / dev:.1%});"
+                f" casting every weight moves {cast_bytes / 1e9:.2f} GB, "
+                f"{cast_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+                f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; by device time: "
+                + ", ".join(f"{k} x{n} {us:.1f} us" for k, n, us in trace["top"]))
+    # one request: engine == manual greedy decode
+    prompt = np.asarray([5, 17, 3], np.int32)
+    got = _drain(Engine(model, params, slots=1, max_len=32, device=DEVICE),
+                 [Request(uid=0, prompt=prompt, max_new_tokens=5)])[0]
+    cache = model.init_cache(1, 32, device=DEVICE)
+    for t in prompt:
+        logits, cache = model.decode_step(
+            params, torch.tensor([[t]], dtype=torch.int32, device=DEVICE), cache)
+    manual = []
+    for _ in range(5):
+        manual.append(int(torch.argmax(logits[0, -1])))
+        logits, cache = model.decode_step(
+            params, torch.tensor([[manual[-1]]], dtype=torch.int32,
+                                 device=DEVICE), cache)
+    if got != manual:
+        fail(f"{LM_ARCH}: engine tokens {got} != manual greedy {manual}")
+    # f32 compute: 8 teacher-forced decode steps against full_logits, and
+    # prefill -> decode against step-by-step decode
+    m32 = get_model(dataclasses.replace(cfg, compute_dtype=torch.float32))
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (2, 8)).astype(np.int32),
+                           device=DEVICE)
+    full = m32.full_logits(params, {"tokens": toks})
+    cache = m32.init_cache(2, 8, device=DEVICE)
+    steps = []
+    for t in range(8):
+        logits, cache = m32.decode_step(params, toks[:, t:t + 1], cache)
+        steps.append(logits[:, 0].float())
+    dec = torch.stack(steps, dim=1)
+    agree = _loose(full, dec, f"{LM_ARCH} f32 decode vs full_logits", 0.9)
+    P = 5
+    _, pcache = m32.prefill(params, {"tokens": toks[:, :P]}, 8)
+    for t in range(P, 8):
+        plog, pcache = m32.decode_step(params, toks[:, t:t + 1], pcache)
+    _loose(logits[:, -1].float(), plog[:, -1].float(),
+           f"{LM_ARCH} prefill -> decode vs step-by-step decode", 1.0)
+    say(f"[{tag}] {LM_ARCH}: engine == manual greedy decode ({got}); f32 "
+        f"compute: 8 teacher-forced decode steps vs full_logits top-1 "
+        f"{agree:.3f}, max |diff| {float((dec - full).abs().max()):.3g} "
+        f"(rtol 0.1 / atol 0.15); prefill({P}) -> decode == step-by-step "
+        f"decode, max |diff| {float((plog - logits).abs().max()):.3g}")
+
+
+def lm_small_vs_cpu(seed: int, tag: str) -> None:
+    """8b: the reduced archs on the card against the CPU port, same params
+    (made on the CPU and moved), f32 compute: logits within ``LM_TOL``,
+    greedy engine tokens equal."""
+    for name in LM_SMALL:
+        cfg = dataclasses.replace(reduced(ARCHS[name]),
+                                  compute_dtype=torch.float32)
+        m = get_model(cfg)
+        host, _ = m.init(torch.Generator().manual_seed(seed), device="cpu")
+        card = tree_map(lambda t: t.to(DEVICE), host)
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)}
+        if cfg.prefix_tokens:
+            batch["prefix_embeds"] = rng.normal(
+                size=(2, cfg.prefix_tokens, cfg.d_model)).astype(np.float32)
+        hb = {k: torch.as_tensor(v) for k, v in batch.items()}
+        cb = {k: v.to(DEVICE) for k, v in hb.items()}
+        want, got = m.full_logits(host, hb), m.full_logits(card, cb).cpu()
+        if not torch.allclose(got, want, **LM_TOL):
+            fail(f"{name}: full_logits card vs CPU max |diff| "
+                 f"{float((got - want).abs().max())}")
+        gap = float((got - want).abs().max())
+        hc, cc = m.init_cache(2, 16, device="cpu"), m.init_cache(2, 16, device=DEVICE)
+        for t in range(8):
+            hl, hc = m.decode_step(host, hb["tokens"][:, t:t + 1], hc)
+            cl, cc = m.decode_step(card, cb["tokens"][:, t:t + 1], cc)
+            if not torch.allclose(cl.cpu(), hl, **LM_TOL):
+                fail(f"{name}: decode step {t} card vs CPU max |diff| "
+                     f"{float((cl.cpu() - hl).abs().max())}")
+            gap = max(gap, float((cl.cpu() - hl).abs().max()))
+        want_t = _drain(Engine(m, host, slots=2, max_len=32, device="cpu"),
+                        _lm_requests(cfg.vocab, seed, n=3, prompt=5, new=6))
+        got_t = _drain(Engine(m, card, slots=2, max_len=32, device=DEVICE),
+                       _lm_requests(cfg.vocab, seed, n=3, prompt=5, new=6))
+        if got_t != want_t:
+            fail(f"{name}: engine tokens on the card {got_t} != CPU {want_t}")
+        say(f"[{tag}] reduced {name} at f32 compute: card == CPU port, "
+            f"full_logits and 8 decode steps max |diff| {gap:.3g} (rtol/atol "
+            f"1e-4), 3 requests' greedy tokens equal")
+
+
+# ===========================================================================
 # phase 6: times
 # ===========================================================================
 
@@ -3592,6 +4062,8 @@ def main() -> None:
     check_region_path(fields, hosts, region_out)
     check_region_ab(fields)
     check_region_kernels(fields, errs)
+    phase_s["5b syncs"] = time.perf_counter()
+    sync_audit(fields)
 
     phase_s["5c fields"] = time.perf_counter()
     # 5c. the engine path: batched op sets, expressions, the store; each
@@ -3645,6 +4117,16 @@ def main() -> None:
     check_launch_attrs(card)
     check_coverage(args.seed)
 
+    phase_s["8a"] = time.perf_counter()
+    # 8. the science store at scale 1 against the CPU port on the same .hsz
+    # bytes, then LM serving at smollm-360m's full width.  It runs before
+    # 5e, whose run made the profiler drop the first kernel of later traces
+    path_launches["science store"] = check_science(args.seed, tag)
+    phase_s["8b"] = time.perf_counter()
+    lm_full_width(args.seed, tag)
+    phase_s["8b CPU"] = time.perf_counter()
+    lm_small_vs_cpu(args.seed, tag)
+
     phase_s["5e"] = time.perf_counter()
     # 5e. the serve path: one frontend step over a router of a sharded store
     # (8 shards on the card, then 1) and a local one, held to the same step
@@ -3673,7 +4155,8 @@ def main() -> None:
             "region_launches": path_launches["region path"][name],
             "engine_launches": path_launches["engine path"][name],
             "stream_launches": path_launches["stream path"][name],
-            "serve_launches": path_launches["serve path"][name]})
+            "serve_launches": path_launches["serve path"][name],
+            "science_store_launches": path_launches["science store"][name]})
         if name == "unpack.residuals":
             kernels[-1]["slab"] = slab_times
         if name == "prefix_stats2d.stats":

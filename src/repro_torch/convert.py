@@ -25,6 +25,7 @@ from .core import by_name
 from .core.oplib import TemporalSummary
 from .core.stages import LEAVES, Compressed, Encoded, Scheme, Stage
 from .kernels import ops as kernel_ops
+from .models.common import tree_map
 from .store import MaterializedStage
 from .stream import TemporalField
 
@@ -138,3 +139,15 @@ def summary_from_arrays(arrays: dict[str, np.ndarray],
         name: torch.as_tensor(np.array(arrays[name], dtype=np.int32),
                               device=dev)
         for name in ("count", "q_sum", "q_sumsq", "q_min", "q_max", "last2")})
+
+
+def params_from_arrays(tree, device="cuda"):
+    """A params tree (or KV cache) of numpy leaves -> the same tree of
+    tensors on ``device``, dtypes kept."""
+    dev = kernel_ops.resolve_device(device)
+    return tree_map(lambda a: torch.as_tensor(np.array(a), device=dev), tree)
+
+
+def params_to_arrays(params):
+    """Inverse of :func:`params_from_arrays`: numpy leaves on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

@@ -1,0 +1,210 @@
+"""The paper's end-to-end pipeline (Fig. 1) over its five benchmark datasets.
+
+Compresses synthetic analogues of Ocean/Miranda/Hurricane/NYX/JHTDB, then
+runs all six analytical operations at their cheapest supported stage and
+reports ratio / throughput / error vs full decompression.
+
+    PYTHONPATH=src python -m repro_torch.examples.homomorphic_analytics \
+        [--scale 16] [--device cpu]
+"""
+import argparse
+
+import numpy as np
+
+from repro_torch.analytics import query
+from repro_torch.core import Stage, by_name, homomorphic as H
+from repro_torch.core import region as region_mod
+from repro_torch.data.scientific import (DATASETS, ScientificStore,
+                                         dataset_dims, synth_field)
+from repro_torch.examples._timing import sync, timed
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.serve import AnalyticsFrontend, AnalyticsRequest, AppendRequest
+from repro_torch.store import FieldStore
+from repro_torch.stream import StreamFieldStore, TemporalField
+
+
+def _values(res):
+    """Every tensor of a query result (to wait on them all at once)."""
+    return [v for d in res.values
+            for v in (d.values() if isinstance(d, dict) else [d])]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scale", type=int, default=16)
+    ap.add_argument("--rel-eb", type=float, default=1e-3)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = kernel_ops.resolve_device(args.device)
+
+    def best_of(fn, k=3):                            # min-of-k: robust timing
+        return min(timed(fn, dev)[1] for _ in range(k))
+
+    print(f"{'dataset':10s} {'dims':>18s} {'comp':8s} {'ratio':>6s} "
+          f"{'mean(M/P)':>10s} {'std(P)':>8s} {'deriv(Q)':>9s} {'max err':>9s}")
+    for ds in DATASETS:
+        dims = dataset_dims(ds, args.scale)
+        for comp_name in ("hszp_nd", "hszx_nd"):
+            store = ScientificStore(compressor_name=comp_name,
+                                    scale=args.scale, rel_eb=args.rel_eb,
+                                    device=dev)
+            c = store.get(ds, 0).open()
+            comp = by_name(comp_name)
+            ratio = float(comp.compression_ratio(c))
+            raw = store.raw(ds, 0).cpu().numpy()
+
+            stage1 = Stage.M if c.scheme.is_blockmean else Stage.P
+            mu, t_mu = timed(lambda: float(H.mean(c, stage1)), dev)
+            sd = float(H.std(c, Stage.P))
+            d0, t_d = timed(lambda: H.derivative(c, Stage.Q, 0), dev)
+
+            ref0 = H.derivative(c, Stage.F, 0).cpu().numpy()
+            err = max(abs(mu - raw.mean()),
+                      abs(sd - raw.std(ddof=1)),
+                      float(np.abs(d0.cpu().numpy() - ref0).max()))
+            print(f"{ds:10s} {str(dims):>18s} {comp_name:8s} {ratio:6.2f} "
+                  f"{t_mu*1e3:9.2f}ms {sd:8.4f} {t_d*1e3:8.2f}ms {err:9.2e}")
+
+    print("\nMulti-operation reuse (paper §VI-C.6): one stage-③ "
+          "reconstruction feeds gradient + curl on NYX velocity:")
+    store = ScientificStore(compressor_name="hszp_nd", scale=args.scale,
+                            device=dev)
+    comps = [store.get("NYX", i).open() for i in range(3)]
+    _, t = timed(lambda: ([H.gradient(cc, Stage.Q) for cc in comps],
+                          H.curl(comps, Stage.Q)), dev)
+    print(f"3 gradients + 3-component curl at stage Q: {t*1e3:.1f} ms")
+
+    print("\nBatched analytics (repro_torch.analytics): all Hurricane "
+          "variables, one dispatch, stage planned automatically:")
+    store = ScientificStore(compressor_name="hszx_nd", scale=args.scale,
+                            device=dev)
+    n_vars = DATASETS["Hurricane"][0]
+    fields = [store.get("Hurricane", i).open() for i in range(n_vars)]
+    res = query(fields, "mean", stage="auto")        # warm the program cache
+    res, t_batch = timed(lambda: query(fields, "mean", stage="auto"), dev)
+    print(f"  mean over {n_vars} variables at stage {res.stages[0].name}: "
+          f"{t_batch*1e3:.2f} ms ({res.n_batches} dispatch)")
+
+    print("\nFused multi-op dashboard query: mean + std + laplacian over "
+          "every variable from ONE stage reconstruction per layout group "
+          "(bit-packed fields: sequential ops re-decode, the fused set "
+          "decodes once):")
+    comp_x = by_name("hszx_nd")
+    bits = max(comp_x.max_bits(c) for c in fields)
+    enc = [comp_x.encode(c, bits=bits) for c in fields]
+    dashboard = ["mean", "std", "laplacian"]
+    fused = query(enc, dashboard)                    # warm both program caches
+    for op in dashboard:
+        query(enc, op, stage=fused.stages[0][op])
+    t_fused = best_of(lambda: _values(query(enc, dashboard)))
+    t_seq = best_of(lambda: [query(enc, op, stage=fused.stages[0][op])
+                             for op in dashboard])
+    stage_names = {op: s.name for op, s in fused.stages[0].items()}
+    print(f"  {len(dashboard)} ops x {n_vars} variables at stages "
+          f"{stage_names}: fused {t_fused*1e3:.2f} ms "
+          f"({fused.n_dispatches} dispatch) vs sequential {t_seq*1e3:.2f} ms "
+          f"({len(dashboard)} dispatches); "
+          f"var0 mean={float(fused.values[0]['mean']):.4f} "
+          f"std={float(fused.values[0]['std']):.4f}")
+
+    print("\nBlock-sparse region queries (windowed/ROI workload): a ~10% "
+          "window decodes only its covering blocks:")
+    c = fields[0]
+    region = tuple((s // 4, s // 4 + max(4, int(s * 0.32))) for s in c.shape)
+    e = by_name("hszx_nd").encode(c)
+    plan = region_mod.plan_region(e, region, "cover")
+    words = plan.payload_gather(e.bits).n_words
+    H.mean(e, Stage.P), H.mean(e, Stage.P, region=region)
+    _, t_full = timed(lambda: H.mean(e, Stage.P), dev)
+    mu_win, t_reg = timed(lambda: float(H.mean(e, Stage.P, region=region)), dev)
+    print(f"  window {region}: mean={mu_win:.4f} in {t_reg*1e3:.2f} ms vs "
+          f"{t_full*1e3:.2f} ms full-field ({words}/{e.payload.numel()} "
+          f"payload words gathered)")
+
+    print("\nServing front-end (second request type next to token "
+          "generation):")
+    fe = AnalyticsFrontend()
+    for i, c in enumerate(fields):
+        fe.add_request(AnalyticsRequest(uid=i, fields=c, op="std"))
+    fe.add_request(AnalyticsRequest(uid=100, fields=fields[0], op="laplacian"))
+    fe.add_request(AnalyticsRequest(uid=101, fields=fields[0], op="std",
+                                    region=region))
+    fe.add_request(AnalyticsRequest(uid=102, fields=fields[0],
+                                    op=["mean", "std", "laplacian"]))
+    done = fe.run_until_drained()
+    stds = [f"{float(r.result):.3f}" for r in done
+            if r.op == "std" and r.region is None]
+    win_std = next(float(r.result) for r in done if r.region is not None)
+    multi = next(r for r in done if r.uid == 102)
+    print(f"  {len(done)} requests drained "
+          f"({fe.engine.cache_size} compiled programs); stds: {stds[:4]} ...; "
+          f"window std: {win_std:.3f}; fused request: "
+          f"mean={float(multi.result['mean']):.3f} "
+          f"std={float(multi.result['std']):.3f} at one "
+          f"stage-{multi.result_stage['mean'].name} reconstruction")
+
+    print("\nStore-backed serving (repro_torch.store): fields registered "
+          "under string ids, one stage reconstruction per field *lifetime* — "
+          "clients stop shipping arrays:")
+    fstore = FieldStore(cache_bytes=256 << 20)
+    for i, ec in enumerate(enc):
+        fstore.put(f"hurricane/var{i}", ec)
+    ids = [f"hurricane/var{i}" for i in range(len(enc))]
+    # cold: the first store-backed query materializes
+    query(ids, dashboard, stage=Stage.Q, store=fstore)
+    t_cold = best_of(lambda: _values(query(enc, dashboard, stage=Stage.Q)))
+    t_hot = best_of(lambda: _values(query(ids, dashboard, stage=Stage.Q,
+                                          store=fstore)))
+    print(f"  {len(dashboard)} ops x {len(ids)} id-addressed fields: hot "
+          f"cache {t_hot*1e3:.2f} ms vs {t_cold*1e3:.2f} ms storeless "
+          f"({t_cold/t_hot:.1f}x); stats: {fstore.stats}, "
+          f"{fstore.cache_bytes_in_use/1e6:.1f} MB resident")
+    sfe = AnalyticsFrontend(store=fstore)
+    sfe.add_request(AnalyticsRequest(uid=0, fields=ids[0], op=["mean", "std"]))
+    sfe.add_request(AnalyticsRequest(uid=1, fields=ids[1], op=["mean", "std"]))
+    done = sfe.run_until_drained()
+    print(f"  2 id-addressed requests -> stage "
+          f"{done[0].result_stage['mean'].name} (auto, flipped to the "
+          f"resident stage), mean={float(done[0].result['mean']):.3f}")
+
+    print("\nStreaming ingest (repro_torch.stream): timestep batches append "
+          "as compressed slabs; temporal ops merge per-slab integer summaries "
+          "— only the NEW slab is ever reconstructed:")
+    sstore = StreamFieldStore(cache_bytes=256 << 20)
+    sstore.put_temporal("sim/temp", TemporalField("hszp_nd", rel_eb=1e-3,
+                                                  device=dev))
+    dims2 = dataset_dims("Ocean", args.scale)
+    base = synth_field("Ocean", 0, dims2)
+    rng = np.random.default_rng(0)
+
+    def timesteps(i, k=3):
+        t = np.arange(i * k, (i + 1) * k, dtype=np.float32)[:, None, None]
+        return (base[None] * (1 + 0.01 * t)
+                + rng.normal(0, 0.01, (k,) + base.shape)).astype(np.float32)
+
+    tops = ["tmean", "tstd", "tdelta"]
+    sfe = AnalyticsFrontend(store=sstore)
+    for i in range(4):
+        sfe.add_request(AppendRequest(uid=i, field_id="sim/temp",
+                                      data=timesteps(i)))
+    sfe.add_request(AnalyticsRequest(uid=10, fields="sim/temp", op=tops))
+    sfe.run_until_drained()
+    tfield = sstore.get("sim/temp")
+    # warm the incremental path, then time one steady-state cycle
+    sstore.append("sim/temp", timesteps(4))
+    _values(query(["sim/temp"], tops, store=sstore))
+    sync(dev)
+    slab = timesteps(5)
+    hot, t_step = timed(lambda: (sstore.append("sim/temp", slab),
+                                 query(["sim/temp"], tops, store=sstore))[1],
+                        dev)
+    print(f"  {tfield.n_slabs} slabs / {tfield.n_steps} timesteps ingested; "
+          f"steady-state append+query {t_step*1e3:.2f} ms "
+          f"({sstore.incremental_merges} incremental merges, "
+          f"{sstore.summary_rebuilds} rebuild); "
+          f"tmean[0,0]={float(hot.values[0]['tmean'][0, 0]):.4f}, "
+          f"tdelta max={float(hot.values[0]['tdelta'].abs().max()):.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,2 @@
-"""Launchers: the analytics device mesh."""
+"""Launchers: the analytics device mesh (``mesh``) and the token-serving
+launcher (``python -m repro_torch.launch.serve``)."""

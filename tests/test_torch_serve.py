@@ -691,9 +691,10 @@ def test_serve_router_over_sharded_and_local_stores(field_2d):
 
 
 def test_port_frontend_exports_match_reference():
-    assert serve.__all__ == ["AnalyticsFrontend", "AnalyticsRequest",
-                             "AppendRequest", "StoreRouter"]
-    assert set(serve.__all__) <= set(jserve.__all__)
-    for name in ("AnalyticsRequest", "AppendRequest"):
+    # the token Engine and Request are ported too: every export
+    assert serve.__all__ == jserve.__all__ == [
+        "Engine", "Request", "AnalyticsFrontend", "AnalyticsRequest",
+        "AppendRequest", "StoreRouter"]
+    for name in ("AnalyticsRequest", "AppendRequest", "Request"):
         assert ([f.name for f in dataclasses.fields(getattr(serve, name))]
                 == [f.name for f in dataclasses.fields(getattr(jserve, name))])
