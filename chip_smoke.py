@@ -44,8 +44,7 @@ Phases (any failure raises, so the exit code is non-zero):
    fed to ``lorenzo2d`` / ``blockmean2d`` against their plain versions;
    then the warm full-field and region cells once more under
    ``torch.cuda.set_sync_debug_mode("warn")``: every distinct host sync is
-   printed with the port's frames that raised it, and one in a kernel
-   wrapper or under a ``FusedRule.fn`` fails;
+   printed with the port's frames that raised it, and any sync fails;
 5c. the engine path (``repro_torch.analytics``) on eight same-layout Ocean
    fields per scheme (u and v of ``synth_field`` seeds 0-3), ``Compressed``
    and ``Encoded``: (a) ``BatchedAnalytics().run`` of mean / std / gradient
@@ -165,8 +164,22 @@ Phases (any failure raises, so the exit code is non-zero):
    (``cast_tree``) timed on their own; then the reduced ``qwen3-4b``,
    ``granite-moe-3b-a800m``, ``deepseek-v3-671b`` and ``paligemma-3b`` at
    f32 compute on the card against the CPU port with the same params
-   (logits rtol / atol 1e-4, greedy engine tokens equal).  Phase 8 runs
-   after phase 7 and before 5e.
+   (logits rtol / atol 1e-4, greedy engine tokens equal).
+   (c) the same at the ssm, hybrid and audio families' published widths:
+   ``falcon-mamba-7b`` at full depth (64 layers, d_model 4096, d_inner
+   8192, state 16, vocab 65024), ``recurrentgemma-9b`` cut to one period
+   (3 of 38 layers; head_dim 256, MQA, lru 4096, d_ff 12288, vocab 256000,
+   window 2048) and ``whisper-base`` at full size (6 + 6 layers, 1500
+   frames of seeded normals): the engine drains 8 requests (``kv_quant``
+   off and on for whisper's self K/V; once for the state caches), one
+   request == manual greedy decode, 8 f32 decode steps against
+   ``full_logits`` (whisper: ``encode`` runs and fills the cross cache),
+   prefill -> decode (whisper: prefill returns a fresh cache, as the
+   reference's); tokens per second, ms per warm step, cache bytes per
+   slot, peak memory and a profiler trace of one step with ``cast_tree``
+   timed on its own; then the three reduced archs on the card against the
+   CPU port (recurrentgemma decoding 24 steps, past its window of 16).
+   Phase 8 runs after phase 7 and before 5e.
 
 Launch counters are reset just before each path (entry point, main path,
 region path, the serve path's step, the science store's path; on the engine
@@ -187,6 +200,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import pathlib
 import re
@@ -213,7 +227,7 @@ from repro_torch.core import region as R  # noqa: E402
 from repro_torch.configs import ARCHS, reduced  # noqa: E402
 from repro_torch.data import ScientificStore  # noqa: E402
 from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
-from repro_torch.models import get_model, transformer  # noqa: E402
+from repro_torch.models import get_model, whisper  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, specs,
@@ -1694,17 +1708,62 @@ def time_q_hit(enc, store, eng, scheme: str, tag: str) -> None:
         f"equal bitwise: " + "; ".join(parts) + f"; median of {E2E_REPS}")
 
 
+#: the marker kernel around a trace (``torch.cuda._sleep``, about 50 us),
+#: launched ``SPINS_BEFORE`` times before the traced call and once after it
+SPIN = re.compile(r"spin_kernel")
+SPIN_CYCLES = 100_000
+SPINS_BEFORE = 4
+#: traces taken of one call before a trace without its markers fails
+TRACE_TRIES = 3
+
+
+def profiled(run, what: str, whole: bool = False) -> list:
+    """The ``torch.profiler`` events (CPU and CUDA activity) of one
+    ``run()`` between ``spin_kernel`` markers, each followed by a
+    synchronize: ``SPINS_BEFORE`` before the call, one after it.  The
+    profiler has dropped the first device events of a trace, once every
+    kernel of one (PERF.md §7), so a trace counts only when it holds a
+    device event of the call and, where ``whole``, its trailing marker and
+    a leading one, i.e. every kernel of the call; it is taken again, up to
+    ``TRACE_TRIES`` times, until one does.  The markers are taken out of
+    the events returned."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPINS_BEFORE):
+                torch.cuda._sleep(SPIN_CYCLES)
+                torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        device = sorted((e for e in events if e.device_type == cuda),
+                        key=lambda e: e.time_range.start)
+        spins = [i for i, e in enumerate(device) if SPIN.search(e.name)]
+        if len(spins) < len(device) and (not whole or (
+                len(spins) >= 2 and spins[-1] == len(device) - 1)):
+            return [e for e in events if not SPIN.search(e.name)]
+        say(f"[trace] {what}: trace {attempt} of {TRACE_TRIES} holds "
+            f"markers at {spins} of {len(device)} device events")
+    fail(f"torch.profiler dropped device events of {TRACE_TRIES} traces of "
+         f"{what}")
+
+
 def trace_window(fn, label: str) -> tuple[list, float, float]:
     """``fn()`` and a synchronize under one ``record_function`` in a
     ``torch.profiler`` trace: ``(device kernels, busy µs, window µs)``,
     busy being the union of the kernels' spans inside the window."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import record_function
+
+    def run():
         with record_function(label):
             fn()
             torch.cuda.synchronize()
-    events = prof.events()
+
+    events = profiled(run, label)
     window = next(e for e in events if e.name == label
                   and e.device_type == torch.autograd.DeviceType.CPU)
     w0, w1 = window.time_range.start, window.time_range.end
@@ -2929,9 +2988,10 @@ def sync_audit(fields) -> None:
     """The warm full-field cells of phase 5 and region cells of phase 5b
     once more under ``torch.cuda.set_sync_debug_mode("warn")``: every
     distinct host sync by the innermost frame of the port that raised it,
-    with its count and the port's frames above it.  A sync in a kernel
-    wrapper or under a ``FusedRule.fn`` fails: the audit's host-sync lint
-    says there is none there."""
+    with its count and the port's frames above it.  Any sync fails: the
+    warm query paths read nothing back to the host (the audit's host-sync
+    lint says so for the kernel wrappers and ``FusedRule.fn``s, and the
+    plan arrays and mean weights come from the device cache)."""
     calls = []
     for scheme in SCHEMES:
         for container, (fu, fv) in fields[scheme].items():
@@ -2984,9 +3044,12 @@ def sync_audit(fields) -> None:
     for key, e in sorted(found.items(), key=lambda kv: -kv[1]["count"]):
         say(f"  sync x{e['count']} at {key}: {e['message']}; frames "
             f"{e['chain']}")
-    bad = [k for k, e in found.items() if e["in_wrapper"] or e["in_rule"]]
-    if bad:
-        fail(f"host syncs in a kernel wrapper or a FusedRule.fn: {bad}")
+    if found:
+        where = ["kernel wrapper" if e["in_wrapper"] else
+                 "FusedRule.fn" if e["in_rule"] else "query path"
+                 for e in found.values()]
+        fail(f"host syncs on the warm query paths ({', '.join(where)}): "
+             f"{sorted(found)}")
 
 
 # ===========================================================================
@@ -3002,16 +3065,34 @@ STORE_SCALE = 1
 #: 3 calls, not 30, keep phase 8 near its time budget
 STORE_REPS = 3
 LM_ARCH = "smollm-360m"
+#: phase 8c: the ssm, hybrid and audio archs at their published widths, and
+#: the depth each runs at (``None``: the full depth); recurrentgemma-9b is
+#: cut to one period (rec, rec, attn) of its 38 layers
+LM_WIDE = {"falcon-mamba-7b": None, "recurrentgemma-9b": 3,
+           "whisper-base": None}
 #: launch/serve.py's defaults
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_PROMPT, LM_NEW = 4, 128, 8, 8, 16
 LM_STEP_REPS = 20
-#: the reduced archs held against the CPU port at f32 compute
+#: the reduced archs held against the CPU port at f32 compute: phase 8b's
+#: transformer family, then phase 8c's ssm, hybrid and audio families
 LM_SMALL = ("qwen3-4b", "granite-moe-3b-a800m", "deepseek-v3-671b",
             "paligemma-3b")
+LM_SMALL_8C = ("falcon-mamba-7b", "recurrentgemma-9b", "whisper-base")
+#: decode steps of a reduced arch against the CPU port: 24 take the
+#: reduced recurrentgemma (window 16) past its ring buffer's wrap
+LM_SMALL_STEPS = {"hybrid": 24}
 #: f32 compute, card vs CPU: the same arithmetic summed in another order
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
 #: the reference test's tolerance between a decode and a full forward
 LM_LOOSE = dict(rtol=0.1, atol=0.15)
+#: the published widths printed per family
+FAMILY_WIDTHS = {
+    "dense": ("d_model", "n_heads", "n_kv", "head_dim", "d_ff", "vocab"),
+    "ssm": ("d_model", "expand", "ssm_state", "d_conv", "vocab"),
+    "hybrid": ("d_model", "n_heads", "n_kv", "head_dim", "lru_width", "d_ff",
+               "window", "vocab"),
+    "audio": ("enc_layers", "d_model", "n_heads", "n_kv", "head_dim", "d_ff",
+              "enc_frames", "vocab")}
 
 
 def science_stores(seed: int, device) -> dict:
@@ -3140,32 +3221,30 @@ def _loose(want, got, what: str, agree_min: float) -> float:
     return agree
 
 
-def cast_trace(model, params, toks, cache) -> dict:
-    """One warm decode step in a ``torch.profiler`` trace with
-    ``transformer.cast_tree`` under a ``record_function``: the step's device
-    events (kernels, copies, fills) and their device µs, the µs of those
-    launched under the layers' weight casts (``cast_tree``) and under every
-    ``aten::_to_copy``, and the kernels that take most of it."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    real = transformer.cast_tree
+def cast_trace(module, model, params, toks, cache) -> dict:
+    """One warm decode step in a ``torch.profiler`` trace with the model
+    module's ``cast_tree`` (``module.cast_tree``) under a
+    ``record_function``: the step's device events (kernels, copies, fills)
+    and their device µs, the µs of those launched under the layers' weight
+    casts (``cast_tree``) and under every ``aten::_to_copy``, and the
+    kernels that take most of it."""
+    from torch.profiler import record_function
+    real = module.cast_tree
     label = "cast_tree"
 
     def traced(tree, dtype):
         with record_function(label):
             return real(tree, dtype)
 
-    transformer.cast_tree = traced
+    module.cast_tree = traced
     try:
         for _ in range(2):
             model.decode_step(params, toks, cache)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model.decode_step(params, toks, cache)
-            torch.cuda.synchronize()
+        events = profiled(lambda: model.decode_step(params, toks, cache),
+                          "a decode step")
     finally:
-        transformer.cast_tree = real
-    events = prof.events()
+        module.cast_tree = real
     cuda = torch.autograd.DeviceType.CUDA
     # the annotation's own span on the device timeline is not a kernel
     kernels = [e for e in events if e.device_type == cuda and e.name != label]
@@ -3189,27 +3268,62 @@ def cast_trace(model, params, toks, cache) -> dict:
                           key=lambda t: -t[2])[:6]}
 
 
-def lm_full_width(seed: int, tag: str) -> None:
-    """8b: ``smollm-360m`` at its published widths and depth, f32 params
-    from a seeded generator on the card, bf16 compute: the engine with
-    launch/serve.py's defaults, ``kv_quant`` off and on; engine == manual
-    greedy decode; f32-compute decode == full forward; prefill -> decode ==
-    step-by-step decode; times."""
-    cfg = ARCHS[LM_ARCH]
+def _widths(cfg) -> str:
+    keys = FAMILY_WIDTHS.get(cfg.family, FAMILY_WIDTHS["dense"])
+    return ", ".join(f"{k} {getattr(cfg, k)}" for k in keys)
+
+
+def _conv_to_bf16(cache):
+    """``cache`` with every ``conv`` state cast to bf16, as the Mamba and
+    Griffin prefills hand it over."""
+    if isinstance(cache, dict):
+        return {k: v.to(torch.bfloat16) if k == "conv" else _conv_to_bf16(v)
+                for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [_conv_to_bf16(v) for v in cache]
+    return cache
+
+
+def lm_full_width(seed: int, tag: str, arch: str = LM_ARCH,
+                  n_layers: int | None = None) -> None:
+    """8b / 8c: ``arch`` at its published widths (and depth, or
+    ``n_layers``), f32 params from a seeded generator on the card, bf16
+    compute: the engine with launch/serve.py's defaults (``kv_quant`` off
+    and on where the cache honours it: the transformer's and whisper's
+    self K/V; the Mamba and RG-LRU states and the ring buffer ignore it);
+    engine == manual greedy decode; f32-compute decode == full forward
+    (whisper's cross cache filled from the encoder); prefill -> decode ==
+    step-by-step decode (whisper: its prefill returns a fresh cache);
+    times, cache bytes per slot and the peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by earlier phases
+    cfg = ARCHS[arch]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    audio = cfg.family == "audio"
+    depth = (f"{cfg.n_layers} layers" if n_layers is None else
+             f"{cfg.n_layers} of its {ARCHS[arch].n_layers} layers")
     model = get_model(cfg)
+    # the family's model module, whose ``cast_tree`` the step's trace wraps
+    module = sys.modules[model.decode_step.func.__module__]
     t0 = time.perf_counter()
     params, _ = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
                            device=DEVICE)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    say(f"[{tag}] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv} kv (group {cfg.n_heads // cfg.n_kv}), "
-        f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
-        f"{n_params:,} f32 params ({n_params * 4 / 1e9:.3f} GB; param_count "
-        f"{cfg.param_count:,} without the norms) initialised on the card in "
-        f"{t_init:.2f} s")
-    for kv_quant in (False, True):
+    # decode reads (and casts) every weight but the encoder's
+    n_cast = n_params - (sum(t.numel() for t in tree_leaves(params["enc"]))
+                         if audio else 0)
+    say(f"[{tag}] {arch}: {depth}, {_widths(cfg)}; {n_params:,} f32 params "
+        f"({n_params * 4 / 1e9:.3f} GB; param_count {cfg.param_count:,} "
+        f"without the norms) initialised on the card in {t_init:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+        f"{held / 2 ** 30:.2f} GiB of it held before this arch")
+    honours_kv_quant = cfg.family not in ("ssm", "hybrid")
+    for kv_quant in ((False, True) if honours_kv_quant else (False,)):
         m = get_model(dataclasses.replace(cfg, kv_quant=kv_quant))
         eng = Engine(m, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                      device=DEVICE)
@@ -3230,25 +3344,26 @@ def lm_full_width(seed: int, tag: str) -> None:
         if sorted(done) != list(range(LM_REQUESTS)) or any(
                 len(t) != LM_NEW or not all(0 <= x < cfg.vocab for x in t)
                 for t in done.values()):
-            fail(f"{LM_ARCH} kv_quant={kv_quant}: the engine did not drain "
+            fail(f"{arch} kv_quant={kv_quant}: the engine did not drain "
                  f"{LM_REQUESTS} requests of {LM_NEW} tokens in [0, vocab)")
-        kv_bytes = sum(t.nbytes for t in tree_leaves(eng.cache["layers"]))
+        cache_bytes = sum(t.nbytes for k, v in eng.cache.items() if k != "pos"
+                          for t in tree_leaves(v))
         toks = torch.as_tensor(np.asarray([[r.prompt[0]] for r in reqs[:LM_SLOTS]],
                                           np.int32), device=DEVICE)
         cache = eng.cache
         step = host_ms(lambda: m.decode_step(params, toks, cache), LM_STEP_REPS)
         n_tok = sum(len(t) for t in done.values())
-        say(f"[{tag}] {LM_ARCH} Engine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}) "
+        say(f"[{tag}] {arch} Engine(slots={LM_SLOTS}, max_len={LM_MAX_LEN}) "
             f"kv_quant={kv_quant}: {LM_REQUESTS} requests x {LM_NEW} tokens "
             f"(prompt {LM_PROMPT}) drained, {n_tok} tokens in {dt:.3f} s = "
             f"{n_tok / dt:.1f} tokens/s over {n_steps[0]} decode steps; warm "
             f"decode step of {LM_SLOTS} slots {_spread(step)}, median of "
-            f"{LM_STEP_REPS}; KV cache {kv_bytes // LM_SLOTS:,} bytes per slot")
+            f"{LM_STEP_REPS}; cache {cache_bytes // LM_SLOTS:,} bytes per slot")
         if not kv_quant:
-            trace = cast_trace(m, params, toks, cache)
-            cast_bytes = n_params * 6   # f32 read + bf16 written, once per step
+            trace = cast_trace(module, m, params, toks, cache)
+            cast_bytes = n_cast * 6   # f32 read + bf16 written, once per step
             dev = trace["device_us"]
-            say(f"[{tag}] {LM_ARCH} decode step trace: {trace['launches']} "
+            say(f"[{tag}] {arch} decode step trace: {trace['launches']} "
                 f"device kernels and copies, {dev:.1f} us of device time "
                 f"({dev / 1e3 / statistics.median(step):.1%} of the warm "
                 f"step's median); the layers' weight casts (cast_tree "
@@ -3259,6 +3374,7 @@ def lm_full_width(seed: int, tag: str) -> None:
                 f"{cast_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
                 f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; by device time: "
                 + ", ".join(f"{k} x{n} {us:.1f} us" for k, n, us in trace["top"]))
+        del eng, cache
     # one request: engine == manual greedy decode
     prompt = np.asarray([5, 17, 3], np.int32)
     got = _drain(Engine(model, params, slots=1, max_len=32, device=DEVICE),
@@ -3274,49 +3390,93 @@ def lm_full_width(seed: int, tag: str) -> None:
             params, torch.tensor([[manual[-1]]], dtype=torch.int32,
                                  device=DEVICE), cache)
     if got != manual:
-        fail(f"{LM_ARCH}: engine tokens {got} != manual greedy {manual}")
+        fail(f"{arch}: engine tokens {got} != manual greedy {manual}")
     # f32 compute: 8 teacher-forced decode steps against full_logits, and
     # prefill -> decode against step-by-step decode
     m32 = get_model(dataclasses.replace(cfg, compute_dtype=torch.float32))
     rng = np.random.default_rng(seed)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab, (2, 8)).astype(np.int32),
                            device=DEVICE)
-    full = m32.full_logits(params, {"tokens": toks})
+    batch = {"tokens": toks}
     cache = m32.init_cache(2, 8, device=DEVICE)
+    if audio:   # seeded normal frames; the cross cache from the encoder
+        batch["frames"] = torch.randn(
+            (2, cfg.enc_frames, cfg.d_model), device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(seed))
+        enc_out = whisper.encode(m32.cfg, params, batch["frames"])
+        if enc_out.shape != batch["frames"].shape or not bool(
+                torch.isfinite(enc_out).all()):
+            fail(f"{arch}: encoder output {tuple(enc_out.shape)} not finite "
+                 f"or not of the frames' shape")
+        cache["layers"]["cross"] = whisper.cross_cache(m32.cfg, params, enc_out)
+    full = m32.full_logits(params, batch)
     steps = []
     for t in range(8):
         logits, cache = m32.decode_step(params, toks[:, t:t + 1], cache)
         steps.append(logits[:, 0].float())
     dec = torch.stack(steps, dim=1)
-    agree = _loose(full, dec, f"{LM_ARCH} f32 decode vs full_logits", 0.9)
+    agree = _loose(full, dec, f"{arch} f32 decode vs full_logits", 0.9)
     P = 5
-    _, pcache = m32.prefill(params, {"tokens": toks[:, :P]}, 8)
-    for t in range(P, 8):
-        plog, pcache = m32.decode_step(params, toks[:, t:t + 1], pcache)
-    _loose(logits[:, -1].float(), plog[:, -1].float(),
-           f"{LM_ARCH} prefill -> decode vs step-by-step decode", 1.0)
-    say(f"[{tag}] {LM_ARCH}: engine == manual greedy decode ({got}); f32 "
+    prefix = dict(batch, tokens=toks[:, :P])
+    plog, pcache = m32.prefill(params, prefix, 8)
+    if audio:   # the reference's prefill: last logits, then a fresh cache
+        _loose(full[:, P - 1:P], plog.float(),
+               f"{arch} prefill logits vs full_logits", 1.0)
+        fresh = m32.init_cache(2, 8, device=DEVICE)
+        if int(pcache["pos"]) != 0 or not all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(pcache),
+                                                  tree_leaves(fresh))):
+            fail(f"{arch}: prefill returned a cache that init_cache does not")
+        cont = "prefill returns a fresh cache (the reference's)"
+    else:
+        # prefill hands the conv state over in bf16 (the reference's
+        # prefill casts it), so the step-by-step path rounds its own conv
+        # state the same way at P before the two continue side by side
+        scache = m32.init_cache(2, 8, device=DEVICE)
+        for t in range(P):
+            _, scache = m32.decode_step(params, toks[:, t:t + 1], scache)
+        scache = _conv_to_bf16(scache)
+        for t in range(P, 8):
+            plog, pcache = m32.decode_step(params, toks[:, t:t + 1], pcache)
+            slog, scache = m32.decode_step(params, toks[:, t:t + 1], scache)
+        _loose(slog[:, -1].float(), plog[:, -1].float(),
+               f"{arch} prefill -> decode vs step-by-step decode", 1.0)
+        cont = (f"prefill({P}) -> decode == step-by-step decode, max |diff| "
+                f"{float((plog - slog).abs().max()):.3g}")
+        if not torch.equal(slog, logits):   # a conv state: rounded at P
+            cont += (f" (with the conv state rounded to bf16 at {P} as "
+                     f"prefill hands it over; unrounded "
+                     f"{float((plog - logits).abs().max()):.3g})")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[{tag}] {arch}: engine == manual greedy decode ({got}); f32 "
         f"compute: 8 teacher-forced decode steps vs full_logits top-1 "
         f"{agree:.3f}, max |diff| {float((dec - full).abs().max()):.3g} "
-        f"(rtol 0.1 / atol 0.15); prefill({P}) -> decode == step-by-step "
-        f"decode, max |diff| {float((plog - logits).abs().max()):.3g}")
+        f"(rtol 0.1 / atol 0.15); {cont}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated), "
+        f"{(peak - held) / 2 ** 30:.2f} GiB above what earlier phases hold")
 
 
-def lm_small_vs_cpu(seed: int, tag: str) -> None:
-    """8b: the reduced archs on the card against the CPU port, same params
-    (made on the CPU and moved), f32 compute: logits within ``LM_TOL``,
-    greedy engine tokens equal."""
-    for name in LM_SMALL:
+def lm_small_vs_cpu(seed: int, tag: str, names=LM_SMALL) -> None:
+    """8b / 8c: the reduced archs on the card against the CPU port, same
+    params (made on the CPU and moved), f32 compute: logits within
+    ``LM_TOL`` over ``full_logits`` and teacher-forced decode steps
+    (whisper's cross cache filled from each side's encoder), greedy engine
+    tokens equal."""
+    for name in names:
         cfg = dataclasses.replace(reduced(ARCHS[name]),
                                   compute_dtype=torch.float32)
         m = get_model(cfg)
         host, _ = m.init(torch.Generator().manual_seed(seed), device="cpu")
         card = tree_map(lambda t: t.to(DEVICE), host)
+        n = LM_SMALL_STEPS.get(cfg.family, 8)
         rng = np.random.default_rng(seed)
-        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)}
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, n)).astype(np.int32)}
         if cfg.prefix_tokens:
             batch["prefix_embeds"] = rng.normal(
                 size=(2, cfg.prefix_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            batch["frames"] = rng.normal(
+                size=(2, cfg.enc_frames, cfg.d_model)).astype(np.float32)
         hb = {k: torch.as_tensor(v) for k, v in batch.items()}
         cb = {k: v.to(DEVICE) for k, v in hb.items()}
         want, got = m.full_logits(host, hb), m.full_logits(card, cb).cpu()
@@ -3324,8 +3484,13 @@ def lm_small_vs_cpu(seed: int, tag: str) -> None:
             fail(f"{name}: full_logits card vs CPU max |diff| "
                  f"{float((got - want).abs().max())}")
         gap = float((got - want).abs().max())
-        hc, cc = m.init_cache(2, 16, device="cpu"), m.init_cache(2, 16, device=DEVICE)
-        for t in range(8):
+        max_len = max(16, n)
+        hc, cc = m.init_cache(2, max_len, device="cpu"), m.init_cache(2, max_len, device=DEVICE)
+        if cfg.family == "audio":
+            for c, p, b in ((hc, host, hb), (cc, card, cb)):
+                c["layers"]["cross"] = whisper.cross_cache(
+                    cfg, p, whisper.encode(cfg, p, b["frames"]))
+        for t in range(n):
             hl, hc = m.decode_step(host, hb["tokens"][:, t:t + 1], hc)
             cl, cc = m.decode_step(card, cb["tokens"][:, t:t + 1], cc)
             if not torch.allclose(cl.cpu(), hl, **LM_TOL):
@@ -3338,9 +3503,11 @@ def lm_small_vs_cpu(seed: int, tag: str) -> None:
                        _lm_requests(cfg.vocab, seed, n=3, prompt=5, new=6))
         if got_t != want_t:
             fail(f"{name}: engine tokens on the card {got_t} != CPU {want_t}")
+        wrap = (f" (window {cfg.window}: the ring wraps)"
+                if cfg.window and n > cfg.window else "")
         say(f"[{tag}] reduced {name} at f32 compute: card == CPU port, "
-            f"full_logits and 8 decode steps max |diff| {gap:.3g} (rtol/atol "
-            f"1e-4), 3 requests' greedy tokens equal")
+            f"full_logits and {n} decode steps{wrap} max |diff| {gap:.3g} "
+            f"(rtol/atol 1e-4), 3 requests' greedy tokens equal")
 
 
 # ===========================================================================
@@ -3692,18 +3859,12 @@ def traced_kernels(fn) -> tuple[list[str], list]:
     """The device kernels that one call of ``fn`` runs, in order, from a
     ``torch.profiler`` trace (after two untraced calls): short names and
     the profiler's events (``device_time`` in us)."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
+    events = sorted((e for e in profiled(fn, "a call", whole=True)
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    if not events:
-        fail("torch.profiler recorded no device kernel")
     names = [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.name)
              for e in events]
     return names, events
@@ -4126,6 +4287,13 @@ def main() -> None:
     lm_full_width(args.seed, tag)
     phase_s["8b CPU"] = time.perf_counter()
     lm_small_vs_cpu(args.seed, tag)
+    phase_s["8c"] = time.perf_counter()
+    # 8c. the ssm, hybrid and audio families at their published widths,
+    # then reduced against the CPU port
+    for arch, n_layers in LM_WIDE.items():
+        lm_full_width(args.seed, tag, arch, n_layers)
+    phase_s["8c CPU"] = time.perf_counter()
+    lm_small_vs_cpu(args.seed, tag, LM_SMALL_8C)
 
     phase_s["5e"] = time.perf_counter()
     # 5e. the serve path: one frontend step over a router of a sharded store

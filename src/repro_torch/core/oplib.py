@@ -307,16 +307,28 @@ class StageContext:
     @cached_property
     def lorenzo_mean_weights(self) -> tuple[torch.Tensor, ...]:
         """Sum weights: ``sum_{i in extent} q_i = <weights, residuals>`` —
-        per-axis separable (nd) or one flat vector (1-D schemes)."""
+        per-axis separable (nd) or one flat vector (1-D schemes).  Both
+        come from the device cache of plan arrays, one copy per layout and
+        device, so a warm query copies nothing from the host."""
         dev = self.eps.device
         if self.plan is not None:
             return self.plan.device_weights(dev)
         c = self.field
-        dims = c.shape if c.scheme.is_nd else (c.n,)
-        return tuple(
+        dims = tuple(c.shape) if c.scheme.is_nd else (c.n,)
+        return full_field_weights(tuple(c.padded_shape), dims, dev)
+
+
+def full_field_weights(padded_shape: tuple[int, ...], dims: tuple[int, ...],
+                       device) -> tuple[torch.Tensor, ...]:
+    """The full field's Lorenzo sum weights, ``max(nvalid - i, 0)`` per
+    axis as f32, on ``device``: built on the host once per
+    ``(padded_shape, dims, device)`` and kept in ``region``'s device cache."""
+    return R._device_cached(
+        ("full-field weights", padded_shape, dims, str(device)),
+        lambda: tuple(
             torch.as_tensor(np.clip(nvalid - np.arange(npad), 0, None)
-                            .astype(np.float32), device=dev)
-            for npad, nvalid in zip(c.padded_shape, dims))
+                            .astype(np.float32), device=device)
+            for npad, nvalid in zip(padded_shape, dims)))
 
 
 # ===========================================================================

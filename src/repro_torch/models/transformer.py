@@ -127,7 +127,8 @@ def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     return shard(x, "batch", "seq", "embed")
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
+def seq_positions(B: int, S: int, device) -> torch.Tensor:
+    """Positions 0..S-1 for each of B rows, int32."""
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
@@ -139,7 +140,7 @@ def hidden_states(cfg, params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         prefix = batch["prefix_embeds"].to(cfg.compute_dtype)
         x = torch.cat([prefix, x], dim=1)
     B, S, _ = x.shape
-    x = _run_groups(cfg, params, x, _positions(B, S, x.device),
+    x = _run_groups(cfg, params, x, seq_positions(B, S, x.device),
                     long_seq=S > LONG_PREFILL)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
@@ -162,8 +163,14 @@ def loss_fn(cfg, params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
     x = hidden_states(cfg, params, batch)
     if cfg.prefix_tokens:
         x = x[:, cfg.prefix_tokens:, :]  # loss only on text positions
+    return token_loss(cfg, params, x, batch["tokens"])
+
+
+def token_loss(cfg, params, x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy of final hidden states ``x`` (B, S, D)
+    against ``tokens`` (B, S), in f32."""
     logits = logits_fn(cfg, params, x[:, :-1, :]).float()
-    targets = batch["tokens"][:, 1:].long()
+    targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return torch.mean(logz - gold)
@@ -238,7 +245,7 @@ def prefill(cfg, params, batch: dict[str, torch.Tensor], max_len: int):
         prefix = batch["prefix_embeds"].to(cfg.compute_dtype)
         x = torch.cat([prefix, x], dim=1)
     B, S, _ = x.shape
-    positions = _positions(B, S, x.device)
+    positions = seq_positions(B, S, x.device)
     long_seq = S > LONG_PREFILL
 
     caches = []

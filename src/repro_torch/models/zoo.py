@@ -11,9 +11,9 @@ architecture-agnostic:
     init_cache(batch, max_len, device=) / cache_specs(batch, max_len)
 
 ``input_specs`` gives ``meta`` tensors for every model input of an (arch ×
-shape) cell.  The transformer family (dense, moe, vlm) is ported; the
-``ssm``, ``hybrid`` and ``audio`` families are not yet (ROADMAP queue 1
-item 2b), and :func:`get_model` raises for them.
+shape) cell.  Every family of the reference is ported: the transformer
+(dense, moe, vlm), Mamba (ssm), Griffin (hybrid) and Whisper (audio).
+Whisper's prefill is the reference's: it returns a fresh cache.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import Any
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
-from . import transformer
+from . import griffin, mamba_lm, transformer, whisper
 from .common import resolve_device
 
 
@@ -45,28 +45,38 @@ _FAMILY_MODULES = {
     "dense": transformer,
     "moe": transformer,
     "vlm": transformer,
+    "ssm": mamba_lm,
+    "hybrid": griffin,
+    "audio": whisper,
 }
-#: families of the reference whose modules are not ported yet
-_NOT_PORTED = {"ssm": "models/ssm.py, models/mamba_lm.py",
-               "hybrid": "models/griffin.py", "audio": "models/whisper.py"}
 
 
 def get_model(cfg: ArchConfig) -> Model:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family ({_NOT_PORTED[cfg.family]}) "
-            "is not ported yet (ROADMAP queue 1 item 2b)")
     mod = _FAMILY_MODULES[cfg.family]
+    prefill = _whisper_prefill if cfg.family == "audio" else mod.prefill
     return Model(
         cfg=cfg,
         init=functools.partial(mod.init, cfg),
         loss_fn=functools.partial(mod.loss_fn, cfg),
         full_logits=functools.partial(mod.full_logits, cfg),
         decode_step=functools.partial(mod.decode_step, cfg),
-        prefill=functools.partial(mod.prefill, cfg),
+        prefill=functools.partial(prefill, cfg),
         init_cache=functools.partial(mod.init_cache, cfg),
         cache_specs=functools.partial(mod.cache_specs, cfg),
     )
+
+
+def _whisper_prefill(cfg, params, batch, max_len):
+    """Whisper prefill, as the reference's: encode the frames and run the
+    decoder prefix through ``decode_train`` for the last logits, then return
+    a fresh :func:`whisper.init_cache` (no self K/V, zero cross K/V,
+    position 0) — decoding does not continue from the prefix."""
+    enc_out = whisper.encode(cfg, params, batch["frames"])
+    x = whisper.decode_train(cfg, params, batch["tokens"], enc_out)
+    logits = transformer.logits_fn(cfg, params, x[:, -1:, :])
+    cache = whisper.init_cache(cfg, batch["tokens"].shape[0], max_len,
+                               device=batch["tokens"].device)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

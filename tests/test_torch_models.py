@@ -183,8 +183,18 @@ def test_input_specs_and_make_batch():
 @pytest.mark.parametrize("name", ["falcon-mamba-7b", "recurrentgemma-9b",
                                   "whisper-base"])
 def test_get_model_raises_for_unported_families(name):
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        get_model(configs.reduced(configs.ARCHS[name]))
+    """The ssm, hybrid and audio families are ported now: ``get_model``
+    builds each with the reference's entry points (whisper's prefill being
+    the zoo's), and only a family the reference lacks raises."""
+    cfg = configs.reduced(configs.ARCHS[name])
+    m = get_model(cfg)
+    jm = jget_model(jconfigs.reduced(jconfigs.ARCHS[name]))
+    assert m.cfg is cfg and m.prefill is not None
+    assert m.cache_specs(2, 16) == jm.cache_specs(2, 16)
+    want = "_whisper_prefill" if cfg.family == "audio" else "prefill"
+    assert m.prefill.func.__name__ == jm.prefill.func.__name__ == want
+    with pytest.raises(KeyError):
+        get_model(dataclasses.replace(cfg, family="unported"))
 
 
 def test_sharding_ctx_resolve_matches_reference():

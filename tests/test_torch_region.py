@@ -940,6 +940,36 @@ def test_device_cache_is_bounded_and_reused(field_2d, monkeypatch):
     _bitwise(want, H.gradient(e, Stage.Q, region=REGION), "after eviction")
 
 
+@pytest.mark.parametrize("container", CONTAINERS)
+def test_full_field_mean_weights_are_built_once(field_2d, container, monkeypatch):
+    """Two full-field mean@② queries of one layout build the separable
+    Lorenzo weights once and read the device copy after that (no copy from
+    the host on a warm query); the values stay bitwise the same."""
+    from repro_torch.core import oplib
+    c = _c("hszp_nd", field_2d)
+    f = by_name("hszp_nd").encode(c) if container == "encoded" else c
+    g = _c("hszp_nd", field_2d[::-1].copy())      # another field, one layout
+    R._DEVICE_CACHE.clear()
+    built = []
+    real = oplib.np.clip
+    monkeypatch.setattr(oplib.np, "clip",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    first = H.mean(f, Stage.P)
+    assert len(built) == 2                        # one weight vector per axis
+    keys = [k for k in R._DEVICE_CACHE if k[0] == "full-field weights"]
+    assert keys == [("full-field weights", tuple(c.padded_shape),
+                     tuple(c.shape), "cpu")]
+    _bitwise(first, H.mean(f, Stage.P), "repeat")
+    H.mean(g, Stage.P)
+    assert len(built) == 2
+    w = R._DEVICE_CACHE[keys[0]][0]
+    assert oplib.full_field_weights(tuple(c.padded_shape), tuple(c.shape),
+                                    "cpu") is w
+    for wa, npad, n in zip(w, c.padded_shape, c.shape):
+        np.testing.assert_array_equal(
+            wa.numpy(), np.maximum(n - np.arange(npad), 0).astype(np.float32))
+
+
 # ===========================================================================
 # the card (skips without one)
 # ===========================================================================
