@@ -180,9 +180,34 @@ Phases (any failure raises, so the exit code is non-zero):
    timed on its own; then the three reduced archs on the card against the
    CPU port (recurrentgemma decoding 24 steps, past its window of 16).
    Phase 8 runs after phase 7 and before 5e.
+9. training (``repro_torch.train``, ``repro_torch.comm``): (a) 8 ``gspmd``
+   steps of ``smollm-360m`` at its published widths and depth, f32 params
+   from a seeded generator on the card, bf16 compute, ``remat="full"``,
+   the token pipeline at 8 x 512 tokens, AdamW with warmup 5: losses and
+   grad norms finite, ``lr`` the host's schedule (within 2 ulps);
+   ``microbatch=2`` against the full batch (loss rtol 1e-5, grad norm rtol
+   1e-3); ms per warm step (median of 5), tokens/s, peak memory and a
+   profiler trace of one step; (b) the same model in ``hom`` mode over
+   ``make_host_mesh(devices=["cuda:0"] * 4)``: on one batch every leaf's
+   compressed mean within the per-worker eps bound of the exact mean, the
+   largest |Σq| at most ``worst_case_psum(4)`` with the int16 sums exact,
+   then 2 hom steps, every worker's residual finite; (c) at its widths cut
+   to 2 layers, a lossless checkpoint of the whole ``TrainState`` and the
+   pipeline restored bitwise, 2 steps after it == 2 uninterrupted steps
+   (rtol 1e-6), an HSZ checkpoint of the params at ``rel_eb`` 1e-4
+   restored through the integrity check within ``rel_eb·range``, MB/s and
+   the codec; (d) the collectives path: ``packed_allgather`` of the
+   embedding (49152 x 960) over 4 workers at 8 and 12 bits, its words ==
+   ``pack_plain``'s and their values == ``unpack_plain``'s on the card,
+   the gathered values == the CPU port's bitwise, ``stage1_stats`` of the
+   params against float64 numpy (rtol 1e-4); (e) the ten reduced archs at
+   f32 compute, card against the CPU port: loss and every gradient leaf,
+   then one gspmd step's params (rtol / atol 1e-4).  Phase 9 runs after 8
+   and before 5e.
 
 Launch counters are reset just before each path (entry point, main path,
-region path, the serve path's step, the science store's path; on the engine
+region path, the serve path's step, the science store's path, the
+collectives' all-gathers; on the engine
 and stream paths and the serve path's replay, each query and append) and
 read just after it: each
 path must launch every kernel site it runs, every site must be launched on
@@ -202,6 +227,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -228,7 +254,8 @@ from repro_torch.configs import ARCHS, reduced  # noqa: E402
 from repro_torch.data import ScientificStore  # noqa: E402
 from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
 from repro_torch.models import get_model, whisper  # noqa: E402
-from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    tree_flatten_with_paths, tree_leaves, tree_map)
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, specs,
     stencil_dq)
@@ -236,7 +263,14 @@ from repro_torch.core.stages import LEAVES, Encoded, layout_key  # noqa: E402
 from repro_torch.store import (  # noqa: E402
     FieldStore, materialize, materialized_nbytes)
 from repro_torch.core.oplib import map_summaries  # noqa: E402
-from repro_torch.launch.mesh import make_analytics_mesh  # noqa: E402
+from repro_torch.comm import hom_collectives as hom  # noqa: E402
+from repro_torch.data.tokens import (  # noqa: E402
+    TokenPipeline, TokenPipelineConfig)
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_analytics_mesh, make_host_mesh)
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
+from repro_torch.train import train_step  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AnalyticsFrontend, AnalyticsRequest, AppendRequest, Engine, Request,
     StoreRouter)
@@ -313,6 +347,7 @@ PATHS = {
     "serve path": ("unpack.residuals", "lorenzo2d.edges", "lorenzo2d.stencil",
                    "blockmean2d", "grad2d"),
     "science store": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d"),
+    "collectives": ("pack", "unpack"),
 }
 
 LOG: list[str] = []
@@ -3511,6 +3546,437 @@ def lm_small_vs_cpu(seed: int, tag: str, names=LM_SMALL) -> None:
 
 
 # ===========================================================================
+# phase 9: training at smollm-360m's full width, the hom step, checkpoints
+# and the compressed collectives
+# ===========================================================================
+
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SEQ, TRAIN_BATCH = 512, 8
+#: gspmd steps at full width; the last ``TRAIN_WARM`` of them are timed
+TRAIN_STEPS, TRAIN_WARM = 8, 5
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=100)
+#: workers of the hom step and of the all-gather, all on the one card
+HOM_WORKERS = 4
+HOM_STEPS = 2
+#: the checkpoint round trips run at smollm-360m's widths cut to 2 layers:
+#: the codec is host work whose time scales with bytes, not with the card
+CKPT_LAYERS = 2
+CKPT_REL_EB = 1e-4
+#: where phase 9 writes its checkpoints (``build/`` is ignored)
+CKPT_ROOT = ROOT / "build" / "train_ckpt"
+GATHER_BITS = (8, 12)
+#: f32 compute, card vs CPU (as ``LM_TOL``)
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _on_card(batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+
+
+def _max_ulp(got: torch.Tensor, want: torch.Tensor) -> int:
+    """f32 ulps between two tensors of one shape (on the host)."""
+    a = got.detach().float().cpu().numpy().view(np.int32).astype(np.int64)
+    b = want.detach().float().cpu().numpy().view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def train_full_width(seed: int, tag: str) -> dict:
+    """9a: ``TRAIN_STEPS`` gspmd steps of ``smollm-360m`` at its published
+    widths and depth, f32 params from a seeded generator on the card, bf16
+    compute, ``remat="full"``, the token pipeline at ``TRAIN_SEQ`` x
+    ``TRAIN_BATCH``: losses and grad norms finite, ``lr`` the host's
+    schedule; ``microbatch=2`` against the full batch on one batch; ms per
+    warm step, tokens/s, peak memory and a profiler trace of one step.
+    Returns what 9b and 9d go on with."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], remat="full")
+    model = get_model(cfg)
+    params, _ = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                           device=DEVICE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt_cfg = train_opt.AdamWConfig(**TRAIN_OPT)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed))
+    step = train_step.make_train_step(model, opt_cfg)
+    state = train_step.init_state(params)
+    losses, gnorms, times, lr_ulps = [], [], [], 0
+    for s in range(1, TRAIN_STEPS + 1):
+        batch = _on_card(next(pipe))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        host_lr = train_opt.schedule(opt_cfg, torch.tensor(s, dtype=torch.int32))
+        lr_ulps = max(lr_ulps, _max_ulp(m["lr"], host_lr))
+        if lr_ulps > 2:
+            fail(f"step {s}: lr {float(m['lr'])} on the card, {float(host_lr)} "
+                 f"from the host's schedule")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        fail(f"{TRAIN_ARCH} training: losses {losses}, grad norms {gnorms}")
+    if int(state.step) != TRAIN_STEPS:
+        fail(f"{TRAIN_ARCH} training: step {int(state.step)} after "
+             f"{TRAIN_STEPS} steps")
+    peak = torch.cuda.max_memory_allocated()
+    warm = sorted(times[-TRAIN_WARM:])
+    med = statistics.median(warm)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    say(f"[{tag}] train {TRAIN_ARCH}: {cfg.n_layers} layers, {_widths(cfg)}; "
+        f"{n_params:,} f32 params, bf16 compute, remat {cfg.remat}, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW {TRAIN_OPT}; "
+        f"{TRAIN_STEPS} gspmd steps: losses "
+        + ", ".join(f"{l:.4f}" for l in losses) + "; grad norms "
+        + ", ".join(f"{g:.3f}" for g in gnorms)
+        + f"; lr == the host's schedule within {lr_ulps} ulps (2 allowed)")
+    say(f"[{tag}] train {TRAIN_ARCH}: first step {times[0]:.1f} ms, warm "
+        f"step {med:.1f} ms (median of the last {TRAIN_WARM}: "
+        + ", ".join(f"{t:.1f}" for t in warm)
+        + f"), {tokens / med * 1e3:.0f} tokens/s; 6·N·T = {flops / 1e12:.2f} "
+        f"TFLOP a step, {flops / med / 1e9:.1f} TFLOP/s; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB ({(peak - held) / 2 ** 30:.2f} GiB above "
+        f"what earlier phases hold)")
+    # microbatch=2 against the full batch on one batch (the reference
+    # test's tolerances)
+    batch = _on_card(next(pipe))
+    _, m_full = train_step.make_train_step(model, opt_cfg)(state, batch)
+    _, m_micro = train_step.make_train_step(model, opt_cfg, microbatch=2)(
+        state, batch)
+    l_full, l_micro = float(m_full["loss"]), float(m_micro["loss"])
+    g_full, g_micro = float(m_full["grad_norm"]), float(m_micro["grad_norm"])
+    if not (abs(l_micro - l_full) <= 1e-5 * abs(l_full)
+            and abs(g_micro - g_full) <= 1e-3 * abs(g_full)):
+        fail(f"microbatch=2 vs the full batch: loss {l_micro} vs {l_full}, "
+             f"grad norm {g_micro} vs {g_full}")
+    say(f"[{tag}] train {TRAIN_ARCH}: microbatch=2 vs the full batch: loss "
+        f"{l_micro:.6f} vs {l_full:.6f} (rel {abs(l_micro - l_full) / l_full:.2e},"
+        f" rtol 1e-5), grad norm {g_micro:.5f} vs {g_full:.5f} (rel "
+        f"{abs(g_micro - g_full) / g_full:.2e}, rtol 1e-3)")
+    del m_full, m_micro
+    kernels, busy, span = trace_window(lambda: step(state, batch), "train.step")
+    dev_us = sum(e.device_time for e in kernels)
+    say(f"[{tag}] train {TRAIN_ARCH} step trace: {dev_us / 1e3:.1f} ms of "
+        f"device time over {len(kernels)} device events "
+        f"({dev_us / 1e3 / med:.1%} of the warm step's median {med:.1f} ms); "
+        f"under the profiler the step's window is {span / 1e3:.1f} ms; "
+        + trace_lines(kernels, busy, span, top_n=8))
+    return {"model": model, "opt_cfg": opt_cfg, "state": state, "pipe": pipe}
+
+
+def hom_full_width(trained: dict, tag: str) -> None:
+    """9b: the same model in ``hom`` mode over ``HOM_WORKERS`` workers on the
+    card.  The pieces on one batch at zero residuals: every leaf's
+    compressed mean within the per-worker eps bound of ``tests/test_comm.py``
+    of the exact mean of the workers' gradients, residuals finite, the
+    largest |Σq| at most ``worst_case_psum`` and the int16 sum equal to the
+    int32 one; then ``HOM_STEPS`` hom steps, losses and every worker's
+    residual finite."""
+    model, opt_cfg = trained["model"], trained["opt_cfg"]
+    params, pipe = trained["state"].params, trained["pipe"]
+    mesh = make_host_mesh(devices=[DEVICE] * HOM_WORKERS)
+    batch = _on_card(next(pipe))
+    grads = [train_step.value_and_grad(model.loss_fn, params, b)[1]
+             for b in train_step.split_batch(batch, HOM_WORKERS)]
+    mean, res = hom.compressed_psum_tree(grads, None, mesh, HOM_WORKERS)
+    bits = hom.bit_budget(HOM_WORKERS)
+    qmax = float(2 ** (bits - 1) - 1)
+    per_leaf = [tree_leaves(g) for g in grads]
+    worst, ratio = 0, 0.0
+    for i, got in enumerate(tree_leaves(mean)):
+        vs = [leaves[i].float() for leaves in per_leaf]
+        exact = sum(v.double() for v in vs) / HOM_WORKERS
+        bound = max(float(v.abs().max()) for v in vs) / qmax
+        err = float((got.double() - exact).abs().max())
+        if err > bound:
+            fail(f"hom compressed mean of leaf {i}: |mean - exact| {err} > "
+                 f"the per-worker eps bound {bound}")
+        ratio = max(ratio, err / bound if bound else 0.0)
+        delta = hom._shared_delta(vs, qmax)
+        qs = [hom._quantize(v, delta, qmax, torch.int16) for v in vs]
+        q16, q32 = qs[0], qs[0].int()
+        for q in qs[1:]:
+            q16, q32 = q16 + q, q32 + q.int()
+        if not torch.equal(q16.int(), q32):
+            fail(f"hom leaf {i}: the int16 sum wrapped")
+        worst = max(worst, int(q32.abs().max()))
+    if worst > hom.worst_case_psum(HOM_WORKERS):
+        fail(f"hom: largest |qsum| {worst} > worst_case_psum "
+             f"{hom.worst_case_psum(HOM_WORKERS)}")
+    if not all(bool(torch.isfinite(t).all()) for r in res for t in tree_leaves(r)):
+        fail("hom: a residual is not finite")
+    del grads, mean, res, per_leaf
+    gc.collect()
+    state = train_step.init_state(params, hom_mode=True, mesh=mesh)
+    step = train_step.make_train_step(model, opt_cfg, mode="hom", mesh=mesh)
+    losses, times = [], []
+    for _ in range(HOM_STEPS):
+        batch = _on_card(next(pipe))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    if not np.isfinite(losses).all() or len(state.ef_residual) != HOM_WORKERS:
+        fail(f"hom steps: losses {losses}")
+    r_max = max(float(t.abs().max()) for r in state.ef_residual
+                for t in tree_leaves(r))
+    if not np.isfinite(r_max):
+        fail("hom steps: a residual is not finite")
+    say(f"[{tag}] train {TRAIN_ARCH} hom over {HOM_WORKERS} workers on "
+        f"{DEVICE} (int16 wire, {bits} bits a worker): every leaf's "
+        f"compressed mean within the per-worker eps bound of the exact mean "
+        f"(worst {ratio:.3f} of it), largest |qsum| {worst} <= "
+        f"worst_case_psum {hom.worst_case_psum(HOM_WORKERS)}, int16 sums "
+        f"exact; {HOM_STEPS} hom steps: losses "
+        + ", ".join(f"{l:.4f}" for l in losses) + ", ms "
+        + ", ".join(f"{t:.1f}" for t in times)
+        + f"; residuals finite on every worker (max |r| {r_max:.3g})")
+    del state
+    gc.collect()
+
+
+def checkpoints(seed: int, tag: str) -> None:
+    """9c: at smollm-360m's widths cut to ``CKPT_LAYERS`` layers: a lossless
+    save of the whole ``TrainState`` and the pipeline, restore (bitwise),
+    then 2 steps against 2 uninterrupted ones (losses rtol 1e-6, under
+    ``torch.use_deterministic_algorithms``); an HSZ save of the params at
+    ``CKPT_REL_EB``, restore with the integrity check, every leaf within
+    ``rel_eb·range·1.01``; MB/s of each save and restore and the codec."""
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], n_layers=CKPT_LAYERS,
+                              remat="full")
+    model = get_model(cfg)
+    gen = torch.Generator(device=DEVICE)
+    params, _ = model.init(gen.manual_seed(seed), device=DEVICE)
+    opt_cfg = train_opt.AdamWConfig(**TRAIN_OPT)
+    pipe_cfg = TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH, seed=seed)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    # the resume check compares losses at rtol 1e-6: deterministic kernels
+    # where torch has them (cuBLAS asks for this workspace setting)
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        step = train_step.make_train_step(model, opt_cfg)
+        pipe = TokenPipeline(pipe_cfg)
+        state, _ = step(train_step.init_state(params), _on_card(next(pipe)))
+        tree = state._asdict() | {"data": pipe.state_dict()}
+        raw = sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                  if isinstance(t, torch.Tensor))
+        d = str(CKPT_ROOT / "lossless")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_ckpt.save(d, 1, tree, mode="lossless")
+        t_save = time.perf_counter() - t0
+        pipe_a = TokenPipeline(pipe_cfg, start_step=pipe.step)
+        cont, state_a = [], state
+        for _ in range(2):
+            state_a, m = step(state_a, _on_card(next(pipe_a)))
+            cont.append(float(m["loss"]))
+        del state_a
+        # a fresh process's state: other weights, zero moments
+        fresh, _ = model.init(gen.manual_seed(seed + 1), device=DEVICE)
+        pipe_b = TokenPipeline(pipe_cfg)
+        target = train_step.init_state(fresh)._asdict() | {
+            "data": pipe_b.state_dict()}
+        t0 = time.perf_counter()
+        restored = train_ckpt.restore(d, 1, target, device=DEVICE)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        pipe_b.load_state_dict(restored.pop("data"))
+        state_b = train_step.TrainState(**restored)
+        for a, b in zip(tree_flatten_with_paths(state_b)[1],
+                        tree_flatten_with_paths(state)[1]):
+            if not torch.equal(a, b):
+                fail("lossless checkpoint: a restored leaf differs")
+        resumed = []
+        for _ in range(2):
+            state_b, m = step(state_b, _on_card(next(pipe_b)))
+            resumed.append(float(m["loss"]))
+        if not np.allclose(resumed, cont, rtol=1e-6, atol=0):
+            fail(f"resumed losses {resumed} != uninterrupted {cont}")
+        del state_b, restored, target, fresh
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if workspace is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = workspace
+    lossless = json.loads(pathlib.Path(d, "step_00000001",
+                                       "manifest.json").read_text())
+    codec = lossless["leaves"][0]["codec"]
+    stored = sum(f.stat().st_size for f in pathlib.Path(d).rglob("*.bin"))
+    # HSZ: the params, verified on restore by the manifest's stage-② mean
+    h = str(CKPT_ROOT / "hsz")
+    ptree = {"params": state.params}
+    p_raw = sum(t.numel() * 4 for t in tree_leaves(state.params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_ckpt.save(h, 1, ptree, mode="hsz", rel_eb=CKPT_REL_EB)
+    t_hsave = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = train_ckpt.restore(h, 1, ptree, device=DEVICE)
+    torch.cuda.synchronize()
+    t_hrestore = time.perf_counter() - t0
+    worst = 0.0
+    for a, b in zip(tree_leaves(state.params), tree_leaves(back["params"])):
+        rng = float(a.max() - a.min())
+        if a.numel() >= 1024:
+            err = float((a - b).abs().max())
+            if err > max(CKPT_REL_EB * rng, 1e-7) * 1.01:
+                fail(f"HSZ checkpoint: |error| {err} > rel_eb·range")
+            worst = max(worst, err / max(CKPT_REL_EB * rng, 1e-7))
+        elif not torch.equal(a, b):
+            fail("HSZ checkpoint: a small leaf is not lossless")
+    h_stored = sum(f.stat().st_size for f in pathlib.Path(h).rglob("*.bin"))
+    n_hsz = sum(e["codec"] == "hsz" for e in json.loads(pathlib.Path(
+        h, "step_00000001", "manifest.json").read_text())["leaves"])
+    say(f"[{tag}] checkpoints of {TRAIN_ARCH} at {CKPT_LAYERS} of its "
+        f"{ARCHS[TRAIN_ARCH].n_layers} layers: lossless ({codec}) TrainState "
+        f"+ pipeline {raw / 1e6:.1f} MB -> {stored / 1e6:.1f} MB, save "
+        f"{t_save:.2f} s ({raw / 1e6 / t_save:.1f} MB/s), restore "
+        f"{t_restore:.2f} s ({raw / 1e6 / t_restore:.1f} MB/s), bitwise; 2 "
+        f"steps after the restore == 2 uninterrupted: losses "
+        + ", ".join(f"{l:.6f}" for l in resumed)
+        + f" (rtol 1e-6); HSZ params rel_eb {CKPT_REL_EB}: {p_raw / 1e6:.1f} "
+        f"MB -> {h_stored / 1e6:.1f} MB ({p_raw / h_stored:.2f}x, {n_hsz} "
+        f"hszp leaves), save {t_hsave:.2f} s ({p_raw / 1e6 / t_hsave:.1f} "
+        f"MB/s), restore with the integrity check {t_hrestore:.2f} s "
+        f"({p_raw / 1e6 / t_hrestore:.1f} MB/s), worst error {worst:.3f} of "
+        f"rel_eb·range")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+def collectives_path(trained: dict, tag: str) -> dict:
+    """9d: ``packed_allgather`` of the full-width embedding over
+    ``HOM_WORKERS`` workers at ``GATHER_BITS`` (worker ``w`` holds the
+    embedding times ``(w + 1) / HOM_WORKERS``), launches counted: the words
+    bitwise ``pack_plain``'s and their values bitwise ``unpack_plain``'s on
+    the card, the gathered values bitwise the CPU port's and within half a
+    bin; ``stage1_stats`` of the trained params against float64 numpy.
+    Returns the path's launches."""
+    params = trained["state"].params
+    embed = params["embed"]
+    xs = [embed * ((w + 1) / HOM_WORKERS) for w in range(HOM_WORKERS)]
+    mesh = make_host_mesh(devices=[DEVICE] * HOM_WORKERS)
+    ops.reset_launches()
+    out = {bits: hom.packed_allgather(xs, mesh, bits) for bits in GATHER_BITS}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    require_launches("collectives", launches)
+    n = embed.numel()
+    cpu_mesh = make_host_mesh(devices=["cpu"] * HOM_WORKERS)
+    host_xs = [x.cpu() for x in xs]
+    lines = []
+    for bits, got in out.items():
+        qmax = float(2 ** (bits - 1) - 1)
+        delta = hom._shared_delta(xs, qmax)
+        for x in xs:
+            u = hom.wire_values(x, delta, qmax)
+            words = bitpack.pack(u, bits)
+            if not torch.equal(words, bitpack.pack_plain(u, bits)):
+                fail(f"packed_allgather bits {bits}: pack != pack_plain")
+            if not torch.equal(bitpack.unpack(words, u.numel(), bits),
+                               bitpack.unpack_plain(words, u.numel(), bits)):
+                fail(f"packed_allgather bits {bits}: unpack != unpack_plain")
+        want = hom.packed_allgather(host_xs, cpu_mesh, bits)
+        if not torch.equal(got.cpu(), want):
+            fail(f"packed_allgather bits {bits}: card != CPU port")
+        gap = max(float((got[w] - x).abs().max()) for w, x in enumerate(xs))
+        if gap > float(delta) * 0.5 * 1.0001:
+            fail(f"packed_allgather bits {bits}: |gathered - x| {gap} > "
+                 f"half a bin {float(delta) / 2}")
+        t = host_ms(lambda b=bits: hom.packed_allgather(xs, mesh, b), 5)
+        wire = HOM_WORKERS * (n + (-n) % 32) * bits // 8
+        lines.append(f"bits {bits}: {wire / 1e6:.1f} MB of words against "
+                     f"{HOM_WORKERS * n * 4 / 1e6:.1f} MB of f32, max |error| "
+                     f"{gap:.3g} <= half a bin, {_spread(t)}")
+    t0 = time.perf_counter()
+    st = hom.stage1_stats(params)
+    torch.cuda.synchronize()
+    t_stats = (time.perf_counter() - t0) * 1e3
+    total = total_sq = count = 0
+    for t in tree_leaves(params):
+        a = t.detach().cpu().numpy().astype(np.float64)
+        total, total_sq, count = total + a.sum(), total_sq + (a * a).sum(), \
+            count + a.size
+    mean, norm = total / count, np.sqrt(total_sq)
+    if not (np.isclose(float(st["mean"]), mean, rtol=1e-4, atol=0)
+            and np.isclose(float(st["norm"]), norm, rtol=1e-4, atol=0)):
+        fail(f"stage1_stats mean {float(st['mean'])} / norm "
+             f"{float(st['norm'])} vs float64 {mean} / {norm}")
+    say(f"[{tag}] collectives: packed_allgather of the {TRAIN_ARCH} embedding "
+        f"{tuple(embed.shape)} over {HOM_WORKERS} workers on {DEVICE}, words "
+        f"== pack_plain's and values == unpack_plain's on the card, gathered "
+        f"== the CPU port's bitwise; " + "; ".join(lines)
+        + f". stage1_stats of {count:,} params: mean {float(st['mean']):.6g} "
+        f"(float64 {mean:.6g}), norm {float(st['norm']):.6g} (float64 "
+        f"{norm:.6g}), rtol 1e-4, {t_stats:.1f} ms")
+    return launches
+
+
+def train_small_vs_cpu(seed: int, tag: str) -> None:
+    """9e: the ten reduced archs at f32 compute on the card against the CPU
+    port with the same params and batch: loss and every gradient leaf
+    within ``TRAIN_TOL``, and one gspmd step's new params within it where
+    the CPU's gradient is not within the gradient tolerance of 0 (there
+    AdamW's ``g / (|g| + eps)`` may take either sign)."""
+    opt_cfg = train_opt.AdamWConfig(**TRAIN_OPT)
+    gaps = []
+    for name in ARCHS:
+        cfg = dataclasses.replace(reduced(ARCHS[name]),
+                                  compute_dtype=torch.float32)
+        m = get_model(cfg)
+        host, _ = m.init(torch.Generator().manual_seed(seed), device="cpu")
+        card = tree_map(lambda t: t.to(DEVICE), host)
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)}
+        if cfg.prefix_tokens:
+            batch["prefix_embeds"] = rng.normal(
+                size=(2, cfg.prefix_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "audio":
+            batch["frames"] = rng.normal(
+                size=(2, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+        hb = {k: torch.as_tensor(v) for k, v in batch.items()}
+        cb = _on_card(batch)
+        hl, hg = train_step.value_and_grad(m.loss_fn, host, hb)
+        cl, cg = train_step.value_and_grad(m.loss_fn, card, cb)
+        gap = abs(float(cl) - float(hl))
+        if not np.isclose(float(cl), float(hl), **TRAIN_TOL):
+            fail(f"{name}: loss {float(cl)} on the card, {float(hl)} on the CPU")
+        for a, b in zip(tree_leaves(cg), tree_leaves(hg)):
+            if not torch.allclose(a.cpu(), b, **TRAIN_TOL):
+                fail(f"{name}: a gradient leaf card vs CPU max |diff| "
+                     f"{float((a.cpu() - b).abs().max())}")
+            gap = max(gap, float((a.cpu() - b).abs().max()))
+        step = train_step.make_train_step(m, opt_cfg)
+        hs, _ = step(train_step.init_state(host), hb)
+        cs, _ = step(train_step.init_state(card), cb)
+        moved, flips = 0.0, 0
+        for a, b, ga, gb in zip(tree_leaves(cs.params), tree_leaves(hs.params),
+                                tree_leaves(cg), tree_leaves(hg)):
+            off = ~torch.isclose(a.cpu(), b, **TRAIN_TOL)
+            flip = torch.sign(ga.cpu()) != torch.sign(gb)
+            if bool((off & ~flip).any()):
+                fail(f"{name}: one step's new params card vs CPU max |diff| "
+                     f"{float((a.cpu() - b)[off & ~flip].abs().max())}")
+            flips += int(off.sum())
+            moved = max(moved, float((a.cpu() - b)[~flip].abs().max()))
+        gaps.append(f"{name} {gap:.2g}/{moved:.2g}"
+                    + (f" ({flips} params whose gradient's sign differs)"
+                       if flips else ""))
+    say(f"[{tag}] train: the {len(ARCHS)} reduced archs at f32 compute, card "
+        f"== CPU port (rtol/atol 1e-4): loss and every gradient leaf, then "
+        f"one gspmd step's params; max |diff| grads/params: " + ", ".join(gaps))
+
+
+# ===========================================================================
 # phase 6: times
 # ===========================================================================
 
@@ -4295,6 +4761,24 @@ def main() -> None:
     phase_s["8c CPU"] = time.perf_counter()
     lm_small_vs_cpu(args.seed, tag, LM_SMALL_8C)
 
+    phase_s["9a"] = time.perf_counter()
+    # 9. training at smollm-360m's full width (gspmd, then hom over four
+    # workers on the card), checkpoints at its widths cut to 2 layers, the
+    # compressed collectives (their pack / unpack launches counted), then
+    # the reduced archs against the CPU port
+    trained = train_full_width(args.seed, tag)
+    phase_s["9b"] = time.perf_counter()
+    hom_full_width(trained, tag)
+    phase_s["9c"] = time.perf_counter()
+    checkpoints(args.seed, tag)
+    phase_s["9d"] = time.perf_counter()
+    path_launches["collectives"] = collectives_path(trained, tag)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["9e"] = time.perf_counter()
+    train_small_vs_cpu(args.seed, tag)
+
     phase_s["5e"] = time.perf_counter()
     # 5e. the serve path: one frontend step over a router of a sharded store
     # (8 shards on the card, then 1) and a local one, held to the same step
@@ -4324,7 +4808,8 @@ def main() -> None:
             "engine_launches": path_launches["engine path"][name],
             "stream_launches": path_launches["stream path"][name],
             "serve_launches": path_launches["serve path"][name],
-            "science_store_launches": path_launches["science store"][name]})
+            "science_store_launches": path_launches["science store"][name],
+            "collectives_launches": path_launches["collectives"][name]})
         if name == "unpack.residuals":
             kernels[-1]["slab"] = slab_times
         if name == "prefix_stats2d.stats":

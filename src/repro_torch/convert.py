@@ -13,6 +13,9 @@ the port's ``compute(..., seed=)``.  A temporal stream crosses as its slabs'
 container triples plus its pinned quantization step, payload-width policy,
 headroom and measured |q| bound (:func:`temporal_from_arrays`), and a
 ``TemporalSummary`` as its six integer leaves (:func:`summary_from_arrays`).
+Model params cross as trees of numpy leaves (:func:`params_from_arrays`),
+and a training state as the reference's ``TrainState`` of numpy leaves
+(:func:`train_state_from_arrays`).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from collections.abc import Sequence
 
+from .comm import PerWorker
 from .core import by_name
 from .core.oplib import TemporalSummary
 from .core.stages import LEAVES, Compressed, Encoded, Scheme, Stage
@@ -28,6 +32,7 @@ from .kernels import ops as kernel_ops
 from .models.common import tree_map
 from .store import MaterializedStage
 from .stream import TemporalField
+from .train import optimizer, train_step
 
 _KINDS = {"Compressed": Compressed, "Encoded": Encoded}
 
@@ -151,3 +156,36 @@ def params_from_arrays(tree, device="cuda"):
 def params_to_arrays(params):
     """Inverse of :func:`params_from_arrays`: numpy leaves on the host."""
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def train_state_from_arrays(state, device="cuda"):
+    """A training state of numpy leaves -> the port's
+    :class:`~repro_torch.train.train_step.TrainState` on ``device``.
+
+    ``state`` is anything with the reference ``TrainState``'s fields
+    (``params``, ``opt`` with ``m`` / ``v`` / ``count``, ``step``,
+    ``ef_residual``), e.g. ``jax.tree.map(np.asarray, state)``.  An
+    error-feedback tree (the one residual a host reads) stays one tree; a
+    ``hom`` step takes one per worker (``comm.PerWorker``)."""
+    dev = kernel_ops.resolve_device(device)
+    res = state.ef_residual
+    opt = optimizer.OptState(m=params_from_arrays(state.opt.m, dev),
+                             v=params_from_arrays(state.opt.v, dev),
+                             count=params_from_arrays(state.opt.count, dev))
+    return train_step.TrainState(
+        params=params_from_arrays(state.params, dev), opt=opt,
+        step=params_from_arrays(state.step, dev),
+        ef_residual=None if res is None else params_from_arrays(res, dev))
+
+
+def train_state_to_arrays(state):
+    """Inverse of :func:`train_state_from_arrays`: the port's ``TrainState``
+    with numpy leaves on the host (a per-worker residual as worker 0's)."""
+    res = state.ef_residual
+    if isinstance(res, PerWorker):
+        res = res[0]
+    return type(state)(
+        params=params_to_arrays(state.params),
+        opt=type(state.opt)(*(params_to_arrays(x) for x in state.opt)),
+        step=params_to_arrays(state.step),
+        ef_residual=None if res is None else params_to_arrays(res))

@@ -1,2 +1,3 @@
-"""Launchers: the analytics device mesh (``mesh``) and the token-serving
-launcher (``python -m repro_torch.launch.serve``)."""
+"""Launchers: the device meshes (``mesh``), the token-serving launcher
+(``python -m repro_torch.launch.serve``) and the training launcher
+(``python -m repro_torch.launch.train``)."""

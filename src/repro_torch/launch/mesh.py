@@ -1,17 +1,20 @@
-"""The analytics mesh: one flat ``("shard",)`` axis over a list of devices.
+"""Device meshes as device lists: the analytics mesh (one flat
+``("shard",)`` axis) and the training host mesh (``("data", "model")``).
 
 A :class:`repro_torch.shard.ShardedFieldStore` partitions the *blocks* of
-one encoded field over this axis.  The store is single-controller: one
-process drives every shard, holds each shard's word stripe on that shard's
-device and merges the shards' words on ``devices[0]`` (``repro_torch.shard
-.exec``), so the mesh is a plain list of ``torch.device`` objects and no
-process group is involved.  A device may repeat: eight shards on one card
-run the same programs, merges and per-shard budgets as eight shards on
-eight cards.
+one encoded field over the analytics mesh; a ``hom``-mode train step splits
+its batch over the host mesh's ``data`` axis.  Both are single-controller:
+one process drives every shard or worker, holds its tensors on its device
+and reduces on ``devices[0]`` (``repro_torch.shard.exec``,
+``repro_torch.comm.hom_collectives``), so a mesh is a plain list of
+``torch.device`` objects and no process group is involved.  A device may
+repeat: eight shards (or four workers) on one card run the same programs
+and reductions as on eight (four) cards.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -66,3 +69,64 @@ def _indexed(dev: torch.device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+#: mesh axis names of the training host mesh (the reference's
+#: ``make_host_mesh`` default).
+HOST_AXES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """A ``data`` x ``model`` mesh over ``devices`` in row-major order."""
+
+    devices: tuple[torch.device, ...]
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> extent, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_host_mesh(shape: tuple[int, ...] | None = None, axes=HOST_AXES, *,
+                   devices=None) -> HostMesh:
+    """``(n, 1)`` mesh over ``("data", "model")`` for training.
+
+    With ``devices=None`` the mesh takes the CUDA cards: ``shape[0]`` of
+    them, or every card without ``shape``; asking for more than there are,
+    or for none, is an error, and there is no CPU mesh by default (the
+    rules of :func:`make_analytics_mesh`).  An explicit ``devices`` list is
+    taken as given and may repeat a device (``["cuda:0"] * 4``, ``["cpu"]
+    * 4``).  Only data parallelism is ported: a ``model`` axis larger than
+    1 raises (model sharding waits for the mesh-bound model code).
+    """
+    axes = tuple(axes)
+    if devices is None:
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = n_cards if shape is None else int(shape[0])
+        if not (1 <= n <= n_cards):
+            raise ValueError(
+                f"the data axis must hold 1 to {n_cards} CUDA devices, got "
+                f"{n}; pass devices=[...] to place workers explicitly")
+        devs = tuple(torch.device("cuda", i) for i in range(n))
+    else:
+        devs = tuple(_indexed(torch.device(d)) for d in devices)
+        if not devs:
+            raise ValueError("devices must name at least one device")
+    sizes = (len(devs), 1) if shape is None else tuple(int(s) for s in shape)
+    if len(sizes) != len(axes):
+        raise ValueError(f"shape {sizes} does not match axes {axes}")
+    if dict(zip(axes, sizes)).get("model", 1) != 1:
+        raise NotImplementedError(
+            "a model axis larger than 1 needs the mesh-bound model code, "
+            "which is not ported")
+    if math.prod(sizes) != len(devs):
+        raise ValueError(f"mesh shape {sizes} needs {math.prod(sizes)} "
+                         f"devices, got {len(devs)}")
+    return HostMesh(devs, axes, sizes)

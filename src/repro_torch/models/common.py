@@ -13,12 +13,14 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from collections.abc import Callable, Sequence
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..kernels import ops as kernel_ops
 
@@ -31,13 +33,18 @@ Specs = dict[str, Any]
 
 
 def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
-    """Map ``fn`` over the leaves of nested dicts / lists / tuples (and the
-    matching leaves of ``rest``, which share ``tree``'s structure)."""
+    """Map ``fn`` over the leaves of nested dicts / lists / tuples /
+    NamedTuples (and the matching leaves of ``rest``, which share
+    ``tree``'s structure); ``None`` is a leaf."""
     if is_leaf is not None and is_leaf(tree):
         return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+        return type(tree)(*(
+            tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+            for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(
             tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
@@ -49,6 +56,53 @@ def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     out = []
     tree_map(out.append, tree, is_leaf=is_leaf)
     return out
+
+
+def tree_flatten_with_paths(tree) -> tuple[list[str], list]:
+    """``(paths, leaves)`` in jax's pytree order, each path joined as the
+    reference's checkpoint joins ``jax.tree_util.tree_flatten_with_path``'s
+    keys: dict keys sorted, NamedTuple fields as ``.name``, list and tuple
+    items by index, ``None`` no leaf."""
+    paths, leaves = [], []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for name in node._fields:
+                walk(getattr(node, name), path + ("." + name,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        else:
+            paths.append("/".join(path))
+            leaves.append(node)
+
+    walk(tree, ())
+    return paths, leaves
+
+
+def tree_unflatten(tree, leaves: Sequence):
+    """``tree`` with its leaves replaced, in :func:`tree_flatten_with_paths`
+    order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(getattr(node, n)) for n in node._fields))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(tree)
 
 
 def is_spec(x) -> bool:
@@ -222,6 +276,54 @@ def stacked_spec(spec_tree: Specs) -> Specs:
 def layer_slice(tree, l: int):
     """Layer ``l`` of a stacked tree (views, no copy)."""
     return tree_map(lambda w: w[l], tree)
+
+
+def unstack_layers(tree) -> list:
+    """Every layer of a stacked tree (views, no copy), each leaf unbound
+    once: under autograd the stacked leaf's gradient is then stacked once
+    from the layers' gradients, where a :func:`layer_slice` per layer
+    zero-pads each layer's gradient to the full stack and adds them up."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return []
+    unbound = [torch.unbind(w, 0) for w in leaves]
+    layers = []
+    for l in range(len(unbound[0])):
+        it = iter([u[l] for u in unbound])
+        layers.append(tree_map(lambda _: next(it), tree))
+    return layers
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    matmuls without batch dimensions (``aten.mm`` / ``aten.addmm``, which a
+    2-D weight's ``x @ w`` lowers to), recompute everything else — the
+    reference's ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg, step: Callable, *args, dots_policy: bool = False):
+    """``step(*args)`` for one layer (or period) under ``cfg.remat``, as the
+    reference wraps its scan body in ``jax.checkpoint``: ``"none"`` keeps
+    every activation for the backward pass; any other value keeps only the
+    step's inputs and recomputes the step in the backward pass, and
+    ``"dots"`` at a site that takes the reference's policy
+    (``dots_policy``: the transformer's layer scan) also keeps its matmul
+    outputs.  Values are those of ``step(*args)``; only memory changes.
+    Without grad mode nothing is saved, so the step runs as is.  The steps
+    draw no random numbers, so no RNG state is stashed for the
+    recomputation."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return step(*args)
+    context_fn = (functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts, _save_dots)
+        if dots_policy and cfg.remat == "dots"
+        else torch_checkpoint.noop_context_fn)
+    return torch_checkpoint.checkpoint(
+        step, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=context_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,9 @@ from __future__ import annotations
 import torch
 
 from . import attention, ffn, ssm
-from .common import (Builder, cast_tree, layer_slice, resolve_device,
-                     rms_norm, stack_layers, stacked_spec, tree_map)
+from .common import (Builder, cast_tree, layer_slice, remat, resolve_device,
+                     rms_norm, stack_layers, stacked_spec, tree_map,
+                     unstack_layers)
 from .transformer import (LONG_PREFILL, embed_tokens, logits_fn,
                           seq_positions, token_loss)
 
@@ -98,11 +99,15 @@ def hidden_states(cfg, params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
     B, S, _ = x.shape
     positions = seq_positions(B, S, x.device)
     long_seq = S > LONG_PREFILL
-    n_periods, remainder = _pattern(cfg)
-    for l in range(n_periods):
-        pp = layer_slice(params["periods"], l)
+    _, remainder = _pattern(cfg)
+
+    def period_step(pp, x):
         for key, kind in zip("abc", PERIOD):
             x = _mix_forward(cfg, kind, pp[key], x, positions, long_seq)
+        return x
+
+    for pp in unstack_layers(params["periods"]):
+        x = remat(cfg, period_step, pp, x)
     for lp, kind in zip(params["tail"], remainder):
         x = _mix_forward(cfg, kind, lp, x, positions, long_seq)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -228,13 +233,16 @@ def prefill(cfg, params, batch: dict[str, torch.Tensor], max_len: int):
         carry = carry + ffn.dense(lp_c["mlp"], h, _fcfg(cfg))
         return carry, state
 
-    n_periods, remainder = _pattern(cfg)
-    period_states = []
-    for l in range(n_periods):
-        pp = layer_slice(params["periods"], l)
+    def period_step(pp, x):
         states = {}
         for key, kind in zip("abc", PERIOD):
             x, states[key] = mix_prefill(kind, pp[key], x)
+        return x, states
+
+    _, remainder = _pattern(cfg)
+    period_states = []
+    for pp in unstack_layers(params["periods"]):
+        x, states = remat(cfg, period_step, pp, x)
         period_states.append(states)
     tail_states = []
     for lp, kind in zip(params["tail"], remainder):

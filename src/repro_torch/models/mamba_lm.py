@@ -3,15 +3,16 @@
 64 identical blocks: ``x += mamba(rms_norm(x))``; pure SSM (d_ff = 0 in the
 assignment spec).  Decode carries (conv, ssm) states — O(1) per token.
 Every layer step casts its f32 master weights to the compute dtype, as the
-reference's scan body does.
+reference's scan body does, and runs under ``cfg.remat`` (``common.remat``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import ssm
-from .common import (Builder, cast_tree, layer_slice, resolve_device,
-                     rms_norm, shard, stack_layers, stacked_spec, tree_map)
+from .common import (Builder, cast_tree, layer_slice, remat, resolve_device,
+                     rms_norm, shard, stack_layers, stacked_spec, tree_map,
+                     unstack_layers)
 from .transformer import logits_fn, token_loss
 
 
@@ -54,10 +55,14 @@ def _embed(cfg, params, tokens):
 def hidden_states(cfg, params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
     x = _embed(cfg, params, batch["tokens"])
     mcfg = _mcfg(cfg)
-    for l in range(cfg.n_layers):
-        lp = cast_tree(layer_slice(params["layers"], l), cfg.compute_dtype)
+
+    def step(lp, x):
+        lp = cast_tree(lp, cfg.compute_dtype)
         h = rms_norm(x, lp["ln"], cfg.norm_eps)
-        x = x + ssm.mamba(lp["mixer"], h, mcfg)
+        return x + ssm.mamba(lp["mixer"], h, mcfg)
+
+    for lp in unstack_layers(params["layers"]):
+        x = remat(cfg, step, lp, x)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -111,14 +116,18 @@ def prefill(cfg, params, batch: dict[str, torch.Tensor], max_len: int):
     x = _embed(cfg, params, batch["tokens"])
     mcfg = _mcfg(cfg)
     S = x.shape[1]
-    states = []
-    for l in range(cfg.n_layers):
-        lp = cast_tree(layer_slice(params["layers"], l), cfg.compute_dtype)
+
+    def step(lp, x):
+        lp = cast_tree(lp, cfg.compute_dtype)
         h = rms_norm(x, lp["ln"], cfg.norm_eps)
         xz = h @ lp["mixer"]["in_proj"]
         y, conv_s, ssm_s = ssm._mamba_core(lp["mixer"], xz, mcfg, None, None)
-        x = x + y
-        states.append({"conv": conv_s.to(torch.bfloat16), "ssm": ssm_s})
+        return x + y, {"conv": conv_s.to(torch.bfloat16), "ssm": ssm_s}
+
+    states = []
+    for lp in unstack_layers(params["layers"]):
+        x, state = remat(cfg, step, lp, x)
+        states.append(state)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = logits_fn(cfg, params, x[:, -1:, :])
     return logits, {"layers": stack_layers(states),

@@ -6,15 +6,17 @@ MoE), deepseek-v3-671b (MLA + first-k-dense + shared-expert MoE), and the
 paligemma-3b decoder (MQA + prefix embeds).  Layers are *grouped* by kind;
 each group's params are stacked on a leading ``layers`` axis and the
 forward passes loop over it.  Every layer step casts its f32 master
-weights to the compute dtype, as the reference's scan body does.
+weights to the compute dtype, as the reference's scan body does, and runs
+under ``cfg.remat`` (``common.remat``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import attention, ffn
-from .common import (Builder, cast_tree, layer_slice, resolve_device,
-                     rms_norm, shard, stack_layers, stacked_spec, tree_map)
+from .common import (Builder, cast_tree, layer_slice, remat, resolve_device,
+                     rms_norm, shard, stack_layers, stacked_spec, tree_map,
+                     unstack_layers)
 
 LONG_PREFILL = 2048  # query-chunk attention above this (bounds the logits)
 
@@ -109,12 +111,12 @@ def _layer_forward(cfg, kind: str, lp, x, positions, long_seq: bool):
 
 
 def _run_groups(cfg, params, x, positions, *, long_seq: bool):
-    for (count, kind), gp in zip(layer_groups(cfg), params["groups"]):
+    for (_, kind), gp in zip(layer_groups(cfg), params["groups"]):
         if cfg.fsdp_bf16_gather:
             gp = cast_tree(gp, cfg.compute_dtype)
-        for l in range(count):
-            x = _layer_forward(cfg, kind, layer_slice(gp, l), x, positions,
-                               long_seq)
+        for lp in unstack_layers(gp):
+            x = remat(cfg, _layer_forward, cfg, kind, lp, x, positions,
+                      long_seq, dots_policy=True)
     return x
 
 
@@ -248,14 +250,18 @@ def prefill(cfg, params, batch: dict[str, torch.Tensor], max_len: int):
     positions = seq_positions(B, S, x.device)
     long_seq = S > LONG_PREFILL
 
+    def step(kind, lp, x):
+        lp = cast_tree(lp, cfg.compute_dtype)
+        kv_in = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        kv = attention.project_kv(lp["attn"], kv_in, acfg, positions)
+        return _layer_forward(cfg, kind, lp, x, positions, long_seq), kv
+
     caches = []
-    for (count, kind), gp in zip(layer_groups(cfg), params["groups"]):
+    for (_, kind), gp in zip(layer_groups(cfg), params["groups"]):
         kvs = []
-        for l in range(count):
-            lp = cast_tree(layer_slice(gp, l), cfg.compute_dtype)
-            kv_in = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            kvs.append(attention.project_kv(lp["attn"], kv_in, acfg, positions))
-            x = _layer_forward(cfg, kind, lp, x, positions, long_seq)
+        for lp in unstack_layers(gp):
+            x, kv = remat(cfg, step, kind, lp, x)
+            kvs.append(kv)
         pad = max_len - S
         caches.append(tree_map(      # leaves (L, B, S, ...) -> (L, B, max_len, ...)
             lambda l: torch.nn.functional.pad(l, (0, 0) * (l.ndim - 3) + (0, pad)),

@@ -19,9 +19,9 @@ import dataclasses
 import torch
 
 from . import attention, ffn
-from .common import (Builder, cast_tree, layer_slice, resolve_device,
+from .common import (Builder, cast_tree, layer_slice, remat, resolve_device,
                      rms_norm, shard, sinusoidal_positions, stack_layers,
-                     stacked_spec, tree_map)
+                     stacked_spec, tree_map, unstack_layers)
 from .transformer import LONG_PREFILL, logits_fn, seq_positions, token_loss
 
 
@@ -79,12 +79,16 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     x = shard(x, "batch", "seq", "embed")
     positions = seq_positions(B, F, frames.device)
     bidir = dataclasses.replace(acfg, causal=False)
-    for l in range(cfg.enc_layers):
-        lp = cast_tree(layer_slice(params["enc"], l), dt)
+
+    def step(lp, x):
+        lp = cast_tree(lp, dt)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attention.forward(lp["attn"], h, bidir, positions)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn.plain(lp["mlp"], h)
+        return x + ffn.plain(lp["mlp"], h)
+
+    for lp in unstack_layers(params["enc"]):
+        x = remat(cfg, step, lp, x)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -102,8 +106,9 @@ def decode_train(cfg, params, tokens: torch.Tensor,
     B, S = tokens.shape
     x = _dec_embed(cfg, params, tokens)
     positions = seq_positions(B, S, tokens.device)
-    for l in range(cfg.n_layers):
-        lp = cast_tree(layer_slice(params["dec"], l), cfg.compute_dtype)
+
+    def step(lp, x):
+        lp = cast_tree(lp, cfg.compute_dtype)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         if S > LONG_PREFILL:
             x = x + attention.forward_chunked(lp["attn"], h, acfg, positions)
@@ -112,7 +117,10 @@ def decode_train(cfg, params, tokens: torch.Tensor,
         h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
         x = x + attention.cross_forward(lp["xattn"], h, enc_out, acfg)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn.plain(lp["mlp"], h)
+        return x + ffn.plain(lp["mlp"], h)
+
+    for lp in unstack_layers(params["dec"]):
+        x = remat(cfg, step, lp, x)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
