@@ -204,6 +204,30 @@ Phases (any failure raises, so the exit code is non-zero):
    f32 compute, card against the CPU port: loss and every gradient leaf,
    then one gspmd step's params (rtol / atol 1e-4).  Phase 9 runs after 8
    and before 5e.
+10. the mesh layer (``repro_torch.launch.{mesh,dryrun,op_analysis,
+   roofline}``, ``models/ffn.moe_manual_ep``, ``comm.exchange``): (a) one
+   MoE layer at full width with manual expert parallelism over
+   ``make_host_mesh((1, 4))`` and ``(2, 4)`` peers on the one card:
+   ``granite-moe-3b-a800m`` (40 experts, d 1536, d_ff 512, top-8) at f32
+   and its configured capacity against the CPU port on the same inputs
+   (rtol / atol 1e-4), ``deepseek-v3-671b`` (256 experts, d 7168, d_ff
+   2048, sigmoid, 1 shared; f32 weights, 45.1 GB, where the card has room,
+   else bf16 at rtol / atol 2e-2) against the port's ``moe`` on the card
+   at a capacity that drops nothing (checked from the routing); (b)
+   ``granite-moe-3b-a800m`` at full width and depth served by
+   ``Engine(slots=4, max_len=128)`` with the (1, 4) mesh active, 8 requests
+   drained at f32 compute: at a capacity that drops nothing its greedy
+   tokens equal the unmeshed engine's; at the config's capacity the tokens
+   that differ are counted; tokens/s and ms per warm step; (c) the dry run
+   of ``smollm-360m`` on a (1, 1) mesh at phase 9a's shape (8 x 512, remat)
+   and a decode shape (8 x 4096) against the real step: its predicted peak
+   over ``torch.cuda.max_memory_allocated`` within 0.5-2, and its FLOPs
+   over the step's time; (d) two gspmd steps of the reduced MoE archs at
+   f32 compute under a (2, 2) mesh, card against the CPU port (rtol / atol
+   1e-4); (e) the dry run of every ``smollm-360m`` and
+   ``deepseek-v3-671b`` cell on both production meshes, in host processes
+   started at (a) (no card): every status is what ``cell_supported``
+   says.  Phase 10 runs after 9 and before 5e.
 
 Launch counters are reset just before each path (entry point, main path,
 region path, the serve path's step, the science store's path, the
@@ -227,6 +251,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import pathlib
 import re
@@ -250,12 +275,14 @@ from repro_torch.core import blocking, expr, oplib, quantize  # noqa: E402
 from repro_torch.core import fused as rules  # noqa: E402
 from repro_torch.core import homomorphic as H  # noqa: E402
 from repro_torch.core import region as R  # noqa: E402
-from repro_torch.configs import ARCHS, reduced  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ARCHS, SHAPES, ShapeConfig, cell_supported, reduced)
 from repro_torch.data import ScientificStore  # noqa: E402
 from repro_torch.data.scientific import dataset_dims, synth_field  # noqa: E402
-from repro_torch.models import get_model, whisper  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    ffn, get_model, make_batch, transformer, whisper)
 from repro_torch.models.common import (  # noqa: E402
-    tree_flatten_with_paths, tree_leaves, tree_map)
+    Builder, tree_flatten_with_paths, tree_leaves, tree_map)
 from repro_torch.kernels import (  # noqa: E402
     bitpack, build, fused, ops, prefix_stats, quant_lorenzo, ref, specs,
     stencil_dq)
@@ -266,6 +293,9 @@ from repro_torch.core.oplib import map_summaries  # noqa: E402
 from repro_torch.comm import hom_collectives as hom  # noqa: E402
 from repro_torch.data.tokens import (  # noqa: E402
     TokenPipeline, TokenPipelineConfig)
+from repro_torch.comm import exchange  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     make_analytics_mesh, make_host_mesh)
 from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
@@ -1747,9 +1777,11 @@ def time_q_hit(enc, store, eng, scheme: str, tag: str) -> None:
 #: launched ``SPINS_BEFORE`` times before the traced call and once after it
 SPIN = re.compile(r"spin_kernel")
 SPIN_CYCLES = 100_000
-SPINS_BEFORE = 4
+#: the profiler has dropped the first 4 device events of three traces in a
+#: row (every leading marker when there were 4), so 8 lead the call
+SPINS_BEFORE = 8
 #: traces taken of one call before a trace without its markers fails
-TRACE_TRIES = 3
+TRACE_TRIES = 5
 
 
 def profiled(run, what: str, whole: bool = False) -> list:
@@ -3977,6 +4009,436 @@ def train_small_vs_cpu(seed: int, tag: str) -> None:
 
 
 # ===========================================================================
+# phase 10: the mesh layer, manual expert parallelism and the dry run
+# ===========================================================================
+
+#: the expert-parallel meshes: (data, model) peers, all on the one card
+EP_MESHES = ((1, 4), (2, 4))
+#: the one-layer checks' tokens (batch x seq): each of 4 peers routes 16
+#: (8 on the (2, 4) mesh)
+EP_TOKENS = (2, 32)
+#: a capacity factor at which these inputs drop no token (checked from the
+#: routing before it is relied on)
+EP_NO_DROP_CF = 8.0
+#: deepseek-v3's MoE layer at f32 holds 45.1 GB of expert weights; below
+#: this much free memory the layer runs at bf16 instead
+EP_F32_FREE = 62 * 2 ** 30
+#: EP against the moe path at bf16: the einsums run at other batch shapes,
+#: so cuBLAS may sum in another order (about one bf16 ulp of the output)
+EP_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+#: the meshed engine: granite-moe-3b-a800m at full width and depth
+EP_SERVE_ARCH = "granite-moe-3b-a800m"
+EP_PROMPT, EP_NEW = 4, 8
+#: the dry run against the card (smollm-360m on a (1, 1) mesh): phase 9a's
+#: train shape and a decode shape whose cache fits beside the rest
+DRY_CARD_ARCH = "smollm-360m"
+DRY_CARD_SHAPES = (ShapeConfig("train_8x512", "train", TRAIN_SEQ, TRAIN_BATCH),
+                   ShapeConfig("decode_8x4096", "decode", 4096, 8))
+DRY_PEAK_RANGE = (0.5, 2.0)
+#: the dry-run sweep: every cell of these archs on both production meshes,
+#: in processes of their own (no card) while the card runs phase 10
+DRY_ARCHS = ("smollm-360m", "deepseek-v3-671b")
+DRY_DIR = ROOT / "build" / "dryrun_smoke"
+DRY_WORKERS = 3
+
+
+def _moe_cfg(arch: str, **kw) -> ffn.FfnCfg:
+    return dataclasses.replace(transformer._ffn_cfg(ARCHS[arch], "moe"), **kw)
+
+
+def _filled_params(fcfg: ffn.FfnCfg, seed: int, device, dtype) -> dict:
+    """One MoE layer's params, seeded normals at ``Builder``'s scales,
+    drawn in place on ``device`` (no temporary the size of a weight)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b = Builder(None)   # only for the shapes
+    shapes = tree_map(lambda t: tuple(t.shape), Builder.split(
+        ffn.init_moe(b, fcfg))[0])
+
+    def draw(shape):
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        t.normal_(generator=g).mul_(1.0 / (shape[-2] if len(shape) > 1
+                                           else shape[-1]) ** 0.5)
+        return t.to(dtype)
+
+    return tree_map(draw, shapes, is_leaf=lambda s: isinstance(s, tuple)
+                    and all(isinstance(d, int) for d in s))
+
+
+def ep_drops(expert_idx: np.ndarray, fcfg: ffn.FfnCfg, mesh_shape) -> int:
+    """Token-slots manual EP would drop for this routing (stage 1: more
+    than ``cap1`` to one peer; stage 2: more than ``cap2`` to one local
+    expert), counted from the (T, K) expert choices."""
+    dp, tp = mesh_shape
+    T, K = expert_idx.shape
+    e_loc = -(-fcfg.n_experts // tp)
+    ts_ = T // dp // tp
+    cf = fcfg.capacity_factor
+    cap1 = int(max(1, round(ts_ * K / tp * cf)))
+    cap2 = int(max(1, round(tp * cap1 / e_loc * cf)))
+    drops = 0
+    for d in range(dp):
+        recv = np.zeros((tp, e_loc), np.int64)
+        for g in range(tp):
+            e = expert_idx[(d * tp + g) * ts_:(d * tp + g + 1) * ts_].reshape(-1)
+            per_peer = np.bincount(e // e_loc, minlength=tp)
+            drops += int(np.maximum(per_peer - cap1, 0).sum())
+            if per_peer.max() <= cap1:
+                np.add.at(recv, (e // e_loc, e % e_loc), 1)
+        drops += int(np.maximum(recv - cap2, 0).sum())
+    return drops
+
+
+def moe_drops(expert_idx: np.ndarray, fcfg: ffn.FfnCfg) -> int:
+    """Token-slots ``moe`` drops: more than its capacity C to one expert."""
+    T, K = expert_idx.shape
+    C = int(max(1, round(T * K / fcfg.n_experts * fcfg.capacity_factor)))
+    load = np.bincount(expert_idx.reshape(-1), minlength=fcfg.n_experts)
+    return int(np.maximum(load - C, 0).sum())
+
+
+@contextlib.contextmanager
+def active_mesh(shape, device: str):
+    """A host mesh of ``shape`` over one device repeated, active."""
+    mesh = make_host_mesh(shape, devices=[device] * math.prod(shape))
+    mesh_lib.activate(mesh)
+    try:
+        yield mesh
+    finally:
+        mesh_lib.deactivate()
+
+
+def ep_layer(seed: int, tag: str) -> None:
+    """10a: one MoE layer at full width over ``EP_MESHES`` on the card:
+    granite-moe-3b-a800m at f32 and its configured capacity against the CPU
+    port on the same inputs; deepseek-v3-671b against the port's ``moe`` on
+    the card with nothing dropped (f32 weights where the card has room)."""
+    B, S = EP_TOKENS
+    rng = np.random.default_rng(seed)
+    # granite-moe: against the CPU port
+    fcfg = _moe_cfg("granite-moe-3b-a800m")
+    host = _filled_params(fcfg, seed, "cpu", torch.float32)
+    card = tree_map(lambda t: t.to(DEVICE), host)
+    xh = torch.as_tensor(rng.normal(size=(B, S, fcfg.d_model)).astype(np.float32))
+    xc = xh.to(DEVICE)
+    idx = ffn.route(card, xc.reshape(-1, fcfg.d_model), fcfg)[1].cpu().numpy()
+    for shape in EP_MESHES:
+        with active_mesh(shape, DEVICE):
+            if not ffn._can_manual_ep(fcfg, xc):
+                fail(f"granite-moe layer on {shape}: manual EP not taken")
+            exchange.reset_counts()
+            yc = ffn.forward(card, xc, fcfg)
+            counts = exchange.counts()
+            ms = host_ms(lambda: ffn.forward(card, xc, fcfg), 5)
+        with active_mesh(shape, "cpu"):
+            yh = ffn.forward(host, xh, fcfg)
+        err = float((yc.cpu() - yh).abs().max())
+        if not torch.allclose(yc.cpu(), yh, **LM_TOL):
+            fail(f"granite-moe layer on {shape}: card vs CPU port max |diff| {err}")
+        say(f"[{tag}] EP granite-moe-3b-a800m layer (E {fcfg.n_experts}, d "
+            f"{fcfg.d_model}, d_ff {fcfg.d_ff}, top-{fcfg.top_k}, capacity "
+            f"{fcfg.capacity_factor}) on a {shape[0]}x{shape[1]} mesh on one "
+            f"card, {B * S} tokens, f32: card == CPU port (rtol/atol 1e-4), "
+            f"max |diff| {err:.3g}; {ep_drops(idx, fcfg, shape)} token-slots "
+            f"dropped; exchanges {counts}; {_spread(ms)} a layer")
+    del host, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    # deepseek-v3: against the moe path on the card, nothing dropped
+    fcfg = _moe_cfg("deepseek-v3-671b", capacity_factor=EP_NO_DROP_CF)
+    free = torch.cuda.mem_get_info()[0]
+    dtype = torch.float32 if free >= EP_F32_FREE else torch.bfloat16
+    tol = LM_TOL if dtype == torch.float32 else EP_BF16_TOL
+    torch.cuda.reset_peak_memory_stats()
+    p = _filled_params(fcfg, seed, DEVICE, dtype)
+    x = torch.as_tensor(rng.normal(size=(B, S, fcfg.d_model)).astype(np.float32),
+                        device=DEVICE).to(dtype)
+    idx = ffn.route(p, x.reshape(-1, fcfg.d_model), fcfg)[1].cpu().numpy()
+    if moe_drops(idx, fcfg):
+        fail(f"deepseek-v3 layer: moe drops {moe_drops(idx, fcfg)} token-slots "
+             f"at capacity {fcfg.capacity_factor}")
+    want = ffn.moe(p, x, fcfg)
+    for shape in EP_MESHES:
+        if ep_drops(idx, fcfg, shape):
+            fail(f"deepseek-v3 layer on {shape}: EP drops "
+                 f"{ep_drops(idx, fcfg, shape)} token-slots")
+        with active_mesh(shape, DEVICE):
+            exchange.reset_counts()
+            got = ffn.forward(p, x, fcfg)
+            counts = exchange.counts()
+            ms = host_ms(lambda: ffn.forward(p, x, fcfg), 3)
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), **tol):
+            fail(f"deepseek-v3 layer on {shape}: EP vs moe max |diff| {err}")
+        say(f"[{tag}] EP deepseek-v3-671b layer (E {fcfg.n_experts}, d "
+            f"{fcfg.d_model}, moe d_ff {fcfg.d_ff}, top-{fcfg.top_k}, sigmoid, "
+            f"{fcfg.n_shared} shared) at {str(dtype)[6:]} ({free / 2 ** 30:.1f} "
+            f"GiB free before it) on a {shape[0]}x{shape[1]} mesh, {B * S} "
+            f"tokens, capacity {fcfg.capacity_factor} (no drops): EP == moe on "
+            f"the card (rtol/atol {tol['rtol']}), max |diff| {err:.3g}; "
+            f"exchanges {counts}; {_spread(ms)} a layer; peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del p, x, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ep_serve(seed: int, tag: str) -> None:
+    """10b: ``EP_SERVE_ARCH`` at full width and depth served by
+    ``Engine(slots=4, max_len=128)`` with the (1, 4) mesh active: at f32
+    compute and a capacity that drops nothing, the greedy tokens of 8
+    drained requests equal the unmeshed engine's; at the config's capacity,
+    the tokens that differ are counted; tokens/s and ms per warm step."""
+    base = ARCHS[EP_SERVE_ARCH]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for cf in (EP_NO_DROP_CF, base.capacity_factor):
+        cfg = dataclasses.replace(base, compute_dtype=torch.float32,
+                                  capacity_factor=cf)
+        model = get_model(cfg)
+        params, _ = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                               device=DEVICE)
+        for meshed in (False, True):
+            ctx = (active_mesh((1, 4), DEVICE) if meshed
+                   else contextlib.nullcontext())
+            with ctx:
+                exchange.reset_counts()
+                eng = Engine(model, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                             device=DEVICE)
+                reqs = _lm_requests(cfg.vocab, seed, prompt=EP_PROMPT, new=EP_NEW)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                done = _drain(eng, reqs)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = exchange.counts()
+                toks = torch.as_tensor(np.asarray(
+                    [[r.prompt[0]] for r in reqs[:LM_SLOTS]], np.int32),
+                    device=DEVICE)
+                cache = eng.cache
+                step = host_ms(lambda: model.decode_step(params, toks, cache), 5)
+            if sorted(done) != list(range(LM_REQUESTS)):
+                fail(f"{EP_SERVE_ARCH} meshed={meshed}: the engine did not drain")
+            if meshed and not counts.get("all-to-all", {}).get("count"):
+                fail(f"{EP_SERVE_ARCH}: the meshed engine issued no exchange")
+            out[(cf, meshed)] = done
+            n_tok = sum(len(t) for t in done.values())
+            say(f"[{tag}] EP serve {EP_SERVE_ARCH} ({cfg.n_layers} layers, "
+                f"{_widths(cfg)}, {cfg.n_experts} experts top-{cfg.top_k}) "
+                f"f32 compute, capacity {cf}, "
+                f"{'(1, 4) mesh on one card' if meshed else 'no mesh'}: "
+                f"{LM_REQUESTS} requests x {EP_NEW} tokens (prompt {EP_PROMPT}) "
+                f"in {dt:.3f} s = {n_tok / dt:.1f} tokens/s; warm decode step "
+                f"{_spread(step)}; exchanges {counts.get('all-to-all', {})}")
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, meshed = out[(EP_NO_DROP_CF, False)], out[(EP_NO_DROP_CF, True)]
+    if plain != meshed:
+        fail(f"{EP_SERVE_ARCH}: with nothing dropped the meshed engine's greedy "
+             f"tokens differ from the unmeshed engine's: {meshed} vs {plain}")
+    a, b = out[(base.capacity_factor, False)], out[(base.capacity_factor, True)]
+    differ = sum(x != y for u in a for x, y in zip(a[u], b[u]))
+    say(f"[{tag}] EP serve {EP_SERVE_ARCH}: capacity {EP_NO_DROP_CF} (nothing "
+        f"dropped): meshed == unmeshed greedy tokens, all "
+        f"{sum(len(t) for t in plain.values())}; at the config's capacity "
+        f"{base.capacity_factor}: {differ} of "
+        f"{sum(len(t) for t in a.values())} tokens differ (EP caps each peer "
+        f"and local expert, moe each expert)")
+
+
+def dry_vs_card(seed: int, tag: str) -> None:
+    """10c: the dry run of ``DRY_CARD_ARCH`` on a (1, 1) mesh against the
+    real step on the card: the predicted peak (arguments + the step's own
+    peak) over ``torch.cuda.max_memory_allocated`` of the same step (within
+    ``DRY_PEAK_RANGE``), and the dry run's FLOPs over the step's time."""
+    one = make_host_mesh((1, 1), devices=["meta"])
+    cfg = dataclasses.replace(ARCHS[DRY_CARD_ARCH], remat="full")
+    model = get_model(cfg)
+    for shape in DRY_CARD_SHAPES:
+        rec = dryrun.build_cell(DRY_CARD_ARCH, shape, multi_pod=False,
+                                mesh=one, remat="full")
+        if rec["status"] != "ok":
+            fail(f"dry run {DRY_CARD_ARCH} {shape.name}: {rec.get('error')}")
+        predicted = rec["memory"]["peak_per_device_gib"] * 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params, _ = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                               device=DEVICE)
+        batch = make_batch(cfg, shape, torch.Generator(device=DEVICE).manual_seed(seed),
+                           device=DEVICE)
+        if shape.kind == "train":
+            step = train_step.make_train_step(model, train_opt.AdamWConfig())
+            state = train_step.init_state(params)
+            state, _ = step(state, batch)          # warm: the first step
+            run = lambda: step(state, batch)
+        else:
+            cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                     device=DEVICE)
+            run = lambda: model.decode_step(params, batch["tokens"], cache)
+            run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        real = torch.cuda.max_memory_allocated() - base
+        del out
+        times = host_ms(run, 3)
+        ratio = real / predicted
+        flops = rec["hlo"]["dot_flops"]
+        med = statistics.median(times)
+        say(f"[{tag}] dry run vs card, {DRY_CARD_ARCH} {shape.kind} "
+            f"{shape.global_batch} x {shape.seq_len} (remat full) on a (1, 1) "
+            f"mesh: predicted peak {predicted / 2 ** 30:.3f} GiB (arguments "
+            f"{rec['memory']['argument_bytes'] / 2 ** 30:.3f} + the step's "
+            f"{rec['hlo']['peak_live_bytes'] / 2 ** 30:.3f}), the card's "
+            f"max_memory_allocated {real / 2 ** 30:.3f} GiB: ratio card / dry "
+            f"run {ratio:.3f} (allowed {DRY_PEAK_RANGE[0]}-{DRY_PEAK_RANGE[1]}); "
+            f"dry-run dot FLOPs {flops / 1e12:.3f} T over the step's "
+            f"{_spread(times)} = {flops / med / 1e9:.2f} TFLOP/s achieved "
+            f"({flops / med / 1e9 / 989:.1%} of the 989 TFLOP/s bf16 "
+            f"datasheet peak); dry run {rec['compile_s']} s on the host")
+        if not DRY_PEAK_RANGE[0] <= ratio <= DRY_PEAK_RANGE[1]:
+            fail(f"dry run {DRY_CARD_ARCH} {shape.name}: card / dry-run peak "
+                 f"{ratio:.3f} outside {DRY_PEAK_RANGE}")
+        del run, params, batch
+        if shape.kind == "train":
+            del state, step
+        else:
+            del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mesh_steps_vs_cpu(seed: int, tag: str) -> None:
+    """10d: two gspmd steps of the reduced MoE archs at f32 compute under a
+    (2, 2) mesh (manual EP in every MoE layer), card against the CPU port:
+    losses and the gradient leaves within ``TRAIN_TOL``, the params after
+    two steps within it where the first step's gradient has the same sign
+    (elsewhere AdamW's ``g / (|g| + eps)`` may take either)."""
+    opt_cfg = train_opt.AdamWConfig(**TRAIN_OPT)
+    for name in ("granite-moe-3b-a800m", "deepseek-v3-671b"):
+        cfg = dataclasses.replace(reduced(ARCHS[name]), compute_dtype=torch.float32)
+        m = get_model(cfg)
+        host, _ = m.init(torch.Generator().manual_seed(seed), device="cpu")
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (4, 8)).astype(np.int32)}
+        res = {}
+        for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+            params = tree_map(lambda t: t.to(dev), host)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            with active_mesh((2, 2), dev):
+                exchange.reset_counts()
+                loss, grads = train_step.value_and_grad(m.loss_fn, params, b)
+                step = train_step.make_train_step(m, opt_cfg)
+                state = train_step.init_state(params)
+                losses = []
+                for _ in range(2):
+                    state, met = step(state, b)
+                    losses.append(float(met["loss"]))
+                res[where] = (loss, grads, state, losses, exchange.counts())
+        (cl, cg, cs, closs, counts), (hl, hg, hs, hloss, _) = res["card"], res["cpu"]
+        if not counts.get("all-to-all", {}).get("count"):
+            fail(f"{name} on a (2, 2) mesh: no expert-parallel exchange")
+        if not np.allclose(closs + [float(cl)], hloss + [float(hl)], **TRAIN_TOL):
+            fail(f"{name} (2, 2) mesh: losses {closs} on the card, {hloss} on "
+                 f"the CPU")
+        gap, moved = 0.0, 0.0
+        for a, b_, ga, gb in zip(tree_leaves(cs.params), tree_leaves(hs.params),
+                                 tree_leaves(cg), tree_leaves(hg)):
+            if not torch.allclose(ga.cpu(), gb, **TRAIN_TOL):
+                fail(f"{name} (2, 2) mesh: a gradient leaf card vs CPU max "
+                     f"|diff| {float((ga.cpu() - gb).abs().max())}")
+            gap = max(gap, float((ga.cpu() - gb).abs().max()))
+            same = torch.sign(ga.cpu()) == torch.sign(gb)
+            off = ~torch.isclose(a.cpu(), b_, **TRAIN_TOL) & same
+            if bool(off.any()):
+                fail(f"{name} (2, 2) mesh: params after two steps card vs CPU "
+                     f"max |diff| {float((a.cpu() - b_)[off].abs().max())}")
+            moved = max(moved, float((a.cpu() - b_)[same].abs().max()))
+        say(f"[{tag}] (2, 2) mesh, reduced {name} at f32 compute, two gspmd "
+            f"steps with manual EP ({counts}): card == CPU port (rtol/atol "
+            f"1e-4), losses {', '.join(f'{l:.6f}' for l in closs)}; max |diff| "
+            f"grads {gap:.2g}, params {moved:.2g}")
+
+
+def start_dry_sweep() -> list:
+    """10e, started: the dry run of every ``DRY_ARCHS`` cell on both
+    production meshes (its CLI, ``dryrun.main``), in ``DRY_WORKERS`` host
+    processes that need no card, the cells dealt out longest first
+    (``deepseek-v3-671b`` training, about 20 s each); returns them."""
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    DRY_DIR.mkdir(parents=True)
+    cells = []
+    for arch in DRY_ARCHS:
+        for shape in SHAPES:
+            meshes = (["--multi-pod"], []) if SHAPES[shape].kind == "train" \
+                else (["--both-meshes"],)
+            cells += [["--arch", arch, "--shape", shape, "--out", str(DRY_DIR)]
+                      + extra for extra in meshes]
+    cells.sort(key=lambda c: ("deepseek" not in c[1], "train" not in c[3]))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    code = ("import json, sys; from repro_torch.launch import dryrun; "
+            "sys.exit(max(dryrun.main(a) for a in json.loads(sys.argv[1])))")
+    procs = []
+    for w in range(DRY_WORKERS):
+        with open(DRY_DIR / f"log_{w}.txt", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, json.dumps(cells[w::DRY_WORKERS])],
+                env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def stop_dry_sweep(procs) -> None:
+    """End every dry-run process still running (after a failure)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_dry_sweep(procs, tag: str) -> None:
+    """10e, checked: every record's status is what ``cell_supported`` says
+    (a "failed" cell fails the run), each with its per-device peak, dot
+    FLOPs and the H100 roofline's dominant term."""
+    t0 = time.perf_counter()
+    for p in procs:
+        p.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    bad = [p.args[-1] for p in procs if p.returncode != 0]
+    recs = [json.loads(f.read_text()) for f in sorted(DRY_DIR.glob("*.json"))]
+    want = {(a, s, m) for a in DRY_ARCHS for s in SHAPES
+            for m in ("16x16", "2x16x16")}
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    if set(got) != want:
+        fail(f"dry-run sweep: records for {sorted(set(got))}, want {sorted(want)}")
+    lines = []
+    for key in sorted(got):
+        r = got[key]
+        ok = cell_supported(ARCHS[key[0]], SHAPES[key[1]])[0]
+        if r["status"] != ("ok" if ok else "skipped"):
+            fail(f"dry run {key}: status {r['status']} "
+                 f"({r.get('error', r.get('reason'))})")
+        if r["status"] == "ok":
+            a = roofline.analyze_record(r)
+            lines.append(f"{key[0]} {key[1]} {key[2]}: peak "
+                         f"{r['memory']['peak_per_device_gib']} GiB/dev, "
+                         f"{r['hlo']['dot_flops'] / 1e12:.2f} TFLOP/dev, "
+                         f"{a['dominant']}-bound, roofline "
+                         f"{a['roofline_fraction']:.2f}, meta step "
+                         f"{r['compile_s']} s")
+        else:
+            lines.append(f"{key[0]} {key[1]} {key[2]}: skipped")
+    if bad:
+        fail(f"dry-run processes exited non-zero: {bad}")
+    say(f"[{tag}] dry-run sweep of {', '.join(DRY_ARCHS)} on 16x16 and "
+        f"2x16x16 ({len(got)} cells, {DRY_WORKERS} host processes beside "
+        f"phase 10; {waited:.1f} s waited at its end): every status == "
+        f"cell_supported; " + "; ".join(lines))
+
+
+# ===========================================================================
 # phase 6: times
 # ===========================================================================
 
@@ -4778,6 +5240,25 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_s["9e"] = time.perf_counter()
     train_small_vs_cpu(args.seed, tag)
+
+    phase_s["10a"] = time.perf_counter()
+    # 10. the mesh layer: one MoE layer with manual expert parallelism over
+    # peers on the card, the meshed engine, the dry run against the card and
+    # gspmd steps under a (2, 2) mesh; meanwhile the dry-run sweep runs in
+    # host processes of its own
+    sweep = start_dry_sweep()
+    try:
+        ep_layer(args.seed, tag)
+        phase_s["10b"] = time.perf_counter()
+        ep_serve(args.seed, tag)
+        phase_s["10c"] = time.perf_counter()
+        dry_vs_card(args.seed, tag)
+        phase_s["10d"] = time.perf_counter()
+        mesh_steps_vs_cpu(args.seed, tag)
+        phase_s["10e"] = time.perf_counter()
+        finish_dry_sweep(sweep, tag)
+    finally:
+        stop_dry_sweep(sweep)
 
     phase_s["5e"] = time.perf_counter()
     # 5e. the serve path: one frontend step over a router of a sharded store

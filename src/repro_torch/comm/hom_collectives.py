@@ -17,7 +17,10 @@ each sum runs hop by hop on ``devices[0]`` in the wire's dtype, so it wraps
 where the reference's would.  Given the same per-worker inputs every output
 is bitwise the reference's (``repro/comm/hom_collectives.py``).
 :func:`packed_allgather` bit-packs its payload with the port's Hopper
-``pack`` / ``unpack`` kernels (their plain versions on the CPU).
+``pack`` / ``unpack`` kernels (their plain versions on the CPU).  Each
+collective is counted in ``comm.exchange``'s counters under its HLO name
+with its per-worker bytes: the shared-eps ``pmax`` (an f32 all-reduce), the
+int16 sum (an all-reduce) and the packed words' all-gather.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import encode
+from . import exchange
 from ..kernels import bitpack
 from ..models.common import tree_flatten_with_paths, tree_leaves, tree_map
 
@@ -86,6 +90,7 @@ def _shared_delta(vs, qmax: float) -> torch.Tensor:
     to that rounding (the clip takes the rest)."""
     dev0 = vs[0].device
     vmax = torch.stack([torch.max(torch.abs(v)).to(dev0) for v in vs]).max()
+    exchange.record("all-reduce", 4)                # the pmax of max|v|
     return torch.clamp(vmax * _f32_recip(qmax), min=1e-30)
 
 
@@ -121,6 +126,7 @@ def _leaf_compressed_psum(vs, bits: int):
         residuals.append(_residual(v, q, delta_w))
         q = q.to(dev0)
         qsum = q if qsum is None else qsum + q      # int16 on the wire
+    exchange.record("all-reduce", qsum.numel() * qsum.element_size())
     summed = qsum.to(torch.float32) * delta
     return summed, residuals
 
@@ -195,6 +201,8 @@ def packed_allgather(per_worker_x, mesh, bits: int) -> torch.Tensor:
     words = [bitpack.pack(wire_values(x, delta.to(x.device), qmax), bits)
              for x in per_worker_x]
     gathered = [w.to(dev0) for w in words]         # packed on the wire
+    exchange.record("all-gather", sum(w.numel() * w.element_size()
+                                      for w in gathered))
     vals = torch.stack([encode.unzigzag(bitpack.unpack(w, n + (-n) % 32, bits))
                         for w in gathered])
     out = vals[:, :n].to(torch.float32) * delta

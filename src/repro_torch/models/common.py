@@ -7,8 +7,13 @@
   axis; the forward passes loop over it.
 * **Logical axes**: ``batch, seq, embed, heads, kv_heads, head_dim, mlp,
   vocab, experts, layers, conv, state`` — resolved per mesh by
-  :meth:`ShardingCtx.resolve`.  With no mesh active (the only mode this
-  package runs models in), :func:`shard` is the identity.
+  ``repro_torch.launch.mesh.logical_rules`` and :meth:`ShardingCtx.resolve`.
+  Values are never sharded: one process holds every tensor, so
+  :func:`shard` is the identity with or without a mesh (as
+  ``with_sharding_constraint`` leaves values unchanged), and an active mesh
+  is read by the code that places work on its devices (manual expert
+  parallelism, ``models/ffn.moe_manual_ep``) and by the dry run's
+  per-device byte counts (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -197,13 +202,11 @@ def axis_size(logical: str) -> int:
 
 
 def shard(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
-    """Activation sharding constraint by logical axes: the identity without
-    a mesh.  Model sharding over a mesh is not ported (ROADMAP queue 1
-    item 4), so an active mesh raises."""
-    if CTX.mesh is None or CTX.manual_dp:
-        return x
-    raise NotImplementedError(
-        "sharded models are not ported: run without an active mesh")
+    """Activation sharding constraint by logical axes: the identity, with
+    or without an active mesh.  The reference's ``with_sharding_constraint``
+    changes where a value lives, never the value; the port keeps every
+    tensor where the op that made it put it."""
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -322,8 +325,21 @@ def remat(cfg, step: Callable, *args, dots_policy: bool = False):
         if dots_policy and cfg.remat == "dots"
         else torch_checkpoint.noop_context_fn)
     return torch_checkpoint.checkpoint(
-        step, *args, use_reentrant=False, preserve_rng_state=False,
-        context_fn=context_fn)
+        _at_weight(step), *args, use_reentrant=False,
+        preserve_rng_state=False, context_fn=context_fn)
+
+
+def _at_weight(step: Callable) -> Callable:
+    """``step`` at the dry run's peer weight of its first call
+    (``comm.exchange.weight``): its recomputation may run inside the
+    backward of a peer's node, which sets another."""
+    from ..comm import exchange   # comm imports this module
+    w = exchange.PEER_WEIGHT
+
+    def run(*args):
+        with exchange.weight(w):
+            return step(*args)
+    return run
 
 
 # ---------------------------------------------------------------------------

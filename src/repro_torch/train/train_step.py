@@ -5,11 +5,15 @@ Two gradient-synchronization modes, as the reference's
 ``repro/train/train_step.py``:
 
 * ``gspmd`` (baseline): one ``torch.autograd.grad`` of ``model.loss_fn``
-  over the global batch on the params' device.
+  over the global batch on the params' device; under an active mesh with a
+  ``model`` axis the MoE layers take manual expert parallelism
+  (``models/ffn.moe_manual_ep``) over its peers.
 * ``hom`` (the paper's technique on the wire): the global batch is split
   along dim 0 over the mesh's ``data`` workers, as ``P("data")`` splits it;
   each worker computes its loss and unreduced gradients on its own device
-  with ``CTX.manual_dp`` set (the reference's ``shard_map`` body), then
+  with ``CTX.manual_dp`` set (the reference's ``shard_map`` body: no expert
+  parallelism inside it, so a ``("data", "model")`` mesh gives the same
+  bits as its ``data`` axis alone), then
   ``comm.compressed_psum_tree`` all-reduces them in the quantized integer
   domain (int16 wire, shared eps, error feedback) and one AdamW update
   runs on ``mesh.devices[0]``.  The error-feedback state is a
@@ -26,6 +30,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..comm import exchange
 from ..comm import hom_collectives as hom
 from ..models.common import CTX, tree_leaves, tree_map
 from . import optimizer as opt_lib
@@ -48,11 +53,18 @@ def init_state(params, *, hom_mode: bool = False, mesh=None) -> TrainState:
             raise ValueError("hom mode needs the mesh")
         zeros = hom.init_residuals(params)
         residual = hom.PerWorker(_on(zeros, dev)
-                                 for dev in mesh.devices[:mesh.shape["data"]])
+                                 for dev in worker_devices(mesh))
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return TrainState(params=params, opt=opt_lib.init(params), step=step,
                       ef_residual=residual)
+
+
+def worker_devices(mesh, dp_axes: tuple = ("data",)) -> list:
+    """The data workers' devices: one per index of ``dp_axes`` (row-major),
+    at index 0 of the mesh's other axes.  On a ``(2, 2)`` ``("data",
+    "model")`` mesh these are devices 0 and 2."""
+    return [row[0] for row in mesh.grid(tuple(dp_axes))]
 
 
 def _on(tree, device):
@@ -93,12 +105,12 @@ def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, *,
     def grads_of(params, batch):
         if microbatch is None:
             return value_and_grad(model.loss_fn, params, batch)
-        # gradient accumulation over leading-dim microbatch splits
-        losses, gs = [], []
-        for b in split_batch(batch, microbatch):
-            loss, g = value_and_grad(model.loss_fn, params, b)
-            losses.append(loss)
-            gs.append(g)
+        # gradient accumulation over leading-dim microbatch splits (the
+        # dry run, on meta tensors, runs one and weighs it by their count)
+        outs = exchange.map_peers(
+            lambda b: value_and_grad(model.loss_fn, params, b),
+            split_batch(batch, microbatch), sequential=True)
+        losses, gs = zip(*outs)
         g = tree_map(lambda *xs: torch.mean(torch.stack(xs), dim=0), *gs)
         return torch.mean(torch.stack(losses)), g
 
@@ -116,10 +128,8 @@ def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, *,
         raise ValueError(f"unknown mode {mode}")
     if mesh is None:
         raise ValueError("hom mode needs the mesh")
-    world = 1
-    for a in dp_axes:
-        world *= mesh.shape[a]
-    devices = mesh.devices[:world]
+    devices = worker_devices(mesh, dp_axes)
+    world = len(devices)
 
     def local_grads(params, batch):
         """One worker's loss and unreduced grads, with the model's sharding
@@ -143,6 +153,7 @@ def make_train_step(model, opt_cfg: opt_lib.AdamWConfig, *,
         grads, new_residual = hom.compressed_psum_tree(
             per_worker, state.ef_residual, mesh, world)
         loss = torch.mean(torch.stack(losses))
+        exchange.record("all-reduce", 4)            # the loss's pmean
         new_params, new_opt, stats = opt_lib.update(
             opt_cfg, grads, state.opt, state.params)
         metrics = {"loss": loss, **stats}

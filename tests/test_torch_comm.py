@@ -292,8 +292,10 @@ def test_make_host_mesh_device_lists():
     assert m.axis_names == ("data", "model")
     assert all(d == torch.device("cpu") for d in m.devices)
     assert make_host_mesh((2, 1), devices=["cpu", "cpu"]).shape["data"] == 2
-    with pytest.raises(NotImplementedError):
-        make_host_mesh((2, 2), devices=["cpu"] * 4)
+    # a model axis > 1 is taken (manual expert parallelism), in row-major
+    # order over (data, model)
+    m = make_host_mesh((2, 2), devices=["cpu"] * 4)
+    assert m.shape == {"data": 2, "model": 2} and m.size == 4
     with pytest.raises(ValueError):
         make_host_mesh((3, 1), devices=["cpu"] * 4)
     with pytest.raises(ValueError):

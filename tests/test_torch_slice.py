@@ -345,7 +345,10 @@ def test_port_imports_without_jax():
             "repro_torch.data.scientific, repro_torch.serve, "
             "repro_torch.shard, repro_torch.launch.mesh, "
             "repro_torch.train, repro_torch.launch.train, repro_torch.comm, "
-            "repro_torch.examples.train_lm_compressed_dp; "
+            "repro_torch.examples.train_lm_compressed_dp, "
+            "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+            "repro_torch.launch.op_analysis, "
+            "repro_torch.examples.hom_sync_bench; "
             "assert not [m for m in sys.modules if m.split('.')[0] == 'repro']")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
