@@ -18,6 +18,13 @@ Phases (any failure raises, so the exit code is non-zero):
    payload address that is not 16-byte aligned;
    then the block-mean kernels on random planes near Ocean's size at blocks
    (8, 8), (5, 7) and (4, 48), whose edges straddle the kernel's tiles;
+3b. the batched kernels (the decode's unpack and both band-kernel
+   families with a leading batch axis, one launch a batch: the engine's
+   full-field batches): every ``what`` against the batched plain versions,
+   bitwise, at Ocean x 8 (7-bit payloads), at batches of 1, 2 and 3 fields
+   on planes whose payload rows are not 16-byte multiples, and on two
+   fields of many tiles whose first holds full-range residuals and second
+   zeros (no sum may cross a field: the second's outputs stay zero);
 4. the kernel entry point (``repro_torch.kernels``: quant_lorenzo2d, pack,
    unpack, block_stats, grad2d, laplacian2d, prefix_stats2d): each kernel
    against its plain version at both shapes (bitwise; prefix_stats2d rtol
@@ -58,10 +65,12 @@ Phases (any failure raises, so the exit code is non-zero):
    on the card; (a) at "auto", (b) and (c) over the first (u, v) pair
    against the CPU port's same queries; an A/B pass with the fused rules
    off; every query's launches exactly what its plan implies under the
-   reference's fused cells (``FUSED_CELLS``: one band-kernel set per field
-   and covered op, on a stage-③ seed the stage-③ difference kernel or the
-   block-mean kernel over its integers, at most one decode per ``Encoded``
-   leaf, no unpack and
+   reference's fused cells (``FUSED_CELLS``: a full-field batch — (a), (b)
+   and the flat op set's layout groups — one decode and one band-kernel
+   set per covered op for the whole batch, each pass one launch; an
+   expression leaf or a seeded field one set each; on a stage-③ seed the
+   stage-③ difference kernel or the block-mean kernel over its integers,
+   at most one decode per ``Encoded`` leaf, no unpack and
    no payload kernel in a seeded or store-hit run); ``n_batches`` /
    ``n_dispatches`` and the store's hits and misses as the reference's
    rules give;
@@ -119,9 +128,11 @@ Phases (any failure raises, so the exit code is non-zero):
    ``compute`` calls, (c) against the sum of its single-op queries, (d) a
    store miss, and the ③ hit under the port's rule, the reference's rule
    (decode again, then the band kernels) and the torch rules, bitwise
-   equal) and a ``torch.profiler`` trace of one (a) call
-   per scheme: its kernels, their device µs and the device's busy share of
-   the call's window; the stream path's host ms per append (with its two
+   equal) and ``torch.profiler`` traces of one (a) call per scheme and
+   container, as one batched run and as eight per-field ``compute`` calls:
+   their kernels, device µs and the device's busy share of the call's
+   window; the batched kernels at Ocean x 8 (events, device alone, plain
+   version, bound, beside 8 x one field's device-alone time); the stream path's host ms per append (with its two
    merges), per hot query (a resident hit of the five ops) and per cold
    storeless query over 8 slabs, ``torch.profiler`` traces of one append
    and one cold query, and the unpack kernel alone at slab size beside its
@@ -138,7 +149,9 @@ Phases (any failure raises, so the exit code is non-zero):
    sentinel, two launches with two sentinels) at the edge shapes of every
    tiling limit (rows 1, 31, 32, 33 x columns 1, 127, 128, 129, 4224, 4225;
    65 537 and 65 539 rows; unpack and pack at 2048·k ± 1 values and widths
-   1, 7, 16, 17, 31; Ocean): every window cell written, no guard word
+   1, 7, 16, 17, 31; Ocean; batches of 3 fields whose payload rows are not
+   16-byte multiples for the batched kernels): every window cell written,
+   no guard word
    touched, the two launches bitwise equal and equal to the plain
    versions (``prefix_stats2d``: to the exact sums rounded once);
 8. (a) the science store (``repro_torch.data.ScientificStore``) at scale 1,
@@ -625,6 +638,179 @@ def check_lorenzo_tiling(seed: int, errs: dict) -> None:
     say("Lorenzo kernels == plain versions, bitwise, both passes, every what, "
         f"full-range int32 planes and payloads at {LZ_WIDTHS} bits, at "
         + ", ".join(map(str, LZ_SHAPES)))
+
+
+# ===========================================================================
+# phase 3b: the batched kernels (a leading batch axis, one launch a batch)
+# ===========================================================================
+
+#: the engine's batch: eight Ocean fields, payloads at 7 bits
+BATCH, BATCH_BITS = 8, 7
+#: the sites that take a batch (the decode and the band kernels), each
+#: listed again in the kernels line as "<site> x8"
+BATCHED_SITES = ("unpack.residuals", "lorenzo_enc2d.edges",
+                 "lorenzo_enc2d.stencil", "blockmean_enc2d", "lorenzo2d.edges",
+                 "lorenzo2d.stencil", "blockmean2d")
+#: ragged batches: (Lorenzo plane, width) and (block-mean plane, block,
+#: width) whose payloads have n_words % 4 != 0, so fields past the first do
+#: not start on 16 bytes; and the cross-field case (field 0 full-range
+#: residuals at 31 bits, field 1 zeros) on planes of many tiles
+BATCH_RAGGED_LZ = (((2401, 3599), 7), ((33, 129), 13))
+BATCH_RAGGED_BM = (((2395, 3598), (5, 7), 7), ((44, 126), (4, 6), 13))
+BATCH_SIZES = (1, 2, 3)
+LEAK_LZ, LEAK_BM = (2401, 3599), ((2395, 3598), (5, 7))
+
+
+def _rand_i32(shape, lo: int, hi: int, gen) -> torch.Tensor:
+    """Seeded int32 values in [lo, hi), drawn on the card."""
+    return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64,
+                         device=DEVICE).to(torch.int32)
+
+
+def _payloads(p: torch.Tensor, bits: int) -> torch.Tensor:
+    """One payload row per plane of ``p`` (the torch packer)."""
+    return torch.stack([encode.pack_uniform(encode.zigzag(x.reshape(-1)), bits)
+                        for x in p])
+
+
+def batched_inputs(shape, bits: int, batch: int, gen, block=BLOCK,
+                   leak: bool = False) -> dict:
+    """A batch's inputs: full-range int32 planes (sums wrap), residuals
+    within ``bits`` and their payload rows, block means; ``leak``: field 0
+    full-range (31-bit payload), every other field zeros."""
+    full = (batch,) + tuple(shape)
+    grid = (batch, shape[0] // block[0], shape[1] // block[1])
+    if leak:
+        bits = 31
+    lim = 1 << (bits - 1)
+    out = {"plane": _rand_i32(full, -2 ** 31, 2 ** 31, gen),
+           "p": _rand_i32(full, -lim, lim, gen),
+           "meta": _rand_i32(grid, -2 ** 31, 2 ** 31, gen),
+           "bits": bits, "shape": tuple(shape), "block": block}
+    if leak:
+        for k in ("plane", "p", "meta"):
+            out[k][1:] = 0
+    out["words"] = _payloads(out["p"], bits)
+    return out
+
+
+def check_batch(inp: dict, errs: dict, what_tag: str, lorenzo: bool = True,
+                blockmean: bool = True) -> None:
+    """Every batched kernel on one batch's inputs against its batched
+    plain version, bitwise (errors noted under "<site> x8")."""
+    label = f" x{BATCH}"
+    shape, bits, block = inp["shape"], inp["bits"], inp["block"]
+    plane, p, words, meta = inp["plane"], inp["p"], inp["words"], inp["meta"]
+    n = shape[0] * shape[1]
+    tile = fused.lorenzo_tile()
+    _note(errs, f"unpack.residuals{label}", bitwise_err(
+        bitpack.unpack_residuals_plain(words, n, bits),
+        bitpack.unpack_residuals(words, n, bits),
+        f"batched unpack_residuals {what_tag}"))
+    if lorenzo:
+        _note(errs, f"lorenzo2d.edges{label}", bitwise_err(
+            fused.lorenzo_edge_prefixes_plain(plane, tile),
+            fused.lorenzo_edges(plane, shape, 0, from_payload=False,
+                                site="lorenzo2d"),
+            f"batched lorenzo2d edges {what_tag}"))
+        _note(errs, f"lorenzo_enc2d.edges{label}", bitwise_err(
+            fused.lorenzo_edge_prefixes_plain(p, tile),
+            fused.lorenzo_edges(words, shape, bits, from_payload=True,
+                                site="lorenzo_enc2d"),
+            f"batched lorenzo_enc2d edges {what_tag}"))
+        for what in fused.LORENZO_WHATS:
+            _note(errs, f"lorenzo2d.stencil{label}", bitwise_err(
+                fused.lorenzo_core(plane, what),
+                fused.lorenzo2d(plane, what=what),
+                f"batched lorenzo2d {what} {what_tag}"))
+            _note(errs, f"lorenzo_enc2d.stencil{label}", bitwise_err(
+                fused.lorenzo_enc2d_plain(words, shape, bits, what=what),
+                fused.lorenzo_enc2d(words, shape, bits, what=what),
+                f"batched lorenzo_enc2d {what} {what_tag}"))
+    if blockmean:
+        for what in fused.BLOCKMEAN_WHATS:
+            _note(errs, f"blockmean2d{label}", bitwise_err(
+                fused.blockmean_core(plane, meta, block, what),
+                fused.blockmean2d(plane, meta, block, what=what),
+                f"batched blockmean2d {what} {what_tag}"))
+            _note(errs, f"blockmean_enc2d{label}", bitwise_err(
+                fused.blockmean_enc2d_plain(words, meta, shape, block, bits,
+                                            what=what),
+                fused.blockmean_enc2d(words, meta, shape, block, bits,
+                                      what=what),
+                f"batched blockmean_enc2d {what} {what_tag}"))
+
+
+def check_leak(inp: dict, what_tag: str, lorenzo: bool) -> None:
+    """The cross-field case: every output of field 1 (all zeros) is zero,
+    so nothing of field 0 (full-range sums) reached it, and field 0's is
+    not."""
+    shape, bits, block = inp["shape"], inp["bits"], inp["block"]
+    outs = []
+    if lorenzo:
+        outs.append(("lorenzo2d edges", fused.lorenzo_edges(
+            inp["plane"], shape, 0, from_payload=False, site="lorenzo2d")))
+        outs.append(("lorenzo_enc2d edges", fused.lorenzo_edges(
+            inp["words"], shape, bits, from_payload=True,
+            site="lorenzo_enc2d")))
+        for what in fused.LORENZO_WHATS:
+            outs.append((f"lorenzo2d {what}",
+                         fused.lorenzo2d(inp["plane"], what=what)))
+            outs.append((f"lorenzo_enc2d {what}", fused.lorenzo_enc2d(
+                inp["words"], shape, bits, what=what)))
+    else:
+        for what in fused.BLOCKMEAN_WHATS:
+            outs.append((f"blockmean2d {what}", fused.blockmean2d(
+                inp["plane"], inp["meta"], block, what=what)))
+            outs.append((f"blockmean_enc2d {what}", fused.blockmean_enc2d(
+                inp["words"], inp["meta"], shape, block, bits, what=what)))
+    outs.append(("unpack_residuals", bitpack.unpack_residuals(
+        inp["words"], shape[0] * shape[1], bits)))
+    for name, out in outs:
+        for o in _tup(out):
+            if bool(o[1].any()) or not bool(o[0].any()):
+                fail(f"{name} {what_tag}: field 1 (zeros) is not zero, or "
+                     "field 0 is: a sum reached across fields")
+
+
+def check_batched_kernels(seed: int, errs: dict) -> dict:
+    """Each batched kernel bitwise against its batched plain version: at
+    Ocean x ``BATCH`` (``BATCH_BITS``-bit payloads), at the ragged batches
+    of ``BATCH_SIZES`` fields, and on the cross-field case.  Returns the
+    Ocean batch's inputs (the times of phase 6)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    ocean = batched_inputs(OCEAN, BATCH_BITS, BATCH, gen)
+    if ocean["words"].shape[-1] % 4:
+        fail("the Ocean batch's payload rows should be 16-byte multiples")
+    check_batch(ocean, errs, f"{BATCH} x {OCEAN}")
+    for batch in BATCH_SIZES:
+        for shape, bits in BATCH_RAGGED_LZ:
+            inp = batched_inputs(shape, bits, batch, gen)
+            if inp["words"].shape[-1] % 4 == 0:
+                fail(f"{shape} at {bits} bits: payload rows not ragged")
+            check_batch(inp, errs, f"{batch} x {shape} {bits} bits",
+                        blockmean=False)
+        for shape, block, bits in BATCH_RAGGED_BM:
+            inp = batched_inputs(shape, bits, batch, gen, block=block)
+            if inp["words"].shape[-1] % 4 == 0:
+                fail(f"{shape} at {bits} bits: payload rows not ragged")
+            check_batch(inp, errs, f"{batch} x {shape} block {block} {bits} "
+                        "bits", lorenzo=False)
+    leak = batched_inputs(LEAK_LZ, 31, 2, gen, leak=True)
+    check_batch(leak, errs, f"cross-field {LEAK_LZ}", blockmean=False)
+    check_leak(leak, f"cross-field {LEAK_LZ}", lorenzo=True)
+    leak = batched_inputs(LEAK_BM[0], 31, 2, gen, block=LEAK_BM[1], leak=True)
+    check_batch(leak, errs, f"cross-field {LEAK_BM}", lorenzo=False)
+    check_leak(leak, f"cross-field {LEAK_BM}", lorenzo=False)
+    del leak
+    torch.cuda.synchronize()
+    say(f"batched kernels == batched plain versions, bitwise, every what: "
+        f"{BATCH} x {OCEAN} at {BATCH_BITS} bits; batches of {BATCH_SIZES} at "
+        f"{BATCH_RAGGED_LZ} and {BATCH_RAGGED_BM} (payload rows of n_words % "
+        f"4 != 0); the cross-field case at {LEAK_LZ} and {LEAK_BM}: field 1 "
+        f"(zeros) stays zero beside field 0's full-range sums")
+    return ocean
 
 
 # ===========================================================================
@@ -1422,17 +1608,24 @@ def _component_ops(ops_, n: int = 2) -> list[list[str]]:
 
 def plan_contexts(key, res, fields) -> list:
     """The stage contexts a query's plan implies (see
-    :func:`expected_launches`)."""
+    :func:`expected_launches`).  A full-field unseeded batch is one context
+    (one per component of a vector set): its fields stacked, every kernel
+    launched once for the batch; expression leaves, seeded and store-hit
+    fields one context each."""
     kind, scheme = key[0], key[1]
     if kind == "a":
         stage = analytics.plan_stages(scheme, ENGINE_SET, key[3]).fused
-        return [(key[2], scheme, stage, None, ENGINE_SET)] * 8
+        return [(key[2], scheme, stage, None, ENGINE_SET)]
     if kind == "b":
         return [("Encoded", scheme, key[2], None, ops_)
-                for _ in range(4) for ops_ in _component_ops(VECTOR_SET)]
+                for ops_ in _component_ops(VECTOR_SET)]
     if kind == "c" and key[2] == "flat":
-        return [(type(f).__name__, scheme, res.stages[i]["mean"], None,
-                 ENGINE_SET) for i, f in enumerate(mixed_batch(fields, scheme))]
+        # one batch per layout: the Compressed pair, the Encoded pair
+        groups = {}
+        for i, f in enumerate(mixed_batch(fields, scheme)):
+            groups.setdefault(type(f).__name__, res.stages[i]["mean"])
+        return [(name, scheme, stage, None, ENGINE_SET)
+                for name, stage in groups.items()]
     if kind == "c":
         program = expr.analyze(res.exprs)
         bindings = [lf.source for lf in program.leaves]
@@ -1455,10 +1648,12 @@ def plan_contexts(key, res, fields) -> list:
     return seeded
 
 
-def check_engine_launches(fields, out) -> dict:
+def check_engine_launches(fields, out) -> tuple[dict, dict]:
     """Every query's launches against what its plan implies; returns the
-    engine path's launches per site (summed over its queries)."""
+    engine path's launches per site, summed over its queries and over its
+    full-field batched runs ((a) and (b))."""
     total = dict.fromkeys(ops.LAUNCHES, 0)
+    batched = dict.fromkeys(ops.LAUNCHES, 0)
     for key, (res, got) in out.items():
         want = expected_launches(plan_contexts(key, res, fields))
         bad = {k: (got[k], want.get(k, 0)) for k in got
@@ -1478,13 +1673,20 @@ def check_engine_launches(fields, out) -> dict:
                      f"{n_enc} Encoded leaf contexts")
         for k, n in got.items():
             total[k] += n
+            if key[0] in ("a", "b"):
+                batched[k] += n
         detail(f"  engine {key}: launches "
                f"{json.dumps({k: n for k, n in got.items() if n})}")
     say(f"engine path: the launches of its {len(out)} queries == their "
-        f"plans' (one band-kernel set per field and covered op, at most one "
-        f"decode per Encoded leaf, no unpack and no payload kernel in the "
-        f"seeded and store-hit runs)")
-    return total
+        f"plans' (a full-field batch: one decode and one band-kernel set per "
+        f"covered op for the whole batch, each pass one launch; expressions: "
+        f"at most one decode per Encoded leaf; no unpack and no payload "
+        f"kernel in the seeded and store-hit runs)")
+    n_runs = sum(key[0] in ("a", "b") for key in out)
+    say(f"engine path: its {n_runs} full-field batched runs ((a): 8 fields; "
+        f"(b): 4 pairs) launched "
+        f"{json.dumps({k: n for k, n in batched.items() if n})}")
+    return total, batched
 
 
 def expected_counts(items, ops_, store_backed: bool) -> tuple[int, int]:
@@ -1850,20 +2052,28 @@ def trace_window(fn, label: str) -> tuple[list, float, float]:
 
 
 def engine_trace(fields, tag: str) -> None:
-    """A ``torch.profiler`` trace of one (a) call per scheme (``Encoded``,
-    "auto") and of one (d) ③ hit: the device kernels by name with their
-    count and device µs, and the device's busy share of the call's
-    window."""
+    """A ``torch.profiler`` trace of one (a) call per scheme and container
+    at "auto" (one batched run) beside the same op set as eight per-field
+    ``compute`` calls, and of one (d) ③ hit: the device kernels by name
+    with their count and device µs, and the device's busy share of the
+    call's window."""
     eng = analytics.BatchedAnalytics()
     for scheme in SCHEMES:
+        stage = analytics.plan_stages(scheme, ENGINE_SET, "auto").fused
+        calls = {}
+        for container in ("Encoded", "Compressed"):
+            fs = fields[scheme][container]
+            calls[f"(a) {{}} {container} @auto({stage.name}), one batched "
+                  "run"] = functools.partial(eng.run, fs, ENGINE_SET, "auto")
+            calls[f"(a) {{}} {container} @{stage.name}, 8 per-field compute "
+                  "calls"] = functools.partial(_compute_each, fs, ENGINE_SET,
+                                               stage)
         fs = fields[scheme]["Encoded"]
         hot = FieldStore(cache_bytes=STORE_BYTES)
         for i, f in enumerate(fs):
             hot.put(f"f{i}", f)
-        calls = {"(a) {} Encoded @auto(②)": functools.partial(
-                     eng.run, fs, ENGINE_SET, "auto"),
-                 "(d) {} Encoded ③ hit": functools.partial(
-                     _store_query, fs, ENGINE_SET, Stage.Q, eng, hot)}
+        calls["(d) {} Encoded ③ hit"] = functools.partial(
+            _store_query, fs, ENGINE_SET, Stage.Q, eng, hot)
         for what, fn in calls.items():
             for _ in range(2):
                 fn()
@@ -2775,6 +2985,11 @@ COVER_TALL = ((65537, 3), (65539, 4))
 #: unpack / pack: SPAN * k +- 1 values at these widths
 COVER_SPANS = (1, 2, 7)
 COVER_WIDTHS = (1, 7, 16, 17, 31)
+#: batched launches: fields, (plane, width) and (plane, block, width)
+#: whose payload rows are not 16-byte multiples
+COVER_BATCH = 3
+COVER_BATCH_LZ = (((31, 127), 7), ((33, 4225), 17), ((65, 300), 13))
+COVER_BATCH_BM = (((44, 126), (4, 6), 13), ((33, 129), (1, 1), 7))
 
 
 class Guarded:
@@ -2827,7 +3042,10 @@ class Guarded:
 
 
 def _payload_of(p: torch.Tensor, bits: int) -> torch.Tensor:
-    """The residual plane ``p`` zigzagged and packed at ``bits`` (plain)."""
+    """The residual plane ``p`` zigzagged and packed at ``bits`` (plain);
+    a batch of planes gives one payload row per plane."""
+    if p.ndim == 3:
+        return torch.stack([_payload_of(x, bits) for x in p])
     return bitpack.pack_plain(encode.zigzag(p.reshape(-1)), bits)
 
 
@@ -2837,45 +3055,50 @@ def _residuals(shape, bits: int, rng) -> torch.Tensor:
     return encode.unzigzag(torch.as_tensor(u, device=DEVICE))
 
 
-def cover_lorenzo(shape, bits: int, g: Guarded, rng) -> None:
+def cover_lorenzo(shape, bits: int, batch: int = 1, *, g: Guarded,
+                  rng) -> None:
     """The Lorenzo edge pass, scans and stencils, both sources and every
-    ``what``, and the stats pass with its corner scan, against the plain
-    versions bitwise (the stats: bitwise against the exact sums rounded
-    once)."""
+    ``what`` (over ``batch`` planes in one launch: the batch's windows and
+    plain versions carry the leading axis), and, for one plane, the stats
+    pass with its corner scan, against the plain versions bitwise (the
+    stats: bitwise against the exact sums rounded once)."""
     n0, n1 = shape
+    lead = (batch,) if batch > 1 else ()
     tile = fused.lorenzo_tile()
     n_rt, n_ct = -(-n0 // tile[0]), -(-n1 // tile[1])
     s = ops.stream_ptr()
     for payload in (False, True):
         flag = str(payload).lower()
-        p = _residuals(shape, bits, rng) if payload else torch.as_tensor(
-            rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+        p = _residuals(lead + shape, bits, rng) if payload else torch.as_tensor(
+            rng.integers(-2 ** 31, 2 ** 31, lead + shape, dtype=np.int64)
             .astype(np.int32), device=DEVICE)
         src = _payload_of(p, bits) if payload else p
-        nw = src.shape[0] if payload else 0
+        nw = src.shape[-1] if payload else 0
         b = bits if payload else 0
         edges = g((f"lorenzo_edges_kernel<{flag}>", "lorenzo_scan_kernel"),
-                  {"rowedge": ((n0, n_ct), torch.int32),
-                   "coledge": ((n_rt, n1), torch.int32)},
+                  {"rowedge": (lead + (n0, n_ct), torch.int32),
+                   "coledge": (lead + (n_rt, n1), torch.int32)},
                   lambda ptr: build.call(
                       "hsz_lorenzo_edges", int(payload), src.data_ptr(), nw, b,
-                      n0, n1, ptr["rowedge"], ptr["coledge"], None, s))
+                      n0, n1, batch, ptr["rowedge"], ptr["coledge"], None, s))
         bitwise_err(fused.lorenzo_edge_prefixes_plain(p, tile),
                     (edges["rowedge"], edges["coledge"]),
-                    f"lorenzo edges {flag} {shape}")
+                    f"lorenzo edges {flag} {batch} x {shape}")
         for what in fused.LORENZO_WHATS:
-            outs = {"out0": (shape, torch.int32)}
+            outs = {"out0": (lead + shape, torch.int32)}
             if what == "grad":
-                outs["out1"] = (shape, torch.int32)
+                outs["out1"] = (lead + shape, torch.int32)
             got = g((f"lorenzo_stencil_kernel<{flag}, {what.upper()}>",), outs,
                     lambda ptr, w=what: build.call(
                         "hsz_lorenzo_stencil", int(payload), src.data_ptr(), nw,
-                        b, n0, n1, edges["rowedge"].data_ptr(),
+                        b, n0, n1, batch, edges["rowedge"].data_ptr(),
                         edges["coledge"].data_ptr(), fused._LZ_CODE[w],
                         ptr["out0"], ptr.get("out1"), s))
             bitwise_err(fused.lorenzo_core(p, what),
                         tuple(got[k] for k in sorted(got)),
-                        f"lorenzo stencil {flag} {what} {shape}")
+                        f"lorenzo stencil {flag} {what} {batch} x {shape}")
+    if batch > 1:
+        return  # the stats pass takes one plane
     p = bounded_plane(shape, rng)
     cols = prefix_stats.corner_cols()
     n_cb = -(-n1 // cols)
@@ -2884,7 +3107,7 @@ def cover_lorenzo(shape, bits: int, g: Guarded, rng) -> None:
             "coledge": ((n_rt, n1), torch.int32),
             "corners": ((n_rt, n_cb), torch.int32)},
            lambda ptr: build.call(
-               "hsz_lorenzo_edges", 0, p.data_ptr(), 0, 0, n0, n1,
+               "hsz_lorenzo_edges", 0, p.data_ptr(), 0, 0, n0, n1, 1,
                ptr["rowedge"], ptr["coledge"], ptr["corners"], s))
     bitwise_err(prefix_stats.corner_sums_plain(st["coledge"], cols),
                 st["corners"], f"corner sums {shape}")
@@ -2906,34 +3129,37 @@ def cover_lorenzo(shape, bits: int, g: Guarded, rng) -> None:
     exact_stats(p, sums, f"prefix_stats2d {shape}")
 
 
-def cover_blockmean(shape, block, bits: int, g: Guarded, rng) -> None:
-    """The block-mean kernel, both sources and every ``what``."""
+def cover_blockmean(shape, block, bits: int, batch: int = 1, *, g: Guarded,
+                    rng) -> None:
+    """The block-mean kernel, both sources and every ``what`` (over
+    ``batch`` planes in one launch)."""
     n0, n1 = shape
-    meta = torch.as_tensor(rng.integers(-2 ** 20, 2 ** 20,
-                                        (n0 // block[0], n1 // block[1]))
-                           .astype(np.int32), device=DEVICE)
+    lead = (batch,) if batch > 1 else ()
+    meta = torch.as_tensor(rng.integers(-2 ** 20, 2 ** 20, lead + (
+        n0 // block[0], n1 // block[1])).astype(np.int32), device=DEVICE)
     for payload in (False, True):
         flag = str(payload).lower()
-        p = _residuals(shape, bits, rng)
+        p = _residuals(lead + shape, bits, rng)
         src = _payload_of(p, bits) if payload else p
-        nw = src.shape[0] if payload else 0
+        nw = src.shape[-1] if payload else 0
         for what in fused.BLOCKMEAN_WHATS:
             dtype = torch.float32 if what.startswith("lap") else torch.int32
-            outs = {"out0": (shape, dtype)}
+            outs = {"out0": (lead + shape, dtype)}
             if what == "grad":
-                outs["out1"] = (shape, dtype)
+                outs["out1"] = (lead + shape, dtype)
             got = g((f"blockmean_kernel<{flag}, {what.upper()}>",), outs,
                     lambda ptr, w=what: build.call(
                         "hsz_blockmean", int(payload), src.data_ptr(), nw,
-                        bits if payload else 0, n0, n1, meta.data_ptr(),
-                        block[0], block[1], fused._BM_CODE[w], ptr["out0"],
-                        ptr.get("out1"), ops.stream_ptr()))
+                        bits if payload else 0, n0, n1, batch,
+                        meta.data_ptr(), block[0], block[1],
+                        fused._BM_CODE[w], ptr["out0"], ptr.get("out1"),
+                        ops.stream_ptr()))
             bitwise_err(fused.blockmean_core(p, meta, block, what),
                         tuple(got[k] for k in sorted(got)),
-                        f"blockmean {flag} {what} {shape} {block}")
+                        f"blockmean {flag} {what} {batch} x {shape} {block}")
 
 
-def cover_entry(shape, g: Guarded, rng) -> None:
+def cover_entry(shape, *, g: Guarded, rng) -> None:
     """quant_lorenzo2d, grad2d, laplacian2d and block_stats at ``shape``."""
     n0, n1 = shape
     s = ops.stream_ptr()
@@ -2970,12 +3196,26 @@ def cover_entry(shape, g: Guarded, rng) -> None:
                 f"laplacian2d {shape}")
 
 
-def cover_bitpack(n: int, bits: int, g: Guarded, rng) -> None:
-    """pack and both unpack instantiations for ``n`` values at ``bits``."""
+def cover_bitpack(n: int, bits: int, batch: int = 1, *, g: Guarded,
+                  rng) -> None:
+    """pack and both unpack instantiations for ``n`` values at ``bits``;
+    with ``batch`` > 1 the decode's unpack over that many payloads."""
     s = ops.stream_ptr()
+    n_words = -(-(n * bits) // 32)
+    if batch > 1:
+        u = torch.as_tensor(rng.integers(0, 1 << bits, (batch, n),
+                                         dtype=np.int64).astype(np.int32),
+                            device=DEVICE)
+        words = torch.stack([bitpack.pack_plain(x, bits) for x in u])
+        got = g(("unpack_kernel<true>",), {"out": ((batch, n), torch.int32)},
+                lambda ptr: build.call(
+                    "hsz_unpack", words.data_ptr(), n_words, ptr["out"], n,
+                    bits, 1, batch, s))
+        bitwise_err(bitpack.unpack_residuals_plain(words, n, bits),
+                    got["out"], f"unpack<True> {batch} x {n} x {bits} bits")
+        return
     u = torch.as_tensor(rng.integers(0, 1 << bits, n, dtype=np.int64)
                         .astype(np.int32), device=DEVICE)
-    n_words = -(-(n * bits) // 32)
     got = g(("pack_kernel",), {"words": ((n_words,), torch.int32)},
             lambda ptr: build.call("hsz_pack", u.data_ptr(), n, ptr["words"],
                                    n_words, bits, s))
@@ -2987,7 +3227,7 @@ def cover_bitpack(n: int, bits: int, g: Guarded, rng) -> None:
                 {"out": ((n,), torch.int32)},
                 lambda ptr, r=residuals: build.call(
                     "hsz_unpack", words.data_ptr(), n_words, ptr["out"], n,
-                    bits, int(r), s))
+                    bits, int(r), 1, s))
         bitwise_err(plain(words, n, bits), got["out"],
                     f"unpack<{residuals}> {n} x {bits} bits")
 
@@ -3005,6 +3245,12 @@ def cover_shapes() -> list[tuple]:
     cases += [("bitpack", span * k + d, b) for k in COVER_SPANS
               for d in (-1, 1) for b in COVER_WIDTHS]
     cases += [("bitpack", OCEAN[0] * OCEAN[1], 7)]
+    # batches of COVER_BATCH fields, payload rows of n_words % 4 != 0
+    cases += [("lorenzo", s, b, COVER_BATCH) for s, b in COVER_BATCH_LZ]
+    cases += [("blockmean", s, blk, b, COVER_BATCH)
+              for s, blk, b in COVER_BATCH_BM]
+    cases += [("bitpack", span * k + 1, b, COVER_BATCH) for k in (1, 2)
+              for b in (7, 17)]
     return cases
 
 
@@ -3022,13 +3268,16 @@ def check_coverage(seed: int, cases=None) -> set[str]:
     for case in cases:
         kind, *args = case
         {"lorenzo": cover_lorenzo, "blockmean": cover_blockmean,
-         "entry": cover_entry, "bitpack": cover_bitpack}[kind](*args, g, rng)
+         "entry": cover_entry, "bitpack": cover_bitpack}[kind](
+             *args, g=g, rng=rng)
     missing = sorted(set(specs.KERNEL_IDS) - covered)
     if full and missing:
         fail(f"coverage: instantiations never launched: {missing}")
     say(f"coverage: {len(covered)} instantiations at {len(cases)} cases "
         f"(rows {COVER_ROWS} x columns {COVER_COLS}, {COVER_TALL}, Ocean, "
-        f"unpack spans {COVER_SPANS} x 2048 +- 1 at widths {COVER_WIDTHS}): "
+        f"unpack spans {COVER_SPANS} x 2048 +- 1 at widths {COVER_WIDTHS}; "
+        f"batches of {COVER_BATCH}: {COVER_BATCH_LZ}, {COVER_BATCH_BM}, "
+        f"unpack spans 2048 k + 1): "
         "every window cell written, no guard word touched, two launches "
         f"bitwise equal and == the plain versions in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4676,6 +4925,88 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     return out
 
 
+def time_batched_kernels(inp: dict, single: dict, reps: int,
+                         tag: str) -> dict:
+    """The batched kernels at Ocean x ``BATCH`` (phase 3b's inputs; what =
+    grad for the band kernels), timed as ``time_kernels`` times one field:
+    events, device alone (cold and L2-warm), enqueue, the batched plain
+    version and the bound of the batch's bytes and operations; beside each,
+    ``BATCH`` times one field's device-alone time from ``single``."""
+    shape, bits, b = inp["shape"], inp["bits"], BATCH
+    plane, words, meta, p = inp["plane"], inp["words"], inp["meta"], inp["p"]
+    n = shape[0] * shape[1]
+    th, tw = fused.lorenzo_tile()
+    n_rt, n_ct = -(-shape[0] // th), -(-shape[1] // tw)
+    edge_bytes = 4 * b * (shape[0] * n_ct + n_rt * shape[1])
+    pay, meta_bytes = 4 * words.numel(), 4 * meta.numel()
+    w_edges = fused.lorenzo_edges(words, shape, bits, from_payload=True,
+                                  site="lorenzo_enc2d")
+    p_edges = fused.lorenzo_edges(plane, shape, 0, from_payload=False,
+                                  site="lorenzo2d")
+    # the operations per element of time_kernels' plans, over b fields
+    plans = {
+        "unpack.residuals": (
+            lambda w: bitpack.unpack_residuals(w, n, bits), (words,),
+            lambda: bitpack.unpack_residuals_plain(words, n, bits),
+            pay + 4 * b * n, 5 * b * n),
+        "lorenzo_enc2d.edges": (
+            lambda w: fused.lorenzo_edges(w, shape, bits, from_payload=True,
+                                          site="lorenzo_enc2d"), (words,),
+            lambda: fused.lorenzo_edge_prefixes_plain(p, (th, tw)),
+            pay + edge_bytes, 7 * b * n),
+        "lorenzo_enc2d.stencil": (
+            lambda w, r, c: fused.lorenzo_stencil(
+                w, shape, bits, r, c, "grad", from_payload=True,
+                site="lorenzo_enc2d"), (words, *w_edges),
+            lambda: fused.lorenzo_enc2d_plain(words, shape, bits, what="grad"),
+            pay + edge_bytes + 8 * b * n, 9 * b * n),
+        "blockmean_enc2d": (
+            lambda w, m: fused.blockmean_enc2d(w, m, shape, BLOCK, bits,
+                                               what="grad"), (words, meta),
+            lambda: fused.blockmean_enc2d_plain(words, meta, shape, BLOCK,
+                                                bits, what="grad"),
+            pay + meta_bytes + 8 * b * n, 11 * b * n),
+        "lorenzo2d.edges": (
+            lambda x: fused.lorenzo_edges(x, shape, 0, from_payload=False,
+                                          site="lorenzo2d"), (plane,),
+            lambda: fused.lorenzo_edge_prefixes_plain(plane, (th, tw)),
+            4 * b * n + edge_bytes, 2 * b * n),
+        "lorenzo2d.stencil": (
+            lambda x, r, c: fused.lorenzo_stencil(
+                x, shape, 0, r, c, "grad", from_payload=False,
+                site="lorenzo2d"), (plane, *p_edges),
+            lambda: fused.lorenzo_core(plane, "grad"),
+            4 * b * n + edge_bytes + 8 * b * n, 4 * b * n),
+        "blockmean2d": (
+            lambda x, m: fused.blockmean2d(x, m, BLOCK, what="grad"),
+            (plane, meta),
+            lambda: fused.blockmean_core(plane, meta, BLOCK, "grad"),
+            4 * b * n + meta_bytes + 8 * b * n, 6 * b * n),
+    }
+    out = {}
+    for site, (fn, args, plain, n_bytes, n_ops) in plans.items():
+        kernel = functools.partial(fn, *args)
+        k_ms = cuda_ms(kernel, reps)
+        g_ms = graph_ms(fn, reps, args)
+        w_ms = graph_ms(fn, reps, args, cold=False)
+        h_ms = enqueue_ms(kernel, reps)
+        p_ms = cuda_ms(plain, max(3, reps // 10))
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        one = single[site]["graph_ms"]
+        out[f"{site} x{b}"] = {
+            "ms": k_ms, "graph_ms": g_ms, "enqueue_ms": h_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            "one_field_graph_ms": one}
+        say(f"[{tag}] {site} x{b} (one launch, {b} x {shape}): "
+            f"{k_ms * 1e3:.1f} us by events, device alone {g_ms * 1e3:.1f} "
+            f"us (L2-warm {w_ms * 1e3:.1f} us; {b} x one field alone "
+            f"{b * one * 1e3:.1f} us, ratio {g_ms / (b * one):.3f}), enqueue "
+            f"{h_ms * 1e3:.1f} us (plain {p_ms * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.1f} us by {b_by}, {n_bytes / 1e6:.1f} MB, "
+            f"{n_bytes / (g_ms * 1e-3) / 1e9:.0f} GB/s device alone)")
+    return out
+
+
 def time_decode(e, reps: int, tag: str) -> None:
     """Detail line: one ``decode_device`` of an ``Encoded`` field as a whole
     (one ``unpack_residuals`` launch), against the decode it replaced — the
@@ -5104,6 +5435,10 @@ def main() -> None:
     check_kernels(PADDED, args.seed, errs)
     check_blockmean_tiling(args.seed, errs)
     check_lorenzo_tiling(args.seed, errs)
+    phase_s["3b"] = time.perf_counter()
+    # 3b. the batched kernels: one launch over a batch of fields, against
+    # the batched plain versions (Ocean x 8, ragged batches, cross-field)
+    batch_in = check_batched_kernels(args.seed, errs)
 
     phase_s["4"] = time.perf_counter()
     # 4. the kernel entry point: against plain versions, then driven on u
@@ -5160,7 +5495,11 @@ def main() -> None:
     efields = engine_fields(args.seed)
     phase_s["5c path"] = time.perf_counter()
     engine_out = engine_path(efields, analytics.BatchedAnalytics())
-    path_launches["engine path"] = check_engine_launches(efields, engine_out)
+    path_launches["engine path"], batched_launches = check_engine_launches(
+        efields, engine_out)
+    idle = [k for k in BATCHED_SITES if not batched_launches[k]]
+    if idle:
+        fail(f"the engine's batched runs never launched {idle}")
     require_launches("engine path", path_launches["engine path"])
     check_engine_values(efields, engine_out)
     check_engine_ab(efields, engine_out)
@@ -5188,6 +5527,8 @@ def main() -> None:
     phase_s["6"] = time.perf_counter()
     # 6. times
     times = time_kernels(cont, entry, REPS, tag)
+    times.update(time_batched_kernels(batch_in, times, REPS, tag))
+    del batch_in
     per_query = per_query_launches(fields, tag)
     per_query.update(per_call_launches(entry, tag))
     query_kernels(fields, tag)
@@ -5296,6 +5637,20 @@ def main() -> None:
         if name == "prefix_stats2d.stats":
             kernels[-1]["wide"] = dict(times[WIDE_STATS],
                                        shape=list(PS_WIDE[1]))
+    for site in BATCHED_SITES:
+        # the same kernel over a batch of 8 Ocean fields in one launch: its
+        # launches are those of the engine path's full-field batched runs
+        name = f"{site} x{BATCH}"
+        t = times[name]
+        source, replaces = SITES[site]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": batched_launches[site],
+            "batch": BATCH, "max_abs_err": errs[name], "ms": t["ms"],
+            "graph_ms": t["graph_ms"], "enqueue_ms": t["enqueue_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "one_field_graph_ms": t["one_field_graph_ms"]})
     phase_s["end"] = time.perf_counter()
     names = list(phase_s)
     say("seconds per phase: " + ", ".join(

@@ -3,15 +3,20 @@
 Many timesteps/variables of a scientific dataset share one compression
 layout, so their homomorphic analytics run as *one program* over the batch
 instead of one planning-and-dispatch round per field.  A program here is a
-Python callable built once per key and kept in an LRU cache: calling it runs
-:func:`repro_torch.core.oplib.compute` for each field of the batch on the
-fields' device (one shared stage-reconstruction prelude per field; the fused
-kernel rules wherever they cover) and stacks each result leaf along a new
-leading axis — tuples per component, dicts per op.  Nothing in it waits for
-the device: no ``.item()``, no copy to the host, so every field's kernels
-queue back to back on the current stream.  Each band kernel is launched
-once per field; a batch axis inside the kernels is the open counterpart of
-the reference's ``vmap`` grid dimension.
+Python callable built once per key and kept in an LRU cache.  A full-field
+unseeded program stacks the fields once (:func:`repro_torch.core.
+batch_stack`, per component for vector op sets) and runs
+:func:`repro_torch.core.oplib.compute` once on the stacked view: one shared
+stage-reconstruction prelude for the batch, in which the decode and every
+band-kernel pass launch once with the batch as a leading axis — the
+counterpart of the grid axis Pallas prepends under the reference's
+``jax.vmap``.  Results carry the leading axis — tuples per component, dicts
+per op — and equal the per-field calls bit for bit (float reductions run
+field by field, ``StageContext.per_field``).  Region, seeded and
+expression programs still run ``compute`` once per field and stack the
+results.  Nothing in a program waits for the device: no ``.item()``, no
+copy to the host, so the kernels queue back to back on the current
+stream.
 
 Op *sets* fuse: ``run(fields, ["mean", "std", "laplacian"])`` shares one
 decode per field across every postlude.  The cache key is the reference's
@@ -45,9 +50,10 @@ from collections.abc import Callable, Mapping, Sequence
 
 import torch
 
-from ..core import Compressed, Encoded, Stage, layout_key, oplib
+from ..core import Compressed, Encoded, Stage, batch_stack, layout_key, oplib
 from ..core import expr as expr_mod
 from ..core import region as region_mod
+from ..core.stages import check_stackable
 from .planner import CostModel, StageSetPlan, plan_stages
 
 Field = Compressed | Encoded
@@ -71,22 +77,6 @@ def batch_key(first: Field, ops: str | Sequence[str], stage: Stage,
     names = oplib.canonical_ops(ops)
     return layout_key(first) + (names, Stage(stage), axis, n_components,
                                 batch, region, seed_sig, oplib.kernel_sig())
-
-
-def _check_batch(fields: Sequence[Field]) -> None:
-    """One layout and one device across a batch (the reference's
-    ``batch_stack`` rule, with its message; the port stacks results, not
-    inputs, so the check stands alone)."""
-    key0, dev0 = layout_key(fields[0]), fields[0].eps.device
-    for i, f in enumerate(fields[1:], 1):
-        if layout_key(f) != key0:
-            raise ValueError(
-                f"cannot stack fields with different layouts: field 0 has "
-                f"{key0}, field {i} has {layout_key(f)}")
-        if f.eps.device != dev0:
-            raise ValueError(
-                f"cannot stack fields on different devices: field 0 lies on "
-                f"{dev0}, field {i} on {f.eps.device}")
 
 
 def _stack(outs: list):
@@ -164,7 +154,7 @@ class BatchedAnalytics:
         """
         if not slabs:
             raise ValueError("empty slab batch")
-        _check_batch(slabs)
+        check_stackable(slabs)
         first = slabs[0]
         stage = Stage(stage)
         norm = (region_mod.normalize_region(region, first.shape[1:])
@@ -322,11 +312,11 @@ class BatchedAnalytics:
                                  "of components")
             first = fields[0][0]
             for i in range(n_comp):
-                _check_batch([f[i] for f in fields])
+                check_stackable([f[i] for f in fields])
         else:
             n_comp = 1
             first = fields[0]
-            _check_batch(fields)
+            check_stackable(fields)
         d_axis = axis if any(oplib.OPS[n].needs_axis for n in names) else 0
 
         plan = self._resolve(first.scheme, names, stage, region, first, d_axis)
@@ -366,6 +356,13 @@ class BatchedAnalytics:
 
         def build():
             def run(items, item_seeds):
+                if item_seeds is None and region is None:
+                    # one batched program: the fields stacked once, each
+                    # kernel launched once for the batch
+                    target = ([batch_stack([it[k] for it in items])
+                               for k in range(n_comp)] if vector
+                              else batch_stack(items))
+                    return oplib.compute(target, names, fused, axis=d_axis)
                 outs = []
                 for i, item in enumerate(items):
                     seed = None if item_seeds is None else item_seeds[i]

@@ -68,6 +68,8 @@ _WAIVE_RE = re.compile(r"//\s*audit:\s*waive\(([a-z\-,\s]+)\)")
 #: columns of narrow corner sums, 65535 grid rows, spans of 2048 values).
 EDGE_ROWS = (1, 31, 32, 33, 65537)
 EDGE_COLS = (1, 3, 127, 128, 129, 4224, 4225)
+#: the fields of a batch the batched instantiations are also checked at
+EDGE_BATCH = 3
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +250,7 @@ class _SpecCtx:
         raw: dict[str, tuple[str, str | None]] = {}
         for br in spec.branches:
             covers = [br.walk] + ([br.items] if br.items else [])
-            covers += [c for w in br.writes for c in w.dims]
+            covers += [c for w in br.writes for c in w.lead + w.dims]
             covers += [c for s in br.sums for c in s.dims]
             for cover in covers:
                 for d in cover.digits:
@@ -412,7 +414,7 @@ def _check_writes(ctx: _SpecCtx, br) -> list[Finding]:
     walk_vars = [d.var for d in br.walk.digits
                  if not _is_unit(ctx, d.count)]
     for w in br.writes:
-        digit_vars = {d.var for c in w.dims for d in c.digits}
+        digit_vars = {d.var for c in w.lead + w.dims for d in c.digits}
         if w.per == "block":
             per = walk_vars[:1]
         elif br.items is not None:
@@ -434,6 +436,9 @@ def _check_writes(ctx: _SpecCtx, br) -> list[Finding]:
                            "thread variable, or pin a thread by an "
                            "equality guard (fixed=)"))
             continue
+        for d, cover in enumerate(w.lead):
+            out += _check_cover(ctx, cover, f"output {w.array!r} batch dim {d}",
+                                "grid-write-gap", "grid-write-overlap")
         for d, cover in enumerate(w.dims):
             out += _check_cover(ctx, cover, f"output {w.array!r} dim {d}",
                                 "grid-write-gap", "grid-write-overlap")
@@ -532,10 +537,11 @@ def check_spec(spec, consts: dict[str, int] | None = None) -> list[Finding]:
 
 def launch_symbols(spec, args: dict) -> dict[str, int]:
     """Every parametrized symbol of ``spec`` at one launch (``args``: the
-    launcher's sizes, ``n0``, ``n1``, ``n``, ``sms``, ``per_sm``, ...)."""
+    launcher's sizes, ``n0``, ``n1``, ``n``, ``sms``, ``per_sm``, ``B``
+    (fields of a batch; 1 where absent), ...)."""
     from ..kernels.specs import evaluate
 
-    env = dict(args)
+    env = {"B": 1, **args}
     for sym, expr in spec.params.items():
         env[sym] = evaluate(expr, spec.source, env)
     return env
@@ -594,9 +600,10 @@ def _cover_counts(cover, spec, env) -> tuple[int, "object", list[str]]:
 
 
 def concrete_coverage(spec, args: dict) -> dict[str, tuple[tuple, list]]:
-    """At one concrete launch, every output array's extents and what is
-    wrong with its coverage (empty when every element is written once);
-    the walk and the item decomposition under ``"<walk>"`` / ``"<items>"``."""
+    """At one concrete launch, every output array's extents (one field's,
+    without the batch dims) and what is wrong with its coverage (empty when
+    every element is written once, the batch dims included); the walk and
+    the item decomposition under ``"<walk>"`` / ``"<items>"``."""
     env = launch_symbols(spec, args)
     out: dict[str, tuple[tuple, list]] = {}
     for br in spec.branches:
@@ -607,29 +614,35 @@ def concrete_coverage(spec, args: dict) -> dict[str, tuple[tuple, list]]:
                 out[key] = (old[0] + (ext,), old[1] + probs)
         for w in br.writes:
             dims = [_cover_counts(c, spec, env) for c in w.dims]
+            lead = [_cover_counts(c, spec, env) for c in w.lead]
             out[w.array] = (tuple(e for e, _, _ in dims),
-                            [p for _, _, ps in dims for p in ps])
+                            [p for _, _, ps in lead + dims for p in ps])
     return out
 
 
 def edge_launches(spec) -> list[dict]:
     """The launches the facts are checked at: every row and column edge of
-    a tiling limit, a span edge for the unpack, at two occupancies."""
+    a tiling limit, a span edge for the unpack, at two occupancies; a
+    batched instantiation (``B`` among its symbols) at one field and at
+    :data:`EDGE_BATCH` fields."""
     out = []
+    batches = (1, EDGE_BATCH) if "B" in spec.bounds else (1,)
     for sms, per_sm in ((132, 1), (132, 8)):
-        if spec.source == "unpack.cu":
-            for k in (1, 2, 7):
-                for n in (2048 * k - 1, 2048 * k, 2048 * k + 1):
-                    out.append({"n": n, "sms": sms, "per_sm": per_sm})
-            continue
-        for n0 in EDGE_ROWS:
-            for n1 in EDGE_COLS:
-                if spec.source in ("stencil_dq.cu",) and min(n0, n1) < 3:
-                    continue
-                a = {"n0": n0, "n1": n1, "sms": sms, "per_sm": per_sm,
-                     "b0": 1, "b1": 1, "n_words": n0 * n1, "n": n0 * n1,
-                     "n_blocks": n0, "s_len": n1}
-                out.append(a)
+        for batch in batches:
+            if spec.source == "unpack.cu":
+                for k in (1, 2, 7):
+                    for n in (2048 * k - 1, 2048 * k, 2048 * k + 1):
+                        out.append({"n": n, "sms": sms, "per_sm": per_sm,
+                                    "B": batch})
+                continue
+            for n0 in EDGE_ROWS:
+                for n1 in EDGE_COLS:
+                    if spec.source in ("stencil_dq.cu",) and min(n0, n1) < 3:
+                        continue
+                    a = {"n0": n0, "n1": n1, "sms": sms, "per_sm": per_sm,
+                         "b0": 1, "b1": 1, "n_words": n0 * n1, "n": n0 * n1,
+                         "n_blocks": n0, "s_len": n1, "B": batch}
+                    out.append(a)
     return out
 
 

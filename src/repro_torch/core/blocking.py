@@ -32,8 +32,9 @@ def pad_to_blocks(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
 
 
 def crop(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """Inverse of :func:`pad_to_blocks`."""
-    return x[tuple(slice(0, s) for s in shape)]
+    """Inverse of :func:`pad_to_blocks` on the trailing ``len(shape)`` dims
+    (leading dims, a batch, are kept whole)."""
+    return x[(Ellipsis,) + tuple(slice(0, s) for s in shape)]
 
 
 def _blocked_perm(nd: int) -> list[int]:
@@ -102,11 +103,12 @@ def valid_mask(shape: Sequence[int], block: Sequence[int]) -> np.ndarray:
 def upsample_block_means(means: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
     """Broadcast per-block values back to the spatial padded layout.
 
-    ``means`` has grid shape ``(g0, ..., gk)``; result has shape
-    ``(g0*b0, ..., gk*bk)``.  Used by HSZx-family recorrelation and the
-    homomorphic border-correction stencils (paper §V-B②).
+    ``means`` has grid shape ``(g0, ..., gk)`` (after any leading batch
+    dims); result has shape ``(g0*b0, ..., gk*bk)``.  Used by HSZx-family
+    recorrelation and the homomorphic border-correction stencils (paper
+    §V-B②).
     """
     x = means
-    for axis in range(means.ndim):
-        x = torch.repeat_interleave(x, block[axis], dim=axis)
+    for k, b in enumerate(block):
+        x = torch.repeat_interleave(x, b, dim=k - len(block))
     return x

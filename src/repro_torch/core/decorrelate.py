@@ -37,10 +37,11 @@ def lorenzo(q: torch.Tensor) -> torch.Tensor:
     return p
 
 
-def unlorenzo(p: torch.Tensor) -> torch.Tensor:
-    """Inverse Lorenzo: prefix-sum along every axis (int32, modular)."""
+def unlorenzo(p: torch.Tensor, ndim: int | None = None) -> torch.Tensor:
+    """Inverse Lorenzo: prefix-sum along every axis (int32, modular); with
+    ``ndim``, along the trailing ``ndim`` axes only (leading ones a batch)."""
     q = p
-    for axis in range(p.ndim):
+    for axis in range(p.ndim - (p.ndim if ndim is None else ndim), p.ndim):
         q = torch.cumsum(q, dim=axis, dtype=torch.int32)
     return q
 

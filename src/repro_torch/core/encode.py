@@ -156,13 +156,15 @@ def decode_device(e: Encoded) -> Compressed:
     ``kernels.bitpack.unpack_residuals`` unpacks and unzigzags in one
     launch of the bitplane kernel for a CUDA payload, and runs its plain
     version (``unzigzag`` of the plain unpack) for a CPU one; both recover
-    the exact packed integers.
+    the exact packed integers.  On a ``batch_stack`` view (payload
+    ``(B, n_words)``) one launch decodes every field: residuals ``(B,
+    *padded_shape)``.
     """
     n = 1
     for s in e.padded_shape:
         n *= s
     residuals = bitpack.unpack_residuals(e.payload, n, e.bits).reshape(
-        e.padded_shape)
+        tuple(e.payload.shape[:-1]) + tuple(e.padded_shape))
     return Compressed(
         residuals=residuals, metadata=e.metadata, bitwidths=e.bitwidths,
         eps=e.eps, valid_counts=e.valid_counts, scheme=e.scheme,

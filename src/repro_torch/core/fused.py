@@ -36,6 +36,12 @@ derivatives and gradients take the stage-③ difference kernel
 block-mean kernel's f32 ``lap_q`` over the integers as one block of mean 0.
 (``laplacian2d`` would round the exact integer stencil once where the rule
 rounds each f32 add: they differ once the partial sums pass 2^24.)
+
+On a ``batch_stack`` view (the engine's full-field batches) the same rules
+run once for the batch: the payload or the residual planes carry the
+leading axis into one launch of each kernel pass, coverage is judged on the
+unbatched layout, the window slices the trailing two dims and each field's
+own eps scales its planes.
 """
 from __future__ import annotations
 
@@ -94,6 +100,12 @@ def _window2(ctx) -> tuple[slice, slice]:
     return slice(w0.start + 1, w0.stop - 1), slice(w1.start + 1, w1.stop - 1)
 
 
+def _interior(ctx, out: torch.Tensor) -> torch.Tensor:
+    """:func:`_window2` of a kernel output's trailing two dims (a batch's
+    leading dim kept whole)."""
+    return out[(Ellipsis,) + _window2(ctx)]
+
+
 # -- lorenzo family ---------------------------------------------------------
 
 def _lz(ctx, what: str):
@@ -110,7 +122,8 @@ def _grad_seeded(ctx) -> tuple[torch.Tensor, ...]:
     """Both central differences of the seed's (cropped or windowed)
     integers: the interior the torch rules' ``_central_diff`` reads."""
     d0, d1 = sk.grad2d_int(ctx.q_spatial.contiguous())
-    return d0.to(torch.float32) * ctx.eps, d1.to(torch.float32) * ctx.eps
+    return (d0.to(torch.float32) * ctx.spatial_eps,
+            d1.to(torch.float32) * ctx.spatial_eps)
 
 
 def _lap_seeded(ctx) -> torch.Tensor:
@@ -120,28 +133,27 @@ def _lap_seeded(ctx) -> torch.Tensor:
     q = ctx.q_spatial.contiguous()
     zero = torch.zeros((1, 1), dtype=torch.int32, device=q.device)
     acc = fk.blockmean2d(q, zero, tuple(q.shape), what="lap_q")
-    return acc[1:-1, 1:-1] * (2.0 * ctx.eps)
+    return acc[1:-1, 1:-1] * (2.0 * ctx.spatial_eps)
 
 
 def _deriv_lorenzo(ctx, axis: int) -> torch.Tensor:
     if _q_seeded(ctx):
         return _grad_seeded(ctx)[axis]
     out = _lz(ctx, f"deriv{axis}")
-    return out[_window2(ctx)].to(torch.float32) * ctx.eps
+    return _interior(ctx, out).to(torch.float32) * ctx.spatial_eps
 
 
 def _grad_lorenzo(ctx, axis: int) -> tuple[torch.Tensor, ...]:
     if _q_seeded(ctx):
         return _grad_seeded(ctx)
     d0, d1 = _lz(ctx, "grad")
-    w = _window2(ctx)
-    return (d0[w].to(torch.float32) * ctx.eps,
-            d1[w].to(torch.float32) * ctx.eps)
+    return (_interior(ctx, d0).to(torch.float32) * ctx.spatial_eps,
+            _interior(ctx, d1).to(torch.float32) * ctx.spatial_eps)
 
 
 def _lap_lorenzo(ctx, axis: int) -> torch.Tensor:
     out = _lz(ctx, "lap")
-    return out[_window2(ctx)].to(torch.float32) * (2.0 * ctx.eps)
+    return _interior(ctx, out).to(torch.float32) * (2.0 * ctx.spatial_eps)
 
 
 # -- blockmean family -------------------------------------------------------
@@ -161,26 +173,25 @@ def _deriv_blockmean(ctx, axis: int) -> torch.Tensor:
     if _q_seeded(ctx):
         return _grad_seeded(ctx)[axis]
     out = _bm(ctx, f"deriv{axis}")
-    return out[_window2(ctx)].to(torch.float32) * ctx.eps
+    return _interior(ctx, out).to(torch.float32) * ctx.spatial_eps
 
 
 def _grad_blockmean(ctx, axis: int) -> tuple[torch.Tensor, ...]:
     if _q_seeded(ctx):
         return _grad_seeded(ctx)
     d0, d1 = _bm(ctx, "grad")
-    w = _window2(ctx)
-    return (d0[w].to(torch.float32) * ctx.eps,
-            d1[w].to(torch.float32) * ctx.eps)
+    return (_interior(ctx, d0).to(torch.float32) * ctx.spatial_eps,
+            _interior(ctx, d1).to(torch.float32) * ctx.spatial_eps)
 
 
 def _lap_blockmean_p(ctx, axis: int) -> torch.Tensor:
-    return _bm(ctx, "lap_p")[_window2(ctx)] * (2.0 * ctx.eps)
+    return _interior(ctx, _bm(ctx, "lap_p")) * (2.0 * ctx.spatial_eps)
 
 
 def _lap_blockmean_q(ctx, axis: int) -> torch.Tensor:
     if _q_seeded(ctx):
         return _lap_seeded(ctx)
-    return _bm(ctx, "lap_q")[_window2(ctx)] * (2.0 * ctx.eps)
+    return _interior(ctx, _bm(ctx, "lap_q")) * (2.0 * ctx.spatial_eps)
 
 
 # -- registries wired onto the OpSpecs (oplib imports these) ----------------

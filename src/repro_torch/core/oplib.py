@@ -10,7 +10,11 @@
   region), cumsum / block-mean-upsample recorrelation, window cropping and
   statistic weights, each computed lazily and **at most once**, so an op set
   reuses a single stage reconstruction; a materialized seed or pre-gathered
-  payload words can stand in for the decode.
+  payload words can stand in for the decode.  The field may be a
+  ``batch_stack`` view (full field, unseeded): every intermediate then
+  carries the leading batch axis, the spatial dims are read from the end,
+  and each kernel launches once for the batch — the counterpart of the
+  reference's ``jax.vmap`` over ``compute``.
 * :func:`compute` — validates the op set, joins the per-op region closures
   into one gathered sub-field, builds the context(s) and runs every op's
   postlude, returning ``{op: result}``.
@@ -41,14 +45,30 @@ from . import encode as encode_mod
 from . import fused as fused_mod
 from . import region as R
 from .pipeline import HSZCompressor, UnsupportedStageError, by_name
-from .stages import Compressed, Encoded, Scheme, Stage
+from .stages import Compressed, Encoded, Scheme, Stage, batch_size, is_batch
 
 Field = Compressed | Encoded
 
 
-def _isum(x: torch.Tensor) -> torch.Tensor:
-    """Flat int32 sum, wrapping modulo 2^32 like the reference's int32 sums."""
-    return x.reshape(-1).sum(dtype=torch.int64).to(torch.int32)
+def _isum(x: torch.Tensor, nb: int = 0) -> torch.Tensor:
+    """Flat int32 sum (of each field's values past ``nb`` leading batch
+    dims), wrapping modulo 2^32 like the reference's int32 sums; exact in
+    int64 first, so the grouping cannot change it."""
+    return x.reshape(x.shape[:nb] + (-1,)).sum(
+        -1, dtype=torch.int64).to(torch.int32)
+
+
+#: byte alignment of a fresh allocation that a field's own view must keep
+#: for a float reduction to take the kernel path a lone field takes
+#: (vectorized loads peel an unaligned head and regroup the sums)
+_OWN_ALIGN = 512
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """One field's values laid out as a lone field's would be: the view
+    itself where its start is aligned like a fresh allocation, else a
+    copy."""
+    return x if x.data_ptr() % _OWN_ALIGN == 0 else x.clone()
 
 
 # ===========================================================================
@@ -144,6 +164,13 @@ class StageContext:
         self.region = region
         self.closure = closure
         self._axis_diffs: dict[int, torch.Tensor] = {}
+        #: leading batch dims of ``c``: 1 for a ``batch_stack`` view, else 0
+        self.nb = int(is_batch(c))
+        if self.nb and (region is not None or seed is not None
+                        or words is not None):
+            raise ValueError(
+                "a batch_stack view runs full-field and unseeded: region, "
+                "seed and payload words take one field at a time")
         if words is not None:
             if region is None or not isinstance(c, Encoded):
                 raise ValueError(
@@ -173,7 +200,35 @@ class StageContext:
 
     @property
     def eps(self) -> torch.Tensor:
+        """The error bound: 0-d, or ``(B,)`` on a batch view (each field's
+        own)."""
         return self.field.eps
+
+    def bcast(self, t: torch.Tensor, k: int) -> torch.Tensor:
+        """A per-field value (0-d, or ``(B,)`` on a batch) shaped to
+        broadcast over ``k`` trailing dims of each field."""
+        return t.reshape(t.shape + (1,) * k) if self.nb else t
+
+    @cached_property
+    def spatial_eps(self) -> torch.Tensor:
+        """:attr:`eps` broadcasting over a spatial result (a stencil plane
+        or a stage-④ field)."""
+        return self.bcast(self.eps, len(self.field.shape))
+
+    def flat(self, x: torch.Tensor) -> torch.Tensor:
+        """Each field's values in one flat dim: ``(N,)`` or ``(B, N)``."""
+        return x.reshape(x.shape[:self.nb] + (-1,))
+
+    def per_field(self, fn: Callable, *xs: torch.Tensor) -> torch.Tensor:
+        """``fn`` (a float reduction) of one field's values; on a batch, of
+        each field's own values, stacked.  Float sums are reduced field by
+        field, each over memory laid out as a lone field's, so a batch
+        rounds exactly as its fields do one at a time (a reduction over a
+        ``(B, N)`` tensor promises no such order)."""
+        if not self.nb:
+            return fn(*xs)
+        return torch.stack([fn(*(_own(x[b]) for x in xs))
+                            for b in range(batch_size(self.field))])
 
     @cached_property
     def plan(self) -> R.RegionPlan | None:
@@ -239,20 +294,21 @@ class StageContext:
 
     def masked_sum(self, arr: torch.Tensor) -> torch.Tensor:
         """Exact (int32) sum over the queried extent — the window (region)
-        or the padding-masked full array — reduced flat."""
+        or the padding-masked full array — reduced flat (per field)."""
         if self.plan is not None:
             return _isum(self.plan.window_of(arr))
         w = self.valid_weight
-        return _isum(arr if w is None else arr * w)
+        return _isum(arr if w is None else arr * w, self.nb)
 
     def stat_values(self, arr: torch.Tensor) -> torch.Tensor:
         """Flat f32 values a statistic reduces over: the window (region) or
-        the full array with padding zeroed (full field)."""
+        the full array with padding zeroed (full field); ``(B, N)`` on a
+        batch."""
         if self.plan is not None:
             return self.plan.window_of(arr).to(torch.float32).reshape(-1)
         x = arr.to(torch.float32)
         w = self.valid_weight
-        return (x if w is None else x * w).reshape(-1)
+        return self.flat(x if w is None else x * w)
 
     def spatial_window(self, arr: torch.Tensor) -> torch.Tensor:
         """Crop a sub-field spatial array to the stencil window: the region
@@ -267,9 +323,9 @@ class StageContext:
         d = self._axis_diffs.get(axis)
         if d is None:
             d = self.sub.residuals
-            for a in range(d.ndim):
+            for a in range(d.ndim - self.nb):
                 if a != axis:
-                    d = torch.cumsum(d, dim=a, dtype=torch.int32)
+                    d = torch.cumsum(d, dim=self.nb + a, dtype=torch.int32)
             self._axis_diffs[axis] = d
         return d
 
@@ -277,7 +333,8 @@ class StageContext:
     def lorenzo_q(self) -> torch.Tensor:
         """Stage-③ integers of a Lorenzo sub-field (padded layout), derived
         from the axis-0 difference so a {derivative, std} set shares passes."""
-        return torch.cumsum(self.lorenzo_axis_diff(0), dim=0, dtype=torch.int32)
+        return torch.cumsum(self.lorenzo_axis_diff(0), dim=self.nb,
+                            dtype=torch.int32)
 
     @cached_property
     def upsampled_means(self) -> torch.Tensor:
@@ -301,7 +358,7 @@ class StageContext:
         """Stage-④ floats on the queried extent, derived from
         :attr:`q_spatial` even when seeded (dequantize commutes with the
         crop, and seeded and cold paths share this float tail)."""
-        return quantize.dequantize(self.q_spatial, self.eps,
+        return quantize.dequantize(self.q_spatial, self.spatial_eps,
                                    self.field.orig_dtype)
 
     @cached_property
@@ -335,58 +392,69 @@ def full_field_weights(padded_shape: tuple[int, ...], dims: tuple[int, ...],
 # stencil helpers (shared by every lowering path)
 # ===========================================================================
 
-def _interior(x: torch.Tensor) -> torch.Tensor:
+# Every helper takes ``nb`` leading batch dims (0 or 1), kept whole; ``axis``
+# counts the spatial dims after them.
+
+def _interior_index(nd: int, nb: int) -> list:
+    return [slice(None)] * nb + [slice(1, -1)] * nd
+
+
+def _interior(x: torch.Tensor, nb: int = 0) -> torch.Tensor:
     """Crop one element at each end of every axis (common stencil interior)."""
-    return x[tuple(slice(1, -1) for _ in range(x.ndim))]
+    return x[tuple(_interior_index(x.ndim - nb, nb))]
 
 
-def _shift_pair(x: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _shift_pair(x: torch.Tensor, axis: int,
+                nb: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(x_{+1}, x_{-1}) views cropped to the common interior."""
-    nd = x.ndim
-    idx_p = [slice(1, -1)] * nd
-    idx_m = [slice(1, -1)] * nd
-    idx_p[axis] = slice(2, None)
-    idx_m[axis] = slice(None, -2)
+    idx_p = _interior_index(x.ndim - nb, nb)
+    idx_m = _interior_index(x.ndim - nb, nb)
+    idx_p[nb + axis] = slice(2, None)
+    idx_m[nb + axis] = slice(None, -2)
     return x[tuple(idx_p)], x[tuple(idx_m)]
 
 
-def _central_diff(x: torch.Tensor, axis: int, scale) -> torch.Tensor:
+def _central_diff(x: torch.Tensor, axis: int, scale,
+                  nb: int = 0) -> torch.Tensor:
     """(x_{+1} - x_{-1}) * scale on the common interior (V-B.2)."""
-    hi, lo = _shift_pair(x, axis)
+    hi, lo = _shift_pair(x, axis, nb)
     return (hi - lo).to(torch.float32) * scale
 
 
-def _lorenzo_deriv_stencil(d: torch.Tensor, axis: int) -> torch.Tensor:
+def _lorenzo_deriv_stencil(d: torch.Tensor, axis: int,
+                           nb: int = 0) -> torch.Tensor:
     """q_{+1} - q_{-1} = D_a[i+1] + D_a[i] on the interior (V-B.1), with
     ``d`` the cropped Lorenzo axis difference."""
-    sl_hi = [slice(1, -1)] * d.ndim
-    sl_hi[axis] = slice(2, None)
-    sl_lo = [slice(1, -1)] * d.ndim
+    sl_hi = _interior_index(d.ndim - nb, nb)
+    sl_hi[nb + axis] = slice(2, None)
+    sl_lo = _interior_index(d.ndim - nb, nb)
     return (d[tuple(sl_hi)] + d[tuple(sl_lo)]).to(torch.float32)
 
 
-def _lorenzo_lap_term(d: torch.Tensor, axis: int) -> torch.Tensor:
+def _lorenzo_lap_term(d: torch.Tensor, axis: int, nb: int = 0) -> torch.Tensor:
     """D_a[i+1] - D_a[i] on the interior — one axis term of V-B.3."""
-    sl_hi = [slice(1, -1)] * d.ndim
-    sl_hi[axis] = slice(2, None)
-    sl_lo = [slice(1, -1)] * d.ndim
+    sl_hi = _interior_index(d.ndim - nb, nb)
+    sl_hi[nb + axis] = slice(2, None)
+    sl_lo = _interior_index(d.ndim - nb, nb)
     return d[tuple(sl_hi)] - d[tuple(sl_lo)]
 
 
-def _laplacian_stencil(x: torch.Tensor) -> torch.Tensor:
+def _laplacian_stencil(x: torch.Tensor, nb: int = 0) -> torch.Tensor:
     """Sum of neighbors minus 2·nd·center on the common interior, f32."""
-    acc = -2.0 * x.ndim * _interior(x).to(torch.float32)
-    for a in range(x.ndim):
-        hi, lo = _shift_pair(x, a)
+    nd = x.ndim - nb
+    acc = -2.0 * nd * _interior(x, nb).to(torch.float32)
+    for a in range(nd):
+        hi, lo = _shift_pair(x, a, nb)
         acc = acc + hi.to(torch.float32) + lo.to(torch.float32)
     return acc
 
 
-def _blockmean_deriv_p(p: torch.Tensor, m: torch.Tensor, axis: int) -> torch.Tensor:
+def _blockmean_deriv_p(p: torch.Tensor, m: torch.Tensor, axis: int,
+                       nb: int = 0) -> torch.Tensor:
     """(p_{+1} - p_{-1}) + (m_{+1} - m_{-1}): V-B §② with the border Delta
     terms realized as a shifted upsampled-mean difference."""
-    p_hi, p_lo = _shift_pair(p, axis)
-    m_hi, m_lo = _shift_pair(m, axis)
+    p_hi, p_lo = _shift_pair(p, axis, nb)
+    m_hi, m_lo = _shift_pair(m, axis, nb)
     return ((p_hi - p_lo) + (m_hi - m_lo)).to(torch.float32)
 
 
@@ -403,42 +471,46 @@ def _mean_m(ctx: StageContext, axis: int) -> torch.Tensor:
         raise UnsupportedStageError(
             "stage-1 region mean needs a block-aligned window "
             f"(region {ctx.plan.region} vs block {ctx.field.block})")
-    s = _isum(ctx.metadata_blocks.reshape(-1) * ctx.block_overlap)
+    s = _isum(ctx.flat(ctx.metadata_blocks) * ctx.block_overlap, ctx.nb)
     return s / ctx.n * ctx.eps * 2.0
 
 
 def _mean_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
     # ② sum q over extent = sum p over extent + sum_b M_b * overlap_b (V-A §②)
     sp = ctx.masked_sum(ctx.sub.residuals)
-    sm = _isum(ctx.sub.metadata.reshape(-1) * ctx.block_overlap)
+    sm = _isum(ctx.flat(ctx.sub.metadata) * ctx.block_overlap, ctx.nb)
     return (sp + sm) / ctx.n * ctx.eps * 2.0
 
 
 def _mean_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
     # ② Lorenzo: sum q = weighted sum of residuals; separable weights make
     # this a rank-1 contraction (w0^T P w1 ...) for nd, one dot for flat
-    acc = ctx.sub.residuals.to(torch.float32)
     weights = ctx.lorenzo_mean_weights
-    if ctx.scheme.is_nd:
-        for w in weights:
-            acc = torch.tensordot(acc, w, dims=([0], [0]))
-    else:
-        acc = torch.dot(acc.reshape(-1), weights[0])
+
+    def contract(acc: torch.Tensor) -> torch.Tensor:
+        if ctx.scheme.is_nd:
+            for w in weights:
+                acc = torch.tensordot(acc, w, dims=([0], [0]))
+            return acc
+        return torch.dot(acc.reshape(-1), weights[0])
+
+    acc = ctx.per_field(contract, ctx.sub.residuals.to(torch.float32))
     return acc / ctx.n * ctx.eps * 2.0
 
 
 def _mean_q(ctx: StageContext, axis: int) -> torch.Tensor:
-    return torch.mean(ctx.q_spatial.to(torch.float32).reshape(-1)) * ctx.eps * 2.0
+    qf = ctx.flat(ctx.q_spatial.to(torch.float32))
+    return ctx.per_field(torch.mean, qf) * ctx.eps * 2.0
 
 
 def _mean_f(ctx: StageContext, axis: int) -> torch.Tensor:
-    return torch.mean(ctx.f_spatial.to(torch.float32).reshape(-1))
+    return ctx.per_field(torch.mean, ctx.flat(ctx.f_spatial.to(torch.float32)))
 
 
 def _std_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
     # ② decompose (q - mu) = (p) + (M_b - mu~) with integer mean mu~ (V-A §②)
     n = ctx.n
-    s = _isum(ctx.sub.metadata.reshape(-1) * ctx.block_overlap)
+    s = _isum(ctx.flat(ctx.sub.metadata) * ctx.block_overlap, ctx.nb)
     if ctx.plan is None:
         # complete blocks keep per-block residual sums near zero, so the
         # metadata term alone anchors the integer mean
@@ -448,51 +520,53 @@ def _std_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
         # the exact integer window sum must include them
         tot = s + _isum(ctx.plan.window_of(ctx.sub.residuals))
     mu_int = torch.round(tot / n).to(torch.int32)
-    x = ctx.stat_values(ctx.sub.residuals + (ctx.upsampled_means - mu_int))
-    ss = torch.sum(x * x)
+    mu_sp = ctx.bcast(mu_int, len(ctx.field.padded_shape))
+    x = ctx.stat_values(ctx.sub.residuals + (ctx.upsampled_means - mu_sp))
+    ss = ctx.per_field(torch.sum, x * x)
     # remove the integer mean's first-order offset r, |r| <= 1/2, exactly
     r = tot / n - mu_int
-    ss = ss - 2.0 * r * torch.sum(x) + n * r * r
+    ss = ss - 2.0 * r * ctx.per_field(torch.sum, x) + n * r * r
     return torch.sqrt(torch.clamp(ss, min=0.0) / (n - 1)) * ctx.eps * 2.0
 
 
-def _std_moments(qf: torch.Tensor, n: int, eps: torch.Tensor) -> torch.Tensor:
-    s1, s2 = torch.sum(qf), torch.sum(qf * qf)
+def _std_moments(ctx: StageContext, qf: torch.Tensor) -> torch.Tensor:
+    n = ctx.n
+    s1, s2 = ctx.per_field(torch.sum, qf), ctx.per_field(torch.sum, qf * qf)
     var = (s2 - s1 * s1 / n) / (n - 1)
-    return torch.sqrt(torch.clamp(var, min=0.0)) * eps * 2.0
+    return torch.sqrt(torch.clamp(var, min=0.0)) * ctx.eps * 2.0
 
 
 def _std_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
-    return _std_moments(ctx.stat_values(ctx.lorenzo_q), ctx.n, ctx.eps)
+    return _std_moments(ctx, ctx.stat_values(ctx.lorenzo_q))
 
 
 def _std_q(ctx: StageContext, axis: int) -> torch.Tensor:
-    return _std_moments(ctx.q_spatial.to(torch.float32).reshape(-1), ctx.n,
-                        ctx.eps)
+    return _std_moments(ctx, ctx.flat(ctx.q_spatial.to(torch.float32)))
 
 
 def _std_f(ctx: StageContext, axis: int) -> torch.Tensor:
     # two-pass (mean-subtracted): ④ is the accuracy reference the lower
     # stages are judged against
-    xf = ctx.f_spatial.to(torch.float32).reshape(-1)
+    xf = ctx.flat(ctx.f_spatial.to(torch.float32))
     n = ctx.n
-    d = xf - torch.sum(xf) / n
-    return torch.sqrt(torch.clamp(torch.sum(d * d) / (n - 1), min=0.0))
+    d = xf - ctx.bcast(ctx.per_field(torch.sum, xf) / n, 1)
+    return torch.sqrt(torch.clamp(ctx.per_field(torch.sum, d * d) / (n - 1),
+                                  min=0.0))
 
 
 def _deriv_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
     d = ctx.spatial_window(ctx.lorenzo_axis_diff(axis))
-    return _lorenzo_deriv_stencil(d, axis) * ctx.eps
+    return _lorenzo_deriv_stencil(d, axis, ctx.nb) * ctx.spatial_eps
 
 
 def _deriv_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
     return _blockmean_deriv_p(ctx.spatial_window(ctx.sub.residuals),
                               ctx.spatial_window(ctx.upsampled_means),
-                              axis) * ctx.eps
+                              axis, ctx.nb) * ctx.spatial_eps
 
 
 def _deriv_q(ctx: StageContext, axis: int) -> torch.Tensor:
-    return _central_diff(ctx.q_spatial, axis, ctx.eps)
+    return _central_diff(ctx.q_spatial, axis, ctx.spatial_eps, ctx.nb)
 
 
 # stage ④ stencils ARE the stage-③ rules: (f_hi - f_lo)/2 with f = 2*eps*q
@@ -503,21 +577,23 @@ _deriv_f = _deriv_q
 def _lap_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
     # sum_a (D_a[+1] - D_a[0]) — paper Eq. V-B.3 generalized to n-D
     total = None
-    for a in range(ctx.sub.residuals.ndim):
+    for a in range(ctx.sub.residuals.ndim - ctx.nb):
         d = ctx.spatial_window(ctx.lorenzo_axis_diff(a))
-        term = _lorenzo_lap_term(d, a)
+        term = _lorenzo_lap_term(d, a, ctx.nb)
         total = term if total is None else total + term
-    return total.to(torch.float32) * (2.0 * ctx.eps)
+    return total.to(torch.float32) * (2.0 * ctx.spatial_eps)
 
 
 def _lap_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
     m = ctx.spatial_window(ctx.upsampled_means)
     p = ctx.spatial_window(ctx.sub.residuals)
-    return (_laplacian_stencil(p) + _laplacian_stencil(m)) * (2.0 * ctx.eps)
+    return ((_laplacian_stencil(p, ctx.nb) + _laplacian_stencil(m, ctx.nb))
+            * (2.0 * ctx.spatial_eps))
 
 
 def _lap_q(ctx: StageContext, axis: int) -> torch.Tensor:
-    return _laplacian_stencil(ctx.q_spatial) * (2.0 * ctx.eps)  # (V-B.4)
+    return (_laplacian_stencil(ctx.q_spatial, ctx.nb)
+            * (2.0 * ctx.spatial_eps))  # (V-B.4)
 
 
 # integer-stencil form of the float laplacian (see _deriv_f note)

@@ -97,11 +97,14 @@ class HSZCompressor:
         if c.scheme.is_blockmean:
             return decorrelate.blockmean_recorrelate(c.residuals, c.metadata,
                                                      c.block)
-        return decorrelate.unlorenzo(c.residuals)
+        return decorrelate.unlorenzo(c.residuals, len(c.padded_shape))
 
     def decompress(self, c: Compressed | Encoded, stage: Stage = Stage.F, *,
                    crop: bool = True):
-        """Return the intermediate representation at ``stage`` (paper Alg. 2)."""
+        """Return the intermediate representation at ``stage`` (paper Alg. 2).
+
+        On a ``batch_stack`` view every result carries the leading batch
+        axis, each field dequantized by its own ``eps``."""
         if isinstance(c, Encoded) and stage != Stage.M:
             c = encode.decode_device(c)
         if stage == Stage.M:
@@ -111,14 +114,19 @@ class HSZCompressor:
         q = self.reconstruct_q(c)
         if stage == Stage.Q:
             return self._restore(q, c) if crop else q
-        d = quantize.dequantize(q, c.eps, dtype=c.orig_dtype)
+        eps = c.eps
+        if eps.ndim:  # a batch: each field's own eps
+            eps = eps.reshape(eps.shape + (1,) * len(c.padded_shape))
+        d = quantize.dequantize(q, eps, dtype=c.orig_dtype)
         return self._restore(d, c) if crop else d
 
     def _restore(self, x: torch.Tensor, c: Compressed) -> torch.Tensor:
-        """Crop padding and restore the original (pre-flatten) shape."""
+        """Crop padding and restore the original (pre-flatten) shape; leading
+        batch dims are kept."""
         if self.scheme.is_nd:
             return blocking.crop(x, c.shape)
-        return x.reshape(-1)[:c.n].reshape(c.shape)
+        lead = tuple(x.shape[:x.ndim - len(c.padded_shape)])
+        return x.reshape(lead + (-1,))[..., :c.n].reshape(lead + tuple(c.shape))
 
     # -- encoding ----------------------------------------------------------
     def max_bits(self, c: Compressed) -> int:

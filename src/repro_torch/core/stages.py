@@ -16,7 +16,9 @@ serialization boundary (``repro_torch.core.encode.serialize``).
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
+from collections.abc import Sequence
 from dataclasses import dataclass
 
 import torch
@@ -165,3 +167,70 @@ LEAVES = {
     "Compressed": ("residuals", "metadata", "bitwidths", "eps", "valid_counts"),
     "Encoded": ("payload", "metadata", "bitwidths", "eps", "valid_counts"),
 }
+
+
+# ===========================================================================
+# batch-stackable view (the engine's batched programs)
+# ===========================================================================
+
+def check_stackable(fields: Sequence[Field]) -> None:
+    """Raise unless ``fields`` share one layout (:func:`layout_key`) and one
+    device: what one batched program over them needs."""
+    key0, dev0 = layout_key(fields[0]), fields[0].eps.device
+    for i, f in enumerate(fields[1:], 1):
+        if layout_key(f) != key0:
+            raise ValueError(
+                f"cannot stack fields with different layouts: field 0 has "
+                f"{key0}, field {i} has {layout_key(f)}")
+        if f.eps.device != dev0:
+            raise ValueError(
+                f"cannot stack fields on different devices: field 0 lies on "
+                f"{dev0}, field {i} on {f.eps.device}")
+
+
+def batch_stack(fields: Sequence[Field]) -> Field:
+    """Stack same-layout fields into a leading batch axis on every data leaf.
+
+    The result reuses the *unbatched* static metadata (``shape``,
+    ``padded_shape``, ...), so it is **not** a valid single field: it is a
+    view for the batched lowering (``repro_torch.core.oplib.compute`` reads
+    the spatial dims from the end), whose kernels take the leading axis in
+    one launch.  The fields must pass :func:`check_stackable`.
+    :func:`batch_unstack` recovers the individual fields.
+    """
+    if not fields:
+        raise ValueError("batch_stack needs at least one field")
+    check_stackable(fields)
+    names = LEAVES[type(fields[0]).__name__]
+    return dataclasses.replace(fields[0], **{
+        n: torch.stack([getattr(f, n) for f in fields]) for n in names})
+
+
+def _lead(c: Field) -> tuple[torch.Tensor, int]:
+    """The leaf whose rank tells a view from a field, and its unbatched
+    rank."""
+    if isinstance(c, Compressed):
+        return c.residuals, len(c.padded_shape)
+    return c.payload, 1
+
+
+def is_batch(c: Field) -> bool:
+    """Is ``c`` a :func:`batch_stack` view (one leading batch axis)?"""
+    lead, rank = _lead(c)
+    return lead.ndim == rank + 1
+
+
+def batch_size(c: Field) -> int:
+    """Leading batch-axis length of a :func:`batch_stack` view."""
+    lead, rank = _lead(c)
+    if lead.ndim - rank != 1:
+        raise ValueError("not a batch_stack view (no leading batch axis)")
+    return int(lead.shape[0])
+
+
+def batch_unstack(c: Field) -> list[Field]:
+    """Inverse of :func:`batch_stack`: split the leading axis back into fields."""
+    b = batch_size(c)
+    names = LEAVES[type(c).__name__]
+    return [dataclasses.replace(c, **{n: getattr(c, n)[i] for n in names})
+            for i in range(b)]

@@ -55,36 +55,49 @@ def pack(u: torch.Tensor, bits: int) -> torch.Tensor:
 
 def unpack_plain(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
     """Plain PyTorch unpack — the reference's ``encode.unpack_uniform``
-    arithmetic in int64 (exact 32-bit shifts on every device)."""
+    arithmetic in int64 (exact 32-bit shifts on every device).  Leading
+    dims of ``payload`` are a batch: ``(B, n_words)`` gives ``(B, n)``."""
     dev = payload.device
+    lead = tuple(payload.shape[:-1])
     if bits == 0:
-        return torch.zeros((n,), dtype=torch.int32, device=dev)
+        return torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
     if bits == 32:
-        return payload[:n].clone()
+        return payload[..., :n].clone()
     mask = (1 << bits) - 1
     offs = torch.arange(n, dtype=torch.int64, device=dev) * bits
     widx = offs >> 5
     shift = offs & 31
     pad = torch.cat([payload.to(torch.int64) & _WORD_MASK,
-                     torch.zeros((1,), dtype=torch.int64, device=dev)])
-    lo = pad[widx] >> shift
+                     torch.zeros(lead + (1,), dtype=torch.int64, device=dev)],
+                    dim=-1)
+    lo = pad[..., widx] >> shift
     carry = shift > 32 - bits
-    hi = torch.where(carry, (pad[widx + 1] << (32 - shift)) & _WORD_MASK, 0)
+    hi = torch.where(carry, (pad[..., widx + 1] << (32 - shift)) & _WORD_MASK,
+                     0)
     return ((lo | hi) & mask).to(torch.int32)
 
 
 def _launch(payload: torch.Tensor, n: int, bits: int, residuals: bool,
             site: str) -> torch.Tensor:
-    """Launch ``csrc/unpack.cu`` on a CUDA payload (widths 1..31)."""
+    """Launch ``csrc/unpack.cu`` on a CUDA payload (widths 1..31): ``(n_words,)``
+    words give ``(n,)`` values, a batch ``(B, n_words)`` gives ``(B, n)`` in
+    one launch (the residuals kernel only)."""
     ops.check(payload, "payload", torch.int32)
-    n_words = payload.shape[0]
+    if payload.ndim not in (1, 2) or (payload.ndim == 2 and not residuals):
+        raise ValueError(f"{site} takes a flat payload"
+                         + (" or a (B, n_words) batch" if residuals else "")
+                         + f", got {tuple(payload.shape)}")
+    n_words = payload.shape[-1]
     if n_words * 32 < n * bits:
         raise ValueError(f"payload of {n_words} words holds fewer than "
                          f"{n} values at {bits} bits")
-    out = torch.empty((n,), dtype=torch.int32, device=payload.device)
-    build.call("hsz_unpack", payload.data_ptr(), n_words, out.data_ptr(), n,
-               bits, int(residuals), ops.stream_ptr())
-    ops.count(site)
+    lead = tuple(payload.shape[:-1])
+    out = torch.empty(lead + (n,), dtype=torch.int32, device=payload.device)
+    batch = lead[0] if lead else 1
+    if batch:
+        build.call("hsz_unpack", payload.data_ptr(), n_words, out.data_ptr(),
+                   n, bits, int(residuals), batch, ops.stream_ptr())
+        ops.count(site)
     return out
 
 
@@ -103,7 +116,7 @@ def unpack(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
 def unpack_residuals_plain(payload: torch.Tensor, n: int,
                            bits: int) -> torch.Tensor:
     """Plain version of :func:`unpack_residuals`: ``encode.unzigzag`` of
-    :func:`unpack_plain`."""
+    :func:`unpack_plain` (leading dims a batch, as there)."""
     from ..core import encode  # core.encode imports this module
 
     return encode.unzigzag(unpack_plain(payload, n, bits))
@@ -111,7 +124,8 @@ def unpack_residuals_plain(payload: torch.Tensor, n: int,
 
 def unpack_residuals(payload: torch.Tensor, n: int, bits: int) -> torch.Tensor:
     """``n`` residuals (unzigzagged values) from a uniform-width payload: the
-    decode of an ``Encoded`` field.
+    decode of an ``Encoded`` field.  A ``(B, n_words)`` payload (the
+    fields of a ``batch_stack`` view) gives ``(B, n)`` from one launch.
 
     A CUDA payload launches the Hopper kernel with the unzigzag fused in
     (``csrc/unpack.cu``, ``unpack_kernel<true>``) for widths 1..31; widths 0

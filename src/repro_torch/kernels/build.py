@@ -32,8 +32,8 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: argument types of every launcher (pointers and the stream as c_void_p,
 #: so ctypes never narrows them to 32 bits).
 SIGNATURES = {
-    # words, n_words, out, n, bits, unzigzag, stream
-    "hsz_unpack": (_P, _LL, _P, _LL, _I, _I, _P),
+    # words, n_words (per field), out, n, bits, unzigzag, batch, stream
+    "hsz_unpack": (_P, _LL, _P, _LL, _I, _I, _I, _P),
     # unzigzag, &smem_bytes, &regs, &blocks_per_sm
     "hsz_unpack_info": (_I, _P, _P, _P),
     # &th, &tw
@@ -42,15 +42,17 @@ SIGNATURES = {
     "hsz_corner_cols": (_P,),
     # from_payload, what (-1: edge pass), &smem_bytes, &regs, &blocks_per_sm
     "hsz_lorenzo_info": (_I, _I, _P, _P, _P),
-    # from_payload, src, n_words, bits, n0, n1, rowedge, coledge, corners
-    # (null but for prefix_stats2d), stream
-    "hsz_lorenzo_edges": (_I, _P, _LL, _I, _I, _I, _P, _P, _P, _P),
-    # from_payload, src, n_words, bits, n0, n1, rowedge, coledge, what,
-    # out0, out1, stream
-    "hsz_lorenzo_stencil": (_I, _P, _LL, _I, _I, _I, _P, _P, _I, _P, _P, _P),
-    # from_payload, src, n_words, bits, n0, n1, meta, b0, b1, what,
-    # out0, out1, stream
-    "hsz_blockmean": (_I, _P, _LL, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P),
+    # from_payload, src, n_words (per field), bits, n0, n1, batch, rowedge,
+    # coledge, corners (null but for prefix_stats2d), stream
+    "hsz_lorenzo_edges": (_I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P),
+    # from_payload, src, n_words (per field), bits, n0, n1, batch, rowedge,
+    # coledge, what, out0, out1, stream
+    "hsz_lorenzo_stencil": (_I, _P, _LL, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                            _P),
+    # from_payload, src, n_words (per field), bits, n0, n1, batch, meta,
+    # b0, b1, what, out0, out1, stream
+    "hsz_blockmean": (_I, _P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
+                      _P),
     # from_payload, what, &smem_bytes, &blocks_per_sm
     "hsz_blockmean_info": (_I, _I, _P, _P),
     # p, n0, n1, rowedge, coledge, corners, partials, out, stream

@@ -47,6 +47,12 @@
 //    per tile with plain loads (PERF.md).
 //  - `what` is a template parameter: 5 x 2 instantiations, each doing only
 //    its own arithmetic.
+//  - Batch.  B planes (the fields of a batch_stack view, the counterpart of
+//    the grid axis Pallas prepends under the reference's jax.vmap) are one
+//    launch: the persistent loop walks the B x n_tiles tiles, tile t of
+//    field t / n_tiles; field b's plane, block means and outputs start at
+//    b n0 n1, b g0 g1 and b n0 n1, its payload bits at b n_words 32.  No
+//    tile reads past its own field (the halo is 0 outside the plane).
 #include "common.cuh"
 
 namespace {
@@ -71,15 +77,19 @@ static_assert(LD >= 128, "a payload row needs 127 words and a sentinel");
 enum What { DERIV0 = 0, DERIV1 = 1, GRAD = 2, LAP_P = 3, LAP_Q = 4 };
 
 struct Args {
-  const void* src;        // payload words or the int32 residual plane
-  long long n_words;      // payload words (payload path)
+  const void* src;        // payload words or the int32 residual plane(s)
+  long long n_words;      // payload words of one field (payload path)
+  long long all_words;    // payload words of the batch
   int bits;               // payload width 1..31 (payload path)
   int n0, n1;             // plane
-  const int32_t* meta;    // (n0/b0, ng1) block means
+  const int32_t* meta;    // (batch, n0/b0, ng1) block means
   int ng1, b0, b1;
-  uint32_t* out0;
+  uint32_t* out0;         // (batch, n0, n1)
   uint32_t* out1;         // grad only
-  int n_ct, n_tiles;      // tile columns, tiles
+  int n_ct, n_tiles;      // tile columns, tiles of one plane
+  int n_all;              // tiles of the batch
+  hsz::FastDiv by_tiles;  // / n_tiles
+  hsz::FastDiv by_ct;     // / n_ct
 };
 
 __device__ __forceinline__ float lap5(uint32_t c, uint32_t dn, uint32_t up,
@@ -97,27 +107,32 @@ using hsz::cp_async_commit;
 using hsz::cp_async_wait_prev;
 using hsz::store4;
 
-// Payload bits of halo row i (in the plane) of the tile at column j0: its
-// first plane column, its first bit and the words it touches.
+// Payload bits of halo row i (in plane b) of the tile at column j0: its
+// first plane column, its first bit (from the batch's first word) and the
+// words it touches.
 struct RowSpan {
   int jlo;
   unsigned long long bit0;
   int n_words;
 };
 
-__device__ __forceinline__ RowSpan row_span(int i, int j0, int n1, int bits) {
-  const int jlo = max(j0 - 1, 0), jhi = min(j0 + TW, n1 - 1);
-  const unsigned long long k = (unsigned long long)i * (unsigned)n1;
-  const unsigned long long first = (k + jlo) * (unsigned)bits;
-  const unsigned long long end = (k + jhi + 1) * (unsigned)bits;
+__device__ __forceinline__ RowSpan row_span(const Args& a, int b, int i, int j0) {
+  const int jlo = max(j0 - 1, 0), jhi = min(j0 + TW, a.n1 - 1);
+  const unsigned long long k = (unsigned long long)i * (unsigned)a.n1;
+  const unsigned long long base = (unsigned long long)b * (unsigned long long)a.n_words * 32ull;
+  const unsigned long long first = base + (k + jlo) * (unsigned)a.bits;
+  const unsigned long long end = base + (k + jhi + 1) * (unsigned)a.bits;
   return {jlo, first, (int)(((end - 1) >> 5) - (first >> 5)) + 1};
 }
 
-// First output row and column of a tile (row-major over the tile grid).
-__device__ __forceinline__ void tile_origin(const Args& a, int tile, int& i0, int& j0) {
-  const int ti = tile / a.n_ct;
+// Field, first output row and first column of tile t of the batch (fields
+// in order, each one's tiles row-major).
+__device__ __forceinline__ void tile_origin(const Args& a, int tile, int& b, int& i0, int& j0) {
+  b = a.by_tiles.div(tile);
+  const int t = tile - b * a.n_tiles;
+  const int ti = a.by_ct.div(t);
   i0 = ti * TH;
-  j0 = (tile - ti * a.n_ct) * TW;
+  j0 = (t - ti * a.n_ct) * TW;
 }
 
 // Start copying the raw input of a tile into R with cp.async: per halo row
@@ -126,8 +141,8 @@ __device__ __forceinline__ void tile_origin(const Args& a, int tile, int& i0, in
 // w takes halo rows w, w + 8, ...; rows outside the plane are left alone.
 template <bool PAYLOAD>
 __device__ __forceinline__ void fetch(const Args& a, int tile, uint32_t* R) {
-  int i0, j0;
-  tile_origin(a, tile, i0, j0);
+  int b, i0, j0;
+  tile_origin(a, tile, b, i0, j0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < HR; r += NWARP) {
     const int i = i0 - 1 + r;
@@ -135,14 +150,15 @@ __device__ __forceinline__ void fetch(const Args& a, int tile, uint32_t* R) {
     uint32_t* row = R + r * LD;
     if constexpr (PAYLOAD) {
       const auto* words = static_cast<const uint32_t*>(a.src);
-      const RowSpan sp = row_span(i, j0, a.n1, a.bits);
+      const RowSpan sp = row_span(a, b, i, j0);
       const long long w0 = (long long)(sp.bit0 >> 5);
       for (int q = lane; q <= sp.n_words; q += 32) {
-        if (q < sp.n_words && w0 + q < a.n_words) cp_async4(row + q, words + w0 + q);
+        if (q < sp.n_words && w0 + q < a.all_words) cp_async4(row + q, words + w0 + q);
         else row[q] = 0u;
       }
     } else {
-      const auto* p = static_cast<const uint32_t*>(a.src) + (long long)i * a.n1;
+      const auto* p =
+          static_cast<const uint32_t*>(a.src) + ((long long)b * a.n0 + i) * a.n1;
       for (int c = lane; c < HC; c += 32) {
         const int j = j0 - 1 + c;
         if (j >= 0 && j < a.n1) cp_async4(row + 3 + c, p + j);
@@ -153,9 +169,9 @@ __device__ __forceinline__ void fetch(const Args& a, int tile, uint32_t* R) {
 }
 
 // Block column of each halo column and flat offset of the block row of each
-// halo row in the block means (-1 outside the plane): the tile's only
-// divisions.
-__device__ __forceinline__ void tile_index(const Args& a, int i0, int j0, int* colb,
+// halo row in the block means of the batch (plane b's start at b g0 ng1; -1
+// outside the plane): the tile's only divisions.
+__device__ __forceinline__ void tile_index(const Args& a, int b, int i0, int j0, int* colb,
                                            int* rowoff) {
   const int t = threadIdx.x;
   if (t < HC) {
@@ -163,14 +179,14 @@ __device__ __forceinline__ void tile_index(const Args& a, int i0, int j0, int* c
     colb[t] = (j >= 0 && j < a.n1) ? j / a.b1 : -1;
   } else if (t < HC + HR) {
     const int r = t - HC, i = i0 - 1 + r;
-    rowoff[r] = (i >= 0 && i < a.n0) ? (i / a.b0) * a.ng1 : -1;
+    rowoff[r] = (i >= 0 && i < a.n0) ? (b * (a.n0 / a.b0) + i / a.b0) * a.ng1 : -1;
   }
 }
 
 // From the raw tile R, write S = p + m (lap_p: S = p and M = m) at word
 // c + 3 of each halo row, 0 outside the plane.
 template <bool PAYLOAD, int WHAT>
-__device__ __forceinline__ void expand(const Args& a, int i0, int j0, const uint32_t* R,
+__device__ __forceinline__ void expand(const Args& a, int b, int i0, int j0, const uint32_t* R,
                                        const int* colb, const int* rowoff, uint32_t* S,
                                        uint32_t* M) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -181,7 +197,7 @@ __device__ __forceinline__ void expand(const Args& a, int i0, int j0, const uint
     int base = 0;
     if constexpr (PAYLOAD) {
       if (ro >= 0) {
-        const RowSpan sp = row_span(i0 - 1 + r, j0, a.n1, a.bits);
+        const RowSpan sp = row_span(a, b, i0 - 1 + r, j0);
         base = (int)(sp.bit0 & 31ull) + (j0 - 1 - sp.jlo) * a.bits;
       }
     }
@@ -230,10 +246,11 @@ __device__ __forceinline__ void load_row(const uint32_t* T, int r, int lane,
   }
 }
 
-// The requested planes of the tile at (i0, j0) from S (and M): warp w writes
-// output rows w*ROWS .. w*ROWS + ROWS-1, lane l columns 4l .. 4l+3.
+// The requested planes of the tile at (i0, j0) of plane b from S (and M):
+// warp w writes output rows w*ROWS .. w*ROWS + ROWS-1, lane l columns
+// 4l .. 4l+3.
 template <int WHAT>
-__device__ __forceinline__ void compute_store(const Args& a, int i0, int j0,
+__device__ __forceinline__ void compute_store(const Args& a, int b, int i0, int j0,
                                               const uint32_t* S, const uint32_t* M) {
   constexpr bool LR = WHAT != DERIV0;  // needs left / right neighbours
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -272,7 +289,7 @@ __device__ __forceinline__ void compute_store(const Args& a, int i0, int j0,
     }
     const int i = i0 + r0 + k;
     if (i < a.n0) {
-      const long long kk = (long long)i * a.n1 + j;
+      const long long kk = ((long long)b * a.n0 + i) * a.n1 + j;
       store4(a.out0, kk, j, a.n1, vec, o0);
       if constexpr (WHAT == GRAD) store4(a.out1, kk, j, a.n1, vec, o1);
     }
@@ -305,19 +322,19 @@ __global__ void __launch_bounds__(NT) blockmean_kernel(const Args a) {
   fetch<PAYLOAD>(a, blockIdx.x, R);  // the grid has at most one block a tile
   cp_async_commit();
   int buf = 0;
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
+  for (int tile = blockIdx.x; tile < a.n_all; tile += gridDim.x, buf ^= 1) {
     // the next tile's copies go out before this tile's have to land
     const int next = tile + gridDim.x;
-    if (next < a.n_tiles) fetch<PAYLOAD>(a, next, R + (buf ^ 1) * TILE);
+    if (next < a.n_all) fetch<PAYLOAD>(a, next, R + (buf ^ 1) * TILE);
     cp_async_commit();
     cp_async_wait_prev();
-    int i0, j0;
-    tile_origin(a, tile, i0, j0);
-    tile_index(a, i0, j0, colb, rowoff);
+    int b, i0, j0;
+    tile_origin(a, tile, b, i0, j0);
+    tile_index(a, b, i0, j0, colb, rowoff);
     __syncthreads();
-    expand<PAYLOAD, WHAT>(a, i0, j0, R + buf * TILE, colb, rowoff, S, M);
+    expand<PAYLOAD, WHAT>(a, b, i0, j0, R + buf * TILE, colb, rowoff, S, M);
     __syncthreads();
-    compute_store<WHAT>(a, i0, j0, S, M);
+    compute_store<WHAT>(a, b, i0, j0, S, M);
   }
 }
 
@@ -352,7 +369,7 @@ int launch(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
+  const int grid = min(a.n_all, sms * max(c.per_sm, 1));
   blockmean_kernel<PAYLOAD, WHAT><<<grid, NT, c.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -381,20 +398,26 @@ const Config& config_of(int what) {
 
 }  // namespace
 
-// meta: (n0/b0, n1/b1) int32 block means; out0/out1: (n0, n1), int32 for the
-// derivative planes, f32 for lap_p / lap_q (out1 only for what == GRAD).
+// `batch` planes (field b's payload at word b * n_words, its plane at
+// b * n0 * n1); meta: (batch, n0/b0, n1/b1) int32 block means; out0/out1:
+// (batch, n0, n1), int32 for the derivative planes, f32 for lap_p / lap_q
+// (out1 only for what == GRAD).
 extern "C" int hsz_blockmean(int from_payload, const void* src, long long n_words,
-                             int bits, int n0, int n1, const void* meta, int b0,
+                             int bits, int n0, int n1, int batch, const void* meta, int b0,
                              int b1, int what, void* out0, void* out1, void* stream) {
-  if (n0 <= 0 || n1 <= 0 || b0 <= 0 || b1 <= 0 || n0 % b0 || n1 % b1 ||
+  if (n0 <= 0 || n1 <= 0 || b0 <= 0 || b1 <= 0 || n0 % b0 || n1 % b1 || batch <= 0 ||
       what < DERIV0 || what > LAP_Q)
     return (int)cudaErrorInvalidValue;
   if (from_payload && (bits < 1 || bits > 31)) return (int)cudaErrorInvalidValue;
   const int n_ct = (n1 + TW - 1) / TW, n_rt = (n0 + TH - 1) / TH;
-  const Args a{src, n_words, from_payload ? bits : 1, n0, n1,
+  if ((long long)n_ct * n_rt * batch > 0x7fffffffLL ||
+      (long long)(n0 / b0) * (n1 / b1) * batch > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const Args a{src, n_words, n_words * batch, from_payload ? bits : 1, n0, n1,
                static_cast<const int32_t*>(meta), n1 / b1, b0, b1,
                static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1),
-               n_ct, n_ct * n_rt};
+               n_ct, n_ct * n_rt, n_ct * n_rt * batch,
+               hsz::FastDiv((uint32_t)(n_ct * n_rt)), hsz::FastDiv((uint32_t)n_ct)};
   auto s = (cudaStream_t)stream;
   return from_payload ? dispatch<true>(a, what, s) : dispatch<false>(a, what, s);
 }

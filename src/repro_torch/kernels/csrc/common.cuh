@@ -53,6 +53,22 @@ __device__ __forceinline__ void store4(uint32_t* out, long long k, int j, int n1
   }
 }
 
+// n / d for a divisor d fixed at launch (1 <= d <= 2^31 - 1) and
+// 0 <= n < 2^31: a multiply-high, an add and a shift (the Granlund-
+// Montgomery magic number, as PyTorch's IntDivider), where a division by a
+// runtime value is a long instruction sequence.  Built on the host.
+struct FastDiv {
+  uint32_t m, s;
+  FastDiv() = default;
+  explicit FastDiv(uint32_t d) : m(0), s(0) {
+    while ((1u << s) < d) ++s;
+    m = (uint32_t)((((1ull << 32) * ((1ull << s) - d)) / d) + 1);
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((uint32_t)n, m) + (uint32_t)n) >> s);
+  }
+};
+
 // One kernel instantiation of a source, as hsz_func_attrs reads it: its name
 // as kernels/specs.py lists it, the kernel, its threads per block and the
 // dynamic shared memory it is launched with (at its largest).

@@ -77,6 +77,18 @@
 //    doing only its own arithmetic, with 16-byte streaming stores
 //    (st.global.cs) where n1 % 4 == 0 and masked scalars at a ragged edge.
 //
+// Batch.  A batch of B planes (the fields of a batch_stack view, the
+// counterpart of the grid axis Pallas prepends under the reference's
+// jax.vmap) is one launch of each pass: tile t of the B x n_tiles tiles is
+// tile t % n_tiles of field t / n_tiles, whose plane, row edges, column
+// edges and outputs start at field b's offset (b n0 n1, b n0 n_ct, b n_rt n1)
+// and whose payload bits start at b n_words 32.  The scan restarts at every
+// field: rowedge's rows are per field, and each column block scans one
+// field's column.  The payload path stages from the 16-byte boundary at or
+// before each row segment's first bit counted from the batch's first word,
+// so a field whose words do not start on 16 bytes (n_words % 4 != 0) still
+// takes 16-byte copies.  prefix_stats2d takes one plane.
+//
 // prefix_stats2d (paper Algorithm 4) gives (sum q, sum q^2) of
 // q = cumsum(cumsum(p, 0), 1) without writing q.  The TPU kernel carries the
 // previous row of q across a sequential grid; here nothing is carried.  The
@@ -113,14 +125,21 @@ static_assert(EW >= 132 + TH + 1, "edge staging");
 enum What { DERIV0 = 0, DERIV1 = 1, GRAD = 2, LAP = 3 };
 
 struct Args {
-  const void* src;         // payload words or the int32 residual plane
-  long long n_words;       // payload words (payload path)
+  const void* src;         // payload words or the int32 residual plane(s)
+  long long n_words;       // payload words of one field (payload path)
+  long long all_words;     // payload words of the batch
   int bits;                // payload width 1..31 (payload path)
   int n0, n1;              // plane
-  int n_rt, n_ct, n_tiles; // tile rows, tile columns, tiles
-  int32_t* rowedge;        // (n0, n_ct)
-  int32_t* coledge;        // (n_rt, n1)
-  uint32_t* out0;          // stencil pass: (n0, n1) planes
+  int batch;               // planes (fields)
+  int n_rt, n_ct, n_tiles; // tile rows, tile columns, tiles of one plane
+  int n_all;               // tiles of the batch
+  hsz::FastDiv by_tiles;   // / n_tiles
+  hsz::FastDiv by_ct;      // / n_ct
+  hsz::FastDiv by_rb;      // / ceil(n0 / NWARP), the scan's row blocks of one plane
+  hsz::FastDiv by_cb;      // / ceil(n1 / SCOLS), the scan's column blocks of one plane
+  int32_t* rowedge;        // (batch, n0, n_ct)
+  int32_t* coledge;        // (batch, n_rt, n1)
+  uint32_t* out0;          // stencil pass: (batch, n0, n1) planes
   uint32_t* out1;          // grad only
   bool vin;                // 16-byte copies: aligned payload, or aligned plane rows
   bool vout;               // output rows are 16-byte aligned (16-byte stores)
@@ -132,45 +151,46 @@ using hsz::cp_async_commit;
 using hsz::cp_async_wait_all;
 using hsz::store4;
 
-// Start copying rows i0 .. i0+NR-1, columns j0 .. j0+NC-1 of the input into R
-// (row r at R + r*LD).  Rows outside the plane are left alone (row4 reads
-// them as 0).
+// Start copying rows i0 .. i0+NR-1, columns j0 .. j0+NC-1 of plane b of the
+// input into R (row r at R + r*LD).  Rows outside the plane are left alone
+// (row4 reads them as 0).
 //  - Payload: the words from the 16-byte boundary at or before each row
-//    segment's first bit through the last word it touches (row_base gives
-//    the segment's bit offset); words past them are never needed, as values
-//    right of the plane are masked when unpacked.  Eight threads share a
-//    row (each its 16-byte pieces), so all rows' offsets are computed at
-//    once.
+//    segment's first bit (counted from the batch's first word) through the
+//    last word it touches (row_base gives the segment's bit offset); words
+//    past them are never needed, as values right of the plane are masked
+//    when unpacked.  Eight threads share a row (each its 16-byte pieces),
+//    so all rows' offsets are computed at once.
 //  - Plane: residual c at word c, 0 right of the plane; warp w takes rows
 //    w, w + 8, ..., a lane 4 residuals (16 bytes where n1 % 4 == 0).
 template <bool PAYLOAD, int NR, int NC>
-__device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R) {
+__device__ __forceinline__ void fetch(const Args& a, int b, int i0, int j0, uint32_t* R) {
   const int jend = min(j0 + NC, a.n1);
   if constexpr (PAYLOAD) {
     const auto* words = static_cast<const uint32_t*>(a.src);
     const int part = threadIdx.x & 7;
+    const unsigned long long base = (unsigned long long)b * (unsigned long long)a.n_words * 32ull;
     for (int r = threadIdx.x >> 3; r < NR; r += NT / 8) {
       const int i = i0 + r;
       if (i >= a.n0) break;
       uint32_t* row = R + r * LD;
       const unsigned long long k = (unsigned long long)i * (unsigned)a.n1;
-      const unsigned long long first = (k + j0) * (unsigned)a.bits;
-      const unsigned long long end = (k + jend) * (unsigned)a.bits;
+      const unsigned long long first = base + (k + j0) * (unsigned)a.bits;
+      const unsigned long long end = base + (k + jend) * (unsigned)a.bits;
       const long long g0 = (long long)(first >> 7) << 2;
       const int nw = (int)((long long)((end - 1) >> 5) - g0) + 1;
       if (a.vin) {
         for (int q = 4 * part; q < nw; q += 32) {
-          if (g0 + q + 3 < a.n_words) {
+          if (g0 + q + 3 < a.all_words) {
             cp_async16(row + q, words + g0 + q);
           } else {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              if (g0 + q + e < a.n_words) cp_async4(row + q + e, words + g0 + q + e);
+              if (g0 + q + e < a.all_words) cp_async4(row + q + e, words + g0 + q + e);
           }
         }
       } else {
         for (int q = part; q < nw; q += 8)
-          if (g0 + q < a.n_words) cp_async4(row + q, words + g0 + q);
+          if (g0 + q < a.all_words) cp_async4(row + q, words + g0 + q);
       }
     }
   } else {
@@ -179,7 +199,8 @@ __device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R
       const int i = i0 + r;
       if (i >= a.n0) break;
       uint32_t* row = R + r * LD;
-      const auto* p = static_cast<const uint32_t*>(a.src) + (long long)i * a.n1;
+      const auto* p =
+          static_cast<const uint32_t*>(a.src) + ((long long)b * a.n0 + i) * a.n1;
       const int c = 4 * lane, j = j0 + c;
       if (a.vin && j + 3 < a.n1) {
         cp_async16(row + c, p + j);
@@ -200,10 +221,13 @@ __device__ __forceinline__ void fetch(const Args& a, int i0, int j0, uint32_t* R
   }
 }
 
-// Bit offset of column 0 of staged row i from its first staged word (the
-// 16-byte boundary at or before it).
-__device__ __forceinline__ int row_base(const Args& a, int i, int j0) {
-  return (int)((((unsigned)i * (unsigned)a.n1 + (unsigned)j0) * (unsigned)a.bits) & 127u);
+// Bit offset of column 0 of staged row i of plane b from its first staged
+// word (the 16-byte boundary at or before it); 32-bit arithmetic wraps
+// modulo 2^32, a multiple of 128.
+__device__ __forceinline__ int row_base(const Args& a, int b, int i, int j0) {
+  return (int)(((unsigned)b * (unsigned)a.n_words * 32u +
+                ((unsigned)i * (unsigned)a.n1 + (unsigned)j0) * (unsigned)a.bits) &
+               127u);
 }
 
 // Residual at column c of a staged row whose column 0 starts at bit `base`
@@ -221,10 +245,11 @@ __device__ __forceinline__ uint32_t value_at(const Args& a, const uint32_t* row,
   }
 }
 
-// The residuals of staged row r at columns c0 .. c0+3 (0 outside the plane).
+// The residuals of staged row r of plane b at columns c0 .. c0+3 (0 outside
+// the plane).
 template <bool PAYLOAD>
-__device__ __forceinline__ void row4(const Args& a, const uint32_t* R, int i0, int j0, int r,
-                                     int c0, uint32_t (&v)[4]) {
+__device__ __forceinline__ void row4(const Args& a, const uint32_t* R, int b, int i0, int j0,
+                                     int r, int c0, uint32_t (&v)[4]) {
   const int i = i0 + r;
   if (i >= a.n0) {
 #pragma unroll
@@ -233,7 +258,7 @@ __device__ __forceinline__ void row4(const Args& a, const uint32_t* R, int i0, i
   }
   const uint32_t* row = R + r * LD;
   if constexpr (PAYLOAD) {
-    const int off = row_base(a, i, j0) + c0 * a.bits;
+    const int off = row_base(a, b, i, j0) + c0 * a.bits;
     if (a.bits <= 16) {
       // the 4 values lie in 3 staged words: one 64-bit window, 4 shifts
       const int w = off >> 5;
@@ -260,14 +285,14 @@ __device__ __forceinline__ void row4(const Args& a, const uint32_t* R, int i0, i
   }
 }
 
-// One residual: staged row r, column c.
+// One residual: staged row r, column c (plane b).
 template <bool PAYLOAD>
-__device__ __forceinline__ uint32_t one(const Args& a, const uint32_t* R, int i0, int j0, int r,
-                                        int c) {
+__device__ __forceinline__ uint32_t one(const Args& a, const uint32_t* R, int b, int i0, int j0,
+                                        int r, int c) {
   const int i = i0 + r;
   if (i >= a.n0) return 0u;
   const uint32_t* row = R + r * LD;
-  return value_at<PAYLOAD>(a, row, PAYLOAD ? row_base(a, i, j0) : 0, c, j0 + c);
+  return value_at<PAYLOAD>(a, row, PAYLOAD ? row_base(a, b, i, j0) : 0, c, j0 + c);
 }
 
 // Inclusive prefix sum across the lanes of a warp.
@@ -284,27 +309,33 @@ __device__ __forceinline__ uint32_t warp_scan(uint32_t v, int lane) {
 // edge pass
 // ---------------------------------------------------------------------------
 
-// Tile rows and columns in row-major order.
-__device__ __forceinline__ void tile_of(const Args& a, int tile, int& ti, int& tj) {
-  ti = tile / a.n_ct;
-  tj = tile - ti * a.n_ct;
+// Field, tile row and tile column of tile t of the batch: fields in
+// order, each one's tiles row-major.  Both divisions by magic numbers: the
+// operation-bound payload edge pass spends a visible share of its work on
+// a division by a runtime value.
+__device__ __forceinline__ void tile_of(const Args& a, int tile, int& b, int& ti, int& tj) {
+  b = a.by_tiles.div(tile);
+  const int t = tile - b * a.n_tiles;
+  ti = a.by_ct.div(t);
+  tj = t - ti * a.n_ct;
 }
 
 template <bool PAYLOAD>
-__device__ __forceinline__ void edges_tile(const Args& a, int ti, int tj, const uint32_t* R,
-                                           uint32_t* T) {
+__device__ __forceinline__ void edges_tile(const Args& a, int b, int ti, int tj,
+                                           const uint32_t* R, uint32_t* T) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i0 = ti * TH, j0 = tj * TW;
   const int r0 = warp * ROWS, c0 = 4 * lane;
   uint32_t p[ROWS][4];
 #pragma unroll
-  for (int k = 0; k < ROWS; ++k) row4<PAYLOAD>(a, R, i0, j0, r0 + k, c0, p[k]);
+  for (int k = 0; k < ROWS; ++k) row4<PAYLOAD>(a, R, b, i0, j0, r0 + k, c0, p[k]);
   // row sums: in-thread, then one warp reduction per row
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
     const uint32_t s = __reduce_add_sync(FULL, (p[k][0] + p[k][1]) + (p[k][2] + p[k][3]));
     const int i = i0 + r0 + k;
-    if (lane == k && i < a.n0) a.rowedge[(long long)i * a.n_ct + tj] = (int32_t)s;
+    if (lane == k && i < a.n0)
+      a.rowedge[((long long)b * a.n0 + i) * a.n_ct + tj] = (int32_t)s;
   }
   // column sums: in-thread over 4 rows, then across the 8 warps
   uint32_t ct[4];
@@ -318,7 +349,8 @@ __device__ __forceinline__ void edges_tile(const Args& a, int ti, int tj, const 
 #pragma unroll
     for (int w = 0; w < NWARP / 2; ++w) s += T[(4 * h + w) * LDT + c];
     s += __shfl_xor_sync(FULL, s, 1);
-    if (h == 0 && j0 + c < a.n1) a.coledge[(long long)ti * a.n1 + j0 + c] = (int32_t)s;
+    if (h == 0 && j0 + c < a.n1)
+      a.coledge[((long long)b * a.n_rt + ti) * a.n1 + j0 + c] = (int32_t)s;
   }
 }
 
@@ -328,31 +360,33 @@ template <bool PAYLOAD>
 __global__ void __launch_bounds__(NT, 5) lorenzo_edges_kernel(const Args a) {
   __shared__ __align__(16) uint32_t R[2][TH * LD];
   __shared__ __align__(16) uint32_t T[NWARP * LDT];
-  int ti, tj;
-  tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
-  fetch<PAYLOAD, TH, TW>(a, ti * TH, tj * TW, R[0]);
+  int b, ti, tj;
+  tile_of(a, blockIdx.x, b, ti, tj);  // the grid has at most one block a tile
+  fetch<PAYLOAD, TH, TW>(a, b, ti * TH, tj * TW, R[0]);
   cp_async_commit();
   int buf = 0;
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
+  for (int tile = blockIdx.x; tile < a.n_all; tile += gridDim.x, buf ^= 1) {
     cp_async_wait_all();
     __syncthreads();
     // the next tile's copies run under this tile's work
     const int next = tile + gridDim.x;
-    if (next < a.n_tiles) {
-      int ni, nj;
-      tile_of(a, next, ni, nj);
-      fetch<PAYLOAD, TH, TW>(a, ni * TH, nj * TW, R[buf ^ 1]);
+    if (next < a.n_all) {
+      int nb, ni, nj;
+      tile_of(a, next, nb, ni, nj);
+      fetch<PAYLOAD, TH, TW>(a, nb, ni * TH, nj * TW, R[buf ^ 1]);
     }
     cp_async_commit();
-    tile_of(a, tile, ti, tj);
-    edges_tile<PAYLOAD>(a, ti, tj, R[buf], T);
+    tile_of(a, tile, b, ti, tj);
+    edges_tile<PAYLOAD>(a, b, ti, tj, R[buf], T);
   }
 }
 
 // Exclusive prefixes of the edge sums, in place.  Blocks below n_rb take 8
-// rows of rowedge, a warp each, 32 tiles a step with a carry.  The others
-// take 32 columns of coledge: warp g sums segment g of a column's tile
-// rows (lane = column, so each load is one 128-byte row piece), the 8
+// rows of one field's rowedge (row block rb of field b at b ceil(n0/8) +
+// rb), a warp each, 32 tiles a step with a carry.  The others take 32
+// columns of one field's coledge (column block cb of field b at n_rb +
+// b n_cb + cb): warp g sums segment g of a column's tile rows (lane =
+// column, so each load is one 128-byte row piece), the 8
 // segment totals meet in shared memory, and each warp then writes its
 // segment's prefixes starting from the totals above it.  A segment is read
 // in chunks of SCHUNK loads issued together (a loop with a short runtime
@@ -373,9 +407,10 @@ __device__ __forceinline__ void scan_edges(const Args& a, int n_rb, int32_t* cor
   __shared__ uint32_t S[SSEG][SCOLS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if ((int)blockIdx.x < n_rb) {
-    const int i = blockIdx.x * NWARP + warp;
+    const int rbf = (a.n0 + NWARP - 1) / NWARP;  // row blocks of one field
+    const int fb = a.by_rb.div(blockIdx.x), i = (blockIdx.x - fb * rbf) * NWARP + warp;
     if (i >= a.n0) return;
-    int32_t* row = a.rowedge + (long long)i * a.n_ct;
+    int32_t* row = a.rowedge + ((long long)fb * a.n0 + i) * a.n_ct;
     uint32_t carry = 0u;
     for (int c0 = 0; c0 < a.n_ct; c0 += 32) {
       const int c = c0 + lane;
@@ -386,11 +421,13 @@ __device__ __forceinline__ void scan_edges(const Args& a, int n_rb, int32_t* cor
     }
     return;
   }
-  const int j = (blockIdx.x - n_rb) * SCOLS + lane;
+  const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
+  const int fb = a.by_cb.div(blockIdx.x - n_rb), cb = blockIdx.x - n_rb - fb * n_cb;
+  const int j = cb * SCOLS + lane;
   const int len = (a.n_rt + SSEG - 1) / SSEG;
   const int lo = min(warp * len, a.n_rt), hi = min(lo + len, a.n_rt);
   const bool in = j < a.n1;
-  int32_t* col = a.coledge + j;
+  int32_t* col = a.coledge + (long long)fb * a.n_rt * a.n1 + j;
   uint32_t v[SCHUNK];
   uint32_t s = 0u;
   for (int r0 = lo; r0 < hi; r0 += SCHUNK) {
@@ -409,7 +446,6 @@ __device__ __forceinline__ void scan_edges(const Args& a, int n_rb, int32_t* cor
   // run and v at 0)
   uint32_t run = 0u;
   for (int g = 0; g < warp; ++g) run += S[g][lane];
-  const int n_cb = gridDim.x - n_rb;
   for (int r0 = lo; r0 < hi; r0 += SCHUNK) {
     if (hi - lo > SCHUNK) {
 #pragma unroll
@@ -424,7 +460,7 @@ __device__ __forceinline__ void scan_edges(const Args& a, int n_rb, int32_t* cor
         if (!CORNERS || in) col[(long long)(r0 + m) * a.n1] = (int32_t)run;
         if constexpr (CORNERS) {
           const uint32_t t = __reduce_add_sync(FULL, run);
-          if (lane == 0) corners[(long long)(r0 + m) * n_cb + blockIdx.x - n_rb] = (int32_t)t;
+          if (lane == 0) corners[(long long)(r0 + m) * n_cb + cb] = (int32_t)t;
         }
       }
       run += v[m];
@@ -446,25 +482,27 @@ __global__ void __launch_bounds__(NT) corner_scan_kernel(const Args a, int n_rb,
 // stencil pass
 // ---------------------------------------------------------------------------
 
-// Start copying the edges of tile (ti, tj) into E: coledge[ti, j0 .. j0+128]
-// at 0 .. 128, rowedge[i0 .. i0+32, tj] at 132 .. 164, 0 outside the plane.
-__device__ __forceinline__ void fetch_edges(const Args& a, int ti, int tj, uint32_t* E) {
+// Start copying the edges of tile (ti, tj) of plane b into E: coledge[b, ti,
+// j0 .. j0+128] at 0 .. 128, rowedge[b, i0 .. i0+32, tj] at 132 .. 164, 0
+// outside the plane.
+__device__ __forceinline__ void fetch_edges(const Args& a, int b, int ti, int tj, uint32_t* E) {
   const int t = threadIdx.x;
   const int i0 = ti * TH, j0 = tj * TW;
   if (t <= TW) {
     const int j = j0 + t;
-    if (j < a.n1) cp_async4(E + t, a.coledge + (long long)ti * a.n1 + j);
+    if (j < a.n1) cp_async4(E + t, a.coledge + ((long long)b * a.n_rt + ti) * a.n1 + j);
     else E[t] = 0u;
   } else if (t >= 132 && t <= 132 + TH) {
     const int i = i0 + t - 132;
-    if (i < a.n0) cp_async4(E + t, a.rowedge + (long long)i * a.n_ct + tj);
+    if (i < a.n0) cp_async4(E + t, a.rowedge + ((long long)b * a.n0 + i) * a.n_ct + tj);
     else E[t] = 0u;
   }
 }
 
 template <bool PAYLOAD, int WHAT>
-__device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, const uint32_t* R,
-                                             const uint32_t* E, uint32_t* T, uint32_t* H) {
+__device__ __forceinline__ void stencil_tile(const Args& a, int b, int ti, int tj,
+                                             const uint32_t* R, const uint32_t* E, uint32_t* T,
+                                             uint32_t* H) {
   constexpr bool N0 = WHAT != DERIV1;  // needs D0
   constexpr bool N1 = WHAT != DERIV0;  // needs D1
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -472,7 +510,7 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, cons
   const int r0 = warp * ROWS, c0 = 4 * lane;
   uint32_t p[ROWS][4];
 #pragma unroll
-  for (int k = 0; k < ROWS; ++k) row4<PAYLOAD>(a, R, i0, j0, r0 + k, c0, p[k]);
+  for (int k = 0; k < ROWS; ++k) row4<PAYLOAD>(a, R, b, i0, j0, r0 + k, c0, p[k]);
 
   // D1, first half: in-thread prefix down the 4 rows (lane 31 also column
   // 128), the warp's column totals to T
@@ -480,7 +518,7 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, cons
   if constexpr (N1) {
 #pragma unroll
     for (int k = 0; k < ROWS; ++k) {
-      d1x[k] = lane == 31 ? one<PAYLOAD>(a, R, i0, j0, r0 + k, TW) : 0u;
+      d1x[k] = lane == 31 ? one<PAYLOAD>(a, R, b, i0, j0, r0 + k, TW) : 0u;
 #pragma unroll
       for (int e = 0; e < 4; ++e) d1[k][e] = p[k][e];
     }
@@ -524,7 +562,7 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, cons
     *reinterpret_cast<uint4*>(H + warp * TW + c0) =
         make_uint4(d0[0][0], d0[0][1], d0[0][2], d0[0][3]);
     if (warp == NWARP - 1) {
-      row4<PAYLOAD>(a, R, i0, j0, TH, c0, d0h);
+      row4<PAYLOAD>(a, R, b, i0, j0, TH, c0, d0h);
 #pragma unroll
       for (int e = 1; e < 4; ++e) d0h[e] += d0h[e - 1];
       const uint32_t incl = warp_scan(d0h[3], lane);
@@ -600,7 +638,7 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int ti, int tj, cons
       }
       if constexpr (WHAT == LAP) o0[e] = (d0n - d0c) + (d1n - d1c);
     }
-    const long long kk = (long long)i * a.n1 + j;
+    const long long kk = ((long long)b * a.n0 + i) * a.n1 + j;
     store4(a.out0, kk, j, a.n1, a.vout, o0);
     if constexpr (WHAT == GRAD) store4(a.out1, kk, j, a.n1, a.vout, o1);
   }
@@ -616,14 +654,14 @@ __global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
   __shared__ __align__(16) uint32_t E[EW];
   __shared__ __align__(16) uint32_t T[NWARP * LDT];
   __shared__ __align__(16) uint32_t H[(NWARP + 1) * TW];
-  int ti, tj;
-  tile_of(a, blockIdx.x, ti, tj);
-  fetch<PAYLOAD, TH + 1, TW + 1>(a, ti * TH, tj * TW, R);
-  fetch_edges(a, ti, tj, E);
+  int b, ti, tj;
+  tile_of(a, blockIdx.x, b, ti, tj);
+  fetch<PAYLOAD, TH + 1, TW + 1>(a, b, ti * TH, tj * TW, R);
+  fetch_edges(a, b, ti, tj, E);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  stencil_tile<PAYLOAD, WHAT>(a, ti, tj, R, E, T, H);
+  stencil_tile<PAYLOAD, WHAT>(a, b, ti, tj, R, E, T, H);
 }
 
 // ---------------------------------------------------------------------------
@@ -706,7 +744,7 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
   const int r0 = warp * ROWS, c0 = 4 * lane;
   uint32_t d[ROWS][4];
 #pragma unroll
-  for (int k = 0; k < ROWS; ++k) row4<false>(a, R, i0, j0, r0 + k, c0, d[k]);
+  for (int k = 0; k < ROWS; ++k) row4<false>(a, R, 0, i0, j0, r0 + k, c0, d[k]);
   // D0
   uint32_t inc[ROWS];
 #pragma unroll
@@ -778,10 +816,10 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
   uint32_t* B = smem + PS_HEAD;
   const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int ti, tj;
-  tile_of(a, blockIdx.x, ti, tj);  // the grid has at most one block a tile
-  fetch<false, TH, TW>(a, ti * TH, tj * TW, B);
-  fetch_edges(a, ti, tj, B + TH * LD);
+  int b, ti, tj;  // one plane: b is 0
+  tile_of(a, blockIdx.x, b, ti, tj);  // the grid has at most one block a tile
+  fetch<false, TH, TW>(a, 0, ti * TH, tj * TW, B);
+  fetch_edges(a, 0, ti, tj, B + TH * LD);
   cp_async_commit();
   double s1 = 0.0, s2 = 0.0;
   int buf = 0;
@@ -792,10 +830,10 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
     int ni = ti, nj = tj;
     const int next = tile + gridDim.x;
     if (next < a.n_tiles) {
-      tile_of(a, next, ni, nj);
+      tile_of(a, next, b, ni, nj);
       uint32_t* N = B + (buf ^ 1) * PS_BUF;
-      fetch<false, TH, TW>(a, ni * TH, nj * TW, N);
-      fetch_edges(a, ni, nj, N + TH * LD);
+      fetch<false, TH, TW>(a, 0, ni * TH, nj * TW, N);
+      fetch_edges(a, 0, ni, nj, N + TH * LD);
     }
     cp_async_commit();
     const uint32_t* R = B + buf * PS_BUF;
@@ -922,20 +960,20 @@ int launch_edges(const Args& a, int32_t* corners, cudaStream_t s) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
+  const int grid = min(a.n_all, sms * max(c.per_sm, 1));
   lorenzo_edges_kernel<PAYLOAD><<<grid, NT, 0, s>>>(a);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
-  const int n_rb = (a.n0 + NWARP - 1) / NWARP, n_cb = (a.n1 + SCOLS - 1) / SCOLS;
+  const int n_rb = a.batch * ((a.n0 + NWARP - 1) / NWARP), n_cb = (a.n1 + SCOLS - 1) / SCOLS;
   if (corners)
     corner_scan_kernel<<<n_rb + n_cb, NT, 0, s>>>(a, n_rb, corners);
   else
-    lorenzo_scan_kernel<<<n_rb + n_cb, NT, 0, s>>>(a, n_rb);
+    lorenzo_scan_kernel<<<n_rb + a.batch * n_cb, NT, 0, s>>>(a, n_rb);
   return (int)cudaGetLastError();
 }
 
 template <bool PAYLOAD, int WHAT>
 int launch_stencil(const Args& a, cudaStream_t s) {
-  lorenzo_stencil_kernel<PAYLOAD, WHAT><<<a.n_tiles, NT, 0, s>>>(a);
+  lorenzo_stencil_kernel<PAYLOAD, WHAT><<<a.n_all, NT, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -952,23 +990,34 @@ int dispatch_stencil(const Args& a, int what, cudaStream_t s) {
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 Args make_args(int from_payload, const void* src, long long n_words, int bits, int n0,
-               int n1) {
+               int n1, int batch) {
   Args a{};
   a.src = src;
   a.n_words = n_words;
+  a.all_words = n_words * batch;
   a.bits = from_payload ? bits : 1;
   a.n0 = n0;
   a.n1 = n1;
+  a.batch = batch;
   a.n_rt = (n0 + TH - 1) / TH;
   a.n_ct = (n1 + TW - 1) / TW;
   a.n_tiles = a.n_rt * a.n_ct;
+  a.n_all = a.n_tiles * batch;
+  a.by_tiles = hsz::FastDiv((uint32_t)a.n_tiles);
+  a.by_ct = hsz::FastDiv((uint32_t)a.n_ct);
+  a.by_rb = hsz::FastDiv((uint32_t)((n0 + NWARP - 1) / NWARP));
+  a.by_cb = hsz::FastDiv((uint32_t)((n1 + SCOLS - 1) / SCOLS));
+  // the payload is staged from 16-byte boundaries of the batch's words;
+  // plane rows (of every field) are 16-byte aligned where n1 % 4 == 0
   a.vin = aligned16(src) && (from_payload || (n1 & 3) == 0);
   return a;
 }
 
-bool bad_shape(int from_payload, int bits, int n0, int n1) {
-  if (n0 <= 0 || n1 <= 0) return true;
-  if ((long long)((n0 + TH - 1) / TH) * ((n1 + TW - 1) / TW) > 0x7fffffffLL) return true;
+bool bad_shape(int from_payload, int bits, int n0, int n1, int batch) {
+  if (n0 <= 0 || n1 <= 0 || batch <= 0) return true;
+  const long long tiles = (long long)((n0 + TH - 1) / TH) * ((n1 + TW - 1) / TW);
+  const long long blocks = ((n0 + NWARP - 1) / NWARP + (n1 + SCOLS - 1) / SCOLS) * (long long)batch;
+  if (tiles * batch > 0x7fffffffLL || blocks > 0x7fffffffLL) return true;
   return from_payload && (bits < 1 || bits > 31);
 }
 
@@ -1003,15 +1052,18 @@ extern "C" int hsz_lorenzo_info(int from_payload, int what, int* smem_bytes, int
 }
 
 // Edge pass: two launches on one stream, the per-tile sums and their
-// exclusive prefixes.  rowedge: (n0, ceil(n1/TW)) int32, the sum of p left of
-// each tile in each row; coledge: (ceil(n0/TH), n1) int32, the sum of p above
-// each tile in each column; corners: null, or (ceil(n0/TH), ceil(n1/32))
-// int32 for prefix_stats2d, the column edge summed over each 32 columns.
+// exclusive prefixes, over `batch` planes (field b's payload at word b *
+// n_words, its plane at b * n0 * n1).  rowedge: (batch, n0, ceil(n1/TW))
+// int32, the sum of p left of each tile in each row; coledge: (batch,
+// ceil(n0/TH), n1) int32, the sum of p above each tile in each column;
+// corners: null, or (ceil(n0/TH), ceil(n1/32)) int32 for prefix_stats2d
+// (batch 1), the column edge summed over each 32 columns.
 extern "C" int hsz_lorenzo_edges(int from_payload, const void* src, long long n_words,
-                                 int bits, int n0, int n1, void* rowedge, void* coledge,
-                                 void* corners, void* stream) {
-  if (bad_shape(from_payload, bits, n0, n1)) return (int)cudaErrorInvalidValue;
-  Args a = make_args(from_payload, src, n_words, bits, n0, n1);
+                                 int bits, int n0, int n1, int batch, void* rowedge,
+                                 void* coledge, void* corners, void* stream) {
+  if (bad_shape(from_payload, bits, n0, n1, batch) || (corners && batch != 1))
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(from_payload, src, n_words, bits, n0, n1, batch);
   a.rowedge = static_cast<int32_t*>(rowedge);
   a.coledge = static_cast<int32_t*>(coledge);
   auto c = static_cast<int32_t*>(corners);
@@ -1019,15 +1071,16 @@ extern "C" int hsz_lorenzo_edges(int from_payload, const void* src, long long n_
   return from_payload ? launch_edges<true>(a, c, s) : launch_edges<false>(a, c, s);
 }
 
-// Stencil pass.  rowedge / coledge as the edge pass leaves them; out0/out1:
-// (n0, n1) int32 (out1 only for what == GRAD).
+// Stencil pass over `batch` planes.  rowedge / coledge as the edge pass
+// leaves them; out0/out1: (batch, n0, n1) int32 (out1 only for what ==
+// GRAD).
 extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long n_words,
-                                   int bits, int n0, int n1, const void* rowedge,
+                                   int bits, int n0, int n1, int batch, const void* rowedge,
                                    const void* coledge, int what, void* out0,
                                    void* out1, void* stream) {
-  if (bad_shape(from_payload, bits, n0, n1) || what < DERIV0 || what > LAP)
+  if (bad_shape(from_payload, bits, n0, n1, batch) || what < DERIV0 || what > LAP)
     return (int)cudaErrorInvalidValue;
-  Args a = make_args(from_payload, src, n_words, bits, n0, n1);
+  Args a = make_args(from_payload, src, n_words, bits, n0, n1, batch);
   a.rowedge = const_cast<int32_t*>(static_cast<const int32_t*>(rowedge));
   a.coledge = const_cast<int32_t*>(static_cast<const int32_t*>(coledge));
   a.out0 = static_cast<uint32_t*>(out0);
@@ -1045,8 +1098,8 @@ extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long 
 extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowedge,
                                 const void* coledge, const void* corners, void* partials,
                                 void* out, void* stream) {
-  if (bad_shape(0, 0, n0, n1)) return (int)cudaErrorInvalidValue;
-  Args a = make_args(0, p, 0, 0, n0, n1);
+  if (bad_shape(0, 0, n0, n1, 1)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(0, p, 0, 0, n0, n1, 1);
   a.rowedge = const_cast<int32_t*>(static_cast<const int32_t*>(rowedge));
   a.coledge = const_cast<int32_t*>(static_cast<const int32_t*>(coledge));
   auto s = (cudaStream_t)stream;

@@ -32,6 +32,16 @@
 //    decodes and stores the current one (two buffers).  Held to 32
 //    registers, so 8 blocks fit per SM (unbounded it took 48 and fitted
 //    5).  On the card this beat one block per span (PERF.md).
+//  - Batch.  A batch of B payloads of n_words words each (the fields of a
+//    batch_stack view, the counterpart of the reference's vmapped grid)
+//    is one launch: the span loop runs over B x n_spans, field b's words
+//    start at b * n_words and its values at b * n.  Nothing carries from
+//    one span to the next, so no field's words reach another's values.
+//    16-byte copies need every field's words 16-byte aligned (n_words % 4
+//    == 0 past the first field), 16-byte stores every field's values
+//    (n % 4 == 0); a batch without them takes 4-byte pieces.  Spans are
+//    counted in 32 bits (at most 2^31 - 1 in a batch) and split into field
+//    and span by a magic-number division.
 // Widths 0 and 32 are fast paths in the Python wrapper, as in the reference.
 #include "common.cuh"
 
@@ -48,18 +58,22 @@ static_assert(SPAN % 128 == 0, "a span is whole chunks, so it starts 16-byte ali
 __host__ __device__ constexpr int span_words(int bits) { return SPAN / 32 * bits; }
 __host__ __device__ constexpr int buffer_words(int bits) { return span_words(bits) + PAD; }
 
-// Start copying the words of span s (those below n_need) into B.
-__device__ __forceinline__ void fetch(const uint32_t* __restrict__ words, long long n_need,
-                                      int bits, bool vin, long long s, uint32_t* B) {
-  const long long w0 = s * span_words(bits);
+// Start copying the words of span s of the batch (span s % n_spans of
+// field s / n_spans, its words below n_need) into B.
+__device__ __forceinline__ void fetch(const uint32_t* __restrict__ words, long long n_words,
+                                      long long n_need, int n_spans, hsz::FastDiv by_spans,
+                                      int bits, bool vin, int s, uint32_t* B) {
+  const int b = by_spans.div(s);
+  const long long w0 = (long long)(s - b * n_spans) * span_words(bits);
+  const uint32_t* src = words + b * n_words + w0;
   const int cnt = (int)min((long long)span_words(bits), n_need - w0);
   for (int q = 4 * (int)threadIdx.x; q < cnt; q += 4 * NT) {
     if (vin && q + 3 < cnt) {
-      hsz::cp_async16(B + q, words + w0 + q);
+      hsz::cp_async16(B + q, src + q);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (q + e < cnt) hsz::cp_async4(B + q + e, words + w0 + q + e);
+        if (q + e < cnt) hsz::cp_async4(B + q + e, src + q + e);
     }
   }
 }
@@ -86,30 +100,37 @@ __device__ __forceinline__ void take4(const uint32_t* w, int off, int bits, uint
   }
 }
 
-// Value v of span s at out[s*SPAN + v].  Words past a span's end (or
-// n_need) hold stale bits; they are only ever shifted into bits that the
-// mask drops, since every value below n lies in words below n_need.
+// Value v of span ls of field b at out[b*n + ls*SPAN + v].  Words past a
+// span's end (or n_need) hold stale bits; they are only ever shifted into
+// bits that the mask drops, since every value below n lies in words below
+// n_need.
 template <bool UNZIGZAG>
 __global__ void __launch_bounds__(NT, 8) unpack_kernel(const uint32_t* __restrict__ words,
-                                                    long long n_need, uint32_t* __restrict__ out,
-                                                    long long n, int bits, bool vin, bool vout) {
+                                                    long long n_words, long long n_need,
+                                                    uint32_t* __restrict__ out, long long n,
+                                                    int bits, int n_spans, int total,
+                                                    hsz::FastDiv by_spans, bool vin, bool vout) {
   extern __shared__ __align__(16) uint32_t S[];
-  const long long n_spans = (n + SPAN - 1) / SPAN;
   const int bw = buffer_words(bits);
-  fetch(words, n_need, bits, vin, blockIdx.x, S);  // the grid has at most one block a span
+  // the grid has at most one block a span
+  fetch(words, n_words, n_need, n_spans, by_spans, bits, vin, blockIdx.x, S);
   hsz::cp_async_commit();
   int buf = 0;
-  for (long long s = blockIdx.x; s < n_spans; s += gridDim.x, buf ^= 1) {
+  for (int s = blockIdx.x; s < total; s += gridDim.x, buf ^= 1) {
     hsz::cp_async_wait_all();
     __syncthreads();
     // the next span's copies run under this span's decode and stores
-    if (s + gridDim.x < n_spans) fetch(words, n_need, bits, vin, s + gridDim.x, S + (buf ^ 1) * bw);
+    if (s + (int)gridDim.x < total)
+      fetch(words, n_words, n_need, n_spans, by_spans, bits, vin, s + gridDim.x,
+            S + (buf ^ 1) * bw);
     hsz::cp_async_commit();
     const uint32_t* B = S + buf * bw;
+    const int b = by_spans.div(s);
+    const long long g0 = (long long)(s - b * n_spans) * SPAN;
 #pragma unroll
     for (int step = 0; step < STEPS; ++step) {
       const int v = 4 * (step * NT + (int)threadIdx.x);
-      const long long g = s * SPAN + v;
+      const long long g = g0 + v;
       if (g >= n) break;
       uint32_t u[4];
       take4(B, v * bits, bits, u);
@@ -117,7 +138,7 @@ __global__ void __launch_bounds__(NT, 8) unpack_kernel(const uint32_t* __restric
 #pragma unroll
         for (int e = 0; e < 4; ++e) u[e] = (uint32_t)hsz::unzigzag(u[e]);
       }
-      hsz::store4(out, g, 0, (int)min(n - g, 4LL), vout, u);
+      hsz::store4(out, (long long)b * n + g, 0, (int)min(n - g, 4LL), vout, u);
     }
   }
 }
@@ -149,38 +170,46 @@ const Config& config() {
 }
 
 template <bool UNZIGZAG>
-int launch(const uint32_t* words, long long n_need, uint32_t* out, long long n, int bits,
-           cudaStream_t stream) {
+int launch(const uint32_t* words, long long n_words, long long n_need, uint32_t* out,
+           long long n, int bits, int batch, cudaStream_t stream) {
   const Config& c = config<UNZIGZAG>();
   if (c.err != cudaSuccess) return (int)c.err;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const long long n_spans = (n + SPAN - 1) / SPAN;
+  const long long n_spans = (n + SPAN - 1) / SPAN, total = n_spans * batch;
+  if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long resident = (long long)sms * (c.per_sm > 0 ? c.per_sm : 1);
-  const long long grid = n_spans < resident ? n_spans : resident;
+  const long long grid = total < resident ? total : resident;
   const size_t smem = 2 * buffer_words(bits) * sizeof(uint32_t);
-  const bool vin = ((uintptr_t)words & 15u) == 0, vout = ((uintptr_t)out & 15u) == 0;
-  unpack_kernel<UNZIGZAG><<<(unsigned)grid, NT, smem, stream>>>(words, n_need, out, n, bits,
-                                                                vin, vout);
+  // every field's words and values must be 16-byte aligned, not only the first's
+  const bool vin = ((uintptr_t)words & 15u) == 0 && (batch == 1 || (n_words & 3) == 0);
+  const bool vout = ((uintptr_t)out & 15u) == 0 && (batch == 1 || (n & 3) == 0);
+  unpack_kernel<UNZIGZAG><<<(unsigned)grid, NT, smem, stream>>>(
+      words, n_words, n_need, out, n, bits, (int)n_spans, (int)total,
+      hsz::FastDiv((uint32_t)n_spans), vin, vout);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// n values at width bits (1..31) from n_words payload words: zigzag values
-// (unzigzag == 0) or residuals (unzigzag != 0), as int32, into out.
+// n values at width bits (1..31) from each of `batch` payloads of n_words
+// words (field b's at words + b * n_words): zigzag values (unzigzag == 0,
+// batch 1 only) or residuals (unzigzag != 0), as int32, into out (field
+// b's at out + b * n).
 extern "C" int hsz_unpack(const void* words, long long n_words, void* out, long long n, int bits,
-                          int unzigzag, void* stream) {
-  if (bits < 1 || bits > 31 || n < 0) return (int)cudaErrorInvalidValue;
+                          int unzigzag, int batch, void* stream) {
+  if (bits < 1 || bits > 31 || n < 0 || batch < 1 || (!unzigzag && batch != 1))
+    return (int)cudaErrorInvalidValue;
   const long long n_need = (n * bits + 31) / 32;
   if (n_need > n_words) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   auto w = static_cast<const uint32_t*>(words);
   auto o = static_cast<uint32_t*>(out);
   auto s = (cudaStream_t)stream;
-  return unzigzag ? launch<true>(w, n_need, o, n, bits, s) : launch<false>(w, n_need, o, n, bits, s);
+  return unzigzag ? launch<true>(w, n_words, n_need, o, n, bits, batch, s)
+                  : launch<false>(w, n_words, n_need, o, n, bits, batch, s);
 }
 
 // Shared memory at 31 bits (bytes), registers per thread and resident blocks

@@ -29,6 +29,13 @@ so a clipped tile count is a fact: ``n0 == (n_rt - 1)*TH + e0`` with
 * A :class:`Branch` is a contiguous range of ``blockIdx.x`` (a split grid
   has two); its ``walk`` maps blocks and loop trips to work items exactly
   once, ``items`` decomposes an item into tile coordinates.
+* A batched instantiation (the symbol ``B``: the fields of a
+  ``batch_stack`` view, one launch for all of them) walks ``B`` times the
+  items of one field, the field ``b`` as the items' top digit; each write
+  names ``b`` in a leading batch dimension (``Write.lead``) before one
+  field's dimensions, and its reads index the batch's arrays as one array
+  of ``B`` times the rows (field ``b``'s row ``i`` at ``b*n0 + i``), the
+  guard on a row the kernel's mask of ``i`` within its own field.
 * A :class:`Read` is one access with a guard per dimension: ``"clip"`` (the
   kernel masks both ends), ``"<"`` (it masks the upper end), ``""`` (the
   proof must show the index in bounds), or a range restriction
@@ -91,6 +98,7 @@ class Write:
     fixed: tuple[str, ...] = ()
     alloc: tuple[str, ...] | None = None
     per: str = "item"  # "block": once per block, after its loop
+    lead: tuple[Cover, ...] = ()  # batch dims before one field's ``dims``
 
 
 @dataclass(frozen=True)
@@ -188,7 +196,14 @@ _COORDS = Cover(_d(("tj", "1", "n_ct"), ("ti", "n_ct", "n_rt")), "n_tiles",
 #: tile (grid = min(n_tiles, sms * per_sm))
 _PERSISTENT = Cover(_d(("bx", "1", "G"), ("it", "G", None)), "n_tiles")
 _PERSISTENT_BOUNDS = {"G": ("1", "n_tiles")}
-_PERSISTENT_PARAM = {"G": "min(cdiv(n0, TH) * cdiv(n1, TW), sms * per_sm)"}
+#: the same over a batch of B planes: the tiles of field b follow field
+#: b - 1's (tile_of / tile_origin), and a write's batch dimension is b
+_BCOORDS = Cover(_d(("tj", "1", "n_ct"), ("ti", "n_ct", "n_rt"),
+                    ("b", "n_tiles", "B")), "B*n_tiles", clip=False)
+_BPERSISTENT = Cover(_d(("bx", "1", "G"), ("it", "G", None)), "B*n_tiles")
+_BPERSISTENT_BOUNDS = {"G": ("1", "B*n_tiles"), "B": ("1", None)}
+_BPERSISTENT_PARAM = {"G": "min(B * cdiv(n0, TH) * cdiv(n1, TW), sms * per_sm)"}
+_BATCH = Cover(_d(("b", "1", "B")), "B", clip=False)
 #: one output row of a tile per (k, warp), 4 columns per (e, lane)
 _TILE_ROWS = Cover(_d(("k", "1", "ROWS"), ("warp", "ROWS", "NWARP"),
                       ("ti", "TH", "n_rt")), "n0")
@@ -197,7 +212,8 @@ _TILE_COLS = Cover(_d(("e", "1", "4"), ("lane", "4", "32"),
 
 
 def _plane_write(array: str) -> Write:
-    return Write(array, (_TILE_ROWS, _TILE_COLS))
+    """One ``(n0, n1)`` output plane of each field of the batch."""
+    return Write(array, (_TILE_ROWS, _TILE_COLS), lead=(_BATCH,))
 
 
 # -- pack.cu -------------------------------------------------------------------
@@ -312,45 +328,62 @@ _LAP2D = _stencil_dq("laplacian2d_kernel", "hsz_laplacian2d", ("out",),
 
 
 def _unpack(unzigzag: bool) -> KernelSpec:
+    """``unpack_kernel<true>`` (the decode) takes a batch of B payloads, one
+    span loop over the B x n_spans spans; ``<false>`` takes one."""
     flag = "true" if unzigzag else "false"
+    batch = "B*" if unzigzag else ""
+    out_dims = (Cover(_d(("e", "1", "4"), ("tx", "4", "NT"),
+                         ("step", "4*NT", "STEPS"),
+                         ("ls" if unzigzag else "s", "SPAN", "n_spans")), "n"),)
     return KernelSpec(
         name=f"unpack_kernel<{flag}>", source="unpack.cu",
         function="unpack_kernel", launch="launch",
         replaces=_PALLAS + "bitpack.py:94",
         grid="G",
         bounds={"q": ("0", "SPAN//32*bits + PAD - 1"), "buf": ("0", "1"),
-                "G": ("1", "n_spans"), "n_spans": ("1", None),
-                "en": ("1", "SPAN"), "bits": ("1", "31")},
+                "G": ("1", f"{batch}n_spans"), "n_spans": ("1", None),
+                "en": ("1", "SPAN"), "bits": ("1", "31"),
+                **({"B": ("1", None)} if unzigzag else {})},
         facts=("n == (n_spans - 1)*SPAN + en",),
         branches=(Branch(
-            "0", "G", Cover(_d(("bx", "1", "G"), ("it", "G", None)), "n_spans"),
-            item="s",
-            writes=(Write("out", (Cover(_d(("e", "1", "4"), ("tx", "4", "NT"),
-                                            ("step", "4*NT", "STEPS"),
-                                            ("s", "SPAN", "n_spans")), "n"),),
-                          threads=("tx",)),),
+            "0", "G", Cover(_d(("bx", "1", "G"), ("it", "G", None)),
+                            f"{batch}n_spans"),
+            # span s of the batch is span s % n_spans of field s / n_spans
+            items=(Cover(_d(("ls", "1", "n_spans"), ("b", "n_spans", "B")),
+                         "B*n_spans", clip=False) if unzigzag else None),
+            item="" if unzigzag else "s",
+            writes=(Write("out", out_dims, threads=("tx",),
+                          lead=(_BATCH,) if unzigzag else ()),),
             # the prologue copies span blockIdx.x before the loop tests it:
             # the grid has at most one block a span; word q of buffer buf
             # (take4's reads stay below a buffer: check_unpack_lemma)
-            reads=(Read("span", ("bx",), ("n_spans",)),
+            reads=(Read("span", ("bx",), (f"{batch}n_spans",)),
                    Read("S", ("buf*(SPAN//32*bits + PAD) + q",),
                         ("2*(SPAN//32*bits + PAD)",), shared=True))),),
         params={"n_spans": "cdiv(n, SPAN)",
-                "G": "min(cdiv(n, SPAN), sms * per_sm)",
+                "G": f"min({batch}cdiv(n, SPAN), sms * per_sm)",
                 "en": "n - (cdiv(n, SPAN) - 1) * SPAN"},
         smem_dynamic="2*(SPAN//32*31 + PAD)*4",
         staging="unpack",
-        notes="persistent grid over spans of SPAN values; dynamic shared "
-              "memory 2 * buffer_words(bits) words (its largest at 31 bits)")
+        notes="persistent grid over spans of SPAN values (of every field of "
+              "a batch); dynamic shared memory 2 * buffer_words(bits) words "
+              "(its largest at 31 bits)")
 
 
 # -- lorenzo_band.cu ---------------------------------------------------------------
 
-def _lz_tile_reads(nr: str, nc: str, payload: bool) -> tuple[Read, ...]:
+def _lz_tile_reads(nr: str, nc: str, payload: bool,
+                   batched: bool = True) -> tuple[Read, ...]:
     """The staged window of a Lorenzo tile: rows i0 .. i0 + nr - 1 and
-    columns j0 .. j0 + nc - 1 of the input, masked at the plane's edge."""
-    src = (Read("words", ("w",), ("n_words",), ("<",)) if payload else
-           Read("p", ("ti*TH + r", "tj*TW + c"), ("n0", "n1"), ("<", "<")))
+    columns j0 .. j0 + nc - 1 of the input (of field b's plane where
+    ``batched``), masked at the plane's edge."""
+    if payload:
+        src = Read("words", ("w",), ("B*n_words",), ("<",))
+    elif batched:
+        src = Read("p", ("b*n0 + ti*TH + r", "tj*TW + c"), ("B*n0", "n1"),
+                   ("<", "<"))
+    else:
+        src = Read("p", ("ti*TH + r", "tj*TW + c"), ("n0", "n1"), ("<", "<"))
     return (src,
             Read("R", ("r", "c"), (nr, "LD"), shared=True))
 
@@ -368,79 +401,94 @@ def _edges(payload: bool) -> KernelSpec:
         replaces=_PALLAS + ("fused.py:288" if payload else "fused.py:250"),
         grid="G",
         bounds=_lz_bounds(c=("0", "TW - 1"), wr=("0", "NWARP - 1"),
-                          **_PERSISTENT_BOUNDS),
+                          **_BPERSISTENT_BOUNDS),
         facts=_TILE_FACTS,
         branches=(Branch(
-            "0", "G", _PERSISTENT, _COORDS,
+            "0", "G", _BPERSISTENT, _BCOORDS,
             writes=(
                 Write("rowedge", (_TILE_ROWS,
                                   Cover(_d(("tj", "1", "n_ct")), "n_ct",
                                         clip=False)),
-                      fixed=("lane",)),
+                      fixed=("lane",), lead=(_BATCH,)),
                 Write("coledge", (Cover(_d(("ti", "1", "n_rt")), "n_rt",
                                         clip=False),
                                   Cover(_d(("c", "1", "TW"), ("tj", "TW", "n_ct")),
                                         "n1")),
-                      threads=("c", "h"), fixed=("h",))),
+                      threads=("c", "h"), fixed=("h",), lead=(_BATCH,))),
             reads=_lz_tile_reads("TH", "TW", payload) + (
-                Read("tile", ("bx",), ("n_tiles",)),
+                Read("tile", ("bx",), ("B*n_tiles",)),
                 Read("T", ("wr", "c"), ("NWARP", "LDT"), shared=True))),),
-        params={**_TILE_PARAMS, **_PERSISTENT_PARAM},
+        params={**_TILE_PARAMS, **_BPERSISTENT_PARAM},
         smem_static="4*(2*TH*LD + NWARP*LDT)",
         staging="lorenzo" if payload else "",
-        notes="persistent grid over tiles; the next tile's copies run under "
-              "the current one; lane k writes row k of its warp's rows")
+        notes="persistent grid over the tiles of every field of a batch; "
+              "the next tile's copies run under the current one; lane k "
+              "writes row k of its warp's rows")
 
 
 def _scan(corners: bool) -> KernelSpec:
+    """The edge scan.  Batched (``lorenzo_scan_kernel``): rbf row blocks
+    and n_cb column blocks per field, every field's row blocks first; the
+    corner scan (``prefix_stats2d``) takes one plane."""
     name = "corner_scan_kernel" if corners else "lorenzo_scan_kernel"
+    lead = () if corners else (_BATCH,)
     col_writes = [
         Write("coledge", (Cover(_d(("s", "1", "slen"), ("warp", "slen", "SSEG")),
                                 "n_rt"),
                           Cover(_d(("lane", "1", "SCOLS"), ("cb", "SCOLS", "n_cb")),
-                                "n1")))]
+                                "n1")), lead=lead)]
     if corners:
         col_writes.append(Write(
             "corners", (Cover(_d(("s", "1", "slen"), ("warp", "slen", "SSEG")),
                               "n_rt"),
                         Cover(_d(("cb", "1", "n_cb")), "n_cb", clip=False)),
             fixed=("lane",)))
+    rows_walk = (Cover(_d(("rb", "1", "n_rb")), "n_rb", clip=False) if corners
+                 else Cover(_d(("rb", "1", "rbf"), ("b", "rbf", "B")), "n_rb",
+                            clip=False))
+    cols_walk = (Cover(_d(("cb", "1", "n_cb")), "n_cb", clip=False) if corners
+                 else Cover(_d(("cb", "1", "n_cb"), ("b", "n_cb", "B")),
+                            "B*n_cb", clip=False))
+    rbf = "n_rb" if corners else "rbf"  # row blocks of one field
     return KernelSpec(
         name=name, source="lorenzo_band.cu", function=name,
         launch="launch_edges",
         replaces=_PALLAS + ("prefix_stats.py:56" if corners
                             else "fused.py:288"),
-        grid="n_rb + n_cb",
-        bounds={"g": ("0", "SSEG - 1"), "n_rb": ("1", None),
+        grid="n_rb + n_cb" if corners else "n_rb + B*n_cb",
+        bounds={"g": ("0", "SSEG - 1"), rbf: ("1", None),
                 "n_cb": ("1", None), "n_ct": ("1", None),
                 "slen": ("1", None), "e_rb": ("1", "NWARP"),
-                "e_cb": ("1", "SCOLS"), "e_len": ("1", "SSEG")},
-        facts=("n0 == (n_rb - 1)*NWARP + e_rb", "n1 == (n_cb - 1)*SCOLS + e_cb",
-               "n_rt == (slen - 1)*SSEG + e_len"),
+                "e_cb": ("1", "SCOLS"), "e_len": ("1", "SSEG"),
+                **({} if corners else {"B": ("1", None)})},
+        facts=((() if corners else ("n_rb == B*rbf",))
+               + (f"n0 == ({rbf} - 1)*NWARP + e_rb",
+                  "n1 == (n_cb - 1)*SCOLS + e_cb",
+                  "n_rt == (slen - 1)*SSEG + e_len")),
         branches=(
             # blocks below n_rb: a warp per row of rowedge, 32 tiles a step
-            Branch("0", "n_rb", Cover(_d(("rb", "1", "n_rb")), "n_rb",
-                                      clip=False),
+            Branch("0", "n_rb", rows_walk,
                    writes=(Write("rowedge", (
-                       Cover(_d(("warp", "1", "NWARP"), ("rb", "NWARP", "n_rb")),
+                       Cover(_d(("warp", "1", "NWARP"), ("rb", "NWARP", rbf)),
                              "n0"),
                        Cover(_d(("lane", "1", "32"), ("c0", "32", None)),
-                             "n_ct"))),)),
+                             "n_ct")), lead=lead),)),
             # the others: 32 columns of coledge, a segment of tile rows a warp
-            Branch("n_rb", "n_cb", Cover(_d(("cb", "1", "n_cb")), "n_cb",
-                                         clip=False),
+            Branch("n_rb", "n_cb" if corners else "B*n_cb", cols_walk,
                    writes=tuple(col_writes),
                    reads=(Read("S", ("g", "lane"), ("SSEG", "SCOLS"),
                                shared=True),))),
-        params={"n_rb": "cdiv(n0, NWARP)", "n_cb": "cdiv(n1, SCOLS)",
+        params={"n_rb": ("" if corners else "B * ") + "cdiv(n0, NWARP)",
+                **({} if corners else {"rbf": "cdiv(n0, NWARP)"}),
+                "n_cb": "cdiv(n1, SCOLS)",
                 "n_rt": "cdiv(n0, TH)", "n_ct": "cdiv(n1, TW)",
                 "slen": "cdiv(cdiv(n0, TH), SSEG)",
                 "e_rb": "n0 - (cdiv(n0, NWARP) - 1) * NWARP",
                 "e_cb": "n1 - (cdiv(n1, SCOLS) - 1) * SCOLS",
                 "e_len": "cdiv(n0, TH) - (cdiv(cdiv(n0, TH), SSEG) - 1) * SSEG"},
         smem_static="4*SSEG*SCOLS",
-        notes="split grid: n_rb row blocks, then n_cb column blocks; the "
-              "prefixes are written in place")
+        notes="split grid: row blocks, then column blocks (of every field "
+              "of a batch); the prefixes are written in place")
 
 
 _WHATS_LZ = ("DERIV0", "DERIV1", "GRAD", "LAP")
@@ -453,18 +501,20 @@ def _stencil(payload: bool, what: str) -> KernelSpec:
         name=f"lorenzo_stencil_kernel<{flag}, {what}>", source="lorenzo_band.cu",
         function="lorenzo_stencil_kernel", launch="launch_stencil",
         replaces=_PALLAS + ("fused.py:302" if payload else "fused.py:250"),
-        grid="n_tiles",
+        grid="B*n_tiles",
         bounds=_lz_bounds(r=("0", "TH"), c=("0", "TW"), rk=("0", "TH - 1"),
-                          wr=("0", "NWARP - 1")),
+                          wr=("0", "NWARP - 1"), B=("1", None)),
         facts=_TILE_FACTS,
         branches=(Branch(
-            "0", "n_tiles", Cover(_d(("bx", "1", "n_tiles")), "n_tiles",
-                                  clip=False),
-            _COORDS,
+            "0", "B*n_tiles", Cover(_d(("bx", "1", "B*n_tiles")), "B*n_tiles",
+                                    clip=False),
+            _BCOORDS,
             writes=tuple(_plane_write(a) for a in outs),
             reads=_lz_tile_reads("TH + 1", "TW + 1", payload) + (
-                Read("coledge", ("ti", "tj*TW + c"), ("n_rt", "n1"), ("", "<")),
-                Read("rowedge", ("ti*TH + r", "tj"), ("n0", "n_ct"), ("<", "")),
+                Read("coledge", ("b*n_rt + ti", "tj*TW + c"), ("B*n_rt", "n1"),
+                     ("", "<")),
+                Read("rowedge", ("b*n0 + ti*TH + r", "tj"), ("B*n0", "n_ct"),
+                     ("<", "")),
                 Read("E", ("c",), ("EW",), shared=True),
                 Read("E", ("132 + r",), ("EW",), shared=True),
                 Read("T", ("wr", "c"), ("NWARP", "LDT"), shared=True),
@@ -478,8 +528,8 @@ def _stencil(payload: bool, what: str) -> KernelSpec:
         smem_arrays=("R", "E") + (() if what == "DERIV0" else ("T",))
         + (() if what == "DERIV1" else ("H",)),
         staging="lorenzo" if payload else "",
-        notes="one block per tile; the window is the tile, the next row and "
-              "the next column")
+        notes="one block per tile of every field of a batch; the window is "
+              "the tile, the next row and the next column")
 
 
 def _stats_tile(wide: bool) -> KernelSpec:
@@ -506,7 +556,7 @@ def _stats_tile(wide: bool) -> KernelSpec:
                                              clip=False)),
                           threads=("t",), fixed=("t",), alloc=("n_tiles", "2"),
                           per="block"),),
-            reads=_lz_tile_reads("TH", "TW", False) + (
+            reads=_lz_tile_reads("TH", "TW", False, batched=False) + (
                 Read("tile", ("bx",), ("n_tiles",)),
                 Read("corners", ("ti", "b"), ("n_rt", "n_cb")),
                 Read("T", ("wr", "c"), ("NWARP + 1", "LDT"), shared=True),
@@ -556,9 +606,9 @@ def _blockmean(payload: bool, what: str) -> KernelSpec:
     flag = "true" if payload else "false"
     outs = ("out0", "out1") if what == "GRAD" else ("out0",)
     tiles = "2" if what == "LAP_P" else "1"
-    src = (Read("words", ("w",), ("n_words",), ("<",)) if payload else
-           Read("p", ("ti*TH - 1 + r", "tj*TW - 1 + c"), ("n0", "n1"),
-                ("clip", "clip")))
+    src = (Read("words", ("w",), ("B*n_words",), ("<",)) if payload else
+           Read("p", ("b*n0 + ti*TH - 1 + r", "tj*TW - 1 + c"),
+                ("B*n0", "n1"), ("clip", "clip")))
     return KernelSpec(
         name=f"blockmean_kernel<{flag}, {what}>", source="blockmean_band.cu",
         function="blockmean_kernel", launch="launch",
@@ -567,24 +617,24 @@ def _blockmean(payload: bool, what: str) -> KernelSpec:
         bounds={"r": ("0", "HR - 1"), "c": ("0", "HC - 1"),
                 "rw": ("0", "TH + 1"), "bi": ("0", "g0 - 1"),
                 "bj": ("0", "ng1 - 1"), "w": ("0", None),
-                **_PERSISTENT_BOUNDS, **_TILE_BOUNDS,
+                **_BPERSISTENT_BOUNDS, **_TILE_BOUNDS,
                 "g0": ("1", None), "ng1": ("1", None)},
         facts=_TILE_FACTS,
         branches=(Branch(
-            "0", "G", _PERSISTENT, _COORDS,
+            "0", "G", _BPERSISTENT, _BCOORDS,
             writes=tuple(_plane_write(a) for a in outs),
             reads=(src,
-                   Read("tile", ("bx",), ("n_tiles",)),
-                   Read("meta", ("bi", "bj"), ("g0", "ng1")),
+                   Read("tile", ("bx",), ("B*n_tiles",)),
+                   Read("meta", ("b*g0 + bi", "bj"), ("B*g0", "ng1")),
                    Read("R", ("r", "3 + c"), ("HR", "LD"), shared=True),
                    Read("S", ("rw", "3 + c"), ("HR", "LD"), shared=True))),),
-        params={**_TILE_PARAMS, **_PERSISTENT_PARAM, "g0": "n0 // b0",
+        params={**_TILE_PARAMS, **_BPERSISTENT_PARAM, "g0": "n0 // b0",
                 "ng1": "n1 // b1"},
         smem_dynamic=f"4*(TILE*({tiles} + 2) + HC + HR)",
         staging="blockmean" if payload else "",
-        notes="persistent grid over tiles; the tile and its halo staged "
-              "once; block rows / columns of halo rows / columns divided "
-              "once per tile")
+        notes="persistent grid over the tiles of every field of a batch; "
+              "the tile and its halo staged once; block rows / columns of "
+              "halo rows / columns divided once per tile")
 
 
 #: every instantiation, in the order of the sources' tables
