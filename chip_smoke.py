@@ -18,13 +18,15 @@ Phases (any failure raises, so the exit code is non-zero):
    payload address that is not 16-byte aligned;
    then the block-mean kernels on random planes near Ocean's size at blocks
    (8, 8), (5, 7) and (4, 48), whose edges straddle the kernel's tiles;
-3b. the batched kernels (the decode's unpack and both band-kernel
-   families with a leading batch axis, one launch a batch: the engine's
-   full-field batches): every ``what`` against the batched plain versions,
-   bitwise, at Ocean x 8 (7-bit payloads), at batches of 1, 2 and 3 fields
-   on planes whose payload rows are not 16-byte multiples, and on two
-   fields of many tiles whose first holds full-range residuals and second
-   zeros (no sum may cross a field: the second's outputs stay zero);
+3b. the batched kernels (the decode's unpack, both band-kernel families
+   and the stage-③ difference kernel ``grad2d`` with a leading batch axis,
+   one launch a batch: the engine's batches): every ``what`` against the
+   batched plain versions, bitwise, at Ocean x 8 (7-bit payloads), at
+   batches of 1, 2 and 3 fields on planes whose payload rows are not
+   16-byte multiples (``grad2d`` also on odd planes, one past MAX_GRID_Y
+   interior rows among them), and on two fields of many tiles whose first
+   holds full-range residuals and second zeros (no sum may cross a field:
+   the second's outputs stay zero);
 4. the kernel entry point (``repro_torch.kernels``: quant_lorenzo2d, pack,
    unpack, block_stats, grad2d, laplacian2d, prefix_stats2d): each kernel
    against its plain version at both shapes (bitwise; prefix_stats2d rtol
@@ -52,6 +54,14 @@ Phases (any failure raises, so the exit code is non-zero):
    then the warm full-field and region cells once more under
    ``torch.cuda.set_sync_debug_mode("warn")``: every distinct host sync is
    printed with the port's frames that raised it, and any sync fails;
+   then (after 5c's fields are made) the batches: the sub-basin, the
+   transect and the far corner over 5c's eight fields per scheme and
+   container as one ``BatchedAnalytics().run`` each (the op set at ② and
+   ③, divergence / curl at ② over four pairs), and seeded with each
+   field's ② and ③ ``materialize`` (the op set at ②, ③, ④): each run one
+   stage context per component (every kernel pass one launch for the
+   batch, no decode in a seeded run) and bitwise the per-field
+   ``compute`` calls;
 5c. the engine path (``repro_torch.analytics``) on eight same-layout Ocean
    fields per scheme (u and v of ``synth_field`` seeds 0-3), ``Compressed``
    and ``Encoded``: (a) ``BatchedAnalytics().run`` of mean / std / gradient
@@ -67,8 +77,9 @@ Phases (any failure raises, so the exit code is non-zero):
    off; every query's launches exactly what its plan implies under the
    reference's fused cells (``FUSED_CELLS``: a full-field batch — (a), (b)
    and the flat op set's layout groups — one decode and one band-kernel
-   set per covered op for the whole batch, each pass one launch; an
-   expression leaf or a seeded field one set each; on a stage-③ seed the
+   set per covered op for the whole batch, each pass one launch; a
+   seeded or store-hit batch of the eight fields, its seeds stacked, one
+   set for the batch; an expression leaf one set; on a stage-③ seed the
    stage-③ difference kernel or the block-mean kernel over its integers,
    at most one decode per ``Encoded`` leaf, no unpack and
    no payload kernel in a seeded or store-hit run); ``n_batches`` /
@@ -88,13 +99,14 @@ Phases (any failure raises, so the exit code is non-zero):
    cropped to 600 x 900 gives the same summaries bitwise; the unpack
    kernel on one slab's payload (69.1 M values) equals its plain version;
    every append and query launches exactly one ``unpack.residuals`` per
-   full-field ``Encoded`` slab it summarizes and nothing else;
+   layout group of full-field ``Encoded`` slabs it summarizes (the group's
+   slabs stacked into one summarize) and nothing else;
 5e. the serve path (``repro_torch.serve``, ``repro_torch.shard``): the
    ``Encoded`` (u, v) of both schemes by id in a ``ShardedFieldStore`` (8
    shards on one card, then 1 shard; one shard per card where the machine
    has several) and under ``local/`` ids in a ``StreamFieldStore``, each
    with a temporal id, behind one ``StoreRouter`` and one
-   ``AnalyticsFrontend``: one step of 48 requests (two appends of phase
+   ``AnalyticsFrontend``: one step of 50 requests (two appends of phase
    5d's slabs per temporal id; mean / std at auto, ②, ③; gradient and
    laplacian at ③, ④; derivative on axis 1; an op set; divergence and curl
    over vector ids; two expressions; a sub-basin and a transect; requests
@@ -104,7 +116,9 @@ Phases (any failure raises, so the exit code is non-zero):
    reference's exception types; each group issues its dispatch (one per
    spatial group, one per temporal stream); every request replayed as its
    own ``query()`` on fresh stores launches what the single-device query
-   launches and gives its bits; a per-shard budget evicts a region cell on
+   launches and gives its bits; in a warm step each flat group query
+   launches what its first request launches alone (one launch of each
+   kernel pass per group); a per-shard budget evicts a region cell on
    its home shard only and the cell recomputes bitwise; the word merge
    launches none of the port's kernels; it prints host ms per warm step
    beside the single-device store's, the merge's device µs and a profiler
@@ -131,11 +145,16 @@ Phases (any failure raises, so the exit code is non-zero):
    equal) and ``torch.profiler`` traces of one (a) call per scheme and
    container, as one batched run and as eight per-field ``compute`` calls:
    their kernels, device µs and the device's busy share of the call's
-   window; the batched kernels at Ocean x 8 (events, device alone, plain
-   version, bound, beside 8 x one field's device-alone time); the stream path's host ms per append (with its two
-   merges), per hot query (a resident hit of the five ops) and per cold
-   storeless query over 8 slabs, ``torch.profiler`` traces of one append
-   and one cold query, and the unpack kernel alone at slab size beside its
+   window; the ③ hit also as eight seeded ``compute`` calls; the batched
+   kernels at Ocean x 8 (events, device alone, plain version, bound, beside
+   8 x one field's device-alone time); 5b's batches on the sub-basin (the
+   op set at ③, unseeded and ③-seeded) as one run against eight
+   ``compute`` calls, host ms and busy share; the stream path's host ms per
+   append (with its two merges), per hot query (a resident hit of the five
+   ops) and per cold storeless query over 8 slabs beside the same
+   summaries one slab at a time, with their peak device memory,
+   ``torch.profiler`` traces of one append, one cold query and its
+   per-slab loop, and the unpack kernel alone at slab size beside its
    bound;
 7. the static audit on the card (``repro_torch.audit``): (a) ``run_audit()``
    clean, no error and no warning, with the fused rules on and under
@@ -386,6 +405,8 @@ PATHS = {
                     "lorenzo_enc2d.stencil", "blockmean_enc2d",
                     "lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
                     "grad2d"),
+    "region batches": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
+                       "grad2d"),
     "stream path": ("unpack.residuals",),
     "serve path": ("unpack.residuals", "lorenzo2d.edges", "lorenzo2d.stencil",
                    "blockmean2d", "grad2d"),
@@ -646,11 +667,12 @@ def check_lorenzo_tiling(seed: int, errs: dict) -> None:
 
 #: the engine's batch: eight Ocean fields, payloads at 7 bits
 BATCH, BATCH_BITS = 8, 7
-#: the sites that take a batch (the decode and the band kernels), each
-#: listed again in the kernels line as "<site> x8"
+#: the sites that take a batch (the decode, the band kernels and the
+#: stage-③ difference kernel), each listed again in the kernels line as
+#: "<site> x8"
 BATCHED_SITES = ("unpack.residuals", "lorenzo_enc2d.edges",
                  "lorenzo_enc2d.stencil", "blockmean_enc2d", "lorenzo2d.edges",
-                 "lorenzo2d.stencil", "blockmean2d")
+                 "lorenzo2d.stencil", "blockmean2d", "grad2d")
 #: ragged batches: (Lorenzo plane, width) and (block-mean plane, block,
 #: width) whose payloads have n_words % 4 != 0, so fields past the first do
 #: not start on 16 bytes; and the cross-field case (field 0 full-range
@@ -659,6 +681,10 @@ BATCH_RAGGED_LZ = (((2401, 3599), 7), ((33, 129), 13))
 BATCH_RAGGED_BM = (((2395, 3598), (5, 7), 7), ((44, 126), (4, 6), 13))
 BATCH_SIZES = (1, 2, 3)
 LEAK_LZ, LEAK_BM = (2401, 3599), ((2395, 3598), (5, 7))
+#: the batched grad2d at odd shapes besides the Lorenzo ones: the smallest
+#: plane, odd planes of one and 257 interior columns, and a plane past
+#: MAX_GRID_Y interior rows (the grid-stride loop under blockIdx.z)
+BATCH_GRAD_ODD = ((3, 3), (5, 259), (1201, 1803), (65539, 4))
 
 
 def _rand_i32(shape, lo: int, hi: int, gen) -> torch.Tensor:
@@ -708,6 +734,9 @@ def check_batch(inp: dict, errs: dict, what_tag: str, lorenzo: bool = True,
         bitpack.unpack_residuals(words, n, bits),
         f"batched unpack_residuals {what_tag}"))
     if lorenzo:
+        _note(errs, f"grad2d{label}", bitwise_err(
+            stencil_dq.grad2d_int_plain(plane), stencil_dq.grad2d_int(plane),
+            f"batched grad2d {what_tag}"))
         _note(errs, f"lorenzo2d.edges{label}", bitwise_err(
             fused.lorenzo_edge_prefixes_plain(plane, tile),
             fused.lorenzo_edges(plane, shape, 0, from_payload=False,
@@ -748,6 +777,7 @@ def check_leak(inp: dict, what_tag: str, lorenzo: bool) -> None:
     shape, bits, block = inp["shape"], inp["bits"], inp["block"]
     outs = []
     if lorenzo:
+        outs.append(("grad2d", stencil_dq.grad2d_int(inp["plane"])))
         outs.append(("lorenzo2d edges", fused.lorenzo_edges(
             inp["plane"], shape, 0, from_payload=False, site="lorenzo2d")))
         outs.append(("lorenzo_enc2d edges", fused.lorenzo_edges(
@@ -797,6 +827,13 @@ def check_batched_kernels(seed: int, errs: dict) -> dict:
                 fail(f"{shape} at {bits} bits: payload rows not ragged")
             check_batch(inp, errs, f"{batch} x {shape} block {block} {bits} "
                         "bits", lorenzo=False)
+        for shape in BATCH_GRAD_ODD:
+            plane = _rand_i32((batch,) + shape, -2 ** 31, 2 ** 31, gen)
+            _note(errs, f"grad2d x{BATCH}", bitwise_err(
+                stencil_dq.grad2d_int_plain(plane),
+                stencil_dq.grad2d_int(plane),
+                f"batched grad2d {batch} x {shape}"))
+            del plane
     leak = batched_inputs(LEAK_LZ, 31, 2, gen, leak=True)
     check_batch(leak, errs, f"cross-field {LEAK_LZ}", blockmean=False)
     check_leak(leak, f"cross-field {LEAK_LZ}", lorenzo=True)
@@ -808,8 +845,9 @@ def check_batched_kernels(seed: int, errs: dict) -> dict:
     say(f"batched kernels == batched plain versions, bitwise, every what: "
         f"{BATCH} x {OCEAN} at {BATCH_BITS} bits; batches of {BATCH_SIZES} at "
         f"{BATCH_RAGGED_LZ} and {BATCH_RAGGED_BM} (payload rows of n_words % "
-        f"4 != 0); the cross-field case at {LEAK_LZ} and {LEAK_BM}: field 1 "
-        f"(zeros) stays zero beside field 0's full-range sums")
+        f"4 != 0), grad2d also at {BATCH_GRAD_ODD}; the cross-field case at "
+        f"{LEAK_LZ} and {LEAK_BM}: field 1 (zeros) stays zero beside field "
+        f"0's full-range sums")
     return ocean
 
 
@@ -1608,10 +1646,11 @@ def _component_ops(ops_, n: int = 2) -> list[list[str]]:
 
 def plan_contexts(key, res, fields) -> list:
     """The stage contexts a query's plan implies (see
-    :func:`expected_launches`).  A full-field unseeded batch is one context
-    (one per component of a vector set): its fields stacked, every kernel
-    launched once for the batch; expression leaves, seeded and store-hit
-    fields one context each."""
+    :func:`expected_launches`).  A batch is one context (one per component
+    of a vector set): its fields stacked, and a seeded or store-hit batch's
+    seeds stacked, every kernel launched once for the batch; a store miss
+    materializes each field in a context of its own first; expression
+    leaves are one context each."""
     kind, scheme = key[0], key[1]
     if kind == "a":
         stage = analytics.plan_stages(scheme, ENGINE_SET, key[3]).fused
@@ -1641,17 +1680,24 @@ def plan_contexts(key, res, fields) -> list:
                 out.append((type(b).__name__, scheme, stage, None, names))
         return out
     ops_, stage = STORE_RUNS[key[2]]
-    seeded = [("Encoded", scheme, stage, min(stage, Stage.Q), ops_)] * 8
+    seeded = [("Encoded", scheme, stage, min(stage, Stage.Q), ops_)]
     if key[2].endswith("miss"):
         # each miss materializes the field once: one decode, no band kernel
         return [("Encoded", scheme, stage, None, ["std"])] * 8 + seeded
     return seeded
 
 
+def batched_run(key) -> bool:
+    """Is engine query ``key`` one batched run: (a), (b), or a seeded (d)
+    run over the store's hits?"""
+    return key[0] in ("a", "b") or (key[0] == "d"
+                                    and not key[2].endswith("miss"))
+
+
 def check_engine_launches(fields, out) -> tuple[dict, dict]:
     """Every query's launches against what its plan implies; returns the
     engine path's launches per site, summed over its queries and over its
-    full-field batched runs ((a) and (b))."""
+    batched runs (:func:`batched_run`)."""
     total = dict.fromkeys(ops.LAUNCHES, 0)
     batched = dict.fromkeys(ops.LAUNCHES, 0)
     for key, (res, got) in out.items():
@@ -1673,20 +1719,176 @@ def check_engine_launches(fields, out) -> tuple[dict, dict]:
                      f"{n_enc} Encoded leaf contexts")
         for k, n in got.items():
             total[k] += n
-            if key[0] in ("a", "b"):
+            if batched_run(key):
                 batched[k] += n
         detail(f"  engine {key}: launches "
                f"{json.dumps({k: n for k, n in got.items() if n})}")
     say(f"engine path: the launches of its {len(out)} queries == their "
-        f"plans' (a full-field batch: one decode and one band-kernel set per "
-        f"covered op for the whole batch, each pass one launch; expressions: "
-        f"at most one decode per Encoded leaf; no unpack and no payload "
-        f"kernel in the seeded and store-hit runs)")
-    n_runs = sum(key[0] in ("a", "b") for key in out)
-    say(f"engine path: its {n_runs} full-field batched runs ((a): 8 fields; "
-        f"(b): 4 pairs) launched "
+        f"plans' (a batch, full-field or store-seeded: one decode and one "
+        f"band-kernel set per covered op, or one stage-③ difference kernel, "
+        f"for the whole batch, each pass one launch; expressions: at most "
+        f"one decode per Encoded leaf; no unpack and no payload kernel in "
+        f"the seeded and store-hit runs)")
+    n_runs = sum(batched_run(key) for key in out)
+    say(f"engine path: its {n_runs} batched runs ((a): 8 fields; (b): 4 "
+        f"pairs; (d) hits: 8 seeds stacked) launched "
         f"{json.dumps({k: n for k, n in batched.items() if n})}")
     return total, batched
+
+
+# -- phase 5b batches: region and store-seeded programs over 8 fields --------
+
+#: the windows batched over the engine phase's eight fields: the sub-basin
+#: (its stage-③ window 1201 x 1803 has an odd element count, so a stacked
+#: seed's fields past the first start off 16 bytes), the transect and the
+#: far corner
+BATCH_WINDOWS = ("basin", "transect", "corner")
+#: the unseeded runs on each window: (op set, stage, vector)
+REGION_BATCH_RUNS = ((ENGINE_SET, Stage.P, False), (ENGINE_SET, Stage.Q, False),
+                     (VECTOR_SET, Stage.P, True))
+
+
+def _vector_contexts(container, scheme, stage, seed, ops_) -> list:
+    return [(container, scheme, stage, seed, o) for o in _component_ops(ops_)]
+
+
+def region_batch_contexts(container, scheme, stage, ops_, vector: bool,
+                          seed=None) -> list:
+    """The stage contexts of one batched region run: one per component.
+    An unseeded region context gathers its closure's words with torch ops
+    and runs the residual-plane kernels on the gathered sub-planes, as a
+    ``Compressed`` context does."""
+    if seed is None:
+        container = "Compressed"
+    if vector:
+        return _vector_contexts(container, scheme, stage, seed, ops_)
+    return [(container, scheme, stage, seed, ops_)]
+
+
+def _same_items(batched: dict, singles: list, names, what: str) -> None:
+    """A batched run's results, field by field, bitwise the per-field
+    calls'."""
+    for i, one in enumerate(singles):
+        for op in names:
+            bitwise_err(one[op], _item(batched[op], i), f"{what} {op} {i}")
+
+
+def _region_seeds(fs, stage: Stage, window) -> list:
+    cl = oplib.set_closure(ENGINE_SET, fs[0].scheme, stage)
+    return [materialize(f, stage, region=window, closure=cl) for f in fs]
+
+
+def region_batches(fields, eng) -> tuple[dict, int]:
+    """Region and store-seeded programs as one batch (phase 5b batches): on
+    each of :data:`BATCH_WINDOWS`, per scheme and container, the op set at
+    ② and ③ over the eight fields and divergence / curl at ② over the four
+    pairs, then ``materialize`` at ② and ③ of each field and the op set
+    seeded at ②, ③ and ④.  Each run is counted on its own and held to one
+    context per component (each kernel pass one launch for the batch), and
+    its results bitwise the per-field ``compute`` calls (the seeded ones
+    also the unseeded batch).  Returns the launches summed and the runs."""
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    n = 0
+
+    def check(what, got, contexts):
+        want = expected_launches(contexts)
+        bad = {k: (got[k], want.get(k, 0)) for k in got
+               if got[k] != want.get(k, 0)}
+        if bad:
+            fail(f"5b batch {what}: launches (got, plan) {bad}")
+        for k, c in got.items():
+            total[k] += c
+
+    for scheme in SCHEMES:
+        for container in ("Encoded", "Compressed"):
+            fs = fields[scheme][container]
+            pairs = list(zip(fs[0::2], fs[1::2]))
+            for name in BATCH_WINDOWS:
+                window = WINDOWS[name]
+                cold = {}
+                for names, stage, vector in REGION_BATCH_RUNS:
+                    items = pairs if vector else fs
+                    what = (f"{scheme} {container} {name} {list(names)}"
+                            f"@{stage.name}")
+                    res, got = counted(eng.run, items, names, stage,
+                                       region=window)
+                    check(what, got, region_batch_contexts(
+                        container, scheme, stage, names, vector))
+                    _same_items(res, [oplib.compute(
+                        list(it) if vector else it, names, stage,
+                        region=window) for it in items], names, what)
+                    if not vector:
+                        cold[stage] = res
+                    n += 1
+                seeds = {st: _region_seeds(fs, st, window)
+                         for st in (Stage.P, Stage.Q)}
+                for stage in SET_STAGES:
+                    seed = min(stage, Stage.Q)
+                    what = (f"{scheme} {container} {name} seeded at "
+                            f"{Stage(seed).name} {list(ENGINE_SET)}"
+                            f"@{stage.name}")
+                    res, got = counted(eng.run, fs, ENGINE_SET, stage,
+                                       region=window, seeds=seeds[seed])
+                    check(what, got, region_batch_contexts(
+                        container, scheme, stage, ENGINE_SET, False, seed))
+                    if any(got[k] for k in PAYLOAD_SITES):
+                        fail(f"5b batch {what}: a seeded run decoded")
+                    _same_items(res, [oplib.compute(
+                        f, ENGINE_SET, stage, region=window, seed=sd)
+                        for f, sd in zip(fs, seeds[seed])], ENGINE_SET, what)
+                    if stage in cold:
+                        _same_items(res, [{op: _item(cold[stage][op], i)
+                                           for op in ENGINE_SET}
+                                          for i in range(len(fs))],
+                                    ENGINE_SET, f"{what} vs unseeded")
+                    n += 1
+                del seeds, cold
+    torch.cuda.synchronize()
+    say(f"5b batches: {n} region and seeded runs over 8 fields (4 pairs) on "
+        f"{list(BATCH_WINDOWS)}, each one context per component (every "
+        f"kernel pass one launch for the batch, no decode in a seeded run), "
+        f"bitwise the per-field compute calls (seeded: and the unseeded "
+        f"batch); launches {json.dumps({k: c for k, c in total.items() if c})}")
+    return total, n
+
+
+def time_region_batches(fields, tag: str) -> None:
+    """Host ms (median and quartiles of ``E2E_REPS``) of the op set over
+    the sub-basin at ③ as one batched run against the 8 per-field
+    ``compute`` calls, unseeded and seeded with each field's ③ window (the
+    batch stacks the 8 seeds: a copy of 8 x 8.66 MB), and the device's busy
+    share of each from a ``torch.profiler`` trace."""
+    eng = analytics.BatchedAnalytics()
+    part = functools.partial
+    for scheme in SCHEMES:
+        for container in ("Encoded", "Compressed"):
+            fs = fields[scheme][container]
+            seeds = _region_seeds(fs, Stage.Q, R_BASIN)
+            forms = {
+                "one run": part(eng.run, fs, ENGINE_SET, Stage.Q,
+                                region=R_BASIN),
+                "8 compute calls": lambda fs=fs: [
+                    oplib.compute(f, ENGINE_SET, Stage.Q, region=R_BASIN)
+                    for f in fs],
+                "seeded, one run": part(eng.run, fs, ENGINE_SET, Stage.Q,
+                                        region=R_BASIN, seeds=seeds),
+                "seeded, 8 compute calls": lambda fs=fs, seeds=seeds: [
+                    oplib.compute(f, ENGINE_SET, Stage.Q, region=R_BASIN,
+                                  seed=sd) for f, sd in zip(fs, seeds)]}
+            parts, traces = [], []
+            for form, fn in forms.items():
+                parts.append(f"{form} {_spread(host_ms(fn, E2E_REPS))}")
+                # the profiler has dropped every device event of a short
+                # call's trace: count a trace only when it holds them all
+                kernels, busy, span = trace_window(fn, "region.batch",
+                                                   whole=True)
+                traces.append(f"{form}: device busy {busy:.1f} of "
+                              f"{span:.1f} us ({busy / span:.1%}), "
+                              f"{len(kernels)} kernels")
+            say(f"[{tag}] 5b batch {scheme} {container} {list(ENGINE_SET)}@Q "
+                f"on the sub-basin over 8 fields: " + "; ".join(parts)
+                + f"; median of {E2E_REPS}; traces: " + "; ".join(traces))
+            del seeds
 
 
 def expected_counts(items, ops_, store_backed: bool) -> tuple[int, int]:
@@ -1971,8 +2173,24 @@ def time_q_hit(enc, store, eng, scheme: str, tag: str) -> None:
                                           Stage.Q, eng, store), E2E_REPS)
         parts.append(f"{name} {_spread(t)}, launches "
                      f"{json.dumps({k: n for k, n in got.items() if n})}")
+    loop = functools.partial(_seeded_each, enc, store)
+    for i, one in enumerate(loop()):
+        for op in ENGINE_SET:
+            bitwise_err(want[i][op], one[op], f"(d) {scheme} ③ seeded compute "
+                        f"{op} {i}")
+    parts.append(f"the 8 seeds one field at a time (8 seeded compute calls, "
+                 f"no stack) {_spread(host_ms(loop, E2E_REPS))}")
     say(f"[{tag}] engine (d) {scheme} Encoded ③ hit over 8 fields, results "
         f"equal bitwise: " + "; ".join(parts) + f"; median of {E2E_REPS}")
+
+
+def _seeded_each(fields, store) -> list:
+    """The ③ op set over ``fields`` (held in ``store`` as ``f0``, ``f1``,
+    ...) as one seeded ``compute`` call per field on its resident seed: the
+    loop a seeded batch replaces."""
+    return [oplib.compute(f, ENGINE_SET, Stage.Q,
+                          seed=store.seed(f"f{i}", Stage.Q))
+            for i, f in enumerate(fields)]
 
 
 #: the marker kernel around a trace (``torch.cuda._sleep``, about 50 us),
@@ -2021,10 +2239,13 @@ def profiled(run, what: str, whole: bool = False) -> list:
          f"{what}")
 
 
-def trace_window(fn, label: str) -> tuple[list, float, float]:
+def trace_window(fn, label: str,
+                 whole: bool = False) -> tuple[list, float, float]:
     """``fn()`` and a synchronize under one ``record_function`` in a
     ``torch.profiler`` trace: ``(device kernels, busy µs, window µs)``,
-    busy being the union of the kernels' spans inside the window."""
+    busy being the union of the kernels' spans inside the window; with
+    ``whole``, a trace that holds every kernel of the call
+    (:func:`profiled`)."""
     from torch.profiler import record_function
 
     def run():
@@ -2032,7 +2253,7 @@ def trace_window(fn, label: str) -> tuple[list, float, float]:
             fn()
             torch.cuda.synchronize()
 
-    events = profiled(run, label)
+    events = profiled(run, label, whole)
     window = next(e for e in events if e.name == label
                   and e.device_type == torch.autograd.DeviceType.CPU)
     w0, w1 = window.time_range.start, window.time_range.end
@@ -2074,6 +2295,8 @@ def engine_trace(fields, tag: str) -> None:
             hot.put(f"f{i}", f)
         calls["(d) {} Encoded ③ hit"] = functools.partial(
             _store_query, fs, ENGINE_SET, Stage.Q, eng, hot)
+        calls["(d) {} Encoded ③ hit as 8 seeded compute calls"] = \
+            functools.partial(_seeded_each, fs, hot)
         for what, fn in calls.items():
             for _ in range(2):
                 fn()
@@ -2108,7 +2331,7 @@ EVICT_BYTES = 256 << 20
 STREAM_CROP = (600, 900)
 CROP_WINDOW = ((150, 451), (225, 676))
 #: repetitions of the hot (resident) and cold (storeless) query timings
-HOT_REPS, COLD_REPS = 30, 10
+HOT_REPS, COLD_REPS = 30, 30
 
 
 def stream_slabs(u: np.ndarray, v: np.ndarray, seed: int,
@@ -2144,15 +2367,22 @@ def stream_query(store, fid: str, region=None, stage="auto"):
                       region=region).values[0]
 
 
-def stream_expected(container: str, full_slabs: int) -> dict:
-    """Launches of a stream call that summarizes ``full_slabs`` slabs over
-    the full field: one ``unpack.residuals`` each for an ``Encoded``
-    stream; a region cell gathers its words with torch ops, a
+def stream_expected(container: str, full_groups: int) -> dict:
+    """Launches of a stream call that summarizes slabs in ``full_groups``
+    batches over the full field: one ``unpack.residuals`` per batch (a
+    layout group of slabs, stacked and decoded in one launch) for an
+    ``Encoded`` stream; a region cell gathers its words with torch ops, a
     ``Compressed`` slab has nothing to decode, no band kernel runs."""
     want = dict.fromkeys(ops.LAUNCHES, 0)
     if container == "Encoded":
-        want["unpack.residuals"] = full_slabs
+        want["unpack.residuals"] = full_groups
     return want
+
+
+def n_layouts(tf) -> int:
+    """The layout groups of a stream's slabs: one summarize (one batch)
+    each in a cold query."""
+    return len({layout_key(s) for s in tf.slabs})
 
 
 def check_stream_launches(what: str, got: dict, want: dict) -> None:
@@ -2272,7 +2502,8 @@ def stream_path(u, v, seed: int) -> dict:
 def check_stream_storeless(out) -> None:
     """Storeless ``query_temporal`` at "auto" and explicit ②, ③, ④ give the
     served bits for every stream and cell, each with its plan's launches
-    (eight decodes for a full-field ``Encoded`` query, none otherwise)."""
+    (one decode per layout group of slabs for a full-field ``Encoded``
+    query, none otherwise)."""
     eng = out["eng"]
     n = 0
     for key, tf in out["streams"].items():
@@ -2282,7 +2513,7 @@ def check_stream_storeless(out) -> None:
                                    region=region, engine=eng)
                 check_stream_launches(
                     f"5d storeless {key} {cell} @{stage}", got,
-                    stream_expected(key[1], STREAM_SLABS if region is None
+                    stream_expected(key[1], n_layouts(tf) if region is None
                                     else 0))
                 same_ops(out["served"][(key, cell)], res.values[0],
                          f"5d storeless {key} {cell} @{stage}")
@@ -2320,8 +2551,8 @@ def check_stream_exprs(out) -> None:
     """``query(exprs=[tmean("a") - tmean("b"), tdelta(stream)])``, a and b
     by id in a store, the stream a raw ``Compressed`` one: equal to the
     served values composed by hand, bitwise; its launches: the two
-    ``Encoded`` ids' summaries (8 decodes each), nothing for the raw
-    ``Compressed`` stream."""
+    ``Encoded`` ids' summaries (one decode per layout group of slabs each),
+    nothing for the raw ``Compressed`` stream."""
     store = StreamFieldStore(1 << 30, engine=out["eng"])
     a, b = ("hszp_nd", "Encoded"), ("hszx_nd", "Encoded")
     c = ("hszp_nd", "Compressed")
@@ -2330,8 +2561,8 @@ def check_stream_exprs(out) -> None:
     res, got = counted(analytics.query, exprs=[
         expr.tmean("a") - expr.tmean("b"),
         expr.tdelta(out["streams"][c])], store=store, engine=out["eng"])
-    check_stream_launches("5d expressions", got,
-                          stream_expected("Encoded", 2 * STREAM_SLABS))
+    check_stream_launches("5d expressions", got, stream_expected(
+        "Encoded", n_layouts(out["streams"][a]) + n_layouts(out["streams"][b])))
     sa, sb = out["served"][(a, "full")], out["served"][(b, "full")]
     bitwise_err(sa["tmean"] - sb["tmean"], res.values[0],
                 "5d tmean(a) - tmean(b)")
@@ -2410,10 +2641,20 @@ def time_stream(out, slab: dict, tag: str) -> dict:
             hot = host_ms(functools.partial(stream_query, store, fid, region),
                           HOT_REPS)
             parts.append(f"hot {cell} query {_spread(hot)} of {HOT_REPS}")
-        cold = host_ms(functools.partial(query_temporal, [tf], list(TOPS),
-                                         engine=out["eng"]), COLD_REPS)
-        parts.append(f"cold storeless full-field query over {STREAM_SLABS} "
-                     f"slabs {_spread(cold)} of {COLD_REPS}")
+        batch = functools.partial(query_temporal, [tf], list(TOPS),
+                                  engine=out["eng"])
+        stage = analytics.plan_stage(tf.scheme, "tmean", "auto")
+        loop = functools.partial(per_slab_summary, tf, stage)
+        same_summary(_cold_summary(tf, stage, None, out["eng"])[0], loop(),
+                     f"5d {fid} per-slab summaries vs the batches")
+        for form, fn in (("cold storeless full-field query over "
+                          f"{STREAM_SLABS} slabs ({n_layouts(tf)} layout "
+                          "groups, one summarize each)", batch),
+                         (f"its summaries one slab at a time ({STREAM_SLABS}"
+                          f" summarize_slab calls at {stage.name}, merged)",
+                          loop)):
+            parts.append(f"{form} {_spread(host_ms(fn, COLD_REPS))} of "
+                         f"{COLD_REPS}, peak {peak_mib(fn)}")
         say(f"[{tag}] stream {fid}: " + "; ".join(parts))
     w, n, bits = slab["payload"], slab["n"], slab["bits"]
     fn = functools.partial(bitpack.unpack_residuals, w, n, bits)
@@ -2431,6 +2672,26 @@ def time_stream(out, slab: dict, tag: str) -> dict:
     return {"values": n, "bits": bits, "ms": k_ms, "graph_ms": g_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": n_bytes}
+
+
+def per_slab_summary(tf, stage, region=None):
+    """A stream's merged summary from one ``summarize_slab`` call per slab
+    (no batch): the loop a cold query's batched summarize replaces."""
+    return functools.reduce(oplib.merge_summaries, [
+        oplib.summarize_slab(s, stage, region=region) for s in tf.slabs])
+
+
+def peak_mib(fn) -> str:
+    """The device memory ``fn()`` allocates at its peak, above what was
+    allocated before it, and the allocator's peak in all."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return (f"+{(peak - base) / 2 ** 20:.0f} MiB over {base / 2 ** 20:.0f} "
+            f"MiB allocated (max_memory_allocated {peak / 2 ** 30:.2f} GiB)")
 
 
 def trace_lines(kernels, busy: float, span: float, top_n: int = 10) -> str:
@@ -2474,6 +2735,12 @@ def stream_trace(out, tag: str) -> None:
             functools.partial(query_temporal, [tf], list(TOPS),
                               engine=out["eng"]), "stream.cold")
         say(f"[{tag}] stream {scheme} Encoded cold query trace: "
+            + trace_lines(kernels, busy, span))
+        stage = analytics.plan_stage(tf.scheme, "tmean", "auto")
+        kernels, busy, span = trace_window(
+            functools.partial(per_slab_summary, tf, stage), "stream.loop")
+        say(f"[{tag}] stream {scheme} Encoded summaries one slab at a time "
+            f"({STREAM_SLABS} summarize_slab calls at {stage.name}) trace: "
             + trace_lines(kernels, busy, span))
         del slab, scratch, store
 
@@ -2549,11 +2816,16 @@ def serve_specs() -> list[tuple[str, dict]]:
               ("mean(x/u) - mean(x/v)",
                dict(exprs=expr.mean("x/u") - expr.mean("x/v")))]
     for k in SERVE_SCHEMES:
+        # gradient@Q on the local id joins gradient@Q on the sharded one in
+        # one group: two seeds stacked, one kernel launch for both
         specs += [(f"mean@Q local/{k}/u",
                    dict(fields=f"local/{k}/u", op="mean", stage=Stage.Q)),
                   (f"gradient@P local/{k}/u",
                    dict(fields=f"local/{k}/u", op="gradient",
-                        stage=Stage.P))]
+                        stage=Stage.P)),
+                  (f"gradient@Q local/{k}/u",
+                   dict(fields=f"local/{k}/u", op="gradient",
+                        stage=Stage.Q))]
     specs += [("unknown id", dict(fields="ghost", op="mean")),
               ("empty op set", dict(fields="p/u", op=[])),
               ("region out of bounds",
@@ -2837,6 +3109,50 @@ def serve_path(fields, u, v, seed: int) -> dict:
     return out
 
 
+def check_group_launches(out) -> None:
+    """In a warm step (no appends, every cell resident) each flat group
+    query of the frontend, counted on its own, launches what the first of
+    its requests launches alone on the same stores: one launch of each
+    kernel pass for the group, however many requests it holds."""
+    mod = sys.modules["repro_torch.serve.analytics"]
+    real = mod._query_opset
+    for label, run in out["runs"].items():
+        fe = run["fe"]
+        serve_step(fe, serve_requests(out["slabs"], appends=False))
+        seen = []
+
+        def spy(fields, *args, **kw):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            res = real(fields, *args, **kw)
+            torch.cuda.synchronize()
+            seen.append((list(fields), args, kw, dict(ops.LAUNCHES)))
+            return res
+
+        mod._query_opset = spy
+        try:
+            serve_step(fe, serve_requests(out["slabs"], appends=False))
+        finally:
+            mod._query_opset = real
+        shared = []
+        for fields, args, kw, got in seen:
+            _, alone = counted(real, fields[:1], *args, **kw)
+            if got != alone:
+                diff = {k: (got[k], alone[k]) for k in got
+                        if got[k] != alone[k]}
+                fail(f"5e {label} group of {len(fields)} {args}: launches "
+                     f"(group, first request alone) {diff}")
+            if len(fields) > 1 and any(got.values()):
+                shared.append(f"{len(fields)} x {args[0]}@"
+                              f"{_stage_name(args[1])} "
+                              f"{json.dumps({k: n for k, n in got.items() if n})}")
+        if not shared:
+            fail(f"5e {label}: no group of several requests launched a kernel")
+        say(f"serve path, {label}: every one of the warm step's {len(seen)} "
+            f"flat group queries launches what its first request launches "
+            f"alone; groups of several requests: " + "; ".join(shared))
+
+
 def check_merge_launches(out) -> None:
     """The word merge launches none of the port's kernels."""
     sharded = out["runs"]["8 shards on cuda:0"]["sharded"]
@@ -2858,8 +3174,9 @@ def check_merge_launches(out) -> None:
 
 def time_serve(out, tag: str) -> None:
     """Host ms per warm step (no appends) over the sharded router beside the
-    single-device store; the word merge's device µs, full field and
-    sub-basin; a ``torch.profiler`` trace of one warm sharded step."""
+    single-device store and beside the step's requests as their own
+    queries; the word merge's device µs, full field and sub-basin; a
+    ``torch.profiler`` trace of one warm sharded step."""
     slabs = out["slabs"]
     ref_fe = AnalyticsFrontend(store=out["single"])
     n = len(serve_specs())
@@ -2871,6 +3188,11 @@ def time_serve(out, tag: str) -> None:
     t = host_ms(lambda: serve_step(ref_fe, serve_requests(slabs, False)),
                 STEP_REPS)
     parts.append(f"single-device store {_spread(t)}")
+    alone = [kw for name, kw in serve_specs() if name not in MALFORMED]
+    t = host_ms(lambda: [replay_query(out["single"], kw) for kw in alone],
+                STEP_REPS)
+    parts.append(f"its {len(alone)} well-formed requests as their own "
+                 f"queries on the single-device store {_spread(t)}")
     say(f"[{tag}] serve step of {n} requests (warm stores, no appends), host "
         f"ms, median of {STEP_REPS}: " + "; ".join(parts))
     run = out["runs"]["8 shards on cuda:0"]
@@ -2990,6 +3312,9 @@ COVER_WIDTHS = (1, 7, 16, 17, 31)
 COVER_BATCH = 3
 COVER_BATCH_LZ = (((31, 127), 7), ((33, 4225), 17), ((65, 300), 13))
 COVER_BATCH_BM = (((44, 126), (4, 6), 13), ((33, 129), (1, 1), 7))
+#: the batched grad2d's planes: the smallest, one past a 256-column grid
+#: block, and past MAX_GRID_Y interior rows
+COVER_BATCH_GRAD = ((3, 3), (33, 259), (65539, 4))
 
 
 class Guarded:
@@ -3159,10 +3484,23 @@ def cover_blockmean(shape, block, bits: int, batch: int = 1, *, g: Guarded,
                         f"blockmean {flag} {what} {batch} x {shape} {block}")
 
 
-def cover_entry(shape, *, g: Guarded, rng) -> None:
-    """quant_lorenzo2d, grad2d, laplacian2d and block_stats at ``shape``."""
+def cover_entry(shape, batch: int = 1, *, g: Guarded, rng) -> None:
+    """quant_lorenzo2d, grad2d, laplacian2d and block_stats at ``shape``;
+    with ``batch`` > 1 the batched grad2d over that many planes."""
     n0, n1 = shape
     s = ops.stream_ptr()
+    if batch > 1:
+        q = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (batch,) + shape,
+                                         dtype=np.int64).astype(np.int32),
+                            device=DEVICE)
+        inner = (batch, n0 - 2, n1 - 2)
+        got = g(("grad2d_kernel",), {"d0": (inner, torch.int32),
+                                     "d1": (inner, torch.int32)},
+                lambda ptr: build.call("hsz_grad2d", q.data_ptr(), n0, n1,
+                                       batch, ptr["d0"], ptr["d1"], s))
+        bitwise_err(stencil_dq.grad2d_int_plain(q), (got["d0"], got["d1"]),
+                    f"grad2d {batch} x {shape}")
+        return
     x = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
                         device=DEVICE)
     eps = torch.tensor(1e-3, device=DEVICE)
@@ -3185,7 +3523,7 @@ def cover_entry(shape, *, g: Guarded, rng) -> None:
     inner = (n0 - 2, n1 - 2)
     got = g(("grad2d_kernel",), {"d0": (inner, torch.int32),
                                  "d1": (inner, torch.int32)},
-            lambda ptr: build.call("hsz_grad2d", q.data_ptr(), n0, n1,
+            lambda ptr: build.call("hsz_grad2d", q.data_ptr(), n0, n1, 1,
                                    ptr["d0"], ptr["d1"], s))
     bitwise_err(stencil_dq.grad2d_int_plain(q), (got["d0"], got["d1"]),
                 f"grad2d {shape}")
@@ -3251,6 +3589,7 @@ def cover_shapes() -> list[tuple]:
               for s, blk, b in COVER_BATCH_BM]
     cases += [("bitpack", span * k + 1, b, COVER_BATCH) for k in (1, 2)
               for b in (7, 17)]
+    cases += [("entry", s, COVER_BATCH) for s in COVER_BATCH_GRAD]
     return cases
 
 
@@ -3277,7 +3616,7 @@ def check_coverage(seed: int, cases=None) -> set[str]:
         f"(rows {COVER_ROWS} x columns {COVER_COLS}, {COVER_TALL}, Ocean, "
         f"unpack spans {COVER_SPANS} x 2048 +- 1 at widths {COVER_WIDTHS}; "
         f"batches of {COVER_BATCH}: {COVER_BATCH_LZ}, {COVER_BATCH_BM}, "
-        f"unpack spans 2048 k + 1): "
+        f"unpack spans 2048 k + 1, grad2d {COVER_BATCH_GRAD}): "
         "every window cell written, no guard word touched, two launches "
         f"bitwise equal and == the plain versions in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4935,6 +5274,7 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
     shape, bits, b = inp["shape"], inp["bits"], BATCH
     plane, words, meta, p = inp["plane"], inp["words"], inp["meta"], inp["p"]
     n = shape[0] * shape[1]
+    m = (shape[0] - 2) * (shape[1] - 2)
     th, tw = fused.lorenzo_tile()
     n_rt, n_ct = -(-shape[0] // th), -(-shape[1] // tw)
     edge_bytes = 4 * b * (shape[0] * n_ct + n_rt * shape[1])
@@ -4982,6 +5322,10 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
             (plane, meta),
             lambda: fused.blockmean_core(plane, meta, BLOCK, "grad"),
             4 * b * n + meta_bytes + 8 * b * n, 6 * b * n),
+        "grad2d": (  # two differences per interior element
+            stencil_dq.grad2d_int, (plane,),
+            lambda: stencil_dq.grad2d_int_plain(plane),
+            4 * b * n + 8 * b * m, 2 * b * m),
     }
     out = {}
     for site, (fn, args, plain, n_bytes, n_ops) in plans.items():
@@ -5493,10 +5837,18 @@ def main() -> None:
     # 5c. the engine path: batched op sets, expressions, the store; each
     # query counted on its own and held against its plan
     efields = engine_fields(args.seed)
+    phase_s["5b batches"] = time.perf_counter()
+    # 5b batches: region and store-seeded programs over the eight fields,
+    # each run one program (every kernel pass one launch for the batch)
+    path_launches["region batches"], _ = region_batches(
+        efields, analytics.BatchedAnalytics())
+    require_launches("region batches", path_launches["region batches"])
     phase_s["5c path"] = time.perf_counter()
     engine_out = engine_path(efields, analytics.BatchedAnalytics())
     path_launches["engine path"], batched_launches = check_engine_launches(
         efields, engine_out)
+    for k, c in path_launches["region batches"].items():
+        batched_launches[k] += c
     idle = [k for k in BATCHED_SITES if not batched_launches[k]]
     if idle:
         fail(f"the engine's batched runs never launched {idle}")
@@ -5538,6 +5890,7 @@ def main() -> None:
     time_region_queries(fields, tag)
     time_engine(efields, tag)
     engine_trace(efields, tag)
+    time_region_batches(efields, tag)
 
     phase_s["7"] = time.perf_counter()
     # 7. the static audit on the card: clean in both modes, the library's
@@ -5611,6 +5964,7 @@ def main() -> None:
     path_launches["serve path"] = serve_out["launches"]
     require_launches("serve path", path_launches["serve path"])
     check_merge_launches(serve_out)
+    check_group_launches(serve_out)
     phase_s["5e times"] = time.perf_counter()
     time_serve(serve_out, tag)
     del serve_out
@@ -5627,6 +5981,7 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "region_launches": path_launches["region path"][name],
+            "region_batch_launches": path_launches["region batches"][name],
             "engine_launches": path_launches["engine path"][name],
             "stream_launches": path_launches["stream path"][name],
             "serve_launches": path_launches["serve path"][name],
@@ -5639,7 +5994,8 @@ def main() -> None:
                                        shape=list(PS_WIDE[1]))
     for site in BATCHED_SITES:
         # the same kernel over a batch of 8 Ocean fields in one launch: its
-        # launches are those of the engine path's full-field batched runs
+        # launches are those of the batched runs: the engine path's (a),
+        # (b) and (d) hits, and phase 5b's region and seeded batches
         name = f"{site} x{BATCH}"
         t = times[name]
         source, replaces = SITES[site]

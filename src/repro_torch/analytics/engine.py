@@ -3,18 +3,21 @@
 Many timesteps/variables of a scientific dataset share one compression
 layout, so their homomorphic analytics run as *one program* over the batch
 instead of one planning-and-dispatch round per field.  A program here is a
-Python callable built once per key and kept in an LRU cache.  A full-field
-unseeded program stacks the fields once (:func:`repro_torch.core.
-batch_stack`, per component for vector op sets) and runs
-:func:`repro_torch.core.oplib.compute` once on the stacked view: one shared
-stage-reconstruction prelude for the batch, in which the decode and every
-band-kernel pass launch once with the batch as a leading axis — the
-counterpart of the grid axis Pallas prepends under the reference's
+Python callable built once per key and kept in an LRU cache.  A program
+stacks the fields once (:func:`repro_torch.core.batch_stack`, per
+component for vector op sets), and their store seeds once
+(:func:`repro_torch.store.materialized.stack_seeds`), and runs
+:func:`repro_torch.core.oplib.compute` once on the stacked view, full field
+or region: one shared stage-reconstruction prelude for the batch, in which
+the decode (a region's word gather), every band-kernel pass and a seed's
+stage-③ difference kernel launch once with the batch as a leading axis —
+the counterpart of the grid axis Pallas prepends under the reference's
 ``jax.vmap``.  Results carry the leading axis — tuples per component, dicts
 per op — and equal the per-field calls bit for bit (float reductions run
-field by field, ``StageContext.per_field``).  Region, seeded and
-expression programs still run ``compute`` once per field and stack the
-results.  Nothing in a program waits for the device: no ``.item()``, no
+field by field, ``StageContext.per_field``).  Expression programs
+(:meth:`BatchedAnalytics.run_expr`) lower one DAG over single-field
+bindings in one program, as the reference's do (it jits them without
+``vmap``).  Nothing in a program waits for the device: no ``.item()``, no
 copy to the host, so the kernels queue back to back on the current
 stream.
 
@@ -30,7 +33,8 @@ separately from their cold twins.
 
 Streams (``repro_torch.stream``) run three more programs through the same
 cache, under the reference's keys: the per-slab summarizer
-(:meth:`BatchedAnalytics.summarize`), the pairwise merge
+(:meth:`BatchedAnalytics.summarize`, one ``oplib.summarize_slab`` over the
+stacked slabs), the pairwise merge
 (:meth:`BatchedAnalytics.merge_summaries`) and the temporal op-set postlude
 (:meth:`BatchedAnalytics.run_temporal`), keyed on slab layout and summary
 signature but never on how many slabs a stream holds, so the cache does not
@@ -54,6 +58,7 @@ from ..core import Compressed, Encoded, Stage, batch_stack, layout_key, oplib
 from ..core import expr as expr_mod
 from ..core import region as region_mod
 from ..core.stages import check_stackable
+from ..store.materialized import stack_seeds
 from .planner import CostModel, StageSetPlan, plan_stages
 
 Field = Compressed | Encoded
@@ -77,16 +82,6 @@ def batch_key(first: Field, ops: str | Sequence[str], stage: Stage,
     names = oplib.canonical_ops(ops)
     return layout_key(first) + (names, Stage(stage), axis, n_components,
                                 batch, region, seed_sig, oplib.kernel_sig())
-
-
-def _stack(outs: list):
-    """Stack per-field results along a new leading axis, leaf by leaf."""
-    first = outs[0]
-    if isinstance(first, dict):
-        return {k: _stack([o[k] for o in outs]) for k in first}
-    if isinstance(first, tuple):
-        return tuple(_stack(list(parts)) for parts in zip(*outs))
-    return torch.stack(outs)
 
 
 class BatchedAnalytics:
@@ -146,9 +141,11 @@ class BatchedAnalytics:
 
         The key never includes the stream's total slab count or the slab
         index, so every append of a same-layout slab reuses the same program
-        (``repro_torch.stream``, DESIGN.md §9).  Returns a
+        (``repro_torch.stream``, DESIGN.md §9).  The slabs are stacked once
+        and summarized by one ``oplib.summarize_slab`` (each kernel launched
+        once for the batch).  Returns a
         :class:`~repro_torch.core.oplib.TemporalSummary` whose leaves carry a
-        leading batch axis (``len(slabs)``), the per-slab summaries stacked;
+        leading batch axis (``len(slabs)``), each slab's own summary;
         merging is the caller's job — summaries are order-sensitive
         (``last2``).
         """
@@ -165,10 +162,8 @@ class BatchedAnalytics:
 
         def build():
             def run(items):
-                parts = [oplib.summarize_slab(c, stage, region=norm)
-                         for c in items]
-                return oplib.map_summaries(lambda *xs: torch.stack(xs),
-                                           *parts)
+                return oplib.summarize_slab(batch_stack(items), stage,
+                                            region=norm)
             return run
 
         return self._call(key, build, list(slabs))
@@ -290,14 +285,14 @@ class BatchedAnalytics:
         one program per fused plan (one program per op when the plan is
         unfused).  ``curl`` in 3-D and ``gradient`` return a tuple of batched
         components, matching the unbatched ops.  ``region`` restricts every
-        field to the same window.
+        field to the same window (one static plan serves the batch).
 
         ``seeds`` optionally supplies one store-resident
         :class:`~repro_torch.store.MaterializedStage` per field (per
         component tuple for vector sets) matching the resolved fused stage:
-        the program then runs no stage reconstruction.  Seeds require a
-        fused plan (an unfused fallback re-plans per op at stages the seeds
-        don't match).
+        the program stacks them once and runs no stage reconstruction.
+        Seeds require a fused plan (an unfused fallback re-plans per op at
+        stages the seeds don't match).
         """
         single = isinstance(ops, str)
         names = oplib.canonical_ops(ops)
@@ -356,20 +351,20 @@ class BatchedAnalytics:
 
         def build():
             def run(items, item_seeds):
-                if item_seeds is None and region is None:
-                    # one batched program: the fields stacked once, each
-                    # kernel launched once for the batch
-                    target = ([batch_stack([it[k] for it in items])
-                               for k in range(n_comp)] if vector
-                              else batch_stack(items))
-                    return oplib.compute(target, names, fused, axis=d_axis)
-                outs = []
-                for i, item in enumerate(items):
-                    seed = None if item_seeds is None else item_seeds[i]
-                    outs.append(oplib.compute(
-                        list(item) if vector else item, names, fused,
-                        axis=d_axis, region=region, seed=seed))
-                return _stack(outs)
+                # one batched program: the fields (and their seeds) stacked
+                # once, each kernel launched once for the batch
+                if vector:
+                    target = [batch_stack([it[k] for it in items])
+                              for k in range(n_comp)]
+                    seed = (None if item_seeds is None else
+                            [stack_seeds([s[k] for s in item_seeds])
+                             for k in range(n_comp)])
+                else:
+                    target = batch_stack(items)
+                    seed = (None if item_seeds is None
+                            else stack_seeds(item_seeds))
+                return oplib.compute(target, names, fused, axis=d_axis,
+                                     region=region, seed=seed)
             return run
 
         out = self._call(key, build, list(fields),

@@ -187,7 +187,9 @@ def unpack_gather(payload: torch.Tensor, *, word_idx=None, pos0, pos1, shift,
     gathered words, not the field.  ``word_idx=None`` means ``payload`` *is*
     the gathered word set already.  Torch ops, as the reference's XLA ops:
     each value's two words form one int64 window, so every shift is exact,
-    and the result is the zigzag values' int32 bit patterns.
+    and the result is the zigzag values' int32 bit patterns.  A ``(B,
+    n_words)`` payload (a ``batch_stack`` view's) gathers every field's
+    words with the one shared index: ``(B, m)`` values.
     """
     dev = payload.device
 
@@ -197,19 +199,20 @@ def unpack_gather(payload: torch.Tensor, *, word_idx=None, pos0, pos1, shift,
         return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
     pos0, pos1, shift = index(pos0), index(pos1), index(shift)
+    lead = tuple(payload.shape[:-1])
     m = pos0.shape[0]
     if bits == 0:
-        return torch.zeros((m,), dtype=torch.int32, device=dev)
+        return torch.zeros(lead + (m,), dtype=torch.int32, device=dev)
     mask = _WORD_MASK if bits == 32 else (1 << bits) - 1
     gathered = payload if word_idx is None else payload.index_select(
-        0, index(word_idx))
-    words = torch.cat([gathered, gathered.new_zeros((1,))])
+        -1, index(word_idx))
+    words = torch.cat([gathered, gathered.new_zeros(lead + (1,))], dim=-1)
     # a value's <= 2 words as one 64-bit window: (w0 | w1 << 32) >> shift,
     # masked, is the reference's (w0 >> shift | carry ? w1 << 32 - shift : 0)
     # & mask — w1's bits land at or above bit 32 - shift, which is >= bits
     # unless the value spills into w1
-    lo = words.index_select(0, pos0).to(torch.int64) & _WORD_MASK
-    hi = words.index_select(0, pos1).to(torch.int64) << 32
+    lo = words.index_select(-1, pos0).to(torch.int64) & _WORD_MASK
+    hi = words.index_select(-1, pos1).to(torch.int64) << 32
     u = ((lo | hi) >> shift) & mask
     return as_bit_pattern(u) if bits == 32 else u.to(torch.int32)
 
@@ -223,13 +226,16 @@ def decode_region(e: Encoded, plan, words: torch.Tensor | None = None
     valid counts restricted to them), never the full residual array.
     ``words`` optionally holds the plan's gathered payload words already
     (``compute(..., payload_words=)``); the decode is then the same
-    unpack -> unzigzag -> assemble sequence on them.
+    unpack -> unzigzag -> assemble sequence on them.  On a ``batch_stack``
+    view (payload ``(B, n_words)``) every field's words are gathered with
+    the plan's one index: the sub-field is a view of ``B`` sub-fields.
     """
     src = e.payload if words is None else words
     gi = plan.device_gather(e.bits, src.device)
     u = unpack_gather(src, word_idx=gi.word_idx if words is None else None,
                       pos0=gi.pos0, pos1=gi.pos1, shift=gi.shift, bits=e.bits)
-    residuals = unzigzag(u).reshape(plan.sub_padded_shape)
+    residuals = unzigzag(u).reshape(tuple(src.shape[:-1])
+                                    + tuple(plan.sub_padded_shape))
     return plan.assemble(residuals, e)
 
 

@@ -37,11 +37,13 @@ block-mean kernel's f32 ``lap_q`` over the integers as one block of mean 0.
 (``laplacian2d`` would round the exact integer stencil once where the rule
 rounds each f32 add: they differ once the partial sums pass 2^24.)
 
-On a ``batch_stack`` view (the engine's full-field batches) the same rules
-run once for the batch: the payload or the residual planes carry the
-leading axis into one launch of each kernel pass, coverage is judged on the
-unbatched layout, the window slices the trailing two dims and each field's
-own eps scales its planes.
+On a ``batch_stack`` view (the engine's batches: full field or region,
+seeded or not) the same rules run once for the batch: the payload, the
+residual planes (a region's gathered sub-planes, a stage-② seed's stacked
+subs) or a stage-③ seed's stacked integers carry the leading axis into one
+launch of each kernel pass, coverage is judged on the unbatched layout, the
+window slices the trailing two dims and each field's own eps scales its
+planes.
 """
 from __future__ import annotations
 
@@ -120,7 +122,8 @@ def _lz(ctx, what: str):
 
 def _grad_seeded(ctx) -> tuple[torch.Tensor, ...]:
     """Both central differences of the seed's (cropped or windowed)
-    integers: the interior the torch rules' ``_central_diff`` reads."""
+    integers: the interior the torch rules' ``_central_diff`` reads (of
+    every field of a batch, in one launch)."""
     d0, d1 = sk.grad2d_int(ctx.q_spatial.contiguous())
     return (d0.to(torch.float32) * ctx.spatial_eps,
             d1.to(torch.float32) * ctx.spatial_eps)
@@ -128,12 +131,13 @@ def _grad_seeded(ctx) -> tuple[torch.Tensor, ...]:
 
 def _lap_seeded(ctx) -> torch.Tensor:
     """The f32 5-point laplacian of the seed's integers in the torch rule's
-    order (``-4c``, then the neighbours): ``lap_q`` of ``q + 0``, the plane
-    one block whose mean is 0."""
+    order (``-4c``, then the neighbours): ``lap_q`` of ``q + 0``, each
+    plane one block whose mean is 0."""
     q = ctx.q_spatial.contiguous()
-    zero = torch.zeros((1, 1), dtype=torch.int32, device=q.device)
-    acc = fk.blockmean2d(q, zero, tuple(q.shape), what="lap_q")
-    return acc[1:-1, 1:-1] * (2.0 * ctx.spatial_eps)
+    zero = torch.zeros(q.shape[:-2] + (1, 1), dtype=torch.int32,
+                       device=q.device)
+    acc = fk.blockmean2d(q, zero, tuple(q.shape[-2:]), what="lap_q")
+    return acc[..., 1:-1, 1:-1] * (2.0 * ctx.spatial_eps)
 
 
 def _deriv_lorenzo(ctx, axis: int) -> torch.Tensor:

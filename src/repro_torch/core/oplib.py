@@ -11,10 +11,13 @@
   statistic weights, each computed lazily and **at most once**, so an op set
   reuses a single stage reconstruction; a materialized seed or pre-gathered
   payload words can stand in for the decode.  The field may be a
-  ``batch_stack`` view (full field, unseeded): every intermediate then
-  carries the leading batch axis, the spatial dims are read from the end,
-  and each kernel launches once for the batch — the counterpart of the
-  reference's ``jax.vmap`` over ``compute``.
+  ``batch_stack`` view — full field or a region, seeded by a stacked seed
+  (``repro_torch.store.materialized.stack_seeds``) or not: every
+  intermediate then carries the leading batch axis, the spatial dims are
+  read from the end, a region plan (static, shared by the fields) gathers
+  every field's closure at once, and each kernel launches once for the
+  batch — the counterpart of the reference's ``jax.vmap`` over
+  ``compute``.  Pre-gathered payload words take one field at a time.
 * :func:`compute` — validates the op set, joins the per-op region closures
   into one gathered sub-field, builds the context(s) and runs every op's
   postlude, returning ``{op: result}``.
@@ -155,6 +158,9 @@ class StageContext:
     tensors it holds were produced by this very prelude, so every downstream
     postlude is bit-identical to the unseeded path; a mismatched key raises.
     ``words`` optionally supplies the region plan's gathered payload words.
+
+    On a ``batch_stack`` view the seed is the fields' seeds stacked
+    (``stack_seeds``); ``words`` takes one field at a time.
     """
 
     def __init__(self, c: Field, stage: Stage, region, closure: R.Closure,
@@ -166,11 +172,10 @@ class StageContext:
         self._axis_diffs: dict[int, torch.Tensor] = {}
         #: leading batch dims of ``c``: 1 for a ``batch_stack`` view, else 0
         self.nb = int(is_batch(c))
-        if self.nb and (region is not None or seed is not None
-                        or words is not None):
+        if self.nb and words is not None:
             raise ValueError(
-                "a batch_stack view runs full-field and unseeded: region, "
-                "seed and payload words take one field at a time")
+                "payload words take one field at a time, not a batch_stack "
+                "view")
         if words is not None:
             if region is None or not isinstance(c, Encoded):
                 raise ValueError(
@@ -296,7 +301,7 @@ class StageContext:
         """Exact (int32) sum over the queried extent — the window (region)
         or the padding-masked full array — reduced flat (per field)."""
         if self.plan is not None:
-            return _isum(self.plan.window_of(arr))
+            return _isum(self.plan.window_of(arr), self.nb)
         w = self.valid_weight
         return _isum(arr if w is None else arr * w, self.nb)
 
@@ -305,7 +310,7 @@ class StageContext:
         the full array with padding zeroed (full field); ``(B, N)`` on a
         batch."""
         if self.plan is not None:
-            return self.plan.window_of(arr).to(torch.float32).reshape(-1)
+            return self.flat(self.plan.window_of(arr).to(torch.float32))
         x = arr.to(torch.float32)
         w = self.valid_weight
         return self.flat(x if w is None else x * w)
@@ -518,7 +523,7 @@ def _std_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
     else:
         # a partial block contributes a one-sided slice of its residuals, so
         # the exact integer window sum must include them
-        tot = s + _isum(ctx.plan.window_of(ctx.sub.residuals))
+        tot = s + _isum(ctx.plan.window_of(ctx.sub.residuals), ctx.nb)
     mu_int = torch.round(tot / n).to(torch.int32)
     mu_sp = ctx.bcast(mu_int, len(ctx.field.padded_shape))
     x = ctx.stat_values(ctx.sub.residuals + (ctx.upsampled_means - mu_sp))
@@ -811,7 +816,9 @@ class TemporalSummary:
     for ``q_sum``, ``q^2 * T < 2^31`` for ``q_sumsq``; the stream's capacity
     guard holds appends to that).  ``last2`` holds the quantization integers
     of the final two timesteps (duplicated while only one exists), which is
-    what ``tdelta`` — the latest inter-timestep change — consumes.
+    what ``tdelta`` — the latest inter-timestep change — consumes.  The
+    summaries of a batch of slabs (``summarize_slab`` on a ``batch_stack``
+    view) carry a leading batch axis on every leaf.
     """
 
     count: torch.Tensor    # int32 0-d: timesteps summarized
@@ -842,8 +849,10 @@ def map_summaries(fn: Callable, *summaries: TemporalSummary) -> TemporalSummary:
                              zip(*(s.leaves() for s in summaries))))
 
 
-def summary_from_q(q: torch.Tensor) -> TemporalSummary:
-    """Summarize a time-major integer block ``q`` of shape ``(k, *extent)``.
+def summary_from_q(q: torch.Tensor, nb: int = 0) -> TemporalSummary:
+    """Summarize a time-major integer block ``q`` of shape ``(k, *extent)``
+    (after ``nb`` leading batch dims: a batch of slabs' blocks, each
+    summarized on its own, every leaf with the batch dims in front).
 
     The one reduction rule both paths share: per-slab summaries (this, per
     slab, then merged) and the full-decompression reference (this, once,
@@ -851,14 +860,15 @@ def summary_from_q(q: torch.Tensor) -> TemporalSummary:
     is int32 (modular addition / min / max — associative, order-free).
     ``q * q`` wraps modulo 2^32 as the reference's int32 product does.
     """
-    k = int(q.shape[0])
-    last2 = q[-2:] if k >= 2 else torch.cat([q[-1:], q[-1:]], dim=0)
+    k = int(q.shape[nb])
+    last2 = (q.narrow(nb, k - 2, 2) if k >= 2
+             else torch.cat([q.narrow(nb, k - 1, 1)] * 2, dim=nb))
     return TemporalSummary(
-        count=torch.tensor(k, dtype=torch.int32, device=q.device),
-        q_sum=torch.sum(q, dim=0, dtype=torch.int32),
-        q_sumsq=torch.sum(q * q, dim=0, dtype=torch.int32),
-        q_min=torch.amin(q, dim=0),
-        q_max=torch.amax(q, dim=0),
+        count=torch.full(q.shape[:nb], k, dtype=torch.int32, device=q.device),
+        q_sum=torch.sum(q, dim=nb, dtype=torch.int32),
+        q_sumsq=torch.sum(q * q, dim=nb, dtype=torch.int32),
+        q_min=torch.amin(q, dim=nb),
+        q_max=torch.amax(q, dim=nb),
         last2=last2.contiguous(),
     )
 
@@ -918,14 +928,16 @@ def summarize_slab(c: Field, stage: Stage, *,
 
     ``region`` is spatial (the slab's time axis is always axis 0 and always
     fully covered).  Infeasible stages raise ``UnsupportedStageError`` with
-    the temporal ops' own error semantics.
+    the temporal ops' own error semantics.  On a ``batch_stack`` view of
+    same-layout slabs one context summarizes them all (the region lifted
+    from the unbatched shape): every leaf gains the leading batch axis.
     """
     stage = Stage(stage)
     _check_feasible(TEMPORAL_OPS["tmean"], c.scheme, stage)
     slab_region = temporal_region(c, region)
     closure = R.op_closure(c.scheme, "mean", stage)
     ctx = StageContext(c, stage, slab_region, closure)
-    return summary_from_q(_slab_q_view(ctx))
+    return summary_from_q(_slab_q_view(ctx), ctx.nb)
 
 
 def _temporal_cnt(s: TemporalSummary) -> torch.Tensor:

@@ -112,6 +112,11 @@ def _nbytes(value) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _lead(x: torch.Tensor, rank: int) -> tuple[int, ...]:
+    """The leading (batch) dims of ``x`` before its last ``rank`` dims."""
+    return tuple(x.shape[:x.ndim - rank])
+
+
 def _put(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
@@ -295,21 +300,25 @@ class RegionPlan:
 
     # -- sub-field assembly --------------------------------------------------
     def gather_metadata(self, c: Compressed | Encoded) -> torch.Tensor:
-        """Metadata restricted to the gathered blocks (no payload decode)."""
+        """Metadata restricted to the gathered blocks (no payload decode);
+        a ``batch_stack`` view's leading dim is kept whole."""
         if not c.scheme.is_blockmean:
             return c.metadata  # Lorenzo: global anchor lives in the residuals
         if self.grid_slices is not None:
-            return c.metadata[self.grid_slices].contiguous()
+            return c.metadata[(Ellipsis,) + self.grid_slices].contiguous()
         ids = self.on_device("block_ids", c.metadata.device)
-        return c.metadata.reshape(-1).index_select(0, ids)
+        return c.metadata.reshape(_lead(c.metadata, 1) + (-1,)).index_select(
+            -1, ids)
 
     def assemble(self, residuals: torch.Tensor, src: Compressed | Encoded) -> Compressed:
-        """Build the honest sub-field around gathered residuals."""
+        """Build the honest sub-field around gathered residuals (of each
+        field of a ``batch_stack`` view: the block ids index the last dim
+        of its per-block leaves)."""
         ids = self.on_device("block_ids", src.bitwidths.device)
         return Compressed(
             residuals=residuals.contiguous(), metadata=self.gather_metadata(src),
-            bitwidths=src.bitwidths.index_select(0, ids), eps=src.eps,
-            valid_counts=src.valid_counts.index_select(0, ids),
+            bitwidths=src.bitwidths.index_select(-1, ids), eps=src.eps,
+            valid_counts=src.valid_counts.index_select(-1, ids),
             scheme=src.scheme, shape=self.sub_shape,
             padded_shape=self.sub_padded_shape, block=src.block,
             orig_dtype=src.orig_dtype)
@@ -319,12 +328,15 @@ class RegionPlan:
         """Crop a sub-field spatial array to the requested window.
 
         nd schemes slice the gathered rectangle; 1-D schemes gather the
-        window's flat positions and restore the n-D shape.
+        window's flat positions and restore the n-D shape.  Leading dims
+        (a batch) are kept whole.
         """
         if self.window is not None:
-            return arr[self.window]
+            return arr[(Ellipsis,) + self.window]
         pos = self.on_device("win_pos", arr.device)
-        return arr.reshape(-1).index_select(0, pos).reshape(self.win_shape)
+        lead = _lead(arr, 1)
+        return arr.reshape(lead + (-1,)).index_select(-1, pos).reshape(
+            lead + self.win_shape)
 
     def lorenzo_mean_weights(self) -> tuple[np.ndarray, ...]:
         """Window-sum weights: ``sum_{i in window} q_i = <weights, residuals>``.
@@ -411,11 +423,13 @@ def extract(c: Compressed | Encoded, plan: RegionPlan) -> Compressed:
     if isinstance(c, Encoded):
         return encode.decode_region(c, plan)
     if plan.spatial_slices is not None:
-        residuals = c.residuals[plan.spatial_slices]
+        residuals = c.residuals[(Ellipsis,) + plan.spatial_slices]
     else:
         b = c.block[0]
+        lead = _lead(c.residuals, 1)
         ids = plan.on_device("block_ids", c.residuals.device)
-        residuals = c.residuals.reshape(-1, b).index_select(0, ids).reshape(-1)
+        residuals = c.residuals.reshape(lead + (-1, b)).index_select(
+            -2, ids).reshape(lead + (-1,))
     return plan.assemble(residuals, c)
 
 

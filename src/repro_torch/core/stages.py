@@ -195,15 +195,24 @@ def batch_stack(fields: Sequence[Field]) -> Field:
     ``padded_shape``, ...), so it is **not** a valid single field: it is a
     view for the batched lowering (``repro_torch.core.oplib.compute`` reads
     the spatial dims from the end), whose kernels take the leading axis in
-    one launch.  The fields must pass :func:`check_stackable`.
-    :func:`batch_unstack` recovers the individual fields.
+    one launch.  The fields must pass :func:`check_stackable`.  A batch of
+    one is a view of its field (:func:`stack`).  :func:`batch_unstack`
+    recovers the individual fields.
     """
     if not fields:
         raise ValueError("batch_stack needs at least one field")
     check_stackable(fields)
     names = LEAVES[type(fields[0]).__name__]
     return dataclasses.replace(fields[0], **{
-        n: torch.stack([getattr(f, n) for f in fields]) for n in names})
+        n: stack([getattr(f, n) for f in fields]) for n in names})
+
+
+def stack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``torch.stack`` of same-shape tensors; one tensor becomes an
+    ``unsqueeze(0)`` view of itself, so a batch of one copies nothing."""
+    if len(tensors) == 1:
+        return tensors[0].unsqueeze(0)
+    return torch.stack(list(tensors))
 
 
 def _lead(c: Field) -> tuple[torch.Tensor, int]:

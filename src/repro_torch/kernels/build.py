@@ -65,8 +65,8 @@ SIGNATURES = {
     "hsz_quant_lorenzo2d": (_P, _I, _I, _P, _P, _P),
     # q, n_blocks, s_len, means, maxu, stream
     "hsz_block_stats": (_P, _LL, _I, _P, _P, _P),
-    # q, n0, n1, d0, d1, stream
-    "hsz_grad2d": (_P, _I, _I, _P, _P, _P),
+    # q, n0, n1, batch, d0, d1, stream
+    "hsz_grad2d": (_P, _I, _I, _I, _P, _P, _P),
     # q, n0, n1, out, stream
     "hsz_laplacian2d": (_P, _I, _I, _P, _P),
     # kernel id (specs.KERNEL_IDS), &static_smem, &dynamic_smem, &regs,

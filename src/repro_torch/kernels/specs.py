@@ -52,7 +52,7 @@ CONSTANTS: dict[str, dict[str, int]] = {
     "pack.cu": {"NT": 256},
     "quant_lorenzo.cu": {"NT": 256, "MAX_GRID_Y": 65535},
     "block_stats.cu": {"NT": 256, "WARPS": 8},
-    "stencil_dq.cu": {"NT": 256, "MAX_GRID_Y": 65535},
+    "stencil_dq.cu": {"NT": 256, "MAX_GRID_Y": 65535, "MAX_GRID_Z": 65535},
     "unpack.cu": {"NT": 256, "STEPS": 2, "SPAN": 2048, "PAD": 4},
     "lorenzo_band.cu": {
         "TH": 32, "TW": 128, "NT": 256, "NWARP": 8, "ROWS": 4, "LD": 136,
@@ -287,42 +287,58 @@ _BLOCK_STATS = KernelSpec(
 # -- stencil_dq.cu -----------------------------------------------------------------
 
 def _stencil_dq(name: str, launch: str, outs: tuple[str, ...],
-                replaces: str, reads: tuple[Read, ...]) -> KernelSpec:
+                replaces: str, reads: tuple[Read, ...],
+                batched: bool = False) -> KernelSpec:
+    """``batched``: blockIdx.z walks the B planes of a batch (field b's
+    plane at ``b*n0*n1``, its interior planes at ``b*m0*m1``)."""
+    walk = _d(("bx", "1", "gx"), ("by", "gx", "gy"))
+    if batched:
+        walk += _d(("b", "gx*gy", "B"),)
+    grid = "gx*gy*B" if batched else "gx*gy"
     return KernelSpec(
         name=name, source="stencil_dq.cu", function=name, launch=launch,
-        replaces=replaces, grid="gx*gy",
+        replaces=replaces, grid=grid,
         bounds={"i": ("0", "n0 - 3"), "j": ("0", "n1 - 3"), **_GRID_Y_BOUNDS,
                 "gx": ("1", None), "n0": ("3", None), "e1": ("1", "NT"),
-                "n1": ("3", None)},
+                "n1": ("3", None),
+                **({"B": ("1", "MAX_GRID_Z")} if batched else {})},
         facts=("m0 == n0 - 2", "m1 == n1 - 2",
                "n1 == (gx - 1)*NT + e1 + 2"),
         branches=(Branch(
-            "0", "gx*gy",
-            Cover(_d(("bx", "1", "gx"), ("by", "gx", "gy")), "gx*gy",
-                  clip=False),
+            "0", grid, Cover(walk, grid, clip=False),
             writes=tuple(
                 Write(a, (Cover(_d(("by", "1", "gy"), ("k", "gy", None)), "m0"),
                           Cover(_d(("tx", "1", "NT"), ("bx", "NT", "gx")),
                                 "m1")),
-                      threads=("tx",))
+                      threads=("tx",), lead=(_BATCH,) if batched else ())
                 for a in outs),
             reads=reads),),
         params={"gx": "cdiv(n1 - 2, NT)", "gy": "min(n0 - 2, MAX_GRID_Y)",
                 "m0": "n0 - 2", "m1": "n1 - 2",
                 "e1": "n1 - 2 - (cdiv(n1 - 2, NT) - 1) * NT"},
         notes="interior (n0 - 2, n1 - 2); rows past MAX_GRID_Y take the "
-              "grid-stride loop over blockIdx.y")
+              "grid-stride loop over blockIdx.y"
+              + ("; blockIdx.z the field of a batch" if batched else ""))
 
 
-_NSWE = (Read("q", ("i", "j + 1"), ("n0", "n1")),
-         Read("q", ("i + 2", "j + 1"), ("n0", "n1")),
-         Read("q", ("i + 1", "j"), ("n0", "n1")),
-         Read("q", ("i + 1", "j + 2"), ("n0", "n1")))
+def _nswe(row0: str, rows: str) -> tuple[Read, ...]:
+    """The north, south, west and east reads of interior element (i, j),
+    in rows ``row0 + ...`` of an array of ``rows`` rows."""
+    return (Read("q", (f"{row0}i", "j + 1"), (rows, "n1")),
+            Read("q", (f"{row0}i + 2", "j + 1"), (rows, "n1")),
+            Read("q", (f"{row0}i + 1", "j"), (rows, "n1")),
+            Read("q", (f"{row0}i + 1", "j + 2"), (rows, "n1")))
+
+
+#: grad2d reads the batch's planes as one array of B*n0 rows (field b's
+#: row r at b*n0 + r)
 _GRAD2D = _stencil_dq("grad2d_kernel", "hsz_grad2d", ("d0", "d1"),
-                      _PALLAS + "stencil_dq.py:66", _NSWE)
+                      _PALLAS + "stencil_dq.py:66", _nswe("b*n0 + ", "B*n0"),
+                      batched=True)
 _LAP2D = _stencil_dq("laplacian2d_kernel", "hsz_laplacian2d", ("out",),
                      _PALLAS + "stencil_dq.py:85",
-                     _NSWE + (Read("q", ("i + 1", "j + 1"), ("n0", "n1")),))
+                     _nswe("", "n0") + (Read("q", ("i + 1", "j + 1"),
+                                             ("n0", "n1")),))
 
 # -- unpack.cu ---------------------------------------------------------------------
 

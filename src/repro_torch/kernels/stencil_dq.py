@@ -10,6 +10,11 @@ them, as in the reference, so no float multiply sits inside a kernel.
 Unlike the reference, which refuses interiors that are not a multiple of its
 TPU tile (``tile=``), every shape the ``ref.py`` oracles take is accepted,
 the Ocean field's 2398 × 3598 interior included.
+
+``grad2d_int`` (and its plain version) also takes a batch ``(B, n0, n1)``,
+the stage-③ seeds of a batched engine run: one launch for the batch, the
+counterpart of the grid axis Pallas prepends under the reference's
+``jax.vmap``; its planes are ``(B, n0 - 2, n1 - 2)``.
 """
 from __future__ import annotations
 
@@ -18,9 +23,10 @@ import torch
 from . import build, ops
 
 
-def _interior_shape(q: torch.Tensor) -> tuple[int, int]:
-    n0, n1 = q.shape
-    return max(n0 - 2, 0), max(n1 - 2, 0)
+def _interior_shape(q: torch.Tensor) -> tuple[int, ...]:
+    """The interior planes' shape: leading (batch) dims kept."""
+    n0, n1 = q.shape[-2:]
+    return tuple(q.shape[:-2]) + (max(n0 - 2, 0), max(n1 - 2, 0))
 
 
 def _eps(eps, device) -> torch.Tensor:
@@ -34,8 +40,10 @@ def _on_card(q: torch.Tensor, eps) -> bool:
 
 def grad2d_int_plain(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: ``q[2:,1:-1] - q[:-2,1:-1]`` and
-    ``q[1:-1,2:] - q[1:-1,:-2]`` (int32, modular)."""
-    return q[2:, 1:-1] - q[:-2, 1:-1], q[1:-1, 2:] - q[1:-1, :-2]
+    ``q[1:-1,2:] - q[1:-1,:-2]`` (int32, modular), of each plane of a
+    ``(B, n0, n1)`` batch."""
+    return (q[..., 2:, 1:-1] - q[..., :-2, 1:-1],
+            q[..., 1:-1, 2:] - q[..., 1:-1, :-2])
 
 
 def laplacian2d_int_plain(q: torch.Tensor) -> torch.Tensor:
@@ -44,24 +52,28 @@ def laplacian2d_int_plain(q: torch.Tensor) -> torch.Tensor:
             - 4 * q[1:-1, 1:-1])
 
 
-def _check_plane(q: torch.Tensor, name: str) -> None:
+def _check_plane(q: torch.Tensor, name: str, batched: bool = False) -> None:
     ops.check(q, "q", torch.int32)
-    if q.ndim != 2:
-        raise ValueError(f"{name} takes a 2-D plane, got {tuple(q.shape)}")
+    if q.ndim != 2 and not (batched and q.ndim == 3):
+        raise ValueError(f"{name} takes a 2-D plane"
+                         + (" or a batch of them" if batched else "")
+                         + f", got {tuple(q.shape)}")
 
 
 def grad2d_int(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The two int32 interior difference planes: kernel on a CUDA plane,
-    plain version on a CPU one.  A plane without interior launches nothing."""
+    """The two int32 interior difference planes of a plane or a ``(B, n0,
+    n1)`` batch: kernel on a CUDA tensor (one launch for the batch), plain
+    version on a CPU one.  A plane without interior launches nothing."""
     if not ops.on_card(q):
         return grad2d_int_plain(q)
-    _check_plane(q, "grad2d")
+    _check_plane(q, "grad2d", batched=True)
     m = _interior_shape(q)
     d0 = torch.empty(m, dtype=torch.int32, device=q.device)
     d1 = torch.empty(m, dtype=torch.int32, device=q.device)
     if d0.numel():
-        build.call("hsz_grad2d", q.data_ptr(), q.shape[0], q.shape[1],
-                   d0.data_ptr(), d1.data_ptr(), ops.stream_ptr())
+        build.call("hsz_grad2d", q.data_ptr(), q.shape[-2], q.shape[-1],
+                   q.shape[0] if q.ndim == 3 else 1, d0.data_ptr(),
+                   d1.data_ptr(), ops.stream_ptr())
         ops.count("grad2d")
     return d0, d1
 

@@ -25,6 +25,8 @@ cold one share their whole floating-point tail and agree bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
+from collections.abc import Sequence
 from dataclasses import dataclass
 
 import torch
@@ -32,7 +34,8 @@ import torch
 from ..core import oplib
 from ..core import region as region_mod
 from ..core.region import Closure
-from ..core.stages import Compressed, Encoded, Stage, layout_key
+from ..core.stages import (Compressed, Encoded, Stage, batch_stack,
+                           layout_key, stack)
 
 Field = Compressed | Encoded
 
@@ -93,6 +96,20 @@ class MaterializedStage:
                 layout_key(self.sub) if self.sub is not None else None,
                 (tuple(q.shape), str(q.dtype).removeprefix("torch."))
                 if q is not None else None)
+
+
+def stack_seeds(seeds: Sequence[MaterializedStage]) -> MaterializedStage:
+    """One seed for a batch of fields: the seeds' ``sub`` as one
+    ``batch_stack`` view, or their ``q_spatial`` stacked on a leading axis
+    (the reference's ``jax.tree.map(jnp.stack)`` over the seeds); the meta
+    is the first seed's.  The seeds must share one :meth:`~MaterializedStage.
+    sig`.  A batch of one is a view; more copy the seeds into the stack."""
+    first = seeds[0]
+    if first.sub is not None:
+        return dataclasses.replace(
+            first, sub=batch_stack([s.sub for s in seeds]))
+    return dataclasses.replace(
+        first, q_spatial=stack([s.q_spatial for s in seeds]))
 
 
 def materialized_nbytes(field: Field, stage: Stage, *, region=None,

@@ -19,8 +19,9 @@ What is held, with its tolerance:
   fused rules off) the tolerances of ``tests/test_torch_analytics.py``:
   stencils bitwise, divergence / curl ``rtol=1e-6``, mean / std ``rtol
   1e-5`` or half the paper's bias bound (1e-3 of it where it is eps);
-* on the CPU the batched run builds one stage context per component and
-  launches no kernel.
+* on the CPU the batched run (full field or region) builds one stage
+  context per component and launches no kernel; a batch view with
+  pre-gathered payload words raises.
 """
 import dataclasses
 import functools
@@ -432,14 +433,17 @@ def test_batched_run_builds_one_context_per_component(monkeypatch):
     eng.run(list(zip(ts[0::2], ts[1::2])), VECTOR_SET, Stage.Q)
     assert len(built) == 2
     built.clear()
-    # a region program still takes one field at a time
+    # a region program is one program over the batch too
     eng.run(ts, SET, Stage.Q, region=((2, 20), (3, 30)))
-    assert len(built) == len(ts)
+    assert len(built) == 1
     assert set(ops.LAUNCHES.values()) == {0}
 
 
 def test_batch_view_runs_full_field_only():
-    _, ts = _fields("hszx_nd", "Compressed", 2)
+    """Pre-gathered payload words take one field at a time: a batch view
+    with ``payload_words=`` still raises."""
+    _, ts = _fields("hszx_nd", "Encoded", 2)
     view = batch_stack(ts)
-    with pytest.raises(ValueError, match="full-field and unseeded"):
-        oplib.compute(view, "mean", Stage.P, region=((0, 8), (0, 8)))
+    with pytest.raises(ValueError, match="one field at a time"):
+        oplib.compute(view, "mean", Stage.P, region=((0, 8), (0, 8)),
+                      payload_words=view.payload)
