@@ -1,0 +1,8 @@
+"""The device's idle time in the traced window while the innermost of the
+port's open spans was stage planning and the store's lookups (``hsz.plan``,
+``hsz.store``), in ms per traced step (``program_spans.py``)."""
+import program_spans
+
+
+def read(run):
+    return program_spans.idle_ms_per_step(run, "planner")

@@ -54,6 +54,7 @@ from collections.abc import Callable, Mapping, Sequence
 
 import torch
 
+from .. import trace
 from ..core import Compressed, Encoded, Stage, batch_stack, layout_key, oplib
 from ..core import expr as expr_mod
 from ..core import region as region_mod
@@ -118,7 +119,8 @@ class BatchedAnalytics:
         fn = self._programs.get(key)
         fresh = fn is None
         if fresh:
-            fn = build()
+            with trace.span("hsz.engine.build"):
+                fn = build()
             self._programs[key] = fn
             while len(self._programs) > self.cache_limit:
                 self._programs.popitem(last=False)
@@ -134,6 +136,7 @@ class BatchedAnalytics:
             raise
 
     # -- temporal (streaming) programs ---------------------------------------
+    @trace.spanned("hsz.engine.run")
     def summarize(self, slabs: Sequence[Field], stage: Stage, *,
                   region=None) -> oplib.TemporalSummary:
         """Per-slab temporal summaries of same-layout slabs: one cached
@@ -162,12 +165,14 @@ class BatchedAnalytics:
 
         def build():
             def run(items):
-                return oplib.summarize_slab(batch_stack(items), stage,
-                                            region=norm)
+                with trace.span("hsz.engine.stack"):
+                    stacked = batch_stack(items)
+                return oplib.summarize_slab(stacked, stage, region=norm)
             return run
 
         return self._call(key, build, list(slabs))
 
+    @trace.spanned("hsz.engine.run")
     def merge_summaries(self, a: oplib.TemporalSummary,
                         b: oplib.TemporalSummary) -> oplib.TemporalSummary:
         """Pairwise summary merge: one program per summary signature, reused
@@ -175,6 +180,7 @@ class BatchedAnalytics:
         key = ("__temporal_merge__", a.sig(), b.sig())
         return self._call(key, lambda: oplib.merge_summaries, a, b)
 
+    @trace.spanned("hsz.engine.run")
     def run_temporal(self, ops: str | Sequence[str],
                      summary: oplib.TemporalSummary, eps):
         """Temporal op postludes on one merged summary: one program per
@@ -191,6 +197,7 @@ class BatchedAnalytics:
         return self._call(key, build, summary, eps)
 
     # -- expression DAGs ------------------------------------------------------
+    @trace.spanned("hsz.engine.run")
     def run_expr(self, program, bindings: Sequence, stages: Sequence[Stage],
                  *, region=None, seeds: Sequence | None = None,
                  precomputed: Mapping[str, torch.Tensor] | None = None):
@@ -272,6 +279,7 @@ class BatchedAnalytics:
                            region=region, field=field, axis=axis)
 
     # -- execution ------------------------------------------------------------
+    @trace.spanned("hsz.engine.run")
     def run(self, fields: Sequence, ops: str | Sequence[str],
             stage: StageLike = "auto", *, axis: int = 0, region=None,
             seeds: Sequence | None = None):
@@ -353,16 +361,17 @@ class BatchedAnalytics:
             def run(items, item_seeds):
                 # one batched program: the fields (and their seeds) stacked
                 # once, each kernel launched once for the batch
-                if vector:
-                    target = [batch_stack([it[k] for it in items])
-                              for k in range(n_comp)]
-                    seed = (None if item_seeds is None else
-                            [stack_seeds([s[k] for s in item_seeds])
-                             for k in range(n_comp)])
-                else:
-                    target = batch_stack(items)
-                    seed = (None if item_seeds is None
-                            else stack_seeds(item_seeds))
+                with trace.span("hsz.engine.stack"):
+                    if vector:
+                        target = [batch_stack([it[k] for it in items])
+                                  for k in range(n_comp)]
+                        seed = (None if item_seeds is None else
+                                [stack_seeds([s[k] for s in item_seeds])
+                                 for k in range(n_comp)])
+                    else:
+                        target = batch_stack(items)
+                        seed = (None if item_seeds is None
+                                else stack_seeds(item_seeds))
                 return oplib.compute(target, names, fused, axis=d_axis,
                                      region=region, seed=seed)
             return run

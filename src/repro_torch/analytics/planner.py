@@ -40,6 +40,7 @@ import dataclasses
 import json
 import os
 
+from .. import trace
 from ..core import Scheme, Stage, UnsupportedStageError, oplib
 from ..core import region as region_mod
 
@@ -420,6 +421,7 @@ def _max_shard_fraction(field, op: str, stage: Stage, region, axis: int,
     return placement.max_fraction(plan)
 
 
+@trace.spanned("hsz.plan")
 def plan_stages(scheme: Scheme, ops: str | Sequence[str],
                 stage: Stage | str | int = "auto",
                 cost_model: CostModel | None = None, *,
@@ -544,6 +546,7 @@ class ExprPlan:
     stages: tuple[Stage, ...]
 
 
+@trace.spanned("hsz.plan")
 def plan_expr(program, bindings: Sequence, stage="auto",
               cost_model: CostModel | None = None, *, region=None,
               cached: Sequence[AbstractSet[Stage]] | None = None) -> ExprPlan:

@@ -36,6 +36,7 @@ import dataclasses
 import warnings
 from collections.abc import Sequence
 
+from .. import trace
 from ..core import Compressed, Encoded, Stage, layout_key, oplib
 from ..core import expr as expr_mod
 
@@ -277,17 +278,19 @@ def _query_opset(fields: Sequence[FieldOrVector],
         cached = None
         placement = None
         if store_backed:
-            sets = [store.cached_stages(ids[i], names, region=region,
-                                        axis=d_axis) for i in indices]
-            cached = frozenset.intersection(*sets)
-            # a sharded store prices reconstruction as the max over
-            # participating shards (repro_torch.shard); single-device stores
-            # don't expose placement_of and keep the spatial fraction
-            placement_of = getattr(store, "placement_of", None)
-            if placement_of is not None:
-                fid0 = ids[indices[0]]
-                placement = placement_of(fid0 if isinstance(fid0, str)
-                                         else fid0[0])
+            with trace.span("hsz.store"):
+                sets = [store.cached_stages(ids[i], names, region=region,
+                                            axis=d_axis) for i in indices]
+                cached = frozenset.intersection(*sets)
+                # a sharded store prices reconstruction as the max over
+                # participating shards (repro_torch.shard); single-device
+                # stores don't expose placement_of and keep the spatial
+                # fraction
+                placement_of = getattr(store, "placement_of", None)
+                if placement_of is not None:
+                    fid0 = ids[indices[0]]
+                    placement = placement_of(fid0 if isinstance(fid0, str)
+                                             else fid0[0])
         plan = plan_stages(first.scheme, names, stage,
                            cost_model or engine.cost_model,
                            region=region, field=first, axis=d_axis,
@@ -296,18 +299,20 @@ def _query_opset(fields: Sequence[FieldOrVector],
         if (store_backed and plan.fused is not None
                 and plan.fused != Stage.M):
             s = plan.fused
-            if vector:
-                closures = oplib.component_closures(
-                    names, [c.scheme for c in group[0]], s)
-                seeds = [tuple(store.seed(fid, s, region=region, closure=cl)
-                               for fid, cl in zip(ids[i], closures))
-                         for i in indices]
-                flat = [m for item in seeds for m in item]
-            else:
-                cl = oplib.set_closure(names, first.scheme, s, d_axis)
-                seeds = [store.seed(ids[i], s, region=region, closure=cl)
-                         for i in indices]
-                flat = seeds
+            with trace.span("hsz.store"):
+                if vector:
+                    closures = oplib.component_closures(
+                        names, [c.scheme for c in group[0]], s)
+                    seeds = [tuple(store.seed(fid, s, region=region,
+                                              closure=cl)
+                                   for fid, cl in zip(ids[i], closures))
+                             for i in indices]
+                    flat = [m for item in seeds for m in item]
+                else:
+                    cl = oplib.set_closure(names, first.scheme, s, d_axis)
+                    seeds = [store.seed(ids[i], s, region=region, closure=cl)
+                             for i in indices]
+                    flat = seeds
             if any(m is None for m in flat):
                 # some cell can never be retained under the byte budget:
                 # re-materializing it every call would make the store a
@@ -419,7 +424,8 @@ def _query_exprs(exprs, stage="auto", *, region=None,
                 out.add(s)
         return frozenset(out)
 
-    cached = [slot_cached(s) for s in range(len(program.leaves))]
+    with trace.span("hsz.store"):
+        cached = [slot_cached(s) for s in range(len(program.leaves))]
     plan = plan_expr(program, bindings, stage,
                      cost_model or engine.cost_model,
                      region=region, cached=cached)
@@ -453,23 +459,26 @@ def _query_exprs(exprs, stage="auto", *, region=None,
 
     seeds: list = [None] * len(bindings)
     if store is not None and hasattr(store, "seed"):
-        for slot in range(len(program.leaves)):
-            fid = slot_ids[slot]
-            if fid is None or program.leaf_is_temporal(slot):
-                continue
-            s = plan.stages[program.leaf_component[slot]]
-            if s == Stage.M:
-                continue  # metadata is always resident in the container
-            b = bindings[slot]
-            if isinstance(b, tuple):
-                cls = expr_mod.vector_closures(
-                    program, slot, [c.scheme for c in b], s)
-                ms = tuple(store.seed(f, s, region=region, closure=cl)
-                           for f, cl in zip(fid, cls))
-                seeds[slot] = ms if all(m is not None for m in ms) else None
-            else:
-                cl = expr_mod.leaf_closure(program, slot, b.scheme, s)
-                seeds[slot] = store.seed(fid, s, region=region, closure=cl)
+        with trace.span("hsz.store"):
+            for slot in range(len(program.leaves)):
+                fid = slot_ids[slot]
+                if fid is None or program.leaf_is_temporal(slot):
+                    continue
+                s = plan.stages[program.leaf_component[slot]]
+                if s == Stage.M:
+                    continue  # metadata is always resident in the container
+                b = bindings[slot]
+                if isinstance(b, tuple):
+                    cls = expr_mod.vector_closures(
+                        program, slot, [c.scheme for c in b], s)
+                    ms = tuple(store.seed(f, s, region=region, closure=cl)
+                               for f, cl in zip(fid, cls))
+                    seeds[slot] = (ms if all(m is not None for m in ms)
+                                   else None)
+                else:
+                    cl = expr_mod.leaf_closure(program, slot, b.scheme, s)
+                    seeds[slot] = store.seed(fid, s, region=region,
+                                             closure=cl)
 
     if all(program.serial(r) in precomputed for r in program.roots):
         out = tuple(precomputed[program.serial(r)] for r in program.roots)

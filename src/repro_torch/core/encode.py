@@ -18,6 +18,7 @@ import struct
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import bitpack
 from ..kernels import ops as kernel_ops
 from . import blocking
@@ -150,6 +151,7 @@ def encode_device(c: Compressed, bits: int) -> Encoded:
     )
 
 
+@trace.spanned("hsz.decode")
 def decode_device(e: Encoded) -> Compressed:
     """Stage-2 decode: unpack the payload back to residuals (D_p).
 
@@ -217,6 +219,7 @@ def unpack_gather(payload: torch.Tensor, *, word_idx=None, pos0, pos1, shift,
     return as_bit_pattern(u) if bits == 32 else u.to(torch.int32)
 
 
+@trace.spanned("hsz.decode")
 def decode_region(e: Encoded, plan, words: torch.Tensor | None = None
                   ) -> Compressed:
     """Region path: stage-2 decode of only ``plan``'s gathered blocks.

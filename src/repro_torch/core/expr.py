@@ -44,6 +44,7 @@ from collections.abc import Callable, Sequence
 from dataclasses import dataclass
 from typing import Any
 
+from .. import trace
 from . import oplib
 from . import region as R
 from .stages import Compressed, Encoded, Scheme, Stage
@@ -725,7 +726,8 @@ def lower(program: ExprProgram, bindings: Sequence,
         if s in memo or isinstance(node, Leaf):
             continue
         if isinstance(node, Op):
-            memo[s] = eval_op(node)
+            with trace.span("hsz.op"):
+                memo[s] = eval_op(node)
         elif isinstance(node, Add):
             memo[s] = memo[program.serial(node.a)] + memo[program.serial(node.b)]
         elif isinstance(node, Sub):

@@ -42,6 +42,7 @@ from functools import cached_property, reduce
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ops as kernel_ops
 from . import blocking, quantize
 from . import encode as encode_mod
@@ -252,6 +253,7 @@ class StageContext:
 
     # -- decode (once) ------------------------------------------------------
     @cached_property
+    @trace.spanned("hsz.prelude")
     def sub(self) -> Compressed:
         """The honest sub-field the ops run on: the gathered region closure,
         or the (decoded) full field.  From :class:`Encoded` the region path
@@ -270,6 +272,7 @@ class StageContext:
 
     # -- per-block metadata views (no payload decode) -----------------------
     @cached_property
+    @trace.spanned("hsz.prelude")
     def metadata_blocks(self) -> torch.Tensor:
         """Metadata restricted to the gathered blocks, without touching the
         payload — the stage-① path must never decode."""
@@ -327,14 +330,17 @@ class StageContext:
         """D_a = q - shift_a(q) from residuals: cumsum over all axes != a."""
         d = self._axis_diffs.get(axis)
         if d is None:
-            d = self.sub.residuals
-            for a in range(d.ndim - self.nb):
-                if a != axis:
-                    d = torch.cumsum(d, dim=self.nb + a, dtype=torch.int32)
+            with trace.span("hsz.prelude"):
+                d = self.sub.residuals
+                for a in range(d.ndim - self.nb):
+                    if a != axis:
+                        d = torch.cumsum(d, dim=self.nb + a,
+                                         dtype=torch.int32)
             self._axis_diffs[axis] = d
         return d
 
     @cached_property
+    @trace.spanned("hsz.prelude")
     def lorenzo_q(self) -> torch.Tensor:
         """Stage-③ integers of a Lorenzo sub-field (padded layout), derived
         from the axis-0 difference so a {derivative, std} set shares passes."""
@@ -342,11 +348,13 @@ class StageContext:
                             dtype=torch.int32)
 
     @cached_property
+    @trace.spanned("hsz.prelude")
     def upsampled_means(self) -> torch.Tensor:
         """Block means upsampled to the spatial layout (block-mean family)."""
         return blocking.upsample_block_means(self.sub.metadata, self.sub.block)
 
     @cached_property
+    @trace.spanned("hsz.prelude")
     def q_spatial(self) -> torch.Tensor:
         """Stage-③ integers cropped/windowed to the queried extent (skipped
         when a stage-③ seed holds them resident)."""
@@ -359,6 +367,7 @@ class StageContext:
         return q
 
     @cached_property
+    @trace.spanned("hsz.prelude")
     def f_spatial(self) -> torch.Tensor:
         """Stage-④ floats on the queried extent, derived from
         :attr:`q_spatial` even when seeded (dequantize commutes with the
@@ -1321,7 +1330,11 @@ def compute(target, ops: str | Sequence[str], stage: Stage, *,
                 f"{len(words)} payload word sets for {len(comps)} components")
         ctxs = [StageContext(c, stage, region, cl, seed=s, words=w)
                 for c, cl, s, w in zip(comps, closures, seeds, words)]
-        return {spec.name: spec.lower_vector(ctxs, axis) for spec in specs}
+        out = {}
+        for spec in specs:
+            with trace.span("hsz.op"):
+                out[spec.name] = spec.lower_vector(ctxs, axis)
+        return out
 
     c = target
     for spec in specs:
@@ -1330,8 +1343,11 @@ def compute(target, ops: str | Sequence[str], stage: Stage, *,
     ctx = StageContext(c, stage, region, closure, seed=seed,
                        words=payload_words)
     family = family_of(c.scheme)
-    return {spec.name: select_rule(spec, stage, family, ctx)(ctx, axis)
-            for spec in specs}
+    out = {}
+    for spec in specs:
+        with trace.span("hsz.op"):
+            out[spec.name] = select_rule(spec, stage, family, ctx)(ctx, axis)
+    return out
 
 
 def compute_exprs(exprs, stage: Stage, *,

@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .. import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
@@ -159,6 +161,7 @@ def library() -> ctypes.CDLL:
 
 def call(name: str, *args) -> None:
     """Call a launcher and raise on a nonzero CUDA error code."""
-    err = getattr(library(), name)(*args)
+    with trace.span("hsz.kernel.launch"):
+        err = getattr(library(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed with CUDA error {err}")

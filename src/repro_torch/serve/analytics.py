@@ -29,6 +29,17 @@ always either answered or rejected with a structured error; a malformed
 request (unknown id, empty op set, out-of-bounds region, duplicate vector
 component ids) never poisons another request's group or the engine's
 program cache.
+
+Spans: each ``step`` records the port's spans (:mod:`repro_torch.trace`)
+while ``torch.profiler`` runs, and costs a flag read per span when none
+does.  To see them, run the frontend under
+``torch.profiler.profile(activities=[ProfilerActivity.CPU,
+ProfilerActivity.CUDA])`` and read ``prof.events()`` or write
+``prof.export_chrome_trace(path)``: ``hsz.serve.step`` holds
+``hsz.serve.group_by`` and one ``hsz.query`` per group, which holds the
+planner's (``hsz.plan``, ``hsz.store``), the engine's (``hsz.engine.*``)
+and, inside the program, ``hsz.op`` > ``hsz.prelude`` > ``hsz.decode``
+and ``hsz.kernel.launch``.
 """
 from __future__ import annotations
 from collections.abc import Sequence
@@ -37,6 +48,7 @@ import dataclasses
 import warnings
 from typing import Any
 
+from .. import trace
 from ..analytics import CostModel, query
 from ..analytics.engine import BatchedAnalytics
 from ..analytics.query import _group_signature, _query_opset, _resolve_item
@@ -161,6 +173,7 @@ class AnalyticsFrontend:
         req.done = True
         return req
 
+    @trace.spanned("hsz.serve.step")
     def step(self) -> list[AnalyticsRequest | AppendRequest]:
         """Serve up to ``max_batch`` queued requests; returns those finished.
 
@@ -181,6 +194,17 @@ class AnalyticsFrontend:
                 finished.append(self._apply_append(req))
             else:
                 analytics_batch.append(req)
+        groups, expr_groups = self._group(analytics_batch, finished)
+        for group in groups.values():
+            self._serve_group(group, finished)
+        for egroup in expr_groups.values():
+            self._serve_expr_group(egroup, finished)
+        return finished
+
+    @trace.spanned("hsz.serve.group_by")
+    def _group(self, analytics_batch: list[AnalyticsRequest], finished: list):
+        """Group the step's analytics requests: ``(groups, expr_groups)``;
+        a malformed request is rejected into ``finished``."""
         groups: dict[tuple, list[AnalyticsRequest]] = {}
         # expression requests: group value is [(request, its roots), ...]
         expr_groups: dict[tuple, list[tuple[AnalyticsRequest, list]]] = {}
@@ -213,7 +237,7 @@ class AnalyticsFrontend:
                     "the AnalyticsRequest.op op-set form is deprecated; "
                     "send AnalyticsRequest(exprs=[...]) expressions instead "
                     "(repro_torch.core.expr)", DeprecationWarning,
-                    stacklevel=2)
+                    stacklevel=5)  # step()'s caller, past the span wrappers
             try:
                 ops = oplib.canonical_ops(req.op)
                 vector = oplib.is_vector_ops(ops)
@@ -225,55 +249,62 @@ class AnalyticsFrontend:
                 finished.append(self._reject(req, e))
                 continue
             groups.setdefault(sig, []).append(req)
-        for group in groups.values():
-            try:
-                # original (possibly id-bearing) fields go to the query:
-                # ids keep their cache identity, so hot fields are served
-                # from materialized stages
-                res = _query_opset([r.fields for r in group], group[0].op,
-                                   group[0].stage, axis=group[0].axis,
-                                   region=group[0].region, engine=self.engine,
-                                   store=self.store)
-            except Exception as e:
-                # reject only this group (bad op / infeasible stage / ...);
-                # every request is always either answered or errored
-                finished.extend(self._reject(r, e) for r in group)
-                continue
-            for req, value, stage in zip(group, res.values, res.stages):
-                # a group may mix op="mean" and op=["mean"] requests (same
-                # canonical signature): give each the form it asked for
-                if isinstance(req.op, str) and isinstance(value, dict):
-                    value, stage = value[req.op], stage[req.op]
-                elif not isinstance(req.op, str) and not isinstance(value, dict):
-                    (name,) = oplib.canonical_ops(req.op)
-                    value, stage = {name: value}, {name: stage}
-                req.result = value
-                req.result_stage = stage
-                req.done = True
-                finished.append(req)
-        for egroup in expr_groups.values():
-            reqs = [r for r, _ in egroup]
-            all_roots = [root for _, roots in egroup for root in roots]
-            try:
-                # one fused program per group: leaves shared across requests
-                # dedupe into one prelude each
-                res = query(exprs=all_roots, stage=reqs[0].stage,
-                            region=reqs[0].region, engine=self.engine,
-                            store=self.store)
-            except Exception as e:
-                finished.extend(self._reject(r, e) for r in reqs)
-                continue
-            i = 0
-            for req, roots in egroup:
-                vals = res.values[i:i + len(roots)]
-                stgs = res.stages[i:i + len(roots)]
-                i += len(roots)
-                single = isinstance(req.exprs, expr_mod.Expr)
-                req.result = vals[0] if single else vals
-                req.result_stage = stgs[0] if single else stgs
-                req.done = True
-                finished.append(req)
-        return finished
+        return groups, expr_groups
+
+    @trace.spanned("hsz.query")
+    def _serve_group(self, group: list[AnalyticsRequest], finished: list):
+        """One flat group's query; its requests go to ``finished``."""
+        try:
+            # original (possibly id-bearing) fields go to the query:
+            # ids keep their cache identity, so hot fields are served
+            # from materialized stages
+            res = _query_opset([r.fields for r in group], group[0].op,
+                               group[0].stage, axis=group[0].axis,
+                               region=group[0].region, engine=self.engine,
+                               store=self.store)
+        except Exception as e:
+            # reject only this group (bad op / infeasible stage / ...);
+            # every request is always either answered or errored
+            finished.extend(self._reject(r, e) for r in group)
+            return
+        for req, value, stage in zip(group, res.values, res.stages):
+            # a group may mix op="mean" and op=["mean"] requests (same
+            # canonical signature): give each the form it asked for
+            if isinstance(req.op, str) and isinstance(value, dict):
+                value, stage = value[req.op], stage[req.op]
+            elif not isinstance(req.op, str) and not isinstance(value, dict):
+                (name,) = oplib.canonical_ops(req.op)
+                value, stage = {name: value}, {name: stage}
+            req.result = value
+            req.result_stage = stage
+            req.done = True
+            finished.append(req)
+
+    @trace.spanned("hsz.query")
+    def _serve_expr_group(self, egroup: list, finished: list):
+        """One expression group's fused query; its requests go to
+        ``finished``."""
+        reqs = [r for r, _ in egroup]
+        all_roots = [root for _, roots in egroup for root in roots]
+        try:
+            # one fused program per group: leaves shared across requests
+            # dedupe into one prelude each
+            res = query(exprs=all_roots, stage=reqs[0].stage,
+                        region=reqs[0].region, engine=self.engine,
+                        store=self.store)
+        except Exception as e:
+            finished.extend(self._reject(r, e) for r in reqs)
+            return
+        i = 0
+        for req, roots in egroup:
+            vals = res.values[i:i + len(roots)]
+            stgs = res.stages[i:i + len(roots)]
+            i += len(roots)
+            single = isinstance(req.exprs, expr_mod.Expr)
+            req.result = vals[0] if single else vals
+            req.result_stage = stgs[0] if single else stgs
+            req.done = True
+            finished.append(req)
 
     def run_until_drained(self) -> list[AnalyticsRequest]:
         finished: list[AnalyticsRequest] = []
