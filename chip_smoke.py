@@ -389,6 +389,10 @@ SITES = {
                              "src/repro/kernels/prefix_stats.py:56"),
     "prefix_stats2d.stats": (f"{CSRC}/lorenzo_band.cu",
                              "src/repro/kernels/prefix_stats.py:56"),
+    "lorenzo_moments.edges": (f"{CSRC}/lorenzo_band.cu",
+                              "src/repro/kernels/prefix_stats.py:56"),
+    "lorenzo_moments.stats": (f"{CSRC}/lorenzo_band.cu",
+                              "src/repro/kernels/prefix_stats.py:56"),
 }
 #: path -> the kernel sites it must launch
 PATHS = {
@@ -398,13 +402,15 @@ PATHS = {
     "main path": ("unpack.residuals", "lorenzo_enc2d.edges",
                   "lorenzo_enc2d.stencil",
                   "blockmean_enc2d", "lorenzo2d.edges", "lorenzo2d.stencil",
-                  "blockmean2d"),
+                  "blockmean2d", "lorenzo_moments.edges",
+                  "lorenzo_moments.stats"),
     "region path": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
                     "grad2d"),
     "engine path": ("unpack.residuals", "lorenzo_enc2d.edges",
                     "lorenzo_enc2d.stencil", "blockmean_enc2d",
                     "lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
-                    "grad2d"),
+                    "grad2d", "lorenzo_moments.edges",
+                    "lorenzo_moments.stats"),
     "region batches": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d",
                        "grad2d"),
     "stream path": ("unpack.residuals",),
@@ -672,7 +678,8 @@ BATCH, BATCH_BITS = 8, 7
 #: "<site> x8"
 BATCHED_SITES = ("unpack.residuals", "lorenzo_enc2d.edges",
                  "lorenzo_enc2d.stencil", "blockmean_enc2d", "lorenzo2d.edges",
-                 "lorenzo2d.stencil", "blockmean2d", "grad2d")
+                 "lorenzo2d.stencil", "blockmean2d", "grad2d",
+                 "lorenzo_moments.edges", "lorenzo_moments.stats")
 #: ragged batches: (Lorenzo plane, width) and (block-mean plane, block,
 #: width) whose payloads have n_words % 4 != 0, so fields past the first do
 #: not start on 16 bytes; and the cross-field case (field 0 full-range
@@ -834,6 +841,19 @@ def check_batched_kernels(seed: int, errs: dict) -> dict:
                 stencil_dq.grad2d_int(plane),
                 f"batched grad2d {batch} x {shape}"))
             del plane
+    rng = np.random.default_rng(seed)
+    ocean["ps"] = bounded_batch(OCEAN, BATCH, rng)
+    check_prefix_stats_batch(ocean["ps"], errs, f"{BATCH} x {OCEAN}")
+    for batch in BATCH_SIZES:
+        for shape, _ in BATCH_RAGGED_LZ + ((PS_WIDE[0], None),):
+            check_prefix_stats_batch(bounded_batch(shape, batch, rng), errs,
+                                     f"{batch} x {shape}")
+    ps = bounded_batch(LEAK_LZ, 2, rng)
+    ps[1] = 0
+    got = check_prefix_stats_batch(ps, errs, f"cross-field {LEAK_LZ}")
+    if bool(got[1].any()) or not bool(got[0].all()):
+        fail(f"batched prefix stats cross-field {LEAK_LZ}: field 1 (zeros) "
+             "is not zero, or field 0 is: a sum reached across fields")
     leak = batched_inputs(LEAK_LZ, 31, 2, gen, leak=True)
     check_batch(leak, errs, f"cross-field {LEAK_LZ}", blockmean=False)
     check_leak(leak, f"cross-field {LEAK_LZ}", lorenzo=True)
@@ -847,7 +867,10 @@ def check_batched_kernels(seed: int, errs: dict) -> dict:
         f"{BATCH_RAGGED_LZ} and {BATCH_RAGGED_BM} (payload rows of n_words % "
         f"4 != 0), grad2d also at {BATCH_GRAD_ODD}; the cross-field case at "
         f"{LEAK_LZ} and {LEAK_BM}: field 1 (zeros) stays zero beside field "
-        f"0's full-range sums")
+        f"0's full-range sums; the batched prefix stats on bounded planes at "
+        f"{BATCH} x {OCEAN}, batches of {BATCH_SIZES} at the ragged Lorenzo "
+        f"shapes and {PS_WIDE[0]}, and the cross-field case: each field "
+        f"bitwise alone and its exact sums rounded once")
     return ocean
 
 
@@ -970,6 +993,40 @@ def bounded_plane(shape, rng) -> torch.Tensor:
     q0 = rng.integers(-2 ** 12, 2 ** 12, shape)
     d = np.diff(np.pad(q0, ((1, 0), (1, 0))), axis=0)
     return torch.as_tensor(np.diff(d, axis=1).astype(np.int32), device=DEVICE)
+
+
+def bounded_batch(shape, batch: int, rng) -> torch.Tensor:
+    """``batch`` planes of :func:`bounded_plane`, ``(batch, n0, n1)``."""
+    return torch.stack([bounded_plane(shape, rng) for _ in range(batch)])
+
+
+def check_prefix_stats_batch(p: torch.Tensor, errs: dict, what_tag: str):
+    """The batched prefix stats (both passes, one launch each for the
+    batch) on bounded planes: the edges and corner sums bitwise their
+    plain versions; each field's sums bitwise the field alone and its exact
+    sums rounded once, within rtol 1e-5 of the plain version; the batch
+    bitwise on a second launch.  Errors noted under the
+    ``lorenzo_moments`` sites, one field and "x8" alike."""
+    want = fused.lorenzo_edge_prefixes_plain(p, fused.lorenzo_tile())
+    want += (prefix_stats.corner_sums_plain(want[1],
+                                            prefix_stats.corner_cols()),)
+    gaps = {"edges": bitwise_err(want, prefix_stats.stats_edges(
+        p, "lorenzo_moments"), f"batched prefix stats edges {what_tag}")}
+    got = prefix_stats.prefix_stats_batch(p)
+    bitwise_err(got, prefix_stats.prefix_stats_batch(p),
+                f"batched prefix stats twice {what_tag}")
+    gaps["stats"] = 0.0
+    for b in range(p.shape[0]):
+        what = f"batched prefix stats {what_tag} field {b}"
+        bitwise_err(prefix_stats.prefix_stats_batch(p[b]), got[b],
+                    f"{what} vs alone")
+        gaps["stats"] = max(gaps["stats"], stat_err(
+            prefix_stats.prefix_stats2d_plain(p[b]), tuple(got[b]), what))
+        exact_stats(p[b], tuple(got[b]), what)
+    for part, gap in gaps.items():
+        for key in (f"lorenzo_moments.{part}", f"lorenzo_moments.{part} x{BATCH}"):
+            _note(errs, key, gap)
+    return got
 
 
 def check_prefix_stats_wide(seed: int, errs: dict) -> None:
@@ -1615,19 +1672,34 @@ def _op_sites(op: str, container: str, scheme: str, stage: Stage,
     return _band_sites(scheme, container == "Encoded" and seed is None)
 
 
-def expected_launches(contexts) -> dict:
+def _moment_sites(scheme: str, stage: Stage, ops_,
+                  region: bool) -> tuple[str, ...]:
+    """The prefix-stats passes that a full-field Lorenzo context at ②
+    launches once, however many of ``mean`` / ``std`` it serves (the rules
+    share ``StageContext.lorenzo_moments``; the fields here are 2-D and on
+    the card); none on a region."""
+    if (scheme == "hszp_nd" and Stage(stage) == Stage.P and not region
+            and {"mean", "std"} & set(ops_)):
+        return ("lorenzo_moments.edges", "lorenzo_moments.stats")
+    return ()
+
+
+def expected_launches(contexts, region: bool = False) -> dict:
     """Launches per site that a list of stage contexts implies.  A context
     ``(container, scheme, stage, seed, ops)`` (``seed`` None or the seed's
     stage; ``ops`` its op applications, a vector op as one ``derivative``
-    per differentiated axis) launches :func:`_op_sites` per application,
-    and decodes its payload once when an op whose torch rule runs reads
-    the residuals or integers (every torch rule but the stage-① mean) and
-    no seed holds them."""
+    per differentiated axis) launches :func:`_op_sites` per application
+    and :func:`_moment_sites` once, and decodes its payload once when an op
+    whose torch rule runs reads the residuals or integers (every torch rule
+    but the stage-① mean) and no seed holds them.  ``region``: the
+    contexts run on a region plan."""
     want = dict.fromkeys(PATHS["engine path"], 0)
     for container, scheme, stage, seed, ops_ in contexts:
         for op in ops_:
             for site in _op_sites(op, container, scheme, stage, seed):
                 want[site] += 1
+        for site in _moment_sites(scheme, stage, ops_, region):
+            want[site] += 1
         if container == "Encoded" and seed is None and any(
                 not _op_sites(op, container, scheme, stage, seed)
                 and not (op == "mean" and stage == Stage.M) for op in ops_):
@@ -1683,7 +1755,8 @@ def plan_contexts(key, res, fields) -> list:
     seeded = [("Encoded", scheme, stage, min(stage, Stage.Q), ops_)]
     if key[2].endswith("miss"):
         # each miss materializes the field once: one decode, no band kernel
-        return [("Encoded", scheme, stage, None, ["std"])] * 8 + seeded
+        # and no statistic
+        return [("Encoded", scheme, stage, None, ["materialize"])] * 8 + seeded
     return seeded
 
 
@@ -1791,7 +1864,7 @@ def region_batches(fields, eng) -> tuple[dict, int]:
     n = 0
 
     def check(what, got, contexts):
-        want = expected_launches(contexts)
+        want = expected_launches(contexts, region=True)
         bad = {k: (got[k], want.get(k, 0)) for k in got
                if got[k] != want.get(k, 0)}
         if bad:
@@ -3384,9 +3457,9 @@ def cover_lorenzo(shape, bits: int, batch: int = 1, *, g: Guarded,
                   rng) -> None:
     """The Lorenzo edge pass, scans and stencils, both sources and every
     ``what`` (over ``batch`` planes in one launch: the batch's windows and
-    plain versions carry the leading axis), and, for one plane, the stats
-    pass with its corner scan, against the plain versions bitwise (the
-    stats: bitwise against the exact sums rounded once)."""
+    plain versions carry the leading axis), and the stats pass with its
+    corner scan over the batch, against the plain versions bitwise (the
+    stats: each field's exact sums rounded once, bitwise)."""
     n0, n1 = shape
     lead = (batch,) if batch > 1 else ()
     tile = fused.lorenzo_tile()
@@ -3422,36 +3495,36 @@ def cover_lorenzo(shape, bits: int, batch: int = 1, *, g: Guarded,
             bitwise_err(fused.lorenzo_core(p, what),
                         tuple(got[k] for k in sorted(got)),
                         f"lorenzo stencil {flag} {what} {batch} x {shape}")
-    if batch > 1:
-        return  # the stats pass takes one plane
-    p = bounded_plane(shape, rng)
+    p = bounded_batch(shape, batch, rng).reshape(lead + shape)
     cols = prefix_stats.corner_cols()
     n_cb = -(-n1 // cols)
     st = g(("lorenzo_edges_kernel<false>", "corner_scan_kernel"),
-           {"rowedge": ((n0, n_ct), torch.int32),
-            "coledge": ((n_rt, n1), torch.int32),
-            "corners": ((n_rt, n_cb), torch.int32)},
+           {"rowedge": (lead + (n0, n_ct), torch.int32),
+            "coledge": (lead + (n_rt, n1), torch.int32),
+            "corners": (lead + (n_rt, n_cb), torch.int32)},
            lambda ptr: build.call(
-               "hsz_lorenzo_edges", 0, p.data_ptr(), 0, 0, n0, n1, 1,
+               "hsz_lorenzo_edges", 0, p.data_ptr(), 0, 0, n0, n1, batch,
                ptr["rowedge"], ptr["coledge"], ptr["corners"], s))
     bitwise_err(prefix_stats.corner_sums_plain(st["coledge"], cols),
-                st["corners"], f"corner sums {shape}")
+                st["corners"], f"corner sums {batch} x {shape}")
     wide = 4 * (n_ct - 1) > 128
     name = f"prefix_stats_tile_kernel<{str(wide).lower()}>"
     per_sm = specs.func_attrs(name)[3]
-    grid = min(n_rt * n_ct, RATES["sms"] * max(per_sm, 1))
+    grid = min(batch * n_rt * n_ct, RATES["sms"] * max(per_sm, 1))
+    # every pair is written: a block's tiles' sums of a field, or zeros
     got = g((name, "prefix_stats_reduce_kernel"),
-            {"partials": ((n_rt * n_ct, 2), torch.float64),
-             "out": ((2,), torch.float32)},
+            {"partials": ((batch, grid, 2), torch.float64),
+             "out": (lead + (2,), torch.float32)},
             lambda ptr: build.call(
-                "hsz_prefix_stats", p.data_ptr(), n0, n1,
+                "hsz_prefix_stats", p.data_ptr(), n0, n1, batch,
                 st["rowedge"].data_ptr(), st["coledge"].data_ptr(),
-                st["corners"].data_ptr(), ptr["partials"], ptr["out"], s),
-            written={"partials": 2 * grid})
-    sums = (got["out"][0], got["out"][1])
-    stat_err(prefix_stats.prefix_stats2d_plain(p), sums,
-             f"prefix_stats2d {shape}")
-    exact_stats(p, sums, f"prefix_stats2d {shape}")
+                st["corners"].data_ptr(), ptr["partials"], batch * grid,
+                ptr["out"], s))
+    for b, (plane, sums) in enumerate(zip(p.reshape((-1,) + shape),
+                                          got["out"].reshape(-1, 2))):
+        what = f"prefix_stats2d {batch} x {shape} field {b}"
+        stat_err(prefix_stats.prefix_stats2d_plain(plane), tuple(sums), what)
+        exact_stats(plane, tuple(sums), what)
 
 
 def cover_blockmean(shape, block, bits: int, batch: int = 1, *, g: Guarded,
@@ -5236,6 +5309,16 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
             prefix_stats.prefix_stats_tiles, (p, *ps_edges),
             lambda: prefix_stats.prefix_stats2d_plain(p),
             4 * n + edge_bytes + corner_bytes + 8, 2 * n, 4 * n),
+        # the serving rules' sites: the same passes, one field
+        "lorenzo_moments.edges": (
+            lambda v: prefix_stats.stats_edges(v, "lorenzo_moments"), (p,),
+            lambda: fused.lorenzo_edge_prefixes_plain(p, (th, tw)),
+            4 * n + edge_bytes + corner_bytes, 2 * n),
+        "lorenzo_moments.stats": (
+            functools.partial(prefix_stats.prefix_stats_tiles,
+                              site="lorenzo_moments"), (p, *ps_edges),
+            lambda: prefix_stats.prefix_stats2d_plain(p),
+            4 * n + edge_bytes + corner_bytes + 8, 2 * n, 4 * n),
         WIDE_STATS: (  # as above, at PS_WIDE[1]
             prefix_stats.prefix_stats_tiles, (pw, *pw_edges),
             lambda: prefix_stats.prefix_stats2d_plain(pw),
@@ -5273,6 +5356,7 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
     ``BATCH`` times one field's device-alone time from ``single``."""
     shape, bits, b = inp["shape"], inp["bits"], BATCH
     plane, words, meta, p = inp["plane"], inp["words"], inp["meta"], inp["p"]
+    ps = inp["ps"]
     n = shape[0] * shape[1]
     m = (shape[0] - 2) * (shape[1] - 2)
     th, tw = fused.lorenzo_tile()
@@ -5283,6 +5367,8 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
                                   site="lorenzo_enc2d")
     p_edges = fused.lorenzo_edges(plane, shape, 0, from_payload=False,
                                   site="lorenzo2d")
+    corner_bytes = 4 * b * n_rt * -(-shape[1] // prefix_stats.corner_cols())
+    ps_edges = prefix_stats.stats_edges(ps, "lorenzo_moments")
     # the operations per element of time_kernels' plans, over b fields
     plans = {
         "unpack.residuals": (
@@ -5326,16 +5412,27 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
             stencil_dq.grad2d_int, (plane,),
             lambda: stencil_dq.grad2d_int_plain(plane),
             4 * b * n + 8 * b * m, 2 * b * m),
+        "lorenzo_moments.edges": (  # row and column sums 2
+            lambda v: prefix_stats.stats_edges(v, "lorenzo_moments"), (ps,),
+            lambda: fused.lorenzo_edge_prefixes_plain(ps, (th, tw)),
+            4 * b * n + edge_bytes + corner_bytes, 2 * b * n),
+        "lorenzo_moments.stats": (  # q from two prefixes 2; f32 cast, q²,
+            # two sums 4
+            functools.partial(prefix_stats.prefix_stats_tiles,
+                              site="lorenzo_moments"), (ps, *ps_edges),
+            lambda: prefix_stats.prefix_stats_batch_plain(ps),
+            4 * b * n + edge_bytes + corner_bytes + 8 * b, 2 * b * n,
+            4 * b * n),
     }
     out = {}
-    for site, (fn, args, plain, n_bytes, n_ops) in plans.items():
+    for site, (fn, args, plain, n_bytes, *n_ops) in plans.items():
         kernel = functools.partial(fn, *args)
         k_ms = cuda_ms(kernel, reps)
         g_ms = graph_ms(fn, reps, args)
         w_ms = graph_ms(fn, reps, args, cold=False)
         h_ms = enqueue_ms(kernel, reps)
         p_ms = cuda_ms(plain, max(3, reps // 10))
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        b_ms, b_by = bound_ms(n_bytes, *n_ops)
         one = single[site]["graph_ms"]
         out[f"{site} x{b}"] = {
             "ms": k_ms, "graph_ms": g_ms, "enqueue_ms": h_ms, "plain_ms": p_ms,
@@ -5532,6 +5629,8 @@ def decode_and_stats_kernels(fields, entry: dict, tag: str) -> None:
 PER_QUERY = {
     # kernel site -> the query whose launches of it are counted
     "unpack.residuals": ("hszp_nd", "Encoded", "mean", Stage.Q),
+    "lorenzo_moments.edges": ("hszp_nd", "Encoded", "std", Stage.P),
+    "lorenzo_moments.stats": ("hszp_nd", "Encoded", "std", Stage.P),
     "lorenzo_enc2d.edges": ("hszp_nd", "Encoded", "gradient", Stage.Q),
     "lorenzo_enc2d.stencil": ("hszp_nd", "Encoded", "gradient", Stage.Q),
     "blockmean_enc2d": ("hszx_nd", "Encoded", "gradient", Stage.Q),

@@ -44,6 +44,7 @@ import torch
 
 from .. import trace
 from ..kernels import ops as kernel_ops
+from ..kernels import prefix_stats as kernel_stats
 from . import blocking, quantize
 from . import encode as encode_mod
 from . import fused as fused_mod
@@ -348,6 +349,31 @@ class StageContext:
                             dtype=torch.int32)
 
     @cached_property
+    def lorenzo_moments(self) -> torch.Tensor | None:
+        """``(Σq, Σq²)`` f32 of the queried extent's stage-③ integers of a
+        Lorenzo sub-field, ``(2,)`` or ``(B, 2)`` on a batch, from the
+        prefix-stats kernels (one launch of each for the batch, ``q`` never
+        written): the exact integer sums rounded once to f32.  None where
+        they do not apply — a 1-D scheme, a spatial rank other than 2, a
+        region plan, residuals off the card — and the rules take their
+        torch path.  A padded layout runs on the residuals' valid crop,
+        exactly: ``q[i, j]`` depends only on ``p[:i+1, :j+1]``.  The span
+        opens after the decode's own, beside it: a profiler folds a span
+        whose one child has its name into that child."""
+        c = self.field
+        if not (c.scheme.is_lorenzo and c.scheme.is_nd and len(c.shape) == 2
+                and self.plan is None):
+            return None
+        p = self.sub.residuals
+        if p.dtype != torch.int32 or not kernel_ops.on_card(p):
+            return None
+        with trace.span("hsz.prelude"):
+            n0, n1 = c.shape
+            if tuple(p.shape[-2:]) != (n0, n1):
+                p = p[..., :n0, :n1].contiguous()
+            return kernel_stats.prefix_stats_batch(p)
+
+    @cached_property
     @trace.spanned("hsz.prelude")
     def upsampled_means(self) -> torch.Tensor:
         """Block means upsampled to the spatial layout (block-mean family)."""
@@ -498,7 +524,15 @@ def _mean_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
 
 def _mean_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
     # ② Lorenzo: sum q = weighted sum of residuals; separable weights make
-    # this a rank-1 contraction (w0^T P w1 ...) for nd, one dot for flat
+    # this a rank-1 contraction (w0^T P w1 ...) for nd, one dot for flat.
+    # On the card, 2-D full fields take Σq from the prefix-stats kernels
+    # (:attr:`StageContext.lorenzo_moments`): the exact sum rounded once to
+    # f32, where the contraction rounds along the way.  Both lie within
+    # ``error_analysis.mean_bias_bound`` of the stage-④ mean, so the two
+    # paths differ by at most twice that bound.
+    moments = ctx.lorenzo_moments
+    if moments is not None:
+        return moments[..., 0] / ctx.n * ctx.eps * 2.0
     weights = ctx.lorenzo_mean_weights
 
     def contract(acc: torch.Tensor) -> torch.Tensor:
@@ -543,14 +577,28 @@ def _std_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
     return torch.sqrt(torch.clamp(ss, min=0.0) / (n - 1)) * ctx.eps * 2.0
 
 
-def _std_moments(ctx: StageContext, qf: torch.Tensor) -> torch.Tensor:
+def _std_of_sums(ctx: StageContext, s1: torch.Tensor,
+                 s2: torch.Tensor) -> torch.Tensor:
     n = ctx.n
-    s1, s2 = ctx.per_field(torch.sum, qf), ctx.per_field(torch.sum, qf * qf)
     var = (s2 - s1 * s1 / n) / (n - 1)
     return torch.sqrt(torch.clamp(var, min=0.0)) * ctx.eps * 2.0
 
 
+def _std_moments(ctx: StageContext, qf: torch.Tensor) -> torch.Tensor:
+    return _std_of_sums(ctx, ctx.per_field(torch.sum, qf),
+                        ctx.per_field(torch.sum, qf * qf))
+
+
 def _std_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
+    # On the card, 2-D full fields take (Σq, Σq²) from the prefix-stats
+    # kernels (:attr:`StageContext.lorenzo_moments`): the exact sums rounded
+    # once to f32, where the torch path rounds its f32 sums along the way.
+    # The float tail is the same; both lie within
+    # ``error_analysis.std_bias_bound`` of the stage-④ std, so the two paths
+    # differ by at most twice that bound.
+    moments = ctx.lorenzo_moments
+    if moments is not None:
+        return _std_of_sums(ctx, moments[..., 0], moments[..., 1])
     return _std_moments(ctx, ctx.stat_values(ctx.lorenzo_q))
 
 

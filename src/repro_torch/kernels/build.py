@@ -57,8 +57,11 @@ SIGNATURES = {
                       _P),
     # from_payload, what, &smem_bytes, &blocks_per_sm
     "hsz_blockmean_info": (_I, _I, _P, _P),
-    # p, n0, n1, rowedge, coledge, corners, partials, out, stream
-    "hsz_prefix_stats": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
+    # p, n0, n1, batch, rowedge, coledge, corners, partials, n_pairs, out,
+    # stream
+    "hsz_prefix_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _LL, _P, _P),
+    # n0, n1, batch, &grid
+    "hsz_prefix_stats_grid": (_I, _I, _I, _P),
     # &smem_bytes, &regs, &blocks_per_sm
     "hsz_prefix_stats_info": (_P, _P, _P),
     # u, n, words, n_words, bits, stream

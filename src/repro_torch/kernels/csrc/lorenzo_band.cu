@@ -87,7 +87,9 @@
 // field's column.  The payload path stages from the 16-byte boundary at or
 // before each row segment's first bit counted from the batch's first word,
 // so a field whose words do not start on 16 bytes (n_words % 4 != 0) still
-// takes 16-byte copies.  prefix_stats2d takes one plane.
+// takes 16-byte copies.  prefix_stats2d takes a batch too: the corner sums,
+// the stats pass's pairs and its results carry the field as their leading
+// axis.
 //
 // prefix_stats2d (paper Algorithm 4) gives (sum q, sum q^2) of
 // q = cumsum(cumsum(p, 0), 1) without writing q.  The TPU kernel carries the
@@ -104,6 +106,15 @@
 // order and rounds to f32 once.  No float atomics: the result is the same
 // bits run after run.  Bound: memory, p read twice (edge pass and stats
 // pass), 4n bytes each.
+//
+// A batch of B planes is one launch of each kernel: the stats pass walks
+// the B x n_tiles tiles on the persistent grid (tiles of field b after
+// those of field b - 1, as the other passes do), and each block writes one
+// pair per field, (b, block) of a (B, grid) array: the sums of its tiles of
+// field b, or zeros where its tiles skip field b.  The reduction runs one
+// block per field.  The f64 sums are exact integers under the bound above,
+// so a field's result is the same bits whatever batch it sits in and
+// however the grid splits its tiles.
 #include "common.cuh"
 
 namespace {
@@ -393,9 +404,10 @@ __global__ void __launch_bounds__(NT, 5) lorenzo_edges_kernel(const Args a) {
 // trip count would wait for each load in turn); a segment of one chunk
 // stays in registers for the second half.
 // CORNERS (prefix_stats2d): each column block also writes, per tile row ti,
-// the sum of its 32 column prefixes, corners[ti, b] (b = the block's
-// column group), by one warp reduction; the corner of tile (ti, tj),
-// sum p over i < 32 ti, j < 128 tj, is then the sum of corners[ti, b < TGROUPS tj].
+// the sum of its 32 column prefixes, corners[fb, ti, g] (g = the block's
+// column group), by one warp reduction; the corner of tile (ti, tj) of
+// field fb, sum p over i < 32 ti, j < 128 tj, is then the sum of
+// corners[fb, ti, g < TGROUPS tj].
 constexpr int SCOLS = 32;            // coledge columns per block
 constexpr int TGROUPS = TW / SCOLS;  // column blocks (corner sums) per tile
 static_assert(TW % SCOLS == 0, "a tile spans whole column blocks");
@@ -460,7 +472,7 @@ __device__ __forceinline__ void scan_edges(const Args& a, int n_rb, int32_t* cor
         if (!CORNERS || in) col[(long long)(r0 + m) * a.n1] = (int32_t)run;
         if constexpr (CORNERS) {
           const uint32_t t = __reduce_add_sync(FULL, run);
-          if (lane == 0) corners[(long long)(r0 + m) * n_cb + cb] = (int32_t)t;
+          if (lane == 0) corners[((long long)fb * a.n_rt + r0 + m) * n_cb + cb] = (int32_t)t;
         }
       }
       run += v[m];
@@ -685,26 +697,27 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
   }
 }
 
-// sum p over i < 32 ti, j < 128 tj: the scan kernel's corner sums of tile
-// row ti over the TGROUPS * tj column groups left of the tile.  The first
+// sum p over i < 32 ti, j < 128 tj of field b: the scan kernel's corner
+// sums of its tile row ti over the TGROUPS * tj column groups left of the
+// tile.  The first
 // 128 groups take 4 loads a lane, issued together; WIDE (a tile right of
 // column 4224, see wide_stats) reads the groups past them, one load a lane
 // a step.
 template <bool WIDE>
-__device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_cb,
-                                              int ti, int tj) {
+__device__ __forceinline__ uint32_t corner_of(const int32_t* __restrict__ corners, int n_rt,
+                                              int n_cb, int b, int ti, int tj) {
   const int lane = threadIdx.x & 31;
-  const int32_t* row = corners + (long long)ti * n_cb;
+  const int32_t* row = corners + ((long long)b * n_rt + ti) * n_cb;
   const int n = TGROUPS * tj;
   uint32_t c[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    const int b = lane + 32 * m;
-    c[m] = b < n ? (uint32_t)__ldg(row + b) : 0u;
+    const int g = lane + 32 * m;
+    c[m] = g < n ? (uint32_t)__ldg(row + g) : 0u;
   }
   uint32_t s = (c[0] + c[1]) + (c[2] + c[3]);
   if constexpr (WIDE) {
-    for (int b = 128 + lane; b < n; b += 32) s += (uint32_t)__ldg(row + b);
+    for (int g = 128 + lane; g < n; g += 32) s += (uint32_t)__ldg(row + g);
   }
   return __reduce_add_sync(FULL, s);
 }
@@ -798,49 +811,21 @@ __device__ __forceinline__ void stats_tile(const Args& a, int ti, int tj, uint32
   sum_q(d, base, min(ROWS, a.n0 - i0 - r0), min(4, a.n1 - j0 - c0), s1, s2);
 }
 
-// The stats pass over the tiles: a persistent grid that copies the next
-// tile's residuals and edges with cp.async while it sums the current one.
-// Each thread carries its f64 sums over the block's tiles; at the end a
-// warp reduction and the 8 warps in order give one pair per block.  WIDE:
-// corner_of's loop past 128 corner sums, compiled only for planes that need
-// it (in the narrow kernel it cost registers and 5 blocks/SM for 4).
-template <bool WIDE>
-__global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
-                                                               const int32_t* __restrict__ corners,
-                                                               double* __restrict__ partials) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  // let the reduction's one block be scheduled now; it waits for this grid
-  asm volatile("griddepcontrol.launch_dependents;\n" ::);
-  uint32_t* T = smem;
-  double* red = reinterpret_cast<double*>(smem + PS_T);
-  uint32_t* B = smem + PS_HEAD;
-  const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int b, ti, tj;  // one plane: b is 0
-  tile_of(a, blockIdx.x, b, ti, tj);  // the grid has at most one block a tile
-  fetch<false, TH, TW>(a, 0, ti * TH, tj * TW, B);
-  fetch_edges(a, 0, ti, tj, B + TH * LD);
-  cp_async_commit();
-  double s1 = 0.0, s2 = 0.0;
-  int buf = 0;
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, buf ^= 1) {
-    const uint32_t corner = warp == 0 ? corner_of<WIDE>(corners, n_cb, ti, tj) : 0u;
-    cp_async_wait_all();
-    __syncthreads();
-    int ni = ti, nj = tj;
-    const int next = tile + gridDim.x;
-    if (next < a.n_tiles) {
-      tile_of(a, next, b, ni, nj);
-      uint32_t* N = B + (buf ^ 1) * PS_BUF;
-      fetch<false, TH, TW>(a, 0, ni * TH, nj * TW, N);
-      fetch_edges(a, 0, ni, nj, N + TH * LD);
-    }
-    cp_async_commit();
-    const uint32_t* R = B + buf * PS_BUF;
-    stats_tile(a, ti, tj, corner, R, R + TH * LD, T, s1, s2);
-    ti = ni;
-    tj = nj;
+// The pairs of fields lo .. hi - 1 of this block, which its tiles skip:
+// zeros.
+__device__ __forceinline__ void zero_pairs(double* __restrict__ partials, int lo, int hi) {
+  for (int f = lo + (int)threadIdx.x; f < hi; f += NT) {
+    const long long k = (long long)f * gridDim.x + blockIdx.x;
+    partials[2 * k] = 0.0;
+    partials[2 * k + 1] = 0.0;
   }
+}
+
+// The block's pair of field b: a warp reduction of the threads' sums, then
+// the 8 warps in order.
+__device__ __forceinline__ void write_pair(double s1, double s2, double* red,
+                                           double* __restrict__ partials, int b) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   warp_sum2(s1, s2);
   if (lane == 0) {
     red[warp] = s1;
@@ -853,12 +838,70 @@ __global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
       x += red[w];
       y += red[NWARP + w];
     }
-    partials[2 * blockIdx.x] = x;
-    partials[2 * blockIdx.x + 1] = y;
+    const long long k = (long long)b * gridDim.x + blockIdx.x;
+    partials[2 * k] = x;
+    partials[2 * k + 1] = y;
   }
 }
 
-// One block: the stats pass's (sum q, sum q^2) pairs summed in a fixed order.
+// The stats pass over the tiles of every field: a persistent grid that
+// copies the next tile's residuals and edges with cp.async while it sums
+// the current one.  Each thread carries its f64 sums over the block's tiles
+// of one field; after the block's last tile of a field, a warp reduction
+// and the 8 warps in order give the block's pair of that field (the pairs
+// of the fields between it and the next tile's are zeros; red is reused
+// only after the next iteration's barrier).  WIDE: corner_of's loop past
+// 128 corner sums, compiled only for planes that need it (in the narrow
+// kernel it cost registers and 5 blocks/SM for 4).
+template <bool WIDE>
+__global__ void __launch_bounds__(NT) prefix_stats_tile_kernel(const Args a,
+                                                               const int32_t* __restrict__ corners,
+                                                               double* __restrict__ partials) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  // let the reduction's blocks be scheduled now; they wait for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  uint32_t* T = smem;
+  double* red = reinterpret_cast<double*>(smem + PS_T);
+  uint32_t* B = smem + PS_HEAD;
+  const int n_cb = (a.n1 + SCOLS - 1) / SCOLS;
+  const int warp = threadIdx.x >> 5;
+  int b, ti, tj;
+  tile_of(a, blockIdx.x, b, ti, tj);  // the grid has at most one block a tile
+  zero_pairs(partials, 0, b);
+  fetch<false, TH, TW>(a, b, ti * TH, tj * TW, B);
+  fetch_edges(a, b, ti, tj, B + TH * LD);
+  cp_async_commit();
+  double s1 = 0.0, s2 = 0.0;
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < a.n_all; tile += gridDim.x, buf ^= 1) {
+    const uint32_t corner = warp == 0 ? corner_of<WIDE>(corners, a.n_rt, n_cb, b, ti, tj) : 0u;
+    cp_async_wait_all();
+    __syncthreads();
+    int nb = a.batch, ni = ti, nj = tj;
+    const int next = tile + gridDim.x;
+    if (next < a.n_all) {
+      tile_of(a, next, nb, ni, nj);
+      uint32_t* N = B + (buf ^ 1) * PS_BUF;
+      fetch<false, TH, TW>(a, nb, ni * TH, nj * TW, N);
+      fetch_edges(a, nb, ni, nj, N + TH * LD);
+    }
+    cp_async_commit();
+    const uint32_t* R = B + buf * PS_BUF;
+    stats_tile(a, ti, tj, corner, R, R + TH * LD, T, s1, s2);
+    if (nb != b) {  // the block's last tile of field b (uniform in the block)
+      write_pair(s1, s2, red, partials, b);
+      s1 = 0.0;
+      s2 = 0.0;
+      zero_pairs(partials, b + 1, nb);
+    }
+    b = nb;
+    ti = ni;
+    tj = nj;
+  }
+}
+
+// One block per field: the stats pass's (sum q, sum q^2) pairs of the field
+// (n_pairs, one per block of that pass) summed in a fixed order.
 __global__ void __launch_bounds__(NT)
 prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_pairs,
                            float* __restrict__ out) {
@@ -867,10 +910,11 @@ prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_pair
   // tile pass has finished and its partials are visible
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const double* pairs = partials + 2 * (long long)blockIdx.x * n_pairs;
   double a = 0.0, b = 0.0;
   for (long long k = t; k < n_pairs; k += NT) {
-    a += partials[2 * k];
-    b += partials[2 * k + 1];
+    a += pairs[2 * k];
+    b += pairs[2 * k + 1];
   }
   warp_sum2(a, b);
   if (lane == 0) {
@@ -885,8 +929,8 @@ prefix_stats_reduce_kernel(const double* __restrict__ partials, long long n_pair
       a += red[0][w];
       b += red[1][w];
     }
-    out[0] = __double2float_rn(a);
-    out[1] = __double2float_rn(b);
+    out[2 * blockIdx.x] = __double2float_rn(a);
+    out[2 * blockIdx.x + 1] = __double2float_rn(b);
   }
 }
 
@@ -965,7 +1009,7 @@ int launch_edges(const Args& a, int32_t* corners, cudaStream_t s) {
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   const int n_rb = a.batch * ((a.n0 + NWARP - 1) / NWARP), n_cb = (a.n1 + SCOLS - 1) / SCOLS;
   if (corners)
-    corner_scan_kernel<<<n_rb + n_cb, NT, 0, s>>>(a, n_rb, corners);
+    corner_scan_kernel<<<n_rb + a.batch * n_cb, NT, 0, s>>>(a, n_rb, corners);
   else
     lorenzo_scan_kernel<<<n_rb + a.batch * n_cb, NT, 0, s>>>(a, n_rb);
   return (int)cudaGetLastError();
@@ -1021,6 +1065,19 @@ bool bad_shape(int from_payload, int bits, int n0, int n1, int batch) {
   return from_payload && (bits < 1 || bits > 31);
 }
 
+// The stats pass's grid over `batch` planes: as many blocks as can be
+// resident, at most one a tile of the batch.
+int stats_grid(const Args& a, int* grid) {
+  const Config& c = wide_stats(a) ? stats_config<true>() : stats_config<false>();
+  if (c.err != cudaSuccess) return (int)c.err;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  *grid = min(a.n_all, sms * max(c.per_sm, 1));
+  return 0;
+}
+
 }  // namespace
 
 // The tile the edge arrays are cut by.
@@ -1031,7 +1088,7 @@ extern "C" int hsz_lorenzo_tile(int* th, int* tw) {
 }
 
 // Columns per corner sum (the scan kernel's column block): the corners
-// buffer of hsz_lorenzo_edges is (ceil(n0/TH), ceil(n1/cols)).
+// buffer of hsz_lorenzo_edges is (batch, ceil(n0/TH), ceil(n1/cols)).
 extern "C" int hsz_corner_cols(int* cols) {
   *cols = SCOLS;
   return 0;
@@ -1056,13 +1113,12 @@ extern "C" int hsz_lorenzo_info(int from_payload, int what, int* smem_bytes, int
 // n_words, its plane at b * n0 * n1).  rowedge: (batch, n0, ceil(n1/TW))
 // int32, the sum of p left of each tile in each row; coledge: (batch,
 // ceil(n0/TH), n1) int32, the sum of p above each tile in each column;
-// corners: null, or (ceil(n0/TH), ceil(n1/32)) int32 for prefix_stats2d
-// (batch 1), the column edge summed over each 32 columns.
+// corners: null, or (batch, ceil(n0/TH), ceil(n1/32)) int32 for
+// prefix_stats2d, the column edge summed over each 32 columns.
 extern "C" int hsz_lorenzo_edges(int from_payload, const void* src, long long n_words,
                                  int bits, int n0, int n1, int batch, void* rowedge,
                                  void* coledge, void* corners, void* stream) {
-  if (bad_shape(from_payload, bits, n0, n1, batch) || (corners && batch != 1))
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(from_payload, bits, n0, n1, batch)) return (int)cudaErrorInvalidValue;
   Args a = make_args(from_payload, src, n_words, bits, n0, n1, batch);
   a.rowedge = static_cast<int32_t*>(rowedge);
   a.coledge = static_cast<int32_t*>(coledge);
@@ -1090,27 +1146,24 @@ extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long 
   return from_payload ? dispatch_stencil<true>(a, what, s) : dispatch_stencil<false>(a, what, s);
 }
 
-// p: (n0, n1) int32; rowedge, coledge, corners as the edge pass leaves them
-// for prefix_stats2d; partials: 2 * ceil(n0/TH) * ceil(n1/TW) f64 scratch
-// (two per block of a grid of at most one block a tile); out: 2 f32.
-// Launches the tile pass on a persistent grid and the fixed-order reduction
-// on one stream, the reduction by programmatic dependent launch.
-extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowedge,
+// p: (batch, n0, n1) int32; rowedge, coledge, corners as the edge pass
+// leaves them for prefix_stats2d; partials: n_pairs f64 pairs of scratch,
+// at least batch * hsz_prefix_stats_grid (field b's pair of block k at
+// b * grid + k); out: (batch, 2) f32.  Launches the tile pass on a
+// persistent grid and the fixed-order reduction (a block per field) on one
+// stream, the reduction by programmatic dependent launch.
+extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, int batch, const void* rowedge,
                                 const void* coledge, const void* corners, void* partials,
-                                void* out, void* stream) {
-  if (bad_shape(0, 0, n0, n1, 1)) return (int)cudaErrorInvalidValue;
-  Args a = make_args(0, p, 0, 0, n0, n1, 1);
+                                long long n_pairs, void* out, void* stream) {
+  if (bad_shape(0, 0, n0, n1, batch)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(0, p, 0, 0, n0, n1, batch);
   a.rowedge = const_cast<int32_t*>(static_cast<const int32_t*>(rowedge));
   a.coledge = const_cast<int32_t*>(static_cast<const int32_t*>(coledge));
   auto s = (cudaStream_t)stream;
   const bool wide = wide_stats(a);
-  const Config& c = wide ? stats_config<true>() : stats_config<false>();
-  if (c.err != cudaSuccess) return (int)c.err;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = min(a.n_tiles, sms * max(c.per_sm, 1));
+  int grid = 0;
+  if (int err = stats_grid(a, &grid)) return err;
+  if ((long long)grid * batch > n_pairs) return (int)cudaErrorInvalidValue;
   const auto c_in = static_cast<const int32_t*>(corners);
   const auto pairs = static_cast<double*>(partials);
   if (wide)
@@ -1119,7 +1172,7 @@ extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowed
     prefix_stats_tile_kernel<false><<<grid, NT, PS_SMEM, s>>>(a, c_in, pairs);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1);
+  cfg.gridDim = dim3(batch);
   cfg.blockDim = dim3(NT);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -1130,6 +1183,13 @@ extern "C" int hsz_prefix_stats(const void* p, int n0, int n1, const void* rowed
   return (int)cudaLaunchKernelEx(&cfg, prefix_stats_reduce_kernel,
                                  static_cast<const double*>(partials), (long long)grid,
                                  static_cast<float*>(out));
+}
+
+// Blocks of the prefix_stats2d stats pass over `batch` (n0, n1) planes: the
+// partials of hsz_prefix_stats hold `batch` times that many pairs.
+extern "C" int hsz_prefix_stats_grid(int n0, int n1, int batch, int* grid) {
+  if (bad_shape(0, 0, n0, n1, batch)) return (int)cudaErrorInvalidValue;
+  return stats_grid(make_args(0, nullptr, 0, 0, n0, n1, batch), grid);
 }
 
 // Shared memory (bytes), registers per thread and resident blocks per SM of

@@ -182,15 +182,12 @@ def lorenzo_edges(src: torch.Tensor, shape: tuple, bits: int, *,
     residual plane: the per-tile sums, then their prefixes, on the card.
     A batch (``(B, n_words)`` words or ``(B, n0, n1)`` planes) is one
     launch of each kernel, its edges ``(B, n0, n_ct)`` and ``(B, n_rt,
-    n1)``.  With ``corners`` (``(n_rt, ceil(n1/cols))`` int32,
-    ``prefix_stats2d``, ``cols`` from :func:`prefix_stats.corner_cols`;
-    unbatched only) the prefix kernel also writes the column edge summed
-    over each ``cols`` columns there."""
+    n1)``.  With ``corners`` (``(n_rt, ceil(n1/cols))`` int32, with the
+    batch's leading axis; ``prefix_stats2d``, ``cols`` from
+    :func:`prefix_stats.corner_cols`) the prefix kernel also writes the
+    column edge summed over each ``cols`` columns there."""
     n0, n1 = shape
     lead = _lead(src, 1 if from_payload else 2)
-    if corners is not None and lead:
-        raise ValueError("the corner sums (prefix_stats2d) take one plane, "
-                         f"not a batch of {lead[0]}")
     th, tw = lorenzo_tile()
     n_rt, n_ct = -(-n0 // th), -(-n1 // tw)
     rowedge = torch.empty(lead + (n0, n_ct), dtype=torch.int32,

@@ -29,6 +29,9 @@ LAUNCHES: dict[str, int] = {
     "lorenzo2d.edges": 0,
     "lorenzo2d.stencil": 0,
     "blockmean2d": 0,
+    # Lorenzo stage-② mean and std (prefix_stats_batch)
+    "lorenzo_moments.edges": 0,
+    "lorenzo_moments.stats": 0,
     # the kernel entry point (``repro_torch.kernels``), off the main path
     "unpack": 0,
     "pack": 0,

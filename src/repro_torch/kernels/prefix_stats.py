@@ -26,6 +26,15 @@ reference's f32 sums round at every step (its tests allow rtol 1e-5).
 
 Unlike the reference, which refuses row counts that are not a multiple of
 its 64-row TPU band, every 2-D shape is accepted.
+
+:func:`prefix_stats_batch` takes a ``(B, n0, n1)`` batch of planes (the
+leaves of a ``batch_stack`` view) in one launch of each kernel and gives
+``(B, 2)``: the stats pass walks every field's tiles, each block keeps one
+pair per field, and the reduction runs a block per field.  The reference's
+sequential carry breaks under ``jax.vmap``; these kernels carry nothing
+between tiles.  As the sums are exact, a field's pair is the same bits
+alone or in any batch.  The serving rules of Lorenzo stage-② ``mean`` and
+``std`` read it (``core.oplib.StageContext.lorenzo_moments``).
 """
 from __future__ import annotations
 
@@ -46,6 +55,15 @@ def prefix_stats2d_plain(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.sum(qf), torch.sum(qf * qf)
 
 
+def prefix_stats_batch_plain(p: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`prefix_stats_batch`: each plane's
+    :func:`prefix_stats2d_plain`, stacked (``(B, 2)``, or ``(2,)`` for one
+    plane)."""
+    if p.ndim == 2:
+        return torch.stack(prefix_stats2d_plain(p))
+    return torch.stack([torch.stack(prefix_stats2d_plain(x)) for x in p])
+
+
 @functools.cache
 def corner_cols() -> int:
     """Columns per corner sum, the edge prefix kernel's column block, read
@@ -58,42 +76,58 @@ def corner_cols() -> int:
 def corner_sums_plain(coledge: torch.Tensor, cols: int) -> torch.Tensor:
     """Plain version of the corner sums: the column edge ``(n_rt, n1)``
     summed over each ``cols`` columns, ``(n_rt, ceil(n1/cols))`` int32,
-    modular."""
-    n_rt, n1 = coledge.shape
+    modular; of each field of a ``(B, n_rt, n1)`` batch."""
+    lead = tuple(coledge.shape[:-2])
+    n_rt, n1 = coledge.shape[-2:]
     n_cb = -(-n1 // cols)
-    z = torch.zeros((n_rt, n_cb * cols), dtype=torch.int64,
+    z = torch.zeros(lead + (n_rt, n_cb * cols), dtype=torch.int64,
                     device=coledge.device)
-    z[:, :n1] = coledge
-    return z.reshape(n_rt, n_cb, cols).sum(2).to(torch.int32)
+    z[..., :n1] = coledge
+    return z.reshape(lead + (n_rt, n_cb, cols)).sum(-1).to(torch.int32)
 
 
-def stats_edges(p: torch.Tensor):
+def stats_edges(p: torch.Tensor, site: str = "prefix_stats2d"):
     """Edge pass of the stats (kernels): the row edge, the column edge and
-    the corner sums of :func:`corner_sums_plain` at :func:`corner_cols`."""
-    n0, n1 = p.shape
+    the corner sums of :func:`corner_sums_plain` at :func:`corner_cols`
+    (of every plane of a ``(B, n0, n1)`` batch, one launch of each
+    kernel)."""
+    n0, n1 = p.shape[-2:]
     th, _ = fused.lorenzo_tile()
-    corners = torch.empty((-(-n0 // th), -(-n1 // corner_cols())),
+    corners = torch.empty(tuple(p.shape[:-2]) + (-(-n0 // th),
+                                                 -(-n1 // corner_cols())),
                           dtype=torch.int32, device=p.device)
     rowedge, coledge = fused.lorenzo_edges(p, (n0, n1), 0, from_payload=False,
-                                           site="prefix_stats2d",
-                                           corners=corners)
+                                           site=site, corners=corners)
     return rowedge, coledge, corners
 
 
+@functools.cache
+def stats_grid(n0: int, n1: int, batch: int) -> int:
+    """Blocks of the stats pass over ``batch`` (n0, n1) planes (its
+    partials hold one pair per field and block), read from the library
+    once per shape."""
+    grid = ctypes.c_int()
+    build.call("hsz_prefix_stats_grid", n0, n1, batch, ctypes.addressof(grid))
+    return grid.value
+
+
 def prefix_stats_tiles(p: torch.Tensor, rowedge: torch.Tensor,
-                       coledge: torch.Tensor, corners: torch.Tensor
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stats pass (kernel): per-block f64 pairs, then the fixed-order sum."""
-    n0, n1 = p.shape
-    th, tw = fused.lorenzo_tile()
-    n_tiles = -(-n0 // th) * -(-n1 // tw)
-    partials = torch.empty((n_tiles, 2), dtype=torch.float64, device=p.device)
-    out = torch.empty((2,), dtype=torch.float32, device=p.device)
-    build.call("hsz_prefix_stats", p.data_ptr(), n0, n1, rowedge.data_ptr(),
-               coledge.data_ptr(), corners.data_ptr(), partials.data_ptr(),
-               out.data_ptr(), ops.stream_ptr())
-    ops.count("prefix_stats2d.stats")
-    return out[0], out[1]
+                       coledge: torch.Tensor, corners: torch.Tensor, *,
+                       site: str = "prefix_stats2d") -> torch.Tensor:
+    """Stats pass (kernels): per-block f64 pairs of each field, then the
+    fixed-order sums; ``(2,)`` f32, or ``(B, 2)`` for a batch."""
+    lead = tuple(p.shape[:-2])
+    n0, n1 = p.shape[-2:]
+    batch = lead[0] if lead else 1
+    partials = torch.empty((batch, stats_grid(n0, n1, batch), 2),
+                           dtype=torch.float64, device=p.device)
+    out = torch.empty(lead + (2,), dtype=torch.float32, device=p.device)
+    build.call("hsz_prefix_stats", p.data_ptr(), n0, n1, batch,
+               rowedge.data_ptr(), coledge.data_ptr(), corners.data_ptr(),
+               partials.data_ptr(), partials.numel() // 2, out.data_ptr(),
+               ops.stream_ptr())
+    ops.count(f"{site}.stats")
+    return out
 
 
 def stats_launch_config() -> tuple[int, int, int]:
@@ -115,4 +149,20 @@ def prefix_stats2d(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if p.ndim != 2 or p.numel() == 0:
         raise ValueError(f"prefix_stats2d takes a non-empty 2-D plane, got "
                          f"{tuple(p.shape)}")
-    return prefix_stats_tiles(p, *stats_edges(p))
+    out = prefix_stats_tiles(p, *stats_edges(p))
+    return out[0], out[1]
+
+
+def prefix_stats_batch(p: torch.Tensor) -> torch.Tensor:
+    """``(Σq, Σq²)`` f32 of every plane of a ``(B, n0, n1)`` int32 batch,
+    ``(B, 2)`` (``(2,)`` for one ``(n0, n1)`` plane), each the exact sums
+    rounded once: the same bits as the plane alone.  Counted under the
+    ``lorenzo_moments`` sites, the serving rules' own."""
+    if not ops.on_card(p):
+        return prefix_stats_batch_plain(p)
+    ops.check(p, "residuals", torch.int32)
+    if p.ndim not in (2, 3) or p.numel() == 0:
+        raise ValueError(f"prefix_stats_batch takes a non-empty 2-D plane or "
+                         f"a batch of them, got {tuple(p.shape)}")
+    site = "lorenzo_moments"
+    return prefix_stats_tiles(p, *stats_edges(p, site), site=site)

@@ -388,18 +388,15 @@ def _unpack(unzigzag: bool) -> KernelSpec:
 
 # -- lorenzo_band.cu ---------------------------------------------------------------
 
-def _lz_tile_reads(nr: str, nc: str, payload: bool,
-                   batched: bool = True) -> tuple[Read, ...]:
+def _lz_tile_reads(nr: str, nc: str, payload: bool) -> tuple[Read, ...]:
     """The staged window of a Lorenzo tile: rows i0 .. i0 + nr - 1 and
-    columns j0 .. j0 + nc - 1 of the input (of field b's plane where
-    ``batched``), masked at the plane's edge."""
+    columns j0 .. j0 + nc - 1 of the input (of field b's plane), masked at
+    the plane's edge."""
     if payload:
         src = Read("words", ("w",), ("B*n_words",), ("<",))
-    elif batched:
+    else:
         src = Read("p", ("b*n0 + ti*TH + r", "tj*TW + c"), ("B*n0", "n1"),
                    ("<", "<"))
-    else:
-        src = Read("p", ("ti*TH + r", "tj*TW + c"), ("n0", "n1"), ("<", "<"))
     return (src,
             Read("R", ("r", "c"), (nr, "LD"), shared=True))
 
@@ -443,59 +440,53 @@ def _edges(payload: bool) -> KernelSpec:
 
 
 def _scan(corners: bool) -> KernelSpec:
-    """The edge scan.  Batched (``lorenzo_scan_kernel``): rbf row blocks
-    and n_cb column blocks per field, every field's row blocks first; the
-    corner scan (``prefix_stats2d``) takes one plane."""
+    """The edge scan, batched: rbf row blocks and n_cb column blocks per
+    field, every field's row blocks first.  The corner scan
+    (``prefix_stats2d``) also writes each field's corner sums."""
     name = "corner_scan_kernel" if corners else "lorenzo_scan_kernel"
-    lead = () if corners else (_BATCH,)
     col_writes = [
         Write("coledge", (Cover(_d(("s", "1", "slen"), ("warp", "slen", "SSEG")),
                                 "n_rt"),
                           Cover(_d(("lane", "1", "SCOLS"), ("cb", "SCOLS", "n_cb")),
-                                "n1")), lead=lead)]
+                                "n1")), lead=(_BATCH,))]
     if corners:
         col_writes.append(Write(
             "corners", (Cover(_d(("s", "1", "slen"), ("warp", "slen", "SSEG")),
                               "n_rt"),
                         Cover(_d(("cb", "1", "n_cb")), "n_cb", clip=False)),
-            fixed=("lane",)))
-    rows_walk = (Cover(_d(("rb", "1", "n_rb")), "n_rb", clip=False) if corners
-                 else Cover(_d(("rb", "1", "rbf"), ("b", "rbf", "B")), "n_rb",
-                            clip=False))
-    cols_walk = (Cover(_d(("cb", "1", "n_cb")), "n_cb", clip=False) if corners
-                 else Cover(_d(("cb", "1", "n_cb"), ("b", "n_cb", "B")),
-                            "B*n_cb", clip=False))
-    rbf = "n_rb" if corners else "rbf"  # row blocks of one field
+            fixed=("lane",), lead=(_BATCH,)))
     return KernelSpec(
         name=name, source="lorenzo_band.cu", function=name,
         launch="launch_edges",
         replaces=_PALLAS + ("prefix_stats.py:56" if corners
                             else "fused.py:288"),
-        grid="n_rb + n_cb" if corners else "n_rb + B*n_cb",
-        bounds={"g": ("0", "SSEG - 1"), rbf: ("1", None),
+        grid="n_rb + B*n_cb",
+        bounds={"g": ("0", "SSEG - 1"), "rbf": ("1", None),
                 "n_cb": ("1", None), "n_ct": ("1", None),
                 "slen": ("1", None), "e_rb": ("1", "NWARP"),
                 "e_cb": ("1", "SCOLS"), "e_len": ("1", "SSEG"),
-                **({} if corners else {"B": ("1", None)})},
-        facts=((() if corners else ("n_rb == B*rbf",))
-               + (f"n0 == ({rbf} - 1)*NWARP + e_rb",
-                  "n1 == (n_cb - 1)*SCOLS + e_cb",
-                  "n_rt == (slen - 1)*SSEG + e_len")),
+                "B": ("1", None)},
+        facts=("n_rb == B*rbf", "n0 == (rbf - 1)*NWARP + e_rb",
+               "n1 == (n_cb - 1)*SCOLS + e_cb",
+               "n_rt == (slen - 1)*SSEG + e_len"),
         branches=(
             # blocks below n_rb: a warp per row of rowedge, 32 tiles a step
-            Branch("0", "n_rb", rows_walk,
+            Branch("0", "n_rb",
+                   Cover(_d(("rb", "1", "rbf"), ("b", "rbf", "B")), "n_rb",
+                         clip=False),
                    writes=(Write("rowedge", (
-                       Cover(_d(("warp", "1", "NWARP"), ("rb", "NWARP", rbf)),
+                       Cover(_d(("warp", "1", "NWARP"), ("rb", "NWARP", "rbf")),
                              "n0"),
                        Cover(_d(("lane", "1", "32"), ("c0", "32", None)),
-                             "n_ct")), lead=lead),)),
+                             "n_ct")), lead=(_BATCH,)),)),
             # the others: 32 columns of coledge, a segment of tile rows a warp
-            Branch("n_rb", "n_cb" if corners else "B*n_cb", cols_walk,
+            Branch("n_rb", "B*n_cb",
+                   Cover(_d(("cb", "1", "n_cb"), ("b", "n_cb", "B")), "B*n_cb",
+                         clip=False),
                    writes=tuple(col_writes),
                    reads=(Read("S", ("g", "lane"), ("SSEG", "SCOLS"),
                                shared=True),))),
-        params={"n_rb": ("" if corners else "B * ") + "cdiv(n0, NWARP)",
-                **({} if corners else {"rbf": "cdiv(n0, NWARP)"}),
+        params={"n_rb": "B * cdiv(n0, NWARP)", "rbf": "cdiv(n0, NWARP)",
                 "n_cb": "cdiv(n1, SCOLS)",
                 "n_rt": "cdiv(n0, TH)", "n_ct": "cdiv(n1, TW)",
                 "slen": "cdiv(cdiv(n0, TH), SSEG)",
@@ -550,7 +541,7 @@ def _stencil(payload: bool, what: str) -> KernelSpec:
 
 def _stats_tile(wide: bool) -> KernelSpec:
     flag = "true" if wide else "false"
-    # corner sums left of tile (ti, tj): groups b < TGROUPS*tj, 4 loads a
+    # corner sums left of tile (ti, tj): groups cg < TGROUPS*tj, 4 loads a
     # lane in the narrow kernel, a loop past them in the wide one
     groups = (Cover(_d(("lane", "1", "32"), ("m", "32", None)), "TGROUPS*tj")
               if wide else
@@ -560,58 +551,64 @@ def _stats_tile(wide: bool) -> KernelSpec:
         function="prefix_stats_tile_kernel", launch="hsz_prefix_stats",
         replaces=_PALLAS + "prefix_stats.py:56",
         grid="G",
-        bounds=_lz_bounds(b=("0", "TGROUPS*tj - 1"), wr=("0", "NWARP"),
-                          ch=("0", "1"), **_PERSISTENT_BOUNDS,
+        bounds=_lz_bounds(cg=("0", "TGROUPS*tj - 1"), wr=("0", "NWARP"),
+                          ch=("0", "1"), **_BPERSISTENT_BOUNDS,
                           n_cb=("TGROUPS*n_ct - TGROUPS + 1", None),
                           **({} if wide else {"n_ct": ("1", "33")})),
         facts=_TILE_FACTS,
         branches=(Branch(
-            "0", "G", _PERSISTENT, _COORDS,
+            "0", "G", _BPERSISTENT, _BCOORDS,
+            # each block's pair of every field: its tiles' sums, or zeros
+            # for the fields its tiles skip
             writes=(Write("partials", (Cover(_d(("bx", "1", "G")), "G", clip=False),
                                        Cover(_d(("ch", "1", "2")), "2",
                                              clip=False)),
-                          threads=("t",), fixed=("t",), alloc=("n_tiles", "2"),
-                          per="block"),),
-            reads=_lz_tile_reads("TH", "TW", False, batched=False) + (
-                Read("tile", ("bx",), ("n_tiles",)),
-                Read("corners", ("ti", "b"), ("n_rt", "n_cb")),
+                          threads=("t",), fixed=("t",), alloc=("G", "2"),
+                          per="block", lead=(_BATCH,)),),
+            reads=_lz_tile_reads("TH", "TW", False) + (
+                Read("tile", ("bx",), ("B*n_tiles",)),
+                Read("coledge", ("b*n_rt + ti", "tj*TW + c"), ("B*n_rt", "n1"),
+                     ("", "<")),
+                Read("rowedge", ("b*n0 + ti*TH + r", "tj"), ("B*n0", "n_ct"),
+                     ("<", "")),
+                Read("corners", ("b*n_rt + ti", "cg"), ("B*n_rt", "n_cb")),
                 Read("T", ("wr", "c"), ("NWARP + 1", "LDT"), shared=True),
                 Read("red", ("wr",), ("2*NWARP",), ("wr <= NWARP - 1",),
                      shared=True)),
             sums=(Sum("corners", (groups,)),)),),
-        params={**_TILE_PARAMS, "G": "min(cdiv(n0, TH) * cdiv(n1, TW), "
-                                     "sms * per_sm)",
+        params={**_TILE_PARAMS, **_BPERSISTENT_PARAM,
                 "n_cb": "cdiv(n1, SCOLS)"},
         smem_dynamic="PS_SMEM",
-        notes="persistent grid over tiles; one (sum q, sum q^2) pair a block; "
-              "the narrow kernel is launched only where no tile lies right "
-              "of 128 corner sums (wide_stats: TGROUPS*(n_ct - 1) <= 128)")
+        notes="persistent grid over the tiles of every field of a batch; "
+              "one (sum q, sum q^2) pair a block and field; the narrow "
+              "kernel is launched only where no tile lies right of 128 "
+              "corner sums (wide_stats: TGROUPS*(n_ct - 1) <= 128)")
 
 
 _REDUCE = KernelSpec(
     name="prefix_stats_reduce_kernel", source="lorenzo_band.cu",
     function="prefix_stats_reduce_kernel", launch="hsz_prefix_stats",
     replaces=_PALLAS + "prefix_stats.py:56",
-    grid="1",
+    grid="B",
     bounds={"kp": ("0", "n_pairs - 1"), "ch": ("0", "1"),
-            "wr": ("0", "NT//32 - 1"), "G": ("1", "n_tiles"),
-            "n_tiles": ("1", None)},
+            "wr": ("0", "NT//32 - 1"), "G": ("1", "B*n_tiles"),
+            "n_tiles": ("1", None), "B": ("1", None)},
     facts=("n_pairs == G",),
     branches=(Branch(
-        "0", "1", Cover(_d(("bx", "1", "1")), "1", clip=False),
+        "0", "B", Cover(_d(("b", "1", "B")), "B", clip=False),
         writes=(Write("out", (Cover(_d(("ch", "1", "2")), "2", clip=False),),
-                      threads=("t",), fixed=("t",)),),
-        reads=(Read("partials", ("kp", "ch"), ("n_tiles", "2")),
+                      threads=("t",), fixed=("t",), lead=(_BATCH,)),),
+        reads=(Read("partials", ("b*G + kp", "ch"), ("B*G", "2")),
                Read("red", ("ch", "wr"), ("2", "NT//32"), shared=True)),
         sums=(Sum("partials", (Cover(_d(("t", "1", "NT"), ("it", "NT", None)),
                                      "n_pairs"),)),)),),
     params={"n_tiles": "cdiv(n0, TH) * cdiv(n1, TW)",
-            "G": "min(cdiv(n0, TH) * cdiv(n1, TW), sms * per_sm)",
-            "n_pairs": "min(cdiv(n0, TH) * cdiv(n1, TW), sms * per_sm)"},
+            "G": "min(B * cdiv(n0, TH) * cdiv(n1, TW), sms * per_sm)",
+            "n_pairs": "min(B * cdiv(n0, TH) * cdiv(n1, TW), sms * per_sm)"},
     smem_static="2*(NT//32)*8",
-    notes="one block launched early by programmatic dependent launch "
-          "(griddepcontrol.wait before it reads the partials); n_pairs is "
-          "the tile pass's grid")
+    notes="one block a field, launched early by programmatic dependent "
+          "launch (griddepcontrol.wait before it reads the partials); "
+          "n_pairs is the tile pass's grid")
 
 # -- blockmean_band.cu ----------------------------------------------------------------
 

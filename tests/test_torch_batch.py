@@ -48,7 +48,7 @@ from repro_torch.core import (Stage, batch_size, batch_stack, batch_unstack,
 from repro_torch.core import encode
 from repro_torch.core import homomorphic as H
 from repro_torch.core.stages import LEAVES
-from repro_torch.kernels import bitpack, fused, ops
+from repro_torch.kernels import bitpack, fused, ops, prefix_stats
 
 ND = ["hszp_nd", "hszx_nd"]
 KINDS = ["Compressed", "Encoded"]
@@ -447,3 +447,85 @@ def test_batch_view_runs_full_field_only():
     with pytest.raises(ValueError, match="one field at a time"):
         oplib.compute(view, "mean", Stage.P, region=((0, 8), (0, 8)),
                       payload_words=view.payload)
+
+
+# ===========================================================================
+# Lorenzo stage-② mean and std: the prefix-stats kernels' path
+# ===========================================================================
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("shape", [LZ_SHAPE, LEAK_LZ])
+def test_batched_prefix_stats_plain_matches_fields(shape, batch):
+    """The batched prefix-stats wrapper on the CPU (its plain version, what
+    the kernels are held to on the card) is each plane's
+    ``prefix_stats2d_plain``, bitwise, and launches nothing."""
+    rng = np.random.default_rng(batch + shape[1])
+    p = torch.as_tensor(rng.integers(-2 ** 12, 2 ** 12, (batch,) + shape)
+                        .astype(np.int32))
+    ops.reset_launches()
+    got = prefix_stats.prefix_stats_batch(p)
+    assert got.shape == (batch, 2) and got.dtype == torch.float32
+    for b in range(batch):
+        _bitwise(torch.stack(prefix_stats.prefix_stats2d_plain(p[b])), got[b],
+                 f"field {b}")
+        _bitwise(prefix_stats.prefix_stats_batch(p[b]), got[b],
+                 f"field {b} alone")
+    assert set(ops.LAUNCHES.values()) == {0}
+
+
+#: contexts of Lorenzo stage-② statistics: (scheme, shape, region, does the
+#: prefix-stats path apply where the residuals lie on the card)
+MOMENT_CASES = {
+    "full": ("hszp_nd", (32, 48), None, True),
+    "padded": ("hszp_nd", FIELD_SHAPE, None, True),
+    "region": ("hszp_nd", FIELD_SHAPE, ((2, 20), (3, 30)), False),
+    "rank3": ("hszp_nd", (9, 10, 12), None, False),
+    "flat": ("hszp", FIELD_SHAPE, None, False),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("case", list(MOMENT_CASES))
+def test_lorenzo_moments_path(case, batch, monkeypatch):
+    """Which path ``mean`` / ``std`` @② take: with the residuals on the
+    card (its device check answered yes) a 2-D full Lorenzo field calls the
+    batched prefix-stats wrapper once per context, on the residuals' valid
+    crop, and its answers are the batch's fields' own (batch == lone,
+    bitwise) and within the slice tolerances of the torch path; a region, a
+    rank-3 field and a 1-D scheme never call it and answer bit for bit what
+    they answer on the CPU, where no field calls it."""
+    scheme, shape, region, applies = MOMENT_CASES[case]
+    _, ts = _fields(scheme, "Compressed", batch, shape=shape, seed=batch)
+    items = [batch_stack(ts)] + ts
+    cpu = [oplib.compute(c, ["mean", "std"], Stage.P, region=region)
+           for c in items]
+    closure = oplib.set_closure(["mean", "std"], ts[0].scheme, Stage.P)
+    for c in items:
+        assert oplib.StageContext(c, Stage.P, region,
+                                  closure).lorenzo_moments is None
+    calls = []
+
+    def moments(p):
+        calls.append((tuple(p.shape), p.is_contiguous()))
+        return prefix_stats.prefix_stats_batch_plain(p)
+
+    monkeypatch.setattr(oplib, "kernel_ops", type("Card", (), {
+        "on_card": staticmethod(lambda *t: True),
+        "kernels_enabled": staticmethod(ops.kernels_enabled)}))
+    monkeypatch.setattr(oplib, "kernel_stats", type("Stats", (), {
+        "prefix_stats_batch": staticmethod(moments)}))
+    card = [oplib.compute(c, ["mean", "std"], Stage.P, region=region)
+            for c in items]
+    if not applies:
+        assert calls == []
+        for want, got in zip(cpu, card):
+            for op in ("mean", "std"):
+                _bitwise(want[op], got[op], f"{case} {op}")
+        return
+    assert calls == [((batch,) + shape, True)] + [(shape, True)] * batch
+    for op in ("mean", "std"):
+        for i, c in enumerate(ts):
+            what = f"{case} {op} field {i}"
+            _bitwise(card[1 + i][op], _item(card[0][op], i), what)
+            _match_reference(op, cpu[1 + i][op], card[1 + i][op], c, Stage.P,
+                             what)

@@ -546,6 +546,7 @@ def test_entry_point_on_cpu_launches_nothing():
     K.grad2d(p, 1e-2)
     K.laplacian2d(p, 1e-2)
     K.prefix_stats2d(p)
+    prefix_stats.prefix_stats_batch(torch.stack([p, p]))
     assert set(ops.LAUNCHES.values()) == {0}
 
 

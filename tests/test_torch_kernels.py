@@ -650,3 +650,140 @@ def test_residual_plane_kernels_on_region_sub_planes(shape):
     for what in fused.BLOCKMEAN_WHATS:
         _same_card(fused.blockmean_core(plane, meta, block, what),
                    fused.blockmean2d(plane, meta, block, what=what))
+
+
+# ===========================================================================
+# batched prefix stats: Lorenzo stage-② mean and std (card only)
+# ===========================================================================
+
+#: planes of the batched stats pass: Ocean, ragged tiles with n1 % 4 != 0,
+#: one over 4224 columns (the wide stats kernel), one under a tile
+PS_BATCH_SHAPES = [(2400, 3600), (2401, 3599), (70, 4300), (31, 127)]
+PS_BATCH_CASES = [(s, b) for s in PS_BATCH_SHAPES for b in (1, 3, 16)]
+
+
+def _bounded_batch(shape, batch: int, seed: int, dev):
+    """A batch of Lorenzo residual planes (int32) of a bounded ``q``
+    (int64, ``|q| < 2^12``), so that both sums of every plane are exact
+    integers in f64."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-2 ** 12, 2 ** 12, (batch,) + tuple(shape), generator=g,
+                      dtype=torch.int64, device=dev)
+    z = torch.zeros((batch, shape[0] + 1, shape[1] + 1), dtype=torch.int64,
+                    device=dev)
+    z[:, 1:, 1:] = q
+    p = z[:, 1:, 1:] - z[:, :-1, 1:] - z[:, 1:, :-1] + z[:, :-1, :-1]
+    return p.to(torch.int32).contiguous(), q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,batch", PS_BATCH_CASES,
+                         ids=[f"{s[0]}x{s[1]}-b{b}" for s, b in PS_BATCH_CASES])
+def test_prefix_stats_batch_on_card(shape, batch):
+    """One launch of each pass over the batch: every field's (Σq, Σq²) is
+    its exact integer sums rounded once to f32, bitwise; the same bits
+    alone, through the single-plane entry point and on a second launch; and
+    the per-field plain version within rtol 1e-5."""
+    from repro_torch.kernels import prefix_stats
+
+    dev = _card()
+    p, q = _bounded_batch(shape, batch, shape[1] * 17 + batch, dev)
+    before = dict(ops.LAUNCHES)
+    got = prefix_stats.prefix_stats_batch(p)
+    for site in ("lorenzo_moments.edges", "lorenzo_moments.stats"):
+        assert ops.LAUNCHES[site] == before[site] + 1, site
+    exact = torch.stack([q.sum((1, 2)), (q * q).sum((1, 2))], -1)
+    assert int(exact.abs().max()) < 2 ** 53
+    assert got.shape == (batch, 2) and got.dtype == torch.float32
+    _same_card(exact.to(torch.float64).to(torch.float32), got)
+    _same_card(got, prefix_stats.prefix_stats_batch(p))
+    for b in range(batch):
+        _same_card(got[b], prefix_stats.prefix_stats_batch(p[b]))
+        _same_card(tuple(got[b]), K.prefix_stats2d(p[b]))
+        plain = prefix_stats.prefix_stats2d_plain(p[b])
+        for w, g in zip(plain, got[b]):
+            np.testing.assert_allclose(float(g), float(w), rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PS_BATCH_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in PS_BATCH_SHAPES])
+def test_batched_edges_and_stencils_with_corner_sums_on_card(shape):
+    """On a batch of three planes (full-range int32 residuals, sums wrap)
+    the edge pass with the corner sums gives each field's edge prefixes
+    and corner sums, bitwise; without them the same edges; and the stencil
+    planes of both sources stay their plain versions."""
+    from repro_torch.kernels import prefix_stats
+
+    dev = _card()
+    rng = np.random.default_rng(shape[0] + shape[1])
+    p = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (3,) + shape,
+                                     dtype=np.int64).astype(np.int32),
+                        device=dev)
+    want = fused.lorenzo_edge_prefixes_plain(p, fused.lorenzo_tile())
+    corners = prefix_stats.corner_sums_plain(want[1], prefix_stats.corner_cols())
+    _same_card(want + (corners,), prefix_stats.stats_edges(p))
+    for b in range(3):
+        _same_card(corners[b], prefix_stats.stats_edges(p[b])[2])
+    _same_card(want, fused.lorenzo_edges(p, shape, 0, from_payload=False,
+                                         site="lorenzo2d"))
+    bits = 9
+    r = torch.as_tensor(rng.integers(-2 ** 8, 2 ** 8, (3,) + shape,
+                                     dtype=np.int64).astype(np.int32),
+                        device=dev)
+    words = torch.stack([encode.pack_uniform(encode.zigzag(x.reshape(-1)),
+                                             bits) for x in r])
+    for what in fused.LORENZO_WHATS:
+        _same_card(fused.lorenzo_core(p, what), fused.lorenzo2d(p, what=what))
+        _same_card(fused.lorenzo_core(r, what),
+                   fused.lorenzo_enc2d(words, shape, bits, what=what))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2400, 3600), (2401, 3599)],
+                         ids=["ocean", "padded"])
+def test_lorenzo_statistics_rule_on_card(shape):
+    """``mean`` and ``std`` @② of Lorenzo fields on the card (a padded
+    layout runs on the valid crop): one launch of each prefix-stats pass per
+    context; each answer the float tail of the exact stage-③ sums rounded
+    once to f32, bitwise; a batch's answers bitwise its fields' alone; and
+    within the paper's bias bound of the CPU port's torch path (f32 sums)
+    and of stage ④."""
+    from repro_torch.core import Stage, batch_stack, by_name, error_analysis
+    from repro_torch.core import oplib
+
+    dev = _card()
+    comp = by_name("hszp_nd")
+    rng = np.random.default_rng(shape[1])
+    fields = [comp.compress(torch.as_tensor(np.cumsum(rng.normal(
+        0, 1, shape), axis=0).astype(np.float32), device=dev),
+        abs_eb=1e-2 * (1 + i), device=dev) for i in range(3)]
+    bits = max(comp.max_bits(c) for c in fields)
+    for fs in (fields, [comp.encode(c, bits=bits) for c in fields]):
+        before = dict(ops.LAUNCHES)
+        res = oplib.compute(batch_stack(fs), ["mean", "std"], Stage.P)
+        for site in ("lorenzo_moments.edges", "lorenzo_moments.stats"):
+            assert ops.LAUNCHES[site] == before[site] + 1, site
+        for i, c in enumerate(fs):
+            lone = oplib.compute(c, ["mean", "std"], Stage.P)
+            q = comp.decompress(c, Stage.Q).to(torch.int64)
+            assert int(q.abs().max()) < 2 ** 26
+            s1, s2 = q.sum(), (q * q).sum()
+            assert int(s2) < 2 ** 53
+            s1, s2 = (x.to(torch.float64).to(torch.float32) for x in (s1, s2))
+            n = c.n
+            var = (s2 - s1 * s1 / n) / (n - 1)
+            exact = {"mean": s1 / n * c.eps * 2.0,
+                     "std": torch.sqrt(torch.clamp(var, min=0.0)) * c.eps * 2.0}
+            kind, arrays, meta = convert.to_arrays(c)
+            cpu = oplib.compute(convert.from_arrays(kind, arrays, meta,
+                                                    device="cpu"),
+                                ["mean", "std"], Stage.P)
+            four = oplib.compute(c, ["mean", "std"], Stage.F)
+            for op, bound in (("mean", error_analysis.mean_bias_bound),
+                              ("std", error_analysis.std_bias_bound)):
+                _same_card(exact[op], lone[op])
+                _same_card(lone[op], res[op][i])
+                g, b = float(lone[op]), bound(c, Stage.P)
+                assert abs(g - float(cpu[op])) <= b, (op, g, float(cpu[op]))
+                assert abs(g - float(four[op])) <= b, (op, g, float(four[op]))
