@@ -742,17 +742,28 @@ def kernel_sig() -> str:
     return "on" if kernel_ops.kernels_enabled() else "off"
 
 
+def _declined(rule: Rule) -> Rule:
+    """``rule`` run under the ``hsz.op.torch`` span: a torch rule standing
+    in for a fused rule that declined the context (a rank-3 field, say)."""
+    def run(ctx: StageContext, axis: int):
+        with trace.span("hsz.op.torch"):
+            return rule(ctx, axis)
+    return run
+
+
 def _select(fused: Mapping, lower: Mapping, stage: Stage, family: str,
             ctx: StageContext) -> Rule:
     """The one dispatch rule: the cell's fused rule when fused rules are
-    selected and it covers this context, else the torch rule."""
+    selected and it covers this context, else the torch rule (spanned as
+    ``hsz.op.torch`` where the fused rule was asked and declined)."""
     fr = fused.get((stage, family))
-    if fr is not None and kernel_ops.kernels_enabled() and fr.covers(ctx):
+    asked = fr is not None and kernel_ops.kernels_enabled()
+    if asked and fr.covers(ctx):
         return fr
     rule = lower.get((stage, family)) or lower.get((stage, "any"))
     if rule is None:
         raise KeyError((stage, family))
-    return rule
+    return _declined(rule) if asked else rule
 
 
 def select_rule(spec: OpSpec, stage: Stage, family: str,

@@ -39,7 +39,8 @@ ProfilerActivity.CUDA])`` and read ``prof.events()`` or write
 ``hsz.serve.group_by`` and one ``hsz.query`` per group, which holds the
 planner's (``hsz.plan``, ``hsz.store``), the engine's (``hsz.engine.*``)
 and, inside the program, ``hsz.op`` > ``hsz.prelude`` > ``hsz.decode``
-and ``hsz.kernel.launch``.
+and ``hsz.kernel.launch`` (``hsz.op.torch`` around a torch rule that runs
+where the cell's fused rule declined the context).
 """
 from __future__ import annotations
 from collections.abc import Sequence

@@ -34,6 +34,7 @@ SPANS = (
     "hsz.engine.build",     # building a program on a cache miss
     "hsz.engine.stack",     # stacking a batch's fields and seeds
     "hsz.op",               # one op's lowering rule (postlude, kernels)
+    "hsz.op.torch",         # a torch rule where the fused rule declined
     "hsz.prelude",          # a StageContext reconstruction, first computed
     "hsz.decode",           # payload decode (full field or region)
     "hsz.kernel.launch",    # one launcher call into the CUDA library
