@@ -300,7 +300,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import analytics, audit  # noqa: E402
+from repro_torch import analytics, audit, convert  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import Stage, by_name, encode, error_analysis  # noqa: E402
 from repro_torch.core import blocking, expr, oplib, quantize  # noqa: E402
@@ -393,6 +393,9 @@ SITES = {
                               "src/repro/kernels/prefix_stats.py:56"),
     "lorenzo_moments.stats": (f"{CSRC}/lorenzo_band.cu",
                               "src/repro/kernels/prefix_stats.py:56"),
+    # no Pallas site: the reference declines rank 3
+    "lorenzo_enc3d.edges": (f"{CSRC}/lorenzo3d.cu", "none"),
+    "lorenzo_enc3d.stencil": (f"{CSRC}/lorenzo3d.cu", "none"),
 }
 #: path -> the kernel sites it must launch
 PATHS = {
@@ -418,6 +421,7 @@ PATHS = {
                    "blockmean2d", "grad2d"),
     "science store": ("lorenzo2d.edges", "lorenzo2d.stencil", "blockmean2d"),
     "collectives": ("pack", "unpack"),
+    "rank-3 path": ("lorenzo_enc3d.edges", "lorenzo_enc3d.stencil"),
 }
 
 LOG: list[str] = []
@@ -1280,6 +1284,46 @@ def _words(e, region, closure):
     gi = R.plan_region(e, region, closure).device_gather(e.bits,
                                                          e.payload.device)
     return e.payload.index_select(0, gi.word_idx)
+
+
+#: the rank-3 path's fields: a padded layout (8^3 blocks) of three components
+RANK3 = (40, 45, 70)
+
+
+def rank3_path(seed: int) -> None:
+    """Rank-3 HSZp-nd fields on the card through ``oplib.compute``: the
+    derivative along each axis, the gradient, divergence and 3-D curl at ②
+    ③ ④, one field and a batch of three, bitwise the torch rules (fused
+    rules off) and the CPU port."""
+    from repro_torch.core.stages import batch_stack
+    comp = by_name("hszp_nd", (8, 8, 8))
+    rng = np.random.default_rng(seed)
+    raw = [np.cumsum(np.cumsum(rng.normal(0, 1, RANK3), 0), 2).astype(
+        np.float32) for _ in range(3)]
+    cs = [comp.compress(torch.as_tensor(x, device=DEVICE), rel_eb=REL_EB,
+                        device=DEVICE) for x in raw]
+    bits = max(comp.max_bits(c) for c in cs)
+    es = [comp.encode(c, bits=bits) for c in cs]
+    cpu = [convert.from_arrays(*convert.to_arrays(e), device="cpu")
+           for e in es]
+    for stage in (Stage.P, Stage.Q, Stage.F):
+        cells = [(es[0], cpu[0], ("derivative",), a) for a in range(3)]
+        cells += [(es[0], cpu[0], ("gradient",), 0),
+                  (batch_stack(es), None, ("derivative",), 2),
+                  (es, cpu, ("divergence", "curl"), 0)]
+        for target, host, names, axis in cells:
+            got = oplib.compute(target, list(names), stage, axis=axis)
+            with ops.override_mode("off"):
+                want = oplib.compute(target, list(names), stage, axis=axis)
+            for n in names:
+                bitwise_err(want[n], got[n], f"rank-3 {n} axis {axis} {stage}")
+                if host is not None:
+                    ref = oplib.compute(host, [n], stage, axis=axis)[n]
+                    bitwise_err(tuple(x.to(DEVICE) for x in _tup(ref)),
+                                got[n], f"rank-3 {n} axis {axis} {stage} "
+                                "against the CPU port")
+    say(f"rank-3 path: {RANK3} in 8^3 blocks at {bits} bits, every axis, "
+        "② ③ ④, batched and not: bitwise the torch rules and the CPU port")
 
 
 def region_path(fields) -> dict:
@@ -3643,6 +3687,54 @@ def cover_bitpack(n: int, bits: int, batch: int = 1, *, g: Guarded,
                     f"unpack<{residuals}> {n} x {bits} bits")
 
 
+def cover_lorenzo3d(shape, bits: int, batch: int = 1, padded=None, *,
+                    g: Guarded, rng) -> None:
+    """The rank-3 Lorenzo derivative's kernels (every axis, axis 2 after its
+    edge pass) over ``batch`` fields of seeded payload words (every residual
+    the width allows) in one launch, in the ``padded`` layout if given,
+    against the plain versions bitwise."""
+    padded = tuple(padded or shape)
+    lead = (batch,) if batch > 1 else ()
+    n_words = -(-math.prod(padded) * bits // 32)
+    words = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, lead + (n_words,),
+                                         dtype=np.int64).astype(np.int32),
+                            device=DEVICE)
+    eps = torch.as_tensor(rng.uniform(1e-4, 1e-2, lead).astype(np.float32),
+                          device=DEVICE)
+    m = tuple(n - 2 for n in shape)
+    sizes = (n_words, bits, padded[1], padded[2], *shape, batch)
+    run = specs.CONSTANTS["lorenzo3d.cu"]["RUN"]
+    s = ops.stream_ptr()
+    ve = g(("lorenzo3d_edges_kernel",),
+           {"vedge": (lead + (-(-m[0] // run), shape[1] - 1, m[2]),
+                      torch.int32)},
+           lambda ptr: build.call("hsz_lorenzo3d_edges", words.data_ptr(),
+                                  *sizes, ptr["vedge"], s))["vedge"]
+    bitwise_err(fused.lorenzo3d_edges_plain(words, padded, shape, bits), ve,
+                f"lorenzo3d edges {batch} x {shape} in {padded} at {bits}")
+    for axis in range(3):
+        name = ("lorenzo3d_lane_kernel" if axis == 2
+                else f"lorenzo3d_plane_kernel<{axis}>")
+        got = g((name,), {"out": (lead + m, torch.float32)},
+                lambda ptr, a=axis: build.call(
+                    "hsz_lorenzo3d_stencil", a, words.data_ptr(), *sizes,
+                    eps.data_ptr(), ve.data_ptr() if a == 2 else None,
+                    ptr["out"], s))["out"]
+        bitwise_err(fused.lorenzo_enc3d_plain(words, padded, shape, bits,
+                                              axis, eps), got,
+                    f"lorenzo3d axis {axis} {batch} x {shape} in {padded} "
+                    f"at {bits}")
+
+
+#: rank-3 coverage: one past each tiling limit of ``lorenzo3d.cu`` (runs
+#: of 64 rows, 8 slabs a block, 16 rows a warp, 32- and 384-column chunks),
+#: its widest interiors, a padded layout and a batch
+COVER_3D = (((3, 3, 3), 1, 1, None), ((67, 19, 387), 7, 1, None),
+            ((66, 18, 386), 31, 1, None), ((20, 514, 35), 17, 1, None),
+            ((4, 11, 770), 9, 1, None),
+            ((20, 27, 33), 9, COVER_BATCH, (24, 32, 40)))
+
+
 def cover_shapes() -> list[tuple]:
     """Every (family, arguments) case of the coverage check."""
     edge = [(r, c) for r in COVER_ROWS for c in COVER_COLS]
@@ -3663,6 +3755,7 @@ def cover_shapes() -> list[tuple]:
     cases += [("bitpack", span * k + 1, b, COVER_BATCH) for k in (1, 2)
               for b in (7, 17)]
     cases += [("entry", s, COVER_BATCH) for s in COVER_BATCH_GRAD]
+    cases += [("lorenzo3d", *c) for c in COVER_3D]
     return cases
 
 
@@ -3680,7 +3773,8 @@ def check_coverage(seed: int, cases=None) -> set[str]:
     for case in cases:
         kind, *args = case
         {"lorenzo": cover_lorenzo, "blockmean": cover_blockmean,
-         "entry": cover_entry, "bitpack": cover_bitpack}[kind](
+         "entry": cover_entry, "bitpack": cover_bitpack,
+         "lorenzo3d": cover_lorenzo3d}[kind](
              *args, g=g, rng=rng)
     missing = sorted(set(specs.KERNEL_IDS) - covered)
     if full and missing:
@@ -5347,6 +5441,116 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
     return out
 
 
+#: the rank-3 kernels' main-path shape: a serving group of 16 Miranda
+#: fields (256 x 384 x 384) at 9 bits, and one field of it
+MIRANDA, MIRANDA_BATCH, MIRANDA_BITS = (256, 384, 384), 16, 9
+
+
+def _rank3_times(fn, args: tuple, plain, reps: int, n_bytes: int,
+                 n_ops: tuple) -> dict:
+    """One rank-3 pass or derivative timed as :func:`time_kernels` does
+    (``plain`` the plain version of all its fields, called once a rep)."""
+    k_ms = cuda_ms(functools.partial(fn, *args), reps)
+    g_ms = graph_ms(fn, reps, args)
+    h_ms = enqueue_ms(functools.partial(fn, *args), reps)
+    p_ms = cuda_ms(plain, 1)
+    b_ms, b_by = bound_ms(n_bytes, *n_ops)
+    return {"ms": k_ms, "graph_ms": g_ms, "enqueue_ms": h_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+
+
+def time_rank3(seed: int, reps: int, tag: str, errs: dict) -> dict:
+    """The rank-3 Lorenzo derivative at its main-path shape: B = 16 Miranda
+    fields of seeded payload words (every residual the width allows) with
+    their own eps, and the first of them alone.  Each axis, axis 2 as its
+    edge pass and its stencil, bitwise ``lorenzo_enc3d_plain`` (the edge
+    pass ``lorenzo3d_edges_plain``) field by field on the same payload and
+    eps, then timed; the bound is this run's payload read once and its f32
+    interior written once.  Returns the two sites' kernels-line entries:
+    the edge pass at B = 16, and the stencil's with every axis's whole
+    derivative at B = 16 and at B = 1 under ``axes`` (its own numbers are
+    axis 0's, where the derivative is the stencil launch alone)."""
+    shape, batch, bits = MIRANDA, MIRANDA_BATCH, MIRANDA_BITS
+    n = math.prod(shape)
+    m = tuple(k - 2 for k in shape)
+    n_words = -(-n * bits // 32)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    words = torch.randint(-2 ** 31, 2 ** 31, (batch, n_words), generator=gen,
+                          device=DEVICE, dtype=torch.int64).to(torch.int32)
+    eps = torch.rand((batch,), generator=gen, device=DEVICE) * 1e-2 + 1e-4
+    cases = {batch: (words, eps), 1: (words[0].clone(), eps[0].clone())}
+    ops.reset_launches()
+    vedge = fused.lorenzo3d_edges(words, shape, shape, bits)
+    for b in range(batch):
+        bitwise_err(fused.lorenzo3d_edges_plain(words[b], shape, shape, bits),
+                    vedge[b], f"lorenzo3d edges, Miranda field {b} of {batch}")
+    del vedge
+    for axis in range(3):
+        got = fused.lorenzo_enc3d(words, shape, shape, bits, axis, eps)
+        for b in range(batch):
+            bitwise_err(fused.lorenzo_enc3d_plain(words[b], shape, shape, bits,
+                                                  axis, eps[b]), got[b],
+                        f"lorenzo_enc3d axis {axis}, Miranda field {b} of "
+                        f"{batch}")
+        del got
+    got = {k: ops.LAUNCHES[k] for k in PATHS["rank-3 path"]}
+    if got != {"lorenzo_enc3d.edges": 2, "lorenzo_enc3d.stencil": 3}:
+        fail(f"rank-3 launches: {got} (one edge pass alone and one "
+             "derivative of each axis)")
+    # a derivative launches one stencil, and axis 2 one edge pass
+    per_call = {"lorenzo_enc3d.edges": 1, "lorenzo_enc3d.stencil": 1}
+    errs["lorenzo_enc3d.edges"] = errs["lorenzo_enc3d.stencil"] = 0.0
+    say(f"[{tag}] rank-3 kernels at {batch} x {shape}, {bits} bits: every "
+        "axis and the edge pass bitwise the plain versions, field by field")
+
+    def lone(fn, w, e):
+        # the plain version of each field in turn (its int64 unpack)
+        return lambda: [fn(w[b], e[b]) if w.ndim == 2 else fn(w, e)
+                        for b in range(w.shape[0] if w.ndim == 2 else 1)]
+
+    # take out 2 and unzigzag 3 a residual; r = p + p' 1 and the two prefix
+    # adds 2 an interior value; its f32 conversion and multiply 2
+    pay = 4 * words.numel()
+    edges_bytes = 4 * batch * -(-m[0] // specs.CONSTANTS["lorenzo3d.cu"]["RUN"]
+                                ) * (shape[1] - 1) * m[2]
+    edges = _rank3_times(
+        lambda w: fused.lorenzo3d_edges(w, shape, shape, bits), (words,),
+        lone(lambda w, e: fused.lorenzo3d_edges_plain(w, shape, shape, bits),
+             words, eps),
+        reps, pay + edges_bytes, (5 * batch * n + 2 * batch * math.prod(m),))
+    axes = []
+    for axis in range(3):
+        for b, (w, e) in cases.items():
+            t = _rank3_times(
+                lambda w, e, a=axis: fused.lorenzo_enc3d(w, shape, shape,
+                                                         bits, a, e),
+                (w, e),
+                lone(lambda w, e, a=axis: fused.lorenzo_enc3d_plain(
+                    w, shape, shape, bits, a, e), w, e),
+                reps if b > 1 else 2 * reps,
+                4 * w.numel() + 4 * b * math.prod(m),
+                (5 * b * n + 3 * b * math.prod(m), 2 * b * math.prod(m)))
+            axes.append({"axis": axis, "batch": b, **t})
+            say(f"[{tag}] lorenzo_enc3d axis {axis}, {b} x {shape}: "
+                f"{t['ms'] * 1e3:.1f} us by events, device alone "
+                f"{t['graph_ms'] * 1e3:.1f} us, enqueue "
+                f"{t['enqueue_ms'] * 1e3:.1f} us (plain "
+                f"{t['plain_ms'] * 1e3:.1f} us, bound "
+                f"{t['bound_ms'] * 1e3:.1f} us by {t['bound_by']}, "
+                f"{t['graph_ms'] / t['bound_ms']:.2f}x)")
+    say(f"[{tag}] lorenzo3d edge pass, {batch} x {shape}: "
+        f"{edges['ms'] * 1e3:.1f} us by events, device alone "
+        f"{edges['graph_ms'] * 1e3:.1f} us (plain "
+        f"{edges['plain_ms'] * 1e3:.1f} us, bound "
+        f"{edges['bound_ms'] * 1e3:.1f} us by {edges['bound_by']})")
+    first = next(a for a in axes if a["axis"] == 0 and a["batch"] == batch)
+    stencil = {k: first[k] for k in edges}
+    return {"lorenzo_enc3d.edges": {**edges, "batch": batch},
+            "lorenzo_enc3d.stencil": {**stencil, "batch": batch, "axis": 0,
+                                      "axes": axes},
+            "per_call": per_call}
+
+
 def time_batched_kernels(inp: dict, single: dict, reps: int,
                          tag: str) -> dict:
     """The batched kernels at Ocean x ``BATCH`` (phase 3b's inputs; what =
@@ -5919,13 +6123,19 @@ def main() -> None:
     stray = [k for k in NOT_ON_REGIONS if path_launches["region path"][k]]
     if stray:
         fail(f"the region path launched full-field kernels: {stray}")
+    # the rank-3 path: the Lorenzo derivative's rank-3 kernels
+    ops.reset_launches()
+    rank3_path(args.seed)
+    path_launches["rank-3 path"] = dict(ops.LAUNCHES)
+    require_launches("rank-3 path", path_launches["rank-3 path"])
     never = [k for k in ops.LAUNCHES
              if all(counts[k] == 0 for counts in path_launches.values())]
     if never:
         fail(f"kernel sites launched on no path: {never}")
     # each site's launches on its path (unpack runs on both: the main path's)
-    launches = {k: path_launches["main path" if k in PATHS["main path"]
-                                 else "entry point"][k] for k in SITES}
+    launches = {k: path_launches[next(
+        (p for p in ("main path", "rank-3 path") if k in PATHS[p]),
+        "entry point")][k] for k in SITES}
     check_region_path(fields, hosts, region_out)
     check_region_ab(fields)
     check_region_kernels(fields, errs)
@@ -5980,8 +6190,11 @@ def main() -> None:
     times = time_kernels(cont, entry, REPS, tag)
     times.update(time_batched_kernels(batch_in, times, REPS, tag))
     del batch_in
+    rank3 = time_rank3(args.seed, REPS, tag, errs)
+    times.update(rank3)
     per_query = per_query_launches(fields, tag)
     per_query.update(per_call_launches(entry, tag))
+    per_query.update(rank3.pop("per_call"))
     query_kernels(fields, tag)
     decode_and_stats_kernels(fields, entry, tag)
     region_query_kernels(fields, tag)
@@ -6091,6 +6304,10 @@ def main() -> None:
         if name == "prefix_stats2d.stats":
             kernels[-1]["wide"] = dict(times[WIDE_STATS],
                                        shape=list(PS_WIDE[1]))
+        if name in PATHS["rank-3 path"]:
+            kernels[-1].update(
+                {k: t[k] for k in ("batch", "axis", "axes") if k in t},
+                shape=list(MIRANDA), bits=MIRANDA_BITS)
     for site in BATCHED_SITES:
         # the same kernel over a batch of 8 Ocean fields in one launch: its
         # launches are those of the batched runs: the engine path's (a),

@@ -50,6 +50,7 @@ surfaces as a finding to fix or respecify, never silence).
 from __future__ import annotations
 
 import ast
+import itertools
 import re
 from pathlib import Path
 
@@ -622,13 +623,19 @@ def concrete_coverage(spec, args: dict) -> dict[str, tuple[tuple, list]]:
 
 def edge_launches(spec) -> list[dict]:
     """The launches the facts are checked at: every row and column edge of
-    a tiling limit, a span edge for the unpack, at two occupancies; a
-    batched instantiation (``B`` among its symbols) at one field and at
-    :data:`EDGE_BATCH` fields."""
+    a tiling limit, a span edge for the unpack, a rank-3 instantiation's
+    own ``edge_dims``, at two occupancies; a batched instantiation (``B``
+    among its symbols) at one field and at :data:`EDGE_BATCH` fields."""
     out = []
     batches = (1, EDGE_BATCH) if "B" in spec.bounds else (1,)
     for sms, per_sm in ((132, 1), (132, 8)):
         for batch in batches:
+            if spec.edge_dims:
+                for n0, n1, n2 in itertools.product(*spec.edge_dims):
+                    out.append({"n0": n0, "n1": n1, "n2": n2, "sms": sms,
+                                "per_sm": per_sm, "n_words": n0 * n1 * n2,
+                                "B": batch})
+                continue
             if spec.source == "unpack.cu":
                 for k in (1, 2, 7):
                     for n in (2048 * k - 1, 2048 * k, 2048 * k + 1):

@@ -7,18 +7,29 @@ signature as the torch rules in :mod:`repro_torch.core.oplib`) with a
 (``kernels.ops.override_mode`` is not ``"off"``) *and* the predicate accepts
 the context — otherwise the cell's torch rule runs.
 
-Coverage matrix (2-D nd schemes only — 1-D partitioning has no spatial
-stencils, and rank != 2 fields fall back):
+Coverage matrix (2-D nd schemes — 1-D partitioning has no spatial
+stencils; of rank 3, the Lorenzo derivative alone, and other ranks fall
+back):
 
 =============  ==========================  ==========================
 op             lorenzo (HSZP_ND)           blockmean (HSZX_ND)
 =============  ==========================  ==========================
-derivative     ② ③ ④                       ② ③ ④
+derivative     ② ③ ④  (and rank 3)         ② ③ ④
 gradient       ② ③ ④                       ② ③ ④
 laplacian      ②                           ② ③ ④
 =============  ==========================  ==========================
 
-The lorenzo ③④ laplacian stays uncovered, as in the reference.
+The lorenzo ③④ laplacian stays uncovered, as in the reference.  The
+reference's fused rules decline rank 3; here a full-field rank-3
+:class:`Encoded` Lorenzo context with 0 < bits < 32 and no seed takes the
+rank-3 payload kernels (``kernels.fused.lorenzo_enc3d``) for its
+derivatives at ② ③ ④ — the same exact integer ``q[i+1] - q[i-1] =
+D[i+1] + D[i]`` scaled once, as at rank 2 — and rank-3 gradients,
+divergences and curls reach them through ``oplib._derivative_at``.  Rank-3
+regions, seeds, ``Compressed`` containers and block-mean fields keep their
+torch rules; an axis whose interior is wider than the kernels take runs the
+torch rule's ops (``lorenzo_enc3d_plain``) under the same ``hsz.op.torch``
+span.
 
 The kernels emit exact-integer stencil planes (or, for the block-mean
 laplacians, the pre-eps f32 accumulation in a fixed order); the rules here
@@ -52,6 +63,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import trace
 from ..kernels import fused as fk
 from ..kernels import stencil_dq as sk
 from .stages import Encoded, Stage
@@ -72,6 +84,20 @@ def _covers_2d(ctx) -> bool:
     """Rank-2 nd fields only, judged on the container layout (coverage never
     forces a decode)."""
     return ctx.scheme.is_nd and len(ctx.field.padded_shape) == 2
+
+
+def _covers_3d(ctx) -> bool:
+    """A full-field rank-3 nd context the rank-3 payload kernels can serve
+    (:func:`_payload2`); an axis wider than they take is judged in the
+    rule (:func:`_deriv_lorenzo`)."""
+    return (ctx.scheme.is_nd and len(ctx.field.padded_shape) == 3
+            and _payload2(ctx))
+
+
+def _covers_lorenzo_deriv(ctx) -> bool:
+    """The Lorenzo derivative: rank 2 as :func:`_covers_2d`, or rank 3 as
+    :func:`_covers_3d`."""
+    return _covers_2d(ctx) or _covers_3d(ctx)
 
 
 def _q_seeded(ctx) -> bool:
@@ -141,6 +167,15 @@ def _lap_seeded(ctx) -> torch.Tensor:
 
 
 def _deriv_lorenzo(ctx, axis: int) -> torch.Tensor:
+    f = ctx.field
+    if len(f.padded_shape) == 3:
+        args = (f.payload, tuple(f.padded_shape), tuple(f.shape), f.bits,
+                axis, ctx.eps)
+        if fk.lorenzo3d_fits(tuple(f.shape), axis):
+            return fk.lorenzo_enc3d(*args)
+        # wider than the kernels take along this axis: the torch rule's ops
+        with trace.span("hsz.op.torch"):
+            return fk.lorenzo_enc3d_plain(*args)
     if _q_seeded(ctx):
         return _grad_seeded(ctx)[axis]
     out = _lz(ctx, f"deriv{axis}")
@@ -204,12 +239,16 @@ def _rule(fn) -> FusedRule:
     return FusedRule(fn, _covers_2d)
 
 
+#: the Lorenzo derivative of every stage: rank 2, and rank 3 (payload kernels)
+_LORENZO_DERIV = FusedRule(_deriv_lorenzo, _covers_lorenzo_deriv)
+
+
 #: derivative cells — also dispatched by ``oplib._derivative_at``, which
 #: hands the kernels to gradient/divergence/curl compositions.
 DERIVATIVE: dict[tuple[Stage, str], FusedRule] = {
-    (Stage.P, "lorenzo"): _rule(_deriv_lorenzo),
-    (Stage.Q, "lorenzo"): _rule(_deriv_lorenzo),
-    (Stage.F, "lorenzo"): _rule(_deriv_lorenzo),
+    (Stage.P, "lorenzo"): _LORENZO_DERIV,
+    (Stage.Q, "lorenzo"): _LORENZO_DERIV,
+    (Stage.F, "lorenzo"): _LORENZO_DERIV,
     (Stage.P, "blockmean"): _rule(_deriv_blockmean),
     (Stage.Q, "blockmean"): _rule(_deriv_blockmean),
     (Stage.F, "blockmean"): _rule(_deriv_blockmean),

@@ -57,6 +57,13 @@ SIGNATURES = {
                       _P),
     # from_payload, what, &smem_bytes, &blocks_per_sm
     "hsz_blockmean_info": (_I, _I, _P, _P),
+    # words, n_words (per field), bits, p1, p2, n0, n1, n2, batch, vedge,
+    # stream
+    "hsz_lorenzo3d_edges": (_P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # axis, words, n_words (per field), bits, p1, p2, n0, n1, n2, batch, eps,
+    # vedge (axis 2; null otherwise), out, stream
+    "hsz_lorenzo3d_stencil": (_I, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P, _P),
     # p, n0, n1, batch, rowedge, coledge, corners, partials, n_pairs, out,
     # stream
     "hsz_prefix_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _LL, _P, _P),

@@ -17,7 +17,7 @@ namespace {
 const hsz::KernelTable* const TABLES[] = {
     &hsz::pack_kernels,   &hsz::quant_lorenzo_kernels, &hsz::block_stats_kernels,
     &hsz::stencil_dq_kernels, &hsz::unpack_kernels,    &hsz::lorenzo_kernels,
-    &hsz::blockmean_kernels,
+    &hsz::blockmean_kernels, &hsz::lorenzo3d_kernels,
 };
 
 const hsz::KernelInfo* info_of(int id) {

@@ -93,5 +93,6 @@ extern const KernelTable stencil_dq_kernels;
 extern const KernelTable unpack_kernels;
 extern const KernelTable lorenzo_kernels;
 extern const KernelTable blockmean_kernels;
+extern const KernelTable lorenzo3d_kernels;
 
 }  // namespace hsz

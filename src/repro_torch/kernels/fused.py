@@ -26,10 +26,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
-from . import bitpack, build, ops
+from . import bitpack, build, ops, specs
 
 LORENZO_WHATS = ("deriv0", "deriv1", "grad", "lap")
 BLOCKMEAN_WHATS = ("deriv0", "deriv1", "grad", "lap_p", "lap_q")
@@ -85,7 +86,7 @@ def _check_payload(payload: torch.Tensor, shape: tuple, bits: int) -> None:
     if not 0 < bits < 32:
         raise ValueError(f"payload kernels take widths 1..31, got {bits}")
     if (payload.ndim not in (1, 2)
-            or payload.shape[-1] * 32 < shape[0] * shape[1] * bits):
+            or payload.shape[-1] * 32 < math.prod(shape) * bits):
         raise ValueError(f"payload of shape {tuple(payload.shape)} is too "
                          f"short for a {shape} plane at {bits} bits")
 
@@ -259,6 +260,119 @@ def lorenzo_enc2d(payload: torch.Tensor, shape: tuple, bits: int, *,
     _check_payload(payload, shape, bits)
     return _lorenzo_kernels(payload, tuple(shape), bits, what,
                             from_payload=True, site="lorenzo_enc2d")
+
+
+# ---------------------------------------------------------------------------
+# Lorenzo derivative of a rank-3 field
+# ---------------------------------------------------------------------------
+
+#: ``csrc/lorenzo3d.cu``'s tiling (``kernels.specs`` holds the source's
+#: constants; the audit checks them against it).
+_LZ3 = specs.CONSTANTS["lorenzo3d.cu"]
+
+
+def lorenzo3d_fits(shape: tuple, axis: int) -> bool:
+    """Can the rank-3 kernels take the derivative along ``axis`` of a field
+    of valid ``shape``: axes 0 and 1 (the plane kernels) an interior row of
+    axis 2 of at most ``MAXC`` columns, axis 2 (the lane kernel) an
+    interior of axis 1 of at most ``SEG * MAXW`` rows."""
+    if axis == 2:
+        return shape[1] - 2 <= _LZ3["SEG"] * _LZ3["MAXW"]
+    return shape[2] - 2 <= _LZ3["MAXC"]
+
+
+def lorenzo_enc3d_plain(payload: torch.Tensor, padded_shape: tuple,
+                        shape: tuple, bits: int, axis: int,
+                        eps: torch.Tensor) -> torch.Tensor:
+    """Plain version: unpack, the int32 cumsums over the two axes other
+    than ``axis``, the crop to ``shape``, then ``D[i + 2] + D[i + 1]`` along
+    ``axis`` on the interior as f32 times ``eps`` — the torch rule's ops in
+    its order (of each field of a ``(B, n_words)`` payload, with ``(B,)``
+    eps)."""
+    lead = tuple(payload.shape[:-1])
+    nb = len(lead)
+    d = _unzigzag(bitpack.unpack_plain(payload, math.prod(padded_shape), bits)
+                  ).reshape(lead + tuple(padded_shape))
+    for a in range(3):
+        if a != axis:
+            d = torch.cumsum(d, dim=nb + a, dtype=torch.int32)
+    d = d[(Ellipsis,) + tuple(slice(0, n) for n in shape)]
+    hi = [slice(1, -1)] * 3
+    hi[axis] = slice(2, None)
+    s = d[(Ellipsis, *hi)] + d[(Ellipsis,) + (slice(1, -1),) * 3]
+    return s.to(torch.float32) * eps.reshape(eps.shape + (1, 1, 1))
+
+
+def lorenzo3d_edges_plain(payload: torch.Tensor, padded_shape: tuple,
+                          shape: tuple, bits: int) -> torch.Tensor:
+    """Plain version of the axis-2 edge pass: ``(runs, n1 - 1, n2 - 2)``
+    int32 (modular) sums of ``r = p[..., k + 1] + p[..., k + 2]`` over the
+    axis-0 rows ``0 .. RUN * j`` of each run ``j`` of the lane kernel."""
+    lead = tuple(payload.shape[:-1])
+    n0, n1, n2 = shape
+    p = _unzigzag(bitpack.unpack_plain(payload, math.prod(padded_shape), bits)
+                  ).reshape(lead + tuple(padded_shape))
+    r = p[..., :n0 - 1, :n1 - 1, 1:n2 - 1] + p[..., :n0 - 1, :n1 - 1, 2:n2]
+    rows = torch.arange(0, n0 - 2, _LZ3["RUN"], device=payload.device)
+    return torch.cumsum(r, dim=-3, dtype=torch.int32)[..., rows, :, :]
+
+
+def lorenzo_enc3d(payload: torch.Tensor, padded_shape: tuple, shape: tuple,
+                  bits: int, axis: int, eps: torch.Tensor) -> torch.Tensor:
+    """The Lorenzo derivative along ``axis`` of a rank-3 field from its
+    packed payload (widths 1..31; ``padded_shape`` the payload's layout,
+    ``shape`` the valid one): the f32 interior ``(n0 - 2, n1 - 2, n2 - 2)``,
+    ``(B, ...)`` for a ``(B, n_words)`` batch with ``(B,)`` eps; bitwise
+    :func:`lorenzo_enc3d_plain`.  On the card: ``csrc/lorenzo3d.cu``, one
+    launch for axes 0 and 1, the edge pass and one more for axis 2."""
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis={axis}: a rank-3 field has axes 0, 1, 2")
+    if len(padded_shape) != 3 or len(shape) != 3:
+        raise ValueError(f"expected rank-3 shapes, got {padded_shape}, {shape}")
+    if not ops.on_card(payload, eps):
+        return lorenzo_enc3d_plain(payload, padded_shape, shape, bits, axis,
+                                   eps)
+    _check_payload(payload, padded_shape, bits)
+    lead = tuple(payload.shape[:-1])
+    ops.check(eps, "eps", torch.float32, lead)
+    m = tuple(max(n - 2, 0) for n in shape)
+    out = torch.empty(lead + m, dtype=torch.float32, device=payload.device)
+    if out.numel() == 0:
+        return out
+    if not lorenzo3d_fits(shape, axis):
+        raise ValueError(f"lorenzo_enc3d takes interiors of at most "
+                         f"{_LZ3['MAXC']} columns (axes 0, 1) and "
+                         f"{_LZ3['SEG'] * _LZ3['MAXW']} rows of axis 1 "
+                         f"(axis 2), got {shape} along axis {axis}")
+    vedge = (lorenzo3d_edges(payload, padded_shape, shape, bits)
+             if axis == 2 else None)
+    build.call("hsz_lorenzo3d_stencil", axis, payload.data_ptr(),
+               *_lz3_sizes(payload, padded_shape, shape, bits),
+               eps.data_ptr(), None if vedge is None else vedge.data_ptr(),
+               out.data_ptr(), ops.stream_ptr())
+    ops.count("lorenzo_enc3d.stencil")
+    return out
+
+
+def _lz3_sizes(payload, padded_shape, shape, bits) -> tuple:
+    return (payload.shape[-1], bits, padded_shape[1], padded_shape[2],
+            *shape, _batch(tuple(payload.shape[:-1])))
+
+
+def lorenzo3d_edges(payload: torch.Tensor, padded_shape: tuple, shape: tuple,
+                    bits: int) -> torch.Tensor:
+    """Axis 2's edge pass on the card (a checked card payload with an
+    interior that is not empty): the int32 sums of r above each run of
+    ``lorenzo3d_lane_kernel``, bitwise :func:`lorenzo3d_edges_plain`."""
+    lead = tuple(payload.shape[:-1])
+    runs = -(-(shape[0] - 2) // _LZ3["RUN"])
+    vedge = torch.empty(lead + (runs, shape[1] - 1, shape[2] - 2),
+                        dtype=torch.int32, device=payload.device)
+    build.call("hsz_lorenzo3d_edges", payload.data_ptr(),
+               *_lz3_sizes(payload, padded_shape, shape, bits),
+               vedge.data_ptr(), ops.stream_ptr())
+    ops.count("lorenzo_enc3d.edges")
+    return vedge
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,9 @@ LAUNCHES: dict[str, int] = {
     "lorenzo2d.edges": 0,
     "lorenzo2d.stencil": 0,
     "blockmean2d": 0,
+    # the Lorenzo derivative of a rank-3 field (lorenzo_enc3d)
+    "lorenzo_enc3d.edges": 0,
+    "lorenzo_enc3d.stencil": 0,
     # Lorenzo stage-② mean and std (prefix_stats_batch)
     "lorenzo_moments.edges": 0,
     "lorenzo_moments.stats": 0,

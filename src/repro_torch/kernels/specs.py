@@ -62,6 +62,9 @@ CONSTANTS: dict[str, dict[str, int]] = {
     "blockmean_band.cu": {
         "TH": 32, "TW": 128, "NT": 256, "NWARP": 8, "ROWS": 4, "HR": 34,
         "HC": 130, "LD": 136, "TILE": 4624},
+    "lorenzo3d.cu": {
+        "NT": 256, "WPB": 8, "G": 3, "CW": 384, "MAXC": 768, "SEG": 16, "MAXW": 32,
+        "RUN": 64, "EROWS": 8, "LANE_SMEM": 65536},
 }
 
 #: a block's static shared memory, and its static plus dynamic shared
@@ -154,6 +157,9 @@ class KernelSpec:
     where the compiler drops the ones a template argument leaves untouched
     (empty: all of them).
     ``staging``  — which staged-payload lemma its shared reads rest on.
+    ``edge_dims`` — a rank-3 instantiation's extents to be checked at, one
+    tuple per axis (every (n0, n1, n2) of their product); empty: the audit's
+    rank-2 and unpack edges.
     """
 
     name: str
@@ -171,6 +177,7 @@ class KernelSpec:
     smem_arrays: tuple[str, ...] = ()
     staging: str = ""
     notes: str = ""
+    edge_dims: tuple[tuple[int, ...], ...] = ()
 
 
 def _d(*digits) -> tuple[Digit, ...]:
@@ -650,6 +657,135 @@ def _blockmean(payload: bool, what: str) -> KernelSpec:
               "halo rows / columns divided once per tile")
 
 
+# -- lorenzo3d.cu -------------------------------------------------------------------
+
+#: the rank-3 kernels replace no Pallas site: the reference's fused rules
+#: decline rank 3
+_NO_PALLAS = ""
+#: the extents the rank-3 kernels are checked at, per axis: one past each
+#: of their tiling limits (runs of 64 rows, 8 slabs a block, 16 rows a
+#: warp, chunks of 32 and 384 columns) and the widest interiors they take
+_LZ3_EDGE_DIMS = ((3, 66, 67), (3, 10, 11, 18, 19, 514),
+                  (3, 34, 35, 386, 387, 770))
+#: the interior (m0, m1, m2) = (n0 - 2, n1 - 2, n2 - 2) of a rank-3 field,
+#: every extent 1 or more (the wrapper launches nothing on an empty one)
+_LZ3_PARAMS = {"m0": "n0 - 2", "m1": "n1 - 2", "m2": "n2 - 2"}
+#: output columns: a lane's 32 of each chunk of 32 (the lane and edge
+#: kernels: column k = 32 kc + lane)
+_LZ3_COLS = Cover(_d(("lane", "1", "32"), ("kc", "32", "nkc")), "m2")
+_LZ3_COL_FACTS = ("m2 == (nkc - 1)*32 + e2",)
+_LZ3_COL_BOUNDS = {"nkc": ("1", None), "e2": ("1", "32")}
+_LZ3_COL_PARAMS = {"nkc": "cdiv(n2 - 2, 32)",
+                   "e2": "n2 - 2 - (cdiv(n2 - 2, 32) - 1) * 32"}
+
+
+def _lz3_plane(axis: int) -> KernelSpec:
+    """A warp per output slab of axis ``axis`` (block ``bx`` of field ``b``
+    takes slabs ``WPB*sb + warp``), its rows ``y`` in turn, a chunk ``cc``
+    of CW columns a step, written through the staging row ``S``: 4*G
+    stores of 32 contiguous columns (``32*k + lane``) a chunk."""
+    slabs = Cover(_d(("warp", "1", "WPB"), ("sb", "WPB", "nsb")),
+                  "m0" if axis == 0 else "m1")
+    rows = Cover(_d(("y", "1", "m1" if axis == 0 else "m0")),
+                 "m1" if axis == 0 else "m0", clip=False)
+    cols = Cover(_d(("lane", "1", "32"), ("k", "32", "4*G"), ("cc", "CW", "nch")),
+                 "m2")
+    ns = "m0" if axis == 0 else "m1"
+    return KernelSpec(
+        name=f"lorenzo3d_plane_kernel<{axis}>", source="lorenzo3d.cu",
+        function="lorenzo3d_plane_kernel", launch="hsz_lorenzo3d_stencil",
+        replaces=_NO_PALLAS, grid="B*nsb",
+        bounds={"w": ("0", None), "c": ("0", "nch*CW - 1"),
+                "nsb": ("1", None), "es": ("1", "WPB"),
+                "nch": ("1", "MAXC//CW"), "e2": ("1", "CW"),
+                "m0": ("1", None), "m1": ("1", None), "B": ("1", None)},
+        facts=(f"{ns} == (nsb - 1)*WPB + es", "m2 == (nch - 1)*CW + e2"),
+        branches=(Branch(
+            "0", "B*nsb", Cover(_d(("sb", "1", "nsb"), ("b", "nsb", "B")),
+                                "B*nsb", clip=False),
+            writes=(Write("out", (slabs, rows, cols) if axis == 0
+                          else (rows, slabs, cols), lead=(_BATCH,)),),
+            reads=(Read("words", ("w",), ("B*n_words",), ("<",)),
+                   Read("eps", ("b",), ("B",)),
+                   Read("C", ("warp", "c"), ("WPB", "MAXC"), shared=True),
+                   Read("S", ("warp", "32*k + lane"), ("WPB", "CW"),
+                        shared=True))),),
+        params={**_LZ3_PARAMS, "nsb": f"cdiv({ns.replace('m', 'n')} - 2, WPB)",
+                "es": f"{ns.replace('m', 'n')} - 2 - "
+                      f"(cdiv({ns.replace('m', 'n')} - 2, WPB) - 1) * WPB",
+                "nch": "cdiv(n2 - 2, CW)",
+                "e2": "n2 - 2 - (cdiv(n2 - 2, CW) - 1) * CW"},
+        smem_static="4*WPB*(MAXC + CW)", edge_dims=_LZ3_EDGE_DIMS,
+        notes="a warp per output slab of every field of a batch; rows in "
+              "turn, column carries in shared memory (interior rows of at "
+              "most MAXC columns)")
+
+
+_LZ3_EDGES = KernelSpec(
+    name="lorenzo3d_edges_kernel", source="lorenzo3d.cu",
+    function="lorenzo3d_edges_kernel", launch="hsz_lorenzo3d_edges",
+    replaces=_NO_PALLAS, grid="B*ng*nkc",
+    bounds={"w": ("0", None), "ng": ("1", None), "eg": ("1", "EROWS"),
+            "runs": ("1", None), **_LZ3_COL_BOUNDS, "B": ("1", None)},
+    facts=("n1 == (ng - 1)*EROWS + eg + 1",) + _LZ3_COL_FACTS,
+    branches=(Branch(
+        "0", "B*ng*nkc",
+        Cover(_d(("kc", "1", "nkc"), ("g", "nkc", "ng"), ("b", "nkc*ng", "B")),
+              "B*ng*nkc", clip=False),
+        writes=(Write("vedge", (
+            Cover(_d(("j", "1", "runs")), "runs", clip=False),
+            Cover(_d(("warp", "1", "EROWS"), ("g", "EROWS", "ng")), "n1 - 1"),
+            _LZ3_COLS), lead=(_BATCH,)),),
+        reads=(Read("words", ("w",), ("B*n_words",), ("<",)),)),),
+    params={**_LZ3_PARAMS, **_LZ3_COL_PARAMS, "ng": "cdiv(n1 - 1, EROWS)",
+            "eg": "n1 - 1 - (cdiv(n1 - 1, EROWS) - 1) * EROWS",
+            "runs": "cdiv(n0 - 2, RUN)"},
+    edge_dims=_LZ3_EDGE_DIMS,
+    notes="a thread per (axis-1 row, output column) of every field of a "
+          "batch, down axis 0: the sum of r above each run")
+
+_LZ3_LANE = KernelSpec(
+    name="lorenzo3d_lane_kernel", source="lorenzo3d.cu",
+    function="lorenzo3d_lane_kernel", launch="hsz_lorenzo3d_stencil",
+    replaces=_NO_PALLAS, grid="B*runs*nkc",
+    bounds={"w": ("0", None), "wb": ("0", "nw - 2"), "bf": ("0", "1"),
+            "runs": ("1", None), "e0": ("1", "RUN"), "nw": ("1", "MAXW"),
+            "e1": ("1", "SEG"), **_LZ3_COL_BOUNDS, "B": ("1", None)},
+    facts=("m0 == (runs - 1)*RUN + e0", "n1 == m1 + 2",
+           "m1 == (nw - 1)*SEG + e1") + _LZ3_COL_FACTS,
+    branches=(Branch(
+        "0", "B*runs*nkc",
+        Cover(_d(("kc", "1", "nkc"), ("j", "nkc", "runs"),
+                 ("b", "nkc*runs", "B")), "B*runs*nkc", clip=False),
+        writes=(Write("out", (
+            Cover(_d(("x", "1", "RUN"), ("j", "RUN", "runs")), "m0"),
+            Cover(_d(("l", "1", "SEG"), ("warp", "SEG", "nw")), "m1"),
+            _LZ3_COLS), lead=(_BATCH,)),),
+        reads=(Read("words", ("w",), ("B*n_words",), ("<",)),
+               Read("eps", ("b",), ("B",)),
+               # the run's vedge row: axis-1 rows 0 and SEG*warp + l + 1
+               Read("vedge", ("b*runs + j", "SEG*warp + l + 1", "lane + 32*kc"),
+                    ("B*runs", "n1 - 1", "m2"), ("", "<", "<")),
+               Read("vedge", ("b*runs + j", "0", "lane + 32*kc"),
+                    ("B*runs", "n1 - 1", "m2"), ("", "", "<")),
+               # the totals of the warps before this one
+               Read("T", ("bf", "wb", "lane"), ("2", "MAXW", "32"),
+                    shared=True),
+               # the thread's carries
+               Read("CY", ("SEG*warp + l", "lane"), ("SEG*MAXW", "32"),
+                    shared=True))),),
+    params={**_LZ3_PARAMS, **_LZ3_COL_PARAMS, "runs": "cdiv(n0 - 2, RUN)",
+            "e0": "n0 - 2 - (cdiv(n0 - 2, RUN) - 1) * RUN",
+            "nw": "cdiv(n1 - 2, SEG)",
+            "e1": "n1 - 2 - (cdiv(n1 - 2, SEG) - 1) * SEG"},
+    smem_static="4*2*MAXW*32", smem_dynamic="LANE_SMEM",
+    edge_dims=_LZ3_EDGE_DIMS,
+    notes="a block of cdiv(m1, SEG) warps per (run, column chunk) of every "
+          "field of a batch: a lane a column, a warp SEG rows of axis 1, "
+          "down a run of axis 0 from its vedge row (interiors of at most "
+          "SEG*MAXW rows of axis 1)")
+
+
 #: every instantiation, in the order of the sources' tables
 #: (``hsz_func_attrs``'s kernel ids).
 KERNEL_SPECS: tuple[KernelSpec, ...] = (
@@ -659,6 +795,7 @@ KERNEL_SPECS: tuple[KernelSpec, ...] = (
     *(_stencil(p, w) for p in (False, True) for w in _WHATS_LZ),
     _stats_tile(False), _stats_tile(True), _REDUCE,
     *(_blockmean(p, w) for p in (False, True) for w in _WHATS_BM),
+    _lz3_plane(0), _lz3_plane(1), _LZ3_EDGES, _LZ3_LANE,
 )
 
 KERNEL_IDS: tuple[str, ...] = tuple(s.name for s in KERNEL_SPECS)

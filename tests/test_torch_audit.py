@@ -29,6 +29,7 @@ What is held:
   checked on the card (``chip_smoke.py`` phase 7; the ``gpu`` test below).
 """
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -717,12 +718,15 @@ class TestKernelSpecAnalyzer:
         srcs = kernelspec.load_sources(build.CSRC)
         names = [n for s in srcs for n, _ in s.table()]
         assert sorted(names) == sorted(specs.KERNEL_IDS)
-        assert len(specs.KERNEL_IDS) == len(set(specs.KERNEL_IDS)) == 32
+        assert len(specs.KERNEL_IDS) == len(set(specs.KERNEL_IDS)) == 36
         globals_ = {(s.name, g) for s in srcs for g, _ in s.globals()}
         assert globals_ == {(s.source, s.function) for s in specs.KERNEL_SPECS}
 
     def test_every_pallas_site_is_replaced(self):
-        replaced = {s.replaces for s in specs.KERNEL_SPECS}
+        # the rank-3 kernels name none: the reference declines rank 3
+        replaced = {s.replaces for s in specs.KERNEL_SPECS if s.replaces}
+        assert {s.source for s in specs.KERNEL_SPECS if not s.replaces} \
+            == {"lorenzo3d.cu"}
         pallas = set()
         for py in sorted((ROOT / "src" / "repro" / "kernels").glob("*.py")):
             for i, line in enumerate(py.read_text().splitlines(), 1):
@@ -979,6 +983,8 @@ __global__ void k(const int* __restrict__ q, float e, uint32_t* __restrict__ out
 def _plain_extents(spec, args) -> dict[str, tuple]:
     """The output extents of the plain version the instantiation replaces,
     from the plain version itself at one launch's sizes."""
+    if spec.edge_dims:
+        return _plain_extents3(spec.name, args["n0"], args["n1"], args["n2"])
     n0, n1 = args["n0"], args["n1"]
     p = torch.zeros((n0, n1), dtype=torch.int32)
     name = spec.name
@@ -1019,9 +1025,28 @@ def _plain_extents(spec, args) -> dict[str, tuple]:
     raise KeyError(name)
 
 
+@functools.cache
+def _plain_extents3(name, n0, n1, n2) -> dict[str, tuple]:
+    """``lorenzo3d.cu``: the plain version's interior (axis 0 for the axis-0
+    kernel, 1 for the axis-1 one, 2 for the lane kernel), and the edge
+    pass's (runs, n1 - 1, n2 - 2) sums of r above each run."""
+    if name == "lorenzo3d_edges_kernel":
+        return {"vedge": (-(-(n0 - 2) // specs.CONSTANTS["lorenzo3d.cu"]["RUN"]),
+                          n1 - 1, n2 - 2)}
+    axis = 2 if name == "lorenzo3d_lane_kernel" else int(name[-2])
+    words = bitpack.pack_plain(torch.zeros(n0 * n1 * n2, dtype=torch.int32), 1)
+    out = fused.lorenzo_enc3d_plain(words, (n0, n1, n2), (n0, n1, n2), 1, axis,
+                                    torch.tensor(1.0))
+    return {"out": tuple(out.shape)}
+
+
 def _cover_launches(spec):
     cases = kernelspec.edge_launches(spec)
-    cases = [a for a in cases if a.get("n0", 0) <= 33]  # 65537 rows: below
+    cases = [a for a in cases if a.get("n0", 0) <= 33  # 65537 rows: below
+             or spec.edge_dims]
+    # the widest rank-3 interiors: below, in the facts alone
+    cases = [a for a in cases if a.get("n1", 0) <= 19 or "n2" not in a]
+    cases = [a for a in cases if a.get("n2", 0) <= 387]
     if spec.name == "prefix_stats_tile_kernel<false>":
         cases = [a for a in cases if 4 * (-(-a["n1"] // 128) - 1) <= 128]
     if spec.name == "prefix_stats_tile_kernel<true>":
@@ -1407,7 +1432,8 @@ def test_sentinel_coverage_on_card():
              ("blockmean", (33, 129), (1, 1), 7),
              ("blockmean", (32, 128), (4, 8), 31),
              ("entry", (33, 129)), ("entry", (65539, 4)),
-             ("bitpack", 4097, 17), ("bitpack", 2047, 1)]
+             ("bitpack", 4097, 17), ("bitpack", 2047, 1),
+             ("lorenzo3d", (20, 27, 33), 9, 3, (24, 32, 40))]
     covered = cs.check_coverage(0, cases)
     assert covered == set(specs.KERNEL_IDS)
     assert all(cs.specs.func_attrs(n)[3] >= 1 for n in specs.KERNEL_IDS)

@@ -252,17 +252,29 @@ def test_the_reference_frontend_answers_alike(twins, stage):
                 assert a.tobytes() == b.tobytes(), (op, axis)
 
 
-def test_each_declined_torch_rule_runs_under_one_span(fields):
+@pytest.mark.parametrize("scheme", ["hszx_nd", "hszp_nd"])
+def test_each_declined_torch_rule_runs_under_one_span(fields, scheme):
     """Divergence takes three derivatives, the 3-D curl six, a derivative
-    one: each a torch rule where the fused derivative declines rank 3.
-    Mean and std have no fused rule to decline."""
-    _, encoded = fields
-    want = {"divergence": 3, "curl": 6, "derivative": 1, "mean": 0, "std": 0}
+    one: on a block-mean (HSZx) field each a torch rule where the fused
+    derivative declines rank 3; on a Lorenzo (HSZp) field the rank-3 rule
+    takes them all, so none runs under the span.  Mean and std have no
+    fused rule to decline."""
+    raw, encoded = fields
+    if scheme == "hszx_nd":
+        comp = by_name(scheme, BLOCK)
+        cs = {fid: comp.compress(x, rel_eb=REL_EB, device="cpu")
+              for fid, x in raw.items()}
+        bits = max(comp.max_bits(c) for c in cs.values())
+        encoded = {fid: comp.encode(c, bits=bits) for fid, c in cs.items()}
+    per = 1 if scheme == "hszx_nd" else 0
+    want = {"divergence": 3 * per, "curl": 6 * per, "derivative": per,
+            "mean": 0, "std": 0}
     for op, n in want.items():
         ids = VECTOR if op in ("divergence", "curl") else "p"
         _, spans = _step(_frontend(encoded), [_request(0, (op, 2, ids))],
                          traced=True)
         assert spans == n, op
+    assert kernel_ops.kernels_enabled()
     with kernel_ops.override_mode("off"):    # no fused rule asked: no span
         _, spans = _step(_frontend(encoded),
                          [_request(0, ("curl", 0, VECTOR))], traced=True)
