@@ -10,8 +10,8 @@ live.  This package turns that into an engine:
   from ``benchmarks/run.py`` CSV) that picks the cheapest feasible stage —
   jointly over an op *set* via ``plan_stages``;
 * :mod:`repro_torch.analytics.engine` — runs one op set over a batch of
-  same-layout compressed fields as one cached program keyed like the
-  reference's compilation cache;
+  same-layout compressed fields as one batched call (no program cache:
+  nothing is compiled);
 * :mod:`repro_torch.analytics.query` — ``query(exprs=[...], store=...)``:
   the expression front-end.  Roots are :mod:`repro_torch.core.expr` DAGs
   (cross-field derived operators — vorticity from u and v, ensemble
@@ -27,7 +27,7 @@ Temporal op sets (``TEMPORAL``: ``tdelta`` / ``tmean`` / ``tmin`` /
 ``tmax`` / ``tstd``) run through the same ``query()`` over appended
 streams (:mod:`repro_torch.stream`).
 """
-from .engine import BatchedAnalytics, batch_key
+from .engine import BatchedAnalytics
 from .planner import (FEASIBILITY, MULTIVARIATE, OPS, TEMPORAL, CostModel,
                       ExprPlan, RefreshPlan, StageSetPlan, as_stage,
                       check_feasible, feasible_stages, is_feasible,
@@ -38,6 +38,6 @@ __all__ = [
     "OPS", "TEMPORAL", "MULTIVARIATE", "FEASIBILITY", "as_stage",
     "feasible_stages", "is_feasible", "check_feasible", "plan_stage",
     "plan_stages", "StageSetPlan", "plan_expr", "ExprPlan", "plan_refresh",
-    "RefreshPlan", "CostModel", "BatchedAnalytics", "batch_key",
-    "QueryResult", "query",
+    "RefreshPlan", "CostModel", "BatchedAnalytics", "QueryResult",
+    "query",
 ]

@@ -1,7 +1,7 @@
 """Query front-end: analytics over arbitrary collections of compressed fields.
 
 ``query(exprs=[...])`` is the primary surface: expression DAGs
-(:mod:`repro_torch.core.expr`) whose whole batch runs as one cached program
+(:mod:`repro_torch.core.expr`) whose whole batch runs as one engine call
 with one stage-reconstruction prelude per distinct leaf.  The flat form
 ``query(fields, op_or_ops)`` (deprecated) accepts any mix of layouts
 (different datasets, shapes, schemes) and a single op or an op *set*, groups
@@ -17,8 +17,8 @@ With a :class:`repro_torch.store.FieldStore` attached (``store=``), entries of
 ``fields`` may be string ids (components too, for vector ops).  Id-resolved
 fields are served *through the store*: planning sees which stages are
 already materialized (their reconstruction term drops, so ``stage="auto"``
-can flip to a resident stage), and the group's cached program is seeded
-with the resident intermediates — a cache hit pays only the op postludes.
+can flip to a resident stage), and the group's call is seeded with the
+resident intermediates — a store hit pays only the op postludes.
 A miss materializes through the store (one reconstruction per field
 lifetime, LRU/byte-budget permitting).  Results are bit-identical to the
 storeless path at the same stage.
@@ -145,7 +145,7 @@ def query(fields: Sequence[FieldOrVector] | None = None,
     :class:`repro_torch.core.expr.Expr` or a sequence of them — cross-field
     derived quantities (vorticity from u and v, ensemble deltas, ...) whose
     leaves are raw fields, component bundles or (with ``store=``) string
-    field ids.  The whole batch runs as one cached program with exactly one
+    field ids.  The whole batch runs as one engine call with exactly one
     stage-reconstruction prelude per distinct leaf; stages are planned
     jointly per connected component
     (:func:`repro_torch.analytics.planner.plan_expr`), cache-aware when a
@@ -229,14 +229,14 @@ def _query_opset(fields: Sequence[FieldOrVector],
         Optional :class:`repro_torch.store.FieldStore`.  Resolves string
         field ids, makes planning cache-aware (a store-resident stage is
         priced without its reconstruction term), and seeds the engine's
-        programs from resident materializations — building them on a miss
+        calls from resident materializations — materializing on a miss
         so the next query hits.
     """
     single = isinstance(op, str)
     names = oplib.canonical_ops(op)
     if oplib.is_temporal_ops(names):
         # temporal op sets run over appended streams: same query() surface,
-        # streaming execution path (slab-count-stable cached programs)
+        # streaming execution path
         from ..stream.query import query_temporal
         return query_temporal(fields, op, stage, axis=axis, region=region,
                               cost_model=cost_model, engine=engine,
@@ -362,7 +362,7 @@ def _query_exprs(exprs, stage="auto", *, region=None,
                  cost_model: CostModel | None = None,
                  engine: BatchedAnalytics | None = None,
                  store=None) -> QueryResult:
-    """Execute a batch of expression DAGs as one cached program.
+    """Execute a batch of expression DAGs as one engine call.
 
     ``values[i]`` is root ``i``'s result and ``stages[i]`` its component's
     jointly-planned stage; ``op`` is ``"expr"`` and ``exprs`` carries the

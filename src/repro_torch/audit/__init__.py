@@ -1,10 +1,11 @@
 """Static invariant audit of the PyTorch / CUDA port.
 
-Six analyzers, one contract: ``python -m repro_torch.audit`` exits 0 iff
+Five analyzers, one contract: ``python -m repro_torch.audit`` exits 0 iff
 every statically checkable invariant the bit-identity guarantees rest on
 holds (stale-waiver *warnings* print but never fail the run).  The names
-and the contract are the reference's (``repro.audit``); what three of them
-check is the port's own:
+and the contract are the reference's (``repro.audit``) less its ``jitkey``
+— the port keeps no program cache, so there are no keys to audit; what
+two of them check is the port's own:
 
 * :mod:`.registry` — registry / Table-I completeness of
   ``repro_torch.core.oplib`` and the planner's matrix.
@@ -13,10 +14,7 @@ check is the port's own:
   stream's runtime capacity guard.
 * :mod:`.tracesafety` (``trace``) — the host-sync lint: ``.item()``,
   ``.cpu()``, casts, stringification and ``Tensor.__bool__`` branches in
-  lowering rules, fused rules and the closures of the program caches.
-* :mod:`.jitkeys` (``jitkey``) — program-cache keys: every free variable of
-  a cached program is covered by its key, kernel mode keys every program
-  that dispatches kernels, every ``FusedRule.covers`` input is keyed.
+  lowering rules, fused rules and every function that calls the lowering.
 * :mod:`.kernelspec` — CUDA launch grids: the symbolic specs of
   :mod:`repro_torch.kernels.specs` proved in bounds and exactly-once for
   every grid shape, shared memory within the card's limits, the staged
@@ -27,7 +25,6 @@ check is the port's own:
 """
 from .findings import SCHEMA_VERSION, AuditReport, Finding
 from .intwidth import DEFAULT_ENVELOPE, Envelope, analyze_int_width, safe_size_table
-from .jitkeys import analyze_jit_keys
 from .kernelspec import analyze_kernel_specs, check_unpack_lemma
 from .registry import analyze_registry
 from .runner import ALL_ANALYZERS, main, run_audit
@@ -38,7 +35,7 @@ __all__ = [
     "AuditReport", "Finding", "SCHEMA_VERSION", "Envelope",
     "DEFAULT_ENVELOPE", "ALL_ANALYZERS",
     "analyze_registry", "analyze_int_width", "safe_size_table",
-    "analyze_trace_safety", "analyze_jit_keys", "analyze_kernel_specs",
+    "analyze_trace_safety", "analyze_kernel_specs",
     "check_unpack_lemma", "analyze_shard_disjoint", "shard_safe_size_table",
     "run_audit", "main",
 ]

@@ -4,10 +4,9 @@ Every analyzer reports :class:`Finding` records — never free-form prints —
 so the CLI can render them uniformly, ``AUDIT.json`` stays machine-readable
 for CI artifacts, and tests can assert on exact (analyzer, invariant)
 pairs.  A finding names the *invariant* it protects, not just the symptom:
-the six families are the registry completeness matrix, the int32 width
-bounds, host-sync freedom of the query path, program-cache-key soundness,
-CUDA launch-grid bounds / coverage / shared memory, and shard-partition
-exactness.
+the five families are the registry completeness matrix, the int32 width
+bounds, host-sync freedom of the query path, CUDA launch-grid bounds /
+coverage / shared memory, and shard-partition exactness.
 
 Findings carry a ``severity``: ``error`` findings fail the audit (nonzero
 exit); ``warning`` findings — today only stale-waiver reports — are printed
@@ -28,16 +27,16 @@ class Finding:
     """One audit violation.
 
     ``analyzer``  — which pass produced it (``registry`` / ``intwidth`` /
-    ``trace`` / ``jitkey`` / ``kernelspec`` / ``sharddisjoint``).
+    ``trace`` / ``kernelspec`` / ``sharddisjoint``).
     ``invariant`` — short machine-stable identifier of the violated rule
     (e.g. ``missing-lowering-rule``, ``sumsq-overflow``, ``host-sync``,
-    ``unkeyed-closure``, ``read-out-of-bounds``, ``word-owner-overlap``);
+    ``read-out-of-bounds``, ``word-owner-overlap``);
     tests and CI gates key on it.
     ``file`` / ``line`` — source location when the pass is syntactic;
     semantic passes (registry, intwidth, sharddisjoint) locate by subject.
     ``subject`` — what the finding is about (op name, accumulator, symbol).
     ``message`` — human-readable statement of the violation.
-    ``suggestion`` — the concrete fix (add the rule, key the variable,
+    ``suggestion`` — the concrete fix (add the rule, widen the type,
     waive with the documented comment syntax, ...).
     ``severity`` — ``error`` (fails the audit) or ``warning`` (reported
     but does not affect the exit code; used for stale waivers).

@@ -68,7 +68,7 @@ def _drift_findings(ops: Mapping[str, OpSpec],
                     temporal: Mapping[str, OpSpec]) -> list[Finding]:
     """The merged lookup and canonical order must cover exactly the union
     of the two registries — ``register_op`` keeps them in sync; anything
-    else desynchronizes fused cache keys from planning."""
+    else desynchronizes canonical op-set order from planning."""
     out = []
     union = dict(ops)
     union.update(temporal)
@@ -97,7 +97,7 @@ def _drift_findings(ops: Mapping[str, OpSpec],
         out.append(Finding(
             _ANALYZER, "registry-drift",
             f"op {name!r} has no canonical-order rank "
-            "(order-insensitive fused cache keys would KeyError)",
+            "(canonical op-set ordering would KeyError)",
             subject=name,
             suggestion="register ops through oplib.register_op"))
     return out

@@ -1,8 +1,8 @@
 """Audit runner + CLI: ``python -m repro_torch.audit [--json AUDIT.json]``.
 
-Runs the six analyzers (registry completeness, int-width bounds, the
-host-sync lint of the query path, program-cache key soundness, CUDA
-launch-grid verification, shard-partition exactness), prints findings,
+Runs the five analyzers (registry completeness, int-width bounds, the
+host-sync lint of the query path, CUDA launch-grid verification,
+shard-partition exactness), prints findings,
 writes the machine-readable report (findings + safe-size tables) when asked,
 and exits non-zero iff there is at least one **error** finding — warnings
 (stale waivers) print but never fail the run.  It imports neither jax nor
@@ -16,13 +16,13 @@ import sys
 
 from .findings import AuditReport
 from .intwidth import DEFAULT_ENVELOPE, Envelope, analyze_int_width, safe_size_table
-from .jitkeys import analyze_jit_keys
 from .kernelspec import analyze_kernel_specs
 from .registry import analyze_registry
 from .sharddisjoint import analyze_shard_disjoint, shard_safe_size_table
 from .tracesafety import analyze_trace_safety
 
-ALL_ANALYZERS = ("registry", "intwidth", "trace", "jitkey", "kernelspec",
+#: the reference's analyzers less ``jitkey``: the port has no program cache.
+ALL_ANALYZERS = ("registry", "intwidth", "trace", "kernelspec",
                  "sharddisjoint")
 
 
@@ -39,8 +39,6 @@ def run_audit(env: Envelope = DEFAULT_ENVELOPE, *,
         report.safe_sizes = safe_size_table(env)
     if "trace" in analyzers:
         report.extend(analyze_trace_safety())
-    if "jitkey" in analyzers:
-        report.extend(analyze_jit_keys())
     if "kernelspec" in analyzers:
         report.extend(analyze_kernel_specs(env))
     if "sharddisjoint" in analyzers:

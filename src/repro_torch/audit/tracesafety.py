@@ -4,9 +4,9 @@ PyTorch runs eagerly, so nothing is traced and no trace can fail.  What the
 reference's trace-safety lint protects still matters: a query is one
 dispatch of device work with no round trip to the host
 (``analytics/engine.py``'s promise).  A host sync inside a lowering rule or
-a cached program stalls the stream on every query — the device drains, the
-host waits, and the next kernel launches late — and nothing in a test's
-results shows it.  This AST pass over ``core/``, ``analytics/``,
+the code that calls the lowering stalls the stream on every query — the
+device drains, the host waits, and the next kernel launches late — and
+nothing in a test's results shows it.  This AST pass over ``core/``, ``analytics/``,
 ``stream/``, ``store/``, ``kernels/``, ``comm/`` and ``shard/`` finds them.
 
 What counts as query-path scope
@@ -15,10 +15,12 @@ What counts as query-path scope
   ``ctxs`` (the :class:`~repro_torch.core.oplib.OpSpec` rule convention);
 * the ``fn`` of every :class:`~repro_torch.core.fused.FusedRule`, also when
   it reaches ``FusedRule`` through a module helper that forwards it;
-* the ``build`` callables handed to a program cache (``self._call(key,
-  build, ...)`` in the engine, ``self._program(key, build)`` in the shard
-  layer) and every closure they return — nested ``def``\\ s and lambdas
-  inside a root are linted with it.
+* every function (or lambda) that calls a lowering entry point
+  (:data:`_LOWERING_CALLS`: ``oplib.compute``, ``oplib.StageContext``,
+  ``oplib.summarize_slab``, ``decode_device``, ``expr.lower``) — the
+  engine's and the shard layer's batched calls among them.
+
+Nested ``def``\\ s and lambdas inside a root are linted with it.
 
 What is flagged
 ---------------
@@ -72,8 +74,14 @@ _NUMPY_NAMES = frozenset({"np", "numpy", "onp"})
 _TENSOR_ANNOTATIONS = re.compile(r"\b(torch\s*\.\s*Tensor|Tensor)\b")
 _TENSOR_MODULES = frozenset({"torch"})
 _WAIVE_RE = re.compile(r"#\s*audit:\s*waive\(([a-z\-,\s]+)\)")
-#: program-cache entry points: their callable arguments are query-path code.
-_CACHE_CALLS = frozenset({"_call", "_program"})
+# Exact dotted callees that enter the kernel-switched lowering layer: a
+# function calling one of them is query-path code.  Deliberately exact
+# names: ``oplib.TemporalSummary`` (a plain container) is not a lowering.
+_LOWERING_CALLS = frozenset({
+    "oplib.compute", "oplib.StageContext", "oplib.select_rule",
+    "oplib.summarize_slab", "encode.decode_device",
+    "encode_mod.decode_device", "expr_mod.lower", "expr.lower",
+})
 
 #: the invariant names this pass owns waivers for.
 _OWNED_WAIVERS = frozenset({"host-sync", "tracer-branch"})
@@ -162,6 +170,7 @@ class _ScopeIndex(ast.NodeVisitor):
     def __init__(self, tree: ast.Module):
         self.roots: set[ast.AST] = set()
         self._defs: list[dict[str, ast.AST]] = [{}]
+        self._fns: list[ast.AST] = []  # enclosing functions, innermost last
         # module helpers that hand their parameter k to FusedRule(fn=...)
         self._rule_wrappers: dict[str, int] = {}
         for n in ast.walk(tree):
@@ -196,10 +205,8 @@ class _ScopeIndex(ast.NodeVisitor):
                     return
 
     def visit_Call(self, node: ast.Call):
-        leaf = (_dotted(node.func) or "").rsplit(".", 1)[-1]
-        if leaf in _CACHE_CALLS:
-            for arg in node.args:
-                self._mark(arg)
+        if _dotted(node.func) in _LOWERING_CALLS and self._fns:
+            self.roots.add(self._fns[-1])
         fn = self._fused_fn(node)
         if fn is not None:
             self._mark(fn)
@@ -216,11 +223,18 @@ class _ScopeIndex(ast.NodeVisitor):
         if args and args[0].arg in {"ctx", "ctxs"}:
             self.roots.add(node)  # lowering-rule convention
         self._defs.append({})
+        self._fns.append(node)
         self.generic_visit(node)
+        self._fns.pop()
         self._defs.pop()
 
     visit_FunctionDef = _visit_def
     visit_AsyncFunctionDef = _visit_def
+
+    def visit_Lambda(self, node: ast.Lambda):
+        self._fns.append(node)
+        self.generic_visit(node)
+        self._fns.pop()
 
 
 class _SyncLint(ast.NodeVisitor):
@@ -300,7 +314,10 @@ class _SyncLint(ast.NodeVisitor):
 
     def visit_Call(self, node: ast.Call):
         name = _dotted(node.func) or ""
-        leaf = name.rsplit(".", 1)[-1]
+        # a method's name also where its receiver is no plain name chain
+        # (``out["mean"].item()``)
+        leaf = (node.func.attr if isinstance(node.func, ast.Attribute)
+                else name.rsplit(".", 1)[-1])
         if isinstance(node.func, ast.Attribute) and leaf in _SYNC_METHODS:
             self._flag(node, "host-sync",
                        f".{leaf}() copies device data to the host and waits "

@@ -23,9 +23,8 @@ a small expression language:
 component-count checks, duplicate ids inside a bundle, cycle detection,
 temporal/spatial consumer consistency) and
 compiles them into an :class:`ExprProgram`: leaves deduplicated into
-*slots*, a canonical structural hash for program-cache keys (``add`` is
-canonically commuted, so ``x + y`` and ``y + x`` share one program — IEEE
-addition commutes bitwise), and the connected components the planner assigns
+*slots*, a canonical structural hash (``add`` is canonically commuted, so
+``x + y`` and ``y + x`` hash alike — IEEE addition commutes bitwise), and the connected components the planner assigns
 joint stages to.
 
 :func:`lower` evaluates a bound program: every leaf slot gets exactly ONE
@@ -425,8 +424,8 @@ class ExprProgram:
 
     ``leaves`` are the deduplicated input slots (equal :attr:`Leaf.key` →
     one slot → one prelude); ``key`` is the canonical structural hash (leaf
-    identities abstracted to slot indices) that keys cached programs
-    together with the per-slot layout signatures.  ``leaf_component`` /
+    identities abstracted to slot indices), the reference's program-cache
+    key.  ``leaf_component`` /
     ``root_component`` partition the DAG into connected components — the
     planner's joint-stage unit: leaves joined by a combinator must share a
     stage-compatible plan, while independent roots plan independently.

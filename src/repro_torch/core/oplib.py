@@ -734,14 +734,6 @@ _DERIV_RULES: dict[tuple[Stage, str], Rule] = {
 }
 
 
-def kernel_sig() -> str:
-    """The kernel mode the lowering rules are selected under: ``"on"``
-    (fused rules where they cover) or ``"off"`` (``kernels.ops.
-    override_mode("off")``).  The engine's program keys include it, as the
-    reference's jit keys include its backend mode."""
-    return "on" if kernel_ops.kernels_enabled() else "off"
-
-
 def _declined(rule: Rule) -> Rule:
     """``rule`` run under the ``hsz.op.torch`` span: a torch rule standing
     in for a fused rule that declined the context (a rank-3 field, say)."""
@@ -905,7 +897,7 @@ class TemporalSummary:
         return sum(x.numel() * x.element_size() for x in self.leaves())
 
     def sig(self) -> tuple:
-        """Hashable static signature (program-cache key component)."""
+        """Hashable static signature: each leaf's shape and dtype."""
         return tuple((tuple(x.shape), str(x.dtype).removeprefix("torch."))
                      for x in self.leaves())
 

@@ -80,7 +80,7 @@ def main(argv=None):
                             device=dev)
     n_vars = DATASETS["Hurricane"][0]
     fields = [store.get("Hurricane", i).open() for i in range(n_vars)]
-    res = query(fields, "mean", stage="auto")        # warm the program cache
+    res = query(fields, "mean", stage="auto")        # warm-up
     res, t_batch = timed(lambda: query(fields, "mean", stage="auto"), dev)
     print(f"  mean over {n_vars} variables at stage {res.stages[0].name}: "
           f"{t_batch*1e3:.2f} ms ({res.n_batches} dispatch)")
@@ -93,7 +93,7 @@ def main(argv=None):
     bits = max(comp_x.max_bits(c) for c in fields)
     enc = [comp_x.encode(c, bits=bits) for c in fields]
     dashboard = ["mean", "std", "laplacian"]
-    fused = query(enc, dashboard)                    # warm both program caches
+    fused = query(enc, dashboard)                    # warm-up
     for op in dashboard:
         query(enc, op, stage=fused.stages[0][op])
     t_fused = best_of(lambda: _values(query(enc, dashboard)))
@@ -136,8 +136,7 @@ def main(argv=None):
             if r.op == "std" and r.region is None]
     win_std = next(float(r.result) for r in done if r.region is not None)
     multi = next(r for r in done if r.uid == 102)
-    print(f"  {len(done)} requests drained "
-          f"({fe.engine.cache_size} compiled programs); stds: {stds[:4]} ...; "
+    print(f"  {len(done)} requests drained; stds: {stds[:4]} ...; "
           f"window std: {win_std:.3f}; fused request: "
           f"mean={float(multi.result['mean']):.3f} "
           f"std={float(multi.result['std']):.3f} at one "

@@ -4,7 +4,7 @@ The continuous-batching contract (``add_request`` / ``step`` /
 ``run_until_drained``) for homomorphic analytics over compressed fields.
 Each ``step`` drains the queue, groups requests by ``(op set, stage
 directive, axis)`` and — via the query front-end — by field layout, and
-issues one cached engine program call per group, so N concurrent requests
+issues one batched engine call per group, so N concurrent requests
 over same-layout fields cost one dispatch instead of N.  A request may name
 *several* ops (``op=["mean", "std"]``): the fused plan pays one stage
 reconstruction for the whole set and the request resolves to a result dict.
@@ -16,7 +16,7 @@ may name registered field *ids* (strings — component ids too, for
 ``divergence``/``curl``) instead of shipping containers: the frontend
 resolves ids for grouping and serves the group through the store, so
 repeated queries of a hot field reuse its materialized stage reconstruction
-(``repro_torch.analytics.query`` seeds the cached program) and clients stop
+(``repro_torch.analytics.query`` seeds the group's call) and clients stop
 shipping arrays entirely — the serve-millions contract.  Unknown ids reject
 only their own request.
 
@@ -27,8 +27,7 @@ against a temporal field id; each serving step applies appends (in order)
 the same ids answer from incrementally merged summaries.  Every request is
 always either answered or rejected with a structured error; a malformed
 request (unknown id, empty op set, out-of-bounds region, duplicate vector
-component ids) never poisons another request's group or the engine's
-program cache.
+component ids) never poisons another request's group.
 
 Spans: each ``step`` records the port's spans (:mod:`repro_torch.trace`)
 while ``torch.profiler`` runs, and costs a flag read per span when none
@@ -183,9 +182,8 @@ class AnalyticsFrontend:
         (canonical op set, stage directive, axis, region, field layout), so
         a rejection — infeasible stage, malformed fields, duplicate ids,
         out-of-bounds region — only affects its own request or group;
-        everything servable in the step is served, and a rejected request
-        never leaves a poisoned entry in the engine's program cache (fresh
-        failing programs are evicted by the engine itself).
+        everything servable in the step is served; the engine keeps no
+        state between calls, so a rejected request leaves nothing behind.
         """
         batch, self._queue = self._queue[:self.max_batch], self._queue[self.max_batch:]
         finished: list[AnalyticsRequest | AppendRequest] = []

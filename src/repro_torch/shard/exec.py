@@ -36,22 +36,19 @@ reduces them there in int32; the merged words then run once, on
 shards on one card).  The merge is torch ops (gather, ``index_add_``,
 adds); it launches none of the port's kernels.
 
-Programs are Python callables cached in an ``_jitted`` LRU (128) under the
-reference's keys (layout, static geometry, placement / mesh signatures,
-kernel mode), so the number of cached programs follows the reference's.
-The host routing of a program (which stripe slot feeds which gathered
+Each call runs its merge and lowering directly; nothing is cached but
+data.  The host routing of a merge (which stripe slot feeds which gathered
 slot, :func:`gather_routing`) is built once per (placement, width, plan) and
 its device copies kept in the region plans' bounded device cache.
 """
 from __future__ import annotations
 
 import dataclasses
-from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from ..core import Encoded, Stage, layout_key, oplib
+from ..core import Encoded, Stage, oplib
 from ..core import encode as encode_mod
 from ..core import region as region_mod
 from ..core.oplib import TemporalSummary
@@ -62,7 +59,7 @@ _INT32_MIN = -2**31
 
 
 def mesh_sig(mesh) -> tuple:
-    """Hashable mesh identity (program cache key component)."""
+    """Hashable mesh identity (routing cache key component)."""
     return (tuple(mesh.axis_names), tuple(str(d) for d in mesh.devices))
 
 
@@ -129,29 +126,16 @@ def _n_words(field: Encoded, plan) -> int:
 
 
 class ShardPrograms:
-    """Cached shard programs for one analytics mesh.
+    """Shard programs for one analytics mesh.
 
     Host-static routing (which words / bands belong to which shard) is
     derived from a :class:`BlockPlacement`; every shard runs the same steps
     on its own stripe and only the data differs.
     """
 
-    def __init__(self, mesh, *, cache_limit: int = 128):
+    def __init__(self, mesh):
         self.mesh = mesh
         self.n_shards = int(mesh.size)
-        self._jitted: OrderedDict = OrderedDict()
-        self._limit = int(cache_limit)
-
-    def _program(self, key, build):
-        """The cached program of ``key``, built on a miss (LRU)."""
-        fn = self._jitted.get(key)
-        if fn is None:
-            fn = self._jitted[key] = build()
-            while len(self._jitted) > self._limit:
-                self._jitted.popitem(last=False)
-        else:
-            self._jitted.move_to_end(key)
-        return fn
 
     # -- payload striping ---------------------------------------------------
     def shard_payload(self, e: Encoded, placement: BlockPlacement
@@ -222,11 +206,6 @@ class ShardPrograms:
             bufs.append(buf[:n_out])
         return all_reduce(bufs, "sum", self.mesh.devices[0])
 
-    @staticmethod
-    def _stripes_sig(stripes) -> tuple[int, int]:
-        """The reference's ``[n_shards, w_max]`` stripe shape."""
-        return (len(stripes), int(stripes[0].shape[0]))
-
     # -- region / full-field op execution -----------------------------------
     def region_compute(self, target, ops, stage: Stage, *, axis: int = 0,
                        region=None, placements=None, stripes=None) -> dict:
@@ -273,34 +252,20 @@ class ShardPrograms:
             closures = [oplib.set_closure(names, comps[0].scheme, stage, axis)]
         plans = [region_mod.plan_region(c, norm, cl) if norm is not None
                  else None for c, cl in zip(comps, closures)]
-        n_outs = tuple(_n_words(c, pl) for c, pl in zip(comps, plans))
-
-        key = (tuple(layout_key(c) for c in comps), names, stage, axis, norm,
-               tuple(p.sig() for p in placements), mesh_sig(self.mesh),
-               oplib.kernel_sig(), n_outs,
-               tuple(self._stripes_sig(s) for s in stripes))
-
-        def build():
-            def run(ecs, strs, routes):
-                merged = [self.merge_words(st, r, n)
-                          for st, r, n in zip(strs, routes, n_outs)]
-                if norm is None:
-                    # full field: the merge reassembles the entire payload
-                    # exactly, so the standard full decode runs unchanged
-                    full = tuple(dataclasses.replace(ec, payload=m)
-                                 for ec, m in zip(ecs, merged))
-                    return oplib.compute(full if vector else full[0], names,
-                                         stage, axis=axis)
-                return oplib.compute(tuple(ecs) if vector else ecs[0], names,
-                                     stage, axis=axis, region=norm,
-                                     payload_words=merged if vector
-                                     else merged[0])
-            return run
-
-        fn = self._program(key, build)
-        routes = [self.routing(c, p, pl)
-                  for c, p, pl in zip(comps, placements, plans)]
-        return fn([_stripped(c) for c in comps], stripes, routes)
+        merged = [self.merge_words(st, self.routing(c, p, pl), _n_words(c, pl))
+                  for c, p, pl, st in zip(comps, placements, plans, stripes)]
+        # the lowering reads the merged words only, never a payload
+        ecs = [_stripped(c) for c in comps]
+        if norm is None:
+            # full field: the merge reassembles the entire payload exactly,
+            # so the standard full decode runs unchanged
+            full = tuple(dataclasses.replace(ec, payload=m)
+                         for ec, m in zip(ecs, merged))
+            return oplib.compute(full if vector else full[0], names, stage,
+                                 axis=axis)
+        return oplib.compute(tuple(ecs) if vector else ecs[0], names, stage,
+                             axis=axis, region=norm,
+                             payload_words=merged if vector else merged[0])
 
     # -- integer stage materialization ---------------------------------------
     def materialize(self, e: Encoded, stage: Stage, *, region=None,
@@ -315,10 +280,9 @@ class ShardPrograms:
         int32, and integer reconstruction is exact, so the result is
         bit-identical to the single-device ``repro_torch.store.materialize``
         — which is what lets the sharded store seed the engine's standard
-        programs and inherit the store's seeded == unseeded bit-identity.
+        calls and inherit the store's seeded == unseeded bit-identity.
         The full-field stage-② path runs ``encode.decode_device`` on the
-        merged payload, i.e. the unpack kernel on a card; kernel mode stays
-        in the program key (``oplib.kernel_sig()``).
+        merged payload, i.e. the unpack kernel on a card.
         """
         stage = Stage(stage)
         if stage not in (Stage.P, Stage.Q):
@@ -337,27 +301,15 @@ class ShardPrograms:
         closure = region_mod.canonical_closure(e.scheme, closure, norm)
         plan = (region_mod.plan_region(e, norm, closure) if norm is not None
                 else None)
-        n_out = _n_words(e, plan)
-
-        key = ("__shard_materialize__", layout_key(e), stage, norm, closure,
-               placement.sig(), mesh_sig(self.mesh), oplib.kernel_sig(),
-               n_out, self._stripes_sig(stripes))
-
-        def build():
-            def run(ec, st, route):
-                merged = self.merge_words(st, route, n_out)
-                if norm is None:
-                    full = dataclasses.replace(ec, payload=merged)
-                    ctx = oplib.StageContext(full, stage, None, closure)
-                else:
-                    ctx = oplib.StageContext(ec, stage, norm, closure,
-                                             words=merged)
-                return ctx.sub if stage == Stage.P else \
-                    ctx.q_spatial.contiguous()
-            return run
-
-        fn = self._program(key, build)
-        return fn(_stripped(e), stripes, self.routing(e, placement, plan))
+        merged = self.merge_words(stripes, self.routing(e, placement, plan),
+                                  _n_words(e, plan))
+        ec = _stripped(e)
+        if norm is None:
+            full = dataclasses.replace(ec, payload=merged)
+            ctx = oplib.StageContext(full, stage, None, closure)
+        else:
+            ctx = oplib.StageContext(ec, stage, norm, closure, words=merged)
+        return ctx.sub if stage == Stage.P else ctx.q_spatial.contiguous()
 
     # -- temporal summary merge ---------------------------------------------
     def merge_band_summaries(self, bands, win_rows: int,
@@ -376,28 +328,17 @@ class ShardPrograms:
         by_shard: list[list] = [[] for _ in range(self.n_shards)]
         for owner, row0, summ in bands:
             by_shard[int(owner) % self.n_shards].append((int(row0), summ))
-        b_max = max(max((len(g) for g in by_shard), default=0), 1)
-        r_max = max((int(s.q_sum.shape[0]) for _, _, s in bands), default=1)
         rest = tuple(rest)
-        key = ("__shard_summary_merge__", self.n_shards, b_max, r_max,
-               win_rows, rest, mesh_sig(self.mesh))
-
-        def build():
-            def run(groups):
-                parts = [_scatter_bands(g, win_rows, rest, dev)
-                         for g, dev in zip(groups, self.mesh.devices)]
-                dev0 = self.mesh.devices[0]
-                how = ("max", "sum", "sum", "min", "max", "sum")
-                return TemporalSummary(*(
-                    all_reduce([p[i] for p in parts], h, dev0)
-                    for i, h in enumerate(how)))
-            return run
-
-        return self._program(key, build)(by_shard)
+        parts = [_scatter_bands(g, win_rows, rest, dev)
+                 for g, dev in zip(by_shard, self.mesh.devices)]
+        dev0 = self.mesh.devices[0]
+        how = ("max", "sum", "sum", "min", "max", "sum")
+        return TemporalSummary(*(all_reduce([p[i] for p in parts], h, dev0)
+                                 for i, h in enumerate(how)))
 
 
 def _stripped(c: Encoded) -> Encoded:
-    """``c`` without its payload: a program reads only the stripes."""
+    """``c`` without its payload: a lowering reads only the stripes."""
     return dataclasses.replace(c, payload=c.payload.new_zeros((0,)))
 
 

@@ -67,7 +67,7 @@ class BlockPlacement:
                    n_shards, axis)
 
     def sig(self) -> tuple:
-        """Hashable static signature (jit/program cache key component)."""
+        """Hashable static signature (routing cache key component)."""
         return (self.scheme, self.shape, self.padded_shape, self.block,
                 self.n_shards, self.axis)
 

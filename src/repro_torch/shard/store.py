@@ -379,8 +379,8 @@ class ShardedFieldStore:
         win_rows = win[0][1] - win[0][0]
         rest = tuple(hi - lo for lo, hi in win[1:])
         bands = spatial_bands(slabs[0], pl, norm)
-        # one batched summarize per (band, slab layout): programs stay
-        # independent of the stream's length, like the single-device path
+        # one batched summarize per (band, slab layout), like the
+        # single-device path
         groups: dict[tuple, list[int]] = {}
         for i, slab in enumerate(slabs):
             groups.setdefault(layout_key(slab), []).append(i)

@@ -17,8 +17,7 @@ continuous writes:
   ``repro_torch.analytics.query``: ``tdelta`` and running ``tmean`` /
   ``tmin`` / ``tmax`` / ``tstd`` over the time axis, lowered as merges of
   per-slab summaries, bit-identical to the same reduction over the full
-  decompression of the concatenated field, with slab-count-stable cached
-  programs.
+  decompression of the concatenated field.
 """
 from ..core.oplib import (TEMPORAL_OPS, TemporalSummary, merge_summaries,
                           summarize_slab, summary_from_q, temporal_postlude)

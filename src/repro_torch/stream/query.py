@@ -2,11 +2,10 @@
 
 ``repro_torch.analytics.query`` delegates here whenever the op set is
 temporal (``tdelta`` / ``tmean`` / ``tmin`` / ``tmax`` / ``tstd``), so
-clients use one ``query()`` for both workloads.  Execution is three cached
-programs of the engine (DESIGN.md §9): the per-slab summarizer (only on
-store misses — a hot stream serves straight from its resident merged
-summary), the pairwise merge, and the op-set postlude, each keyed on layout
-and summary signature but never on how many slabs the stream holds.
+clients use one ``query()`` for both workloads.  Execution is three engine
+calls (DESIGN.md §9): the per-slab summarizer (only on store misses — a hot
+stream serves straight from its resident merged summary), the pairwise
+merge, and the op-set postlude.
 """
 from __future__ import annotations
 from collections.abc import Sequence
@@ -21,7 +20,7 @@ from .temporal import TemporalField
 def _cold_summary(tf: TemporalField, stage: Stage, region, engine):
     """Storeless path: summarize every slab (batched per layout) and merge
     in temporal order.  Returns ``(summary, n_calls)`` where ``n_calls``
-    counts the program calls issued (one batched summarize per layout group
+    counts the engine calls issued (one batched summarize per layout group
     plus one merge per fold step), so callers report dispatch accounting
     uniformly with the spatial path."""
     groups: dict[tuple, list[int]] = {}

@@ -41,7 +41,7 @@ class StreamFieldStore(FieldStore):
 
     ``engine`` (a :class:`~repro_torch.analytics.BatchedAnalytics`,
     defaulting to the process-wide one) runs the per-slab summarizer and
-    merge programs; ``cost_model`` feeds the planner's summarize-stage
+    the merge; ``cost_model`` feeds the planner's summarize-stage
     choice and the incremental-vs-recompute costing.
     """
 

@@ -16,8 +16,7 @@ The slabs live on the stream's device (``device="cuda"`` unless the caller
 asks for the CPU); an ``Encoded`` slab decodes there through
 ``kernels.bitpack.unpack_residuals``.  Slabs appended with the same timestep
 count encode to the same static layout, so the engine's per-slab summarizer
-program (``BatchedAnalytics.summarize``) is built once and reused by every
-append.
+(``BatchedAnalytics.summarize``) batches them.
 """
 from __future__ import annotations
 from collections.abc import Sequence

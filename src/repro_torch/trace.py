@@ -30,8 +30,7 @@ SPANS = (
     "hsz.query",            # one group's query, results handed back
     "hsz.plan",             # stage planning (plan_stages / plan_expr)
     "hsz.store",            # a group's store lookups (resident stages, seeds)
-    "hsz.engine.run",       # an engine call: checks, program key, program
-    "hsz.engine.build",     # building a program on a cache miss
+    "hsz.engine.run",       # an engine call: checks, then the lowering
     "hsz.engine.stack",     # stacking a batch's fields and seeds
     "hsz.op",               # one op's lowering rule (postlude, kernels)
     "hsz.op.torch",         # a torch rule where the fused rule declined

@@ -5,11 +5,13 @@ The same numpy fields are compressed by the reference and carried into the
 port with ``convert.from_arrays``.  What is held, with its tolerance:
 
 * the feasibility matrix, auto and explicit plans, ``CostModel`` choices
-  from the same CSV rows, ``n_batches`` / ``n_dispatches`` and the engine's
-  ``cache_size`` after the same query sequence: **exactly** the reference's;
+  from the same CSV rows, ``n_batches`` / ``n_dispatches`` after the same
+  query sequence: **exactly** the reference's;
 * inside the port, **bitwise**: a batched ``run`` equals the per-field
   ``homomorphic`` calls, leaf for leaf, for scalar, vector and ``Encoded``
-  fields at every feasible stage;
+  fields at every feasible stage; back-to-back calls on one engine that
+  differ in one input each equal a fresh engine's call (the port keeps no
+  program cache, so nothing of one call may reach the next);
 * against the reference's batched query: derivative / gradient / laplacian
   **bitwise**; divergence / curl ``rtol=1e-6``, ``atol=1e-6·max|ref|``;
   mean / std ``rtol=1e-5`` or half of the paper's bias bound (1e-3 of it
@@ -37,6 +39,8 @@ from repro_torch import analytics, convert
 from repro_torch.core import Stage, UnsupportedStageError, error_analysis
 from repro_torch.core import homomorphic as H
 from repro_torch.core.stages import LEAVES
+from repro_torch.kernels import ops
+from repro_torch.store import materialize
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ALL = ["hszp", "hszx", "hszp_nd", "hszx_nd"]
@@ -161,7 +165,9 @@ def test_matrix_holds_exactly_the_spatial_rows():
     assert analytics.MULTIVARIATE == janalytics.MULTIVARIATE
     assert analytics.TEMPORAL == janalytics.TEMPORAL == (
         "tdelta", "tmean", "tmin", "tmax", "tstd")
-    assert set(analytics.__all__) == set(janalytics.__all__)
+    # the reference's jit-cache key builder has no counterpart: the port
+    # keeps no program cache
+    assert set(analytics.__all__) == set(janalytics.__all__) - {"batch_key"}
 
 
 @pytest.mark.parametrize("scheme", ALL)
@@ -315,71 +321,92 @@ def test_query_groups_mixed_layouts():
 
 
 def test_query_unfused_plan_counts_per_op():
-    """A per-op plan (explicit mapping of differing stages) runs one program
+    """A per-op plan (explicit mapping of differing stages) runs one call
     per op, and reports the reference's dispatch count."""
     js, ts = _compress_many("hszp_nd", 3)
     stages = {"mean": Stage.P, "laplacian": Stage.Q}
     res = analytics.query(ts, ["mean", "laplacian"], stage="auto")
-    assert res.n_dispatches == 1
-    eng = analytics.BatchedAnalytics()
-    out = eng.run(ts, ["mean", "laplacian"], stages)
-    assert eng.cache_size == 2
-    jeng = janalytics.BatchedAnalytics()
-    jeng.run(js, ["mean", "laplacian"], {k: _jstage(v)
-                                          for k, v in stages.items()})
-    assert jeng.cache_size == 2
+    jres = janalytics.query(js, ["mean", "laplacian"], stage="auto")
+    assert res.n_dispatches == jres.n_dispatches == 1
+    out = analytics.BatchedAnalytics().run(ts, ["mean", "laplacian"], stages)
     for i, c in enumerate(ts):
         _bitwise(H.mean(c, Stage.P), out["mean"][i])
         _bitwise(H.laplacian(c, Stage.Q), out["laplacian"][i])
 
 
-def test_program_cache_reused_across_queries():
-    eng, jeng = analytics.BatchedAnalytics(), janalytics.BatchedAnalytics()
-    js, ts = _compress_many("hszp_nd", 3)
-    js2, ts2 = _compress_many("hszp_nd", 3, seed=9)
-    steps = [(ts, js, "mean", 1), (ts2, js2, "mean", 1), (ts, js, "std", 2),
-             (ts[:2], js[:2], "std", 3),            # bucket 2: new program
-             (ts2[:1] + ts[:2], js2[:1] + js[:2], "std", 3),  # bucket 4
-             (ts + ts2[:1], js + js2[:1], "std", 3),          # 4 again
-             (ts + ts2[:2], js + js2[:2], "std", 4)]          # bucket 8
-    for t, j, op, n in steps:
-        eng.run(t, op, Stage.P)
-        jeng.run(j, op, JStage.P)
-        assert eng.cache_size == jeng.cache_size == n
-    small = analytics.BatchedAnalytics(cache_limit=2)
-    for op in ("mean", "std", "laplacian"):
-        small.run(ts, op, Stage.Q)
-    assert small.cache_size == 2
-
-
 def test_derivative_axis_in_cache_key():
+    """Axis 0 and axis 1 on one engine give each axis's own derivative."""
     eng = analytics.BatchedAnalytics()
     _, ts = _compress_many("hszp_nd", 2)
     d0 = eng.run(ts, "derivative", Stage.P, axis=0)
     d1 = eng.run(ts, "derivative", Stage.P, axis=1)
-    assert eng.cache_size == 2
     assert not torch.allclose(d0, d1)
-    # axis is normalized away for ops that take none
-    eng.run(ts, "mean", Stage.P, axis=1)
-    eng.run(ts, "mean", Stage.P, axis=0)
-    assert eng.cache_size == 3
+    for axis, got in ((0, d0), (1, d1)):
+        for i, c in enumerate(ts):
+            _bitwise(H.derivative(c, Stage.P, axis), got[i], f"axis {axis}")
 
 
-def test_batch_key_equals_the_references_in_all_but_dtype_spelling():
-    """The cache key holds the reference's fields: layout, canonical op set,
-    stage, axis, components, batch, region, seed signature, kernel mode."""
-    from repro.analytics.engine import batch_key as jax_batch_key
-    js, ts = _compress_many("hszx_nd", 1)
-    region = ((3, 20), (5, 40))
-    jk = jax_batch_key(js[0], ["std", "mean"], JStage.Q, 0, 1, 4, region)
-    tk = analytics.batch_key(ts[0], ["std", "mean"], Stage.Q, 0, 1, 4, region)
-    assert len(jk) == len(tk)
-    assert jk[:5] == tk[:5] and str(jk[5]) == tk[5]
-    assert jk[6:-1] == tk[6:-1]
-    assert tk[-1] == "on"
-    from repro_torch.kernels import ops
-    with ops.override_mode("off"):
-        assert analytics.batch_key(ts[0], "mean", Stage.Q)[-1] == "off"
+def _same_result(want, got, what=""):
+    """Bitwise equality of engine results: tensors, tuples, op dicts."""
+    if isinstance(want, dict):
+        assert list(want) == list(got), what
+        for k in want:
+            _bitwise(want[k], got[k], f"{what} {k}")
+    else:
+        _bitwise(want, got, what)
+
+
+def _under(mode, call):
+    def run(eng):
+        with ops.override_mode(mode):
+            return call(eng)
+    return run
+
+
+def _back_to_back_calls(case):
+    """Engine calls that differ from one another in one input."""
+    _, p = _compress_many("hszp_nd", 5)
+    if case == "axis":
+        return [lambda e, a=a: e.run(p[:2], "derivative", Stage.P, axis=a)
+                for a in (0, 1)]
+    if case == "region":
+        return [lambda e, r=r: e.run(p[:2], ["mean", "laplacian"], Stage.Q,
+                                     region=r)
+                for r in (None, ((3, 20), (5, 40)), ((10, 30), (0, 53)))]
+    if case == "seeded":
+        seeds = [materialize(c, Stage.Q) for c in p[:3]]
+        return [lambda e: e.run(p[:3], "std", Stage.Q),
+                lambda e: e.run(p[:3], "std", Stage.Q, seeds=seeds)]
+    if case == "kernel_mode":
+        return [_under(m, lambda e: e.run(p[:2], ["mean", "std", "laplacian"],
+                                          Stage.P))
+                for m in ("off", "on")]
+    if case == "batch":
+        return [lambda e, n=n: e.run(p[:n], "mean", Stage.P) for n in (1, 3, 5)]
+    if case == "op_order":
+        return [lambda e, o=o: e.run(p[:2], o, Stage.Q)
+                for o in (["std", "mean"], ["mean", "std"],
+                          ["laplacian", "std", "mean"])]
+    if case == "layout":
+        _, x = _compress_many("hszx_nd", 2, seed=4)
+        return [lambda e, f=f: e.run(f, ["mean", "std"], Stage.Q)
+                for f in (p[:2], x)]
+    assert case == "curl"
+    _, v3 = _compress_many("hszp_nd", 3, shape=(9, 10, 11), seed=5)
+    return [lambda e: e.run([(p[0], p[1]), (p[2], p[3])], "curl", Stage.Q),
+            lambda e: e.run([tuple(v3)], "curl", Stage.Q)]
+
+
+@pytest.mark.parametrize("case", ["axis", "region", "seeded", "kernel_mode",
+                                  "batch", "op_order", "layout", "curl"])
+def test_back_to_back_calls_equal_a_fresh_engine(case):
+    """One engine takes calls that differ in one input; each equals the same
+    call on a fresh engine bitwise, so nothing of a call reaches the next."""
+    calls = _back_to_back_calls(case)
+    eng = analytics.BatchedAnalytics()
+    got = [call(eng) for call in calls]
+    for i, (call, g) in enumerate(zip(calls, got)):
+        _same_result(call(analytics.BatchedAnalytics()), g, f"{case} {i}")
 
 
 # -- cost model ---------------------------------------------------------------

@@ -7,11 +7,12 @@ What is held:
   intwidth fixtures, the runner and CLI (exit 0 iff no error finding,
   warnings never fail, ``--only``, schema version 2), registration-time
   validation in ``repro_torch.core.oplib.register_op``, the stream's
-  summary-capacity guard, a clean self-audit in both kernel modes.
+  summary-capacity guard, a clean self-audit in both kernel modes.  The
+  port registers the reference's analyzers less ``jitkey``: it keeps no
+  program cache, so there are no keys to audit.
 * **Rewritten** for torch and CUDA: each known-bad fixture — a hidden
-  ``.item()`` in a lowering rule, an ``if`` on a tensor, an under-keyed
-  ``_call`` closure, a ``covers`` predicate on an unkeyed attribute, a
-  widened halo, overlapping tile writes, a coverage gap, static shared
+  ``.item()`` in a lowering rule, an ``if`` on a tensor, a host copy in a
+  function that calls the lowering, a widened halo, overlapping tile writes, a coverage gap, static shared
   memory over 48 KiB, a ``PAD`` too small, a float ``*`` stored to an
   output, an undeclared ``__global__``, a stale spec, a ``constexpr``
   drift, a ``SIGNATURES`` arity or width mismatch, a double-owned payload
@@ -50,7 +51,7 @@ from repro.core import Scheme as JScheme
 from repro.core import Stage as JStage
 from repro.core.oplib import OpSpec as JOpSpec
 from repro_torch import audit
-from repro_torch.audit import (intwidth, jitkeys, kernelspec, registry, runner,
+from repro_torch.audit import (intwidth, kernelspec, registry, runner,
                                sharddisjoint, tracesafety)
 from repro_torch.audit.findings import SCHEMA_VERSION, AuditReport, Finding
 from repro_torch.comm import hom_collectives as hc
@@ -333,16 +334,16 @@ CELLS = {"d": _rule(_deriv)}
 _PROGRAM_CACHE = '''
 import torch
 
-class Engine:
-    def run(self, fields, names):
-        key = (len(fields), names)
+from ..core import oplib
 
-        def build():
-            def run(items):
-                total = torch.stack(items).sum()
-                return total.cpu()
-            return run
-        return self._call(key, build, list(fields))
+
+class Engine:
+    def run(self, fields, names, stage):
+        out = oplib.compute(torch.stack(fields), names, stage)
+        return out["mean"].item()
+
+    def describe(self, fields):
+        return torch.stack(fields).sum().item()
 '''
 
 _FSTRING = '''
@@ -424,9 +425,11 @@ class TestTraceSafetyAnalyzer:
             == [("host-sync", "_deriv")]
 
     def test_program_cache_closure_is_in_scope(self):
+        """A function that calls the lowering is in scope; one that does
+        not is not."""
         fs = tracesafety.lint_source(_PROGRAM_CACHE, "engine.py")
         assert [(f.invariant, f.subject) for f in fs] \
-            == [("host-sync", "build")]
+            == [("host-sync", "run")]
 
     def test_fstring_on_tensor_one_finding(self):
         fs = tracesafety.lint_source(_FSTRING, "fix.py")
@@ -471,194 +474,9 @@ class TestTraceSafetyAnalyzer:
             names[rel] = {getattr(r, "name", "<lambda>") for r in idx.roots}
         assert {"_mean_m", "_std_q", "_gradient_rule"} <= names["core/oplib.py"]
         assert {"_deriv_lorenzo", "_lap_blockmean_q"} <= names["core/fused.py"]
-        assert "build" in names["analytics/engine.py"]
-        assert "build" in names["shard/exec.py"]
-
-
-# ===========================================================================
-# analyzer (4): program-cache key soundness
-# ===========================================================================
-
-_UNDERKEYED = '''
-from collections import OrderedDict
-
-
-class Engine:
-    def __init__(self):
-        self._programs = OrderedDict()
-
-    def go(self, fields, scale):
-        key = (len(fields),)
-
-        def build():
-            def run(items):
-                return [x * scale for x in items]
-            return run
-        return self._call(key, build, list(fields))
-'''
-
-_UNCOVERED_DISPATCH = '''
-class FusedRule:
-    pass
-
-def _covers_bad(ctx):
-    return ctx.scheme.is_lorenzo and ctx.eps_budget > 0
-
-RULES = {"d": FusedRule(lambda c, a: None, _covers_bad)}
-'''
-
-
-def _source(rel: str) -> str:
-    return (PKG / rel).read_text()
-
-
-class TestJitKeyAnalyzer:
-    def test_underkeyed_call_closure_one_finding(self):
-        fs = jitkeys.analyze_source(_UNDERKEYED, "fix.py")
-        assert len(fs) == 1
-        assert fs[0].invariant == "unkeyed-closure"
-        assert fs[0].subject == "scale"
-
-    def test_keyed_twin_clean(self):
-        good = _UNDERKEYED.replace("key = (len(fields),)",
-                                   "key = (len(fields), scale)")
-        assert jitkeys.analyze_source(good, "fix.py") == []
-
-    def test_invariant_comment_waives(self):
-        waived = _UNDERKEYED.replace(
-            "return self._call(key, build, list(fields))",
-            "return self._call(key, build, list(fields))  "
-            "# audit: invariant(scale)")
-        assert jitkeys.analyze_source(waived, "fix.py") == []
-
-    def test_capture_inside_comprehension_is_free(self):
-        """Python 3.12 inlines comprehensions (PEP 709): a capture used only
-        inside one is a free variable of the closure around it."""
-        assert sys.version_info >= (3, 12)
-        src = _UNDERKEYED.replace("return [x * scale for x in items]",
-                                  "return [x * y for x in items for y in "
-                                  "(scale,)]")
-        fs = jitkeys.analyze_source(src, "fix.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("unkeyed-closure", "scale")]
-
-    def test_sabotaged_engine_key_detected(self):
-        engine = _source("analytics/engine.py")
-        sab = engine.replace("self._bucket(len(fields)), region, seed_sig)",
-                             "self._bucket(len(fields)), None, seed_sig)")
-        assert sab != engine
-        fs = jitkeys.analyze_source(sab, "engine.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("unkeyed-closure", "region")]
-
-    def test_sabotaged_shard_key_detected(self):
-        exec_src = _source("shard/exec.py")
-        sab = exec_src.replace("key = (tuple(layout_key(c) for c in comps), "
-                               "names, stage, axis, norm,",
-                               "key = (tuple(layout_key(c) for c in comps), "
-                               "names, stage, norm,")
-        assert sab != exec_src
-        fs = jitkeys.analyze_source(sab, "exec.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("unkeyed-closure", "axis")]
-
-    def test_repo_cache_keys_sound(self):
-        assert jitkeys.analyze_jit_keys() == []
-
-    def test_every_program_cache_is_a_target(self):
-        """Every OrderedDict of callables in the port lives in a module the
-        analyzer reads, and each target holds one."""
-        caches = jitkeys.program_caches()
-        assert {rel for rel, _ in caches} == set(jitkeys._DEFAULT_TARGETS)
-        assert len(caches) == len(jitkeys._DEFAULT_TARGETS)
-
-
-class TestJitKeyKernelMode:
-    def test_kernel_sig_dropped_from_batch_key_one_finding(self):
-        engine = _source("analytics/engine.py")
-        sab = engine.replace("seed_sig, oplib.kernel_sig())", "seed_sig)")
-        assert sab != engine
-        fs = jitkeys.analyze_source(sab, "engine.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("unkeyed-kernel-mode", "run")]
-
-    def test_kernel_sig_dropped_from_inline_key_detected(self):
-        engine = _source("analytics/engine.py")
-        sab = engine.replace("self._bucket(len(slabs)),\n"
-                             "                                   "
-                             "oplib.kernel_sig())",
-                             "self._bucket(len(slabs)))")
-        assert sab != engine
-        fs = jitkeys.analyze_source(sab, "engine.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("unkeyed-kernel-mode", "summarize")]
-
-    def test_kernel_sig_dropped_from_expression_key_detected(self):
-        engine = _source("analytics/engine.py")
-        sab = engine.replace("tuple(slot_seed_sig(s) for s in seeds), pre_sig,\n"
-                             "               oplib.kernel_sig())",
-                             "tuple(slot_seed_sig(s) for s in seeds), pre_sig)")
-        assert sab != engine
-        fs = jitkeys.analyze_source(sab, "engine.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("unkeyed-kernel-mode", "run_expr")]
-
-    def test_kernel_sig_dropped_from_shard_key_detected(self):
-        exec_src = _source("shard/exec.py")
-        sab = exec_src.replace(
-            "placement.sig(), mesh_sig(self.mesh), oplib.kernel_sig(),\n"
-            "               n_out,",
-            "placement.sig(), mesh_sig(self.mesh),\n               n_out,")
-        assert sab != exec_src
-        fs = jitkeys.analyze_source(sab, "exec.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("unkeyed-kernel-mode", "materialize")]
-
-    def test_covers_predicate_unkeyed_input_one_finding(self):
-        fs = jitkeys.analyze_covers_source(_UNCOVERED_DISPATCH, "fused.py")
-        assert [(f.invariant, f.subject) for f in fs] \
-            == [("uncovered-dispatch-input", "eps_budget")]
-
-    def test_covers_predicate_helper_forwarding_followed(self):
-        src = _UNCOVERED_DISPATCH.replace(
-            "def _covers_bad(ctx):\n"
-            "    return ctx.scheme.is_lorenzo and ctx.eps_budget > 0",
-            "def _helper(c):\n"
-            "    return c.eps_budget > 0\n\n"
-            "def _covers_bad(ctx):\n"
-            "    return ctx.scheme.is_lorenzo and _helper(ctx)")
-        fs = jitkeys.analyze_covers_source(src, "fused.py")
-        assert [f.subject for f in fs] == ["eps_budget"]
-
-    def test_live_covers_predicates_clean(self):
-        assert jitkeys.analyze_covers_source(_source("core/fused.py"),
-                                             "core/fused.py") == []
-
-    def test_stale_invariant_declaration_is_warning(self):
-        stale = '''
-class E:
-    def go(self, key):
-        def build():
-            def run(x):
-                return x + 1
-            return run
-        return self._call(key, build, 1)  # audit: invariant(cost_model)
-'''
-        fs = jitkeys.analyze_source(stale, "m.py")
-        assert [(f.invariant, f.subject, f.severity) for f in fs] \
-            == [("stale-waiver", "cost_model", "warning")]
-
-    def test_consumed_invariant_declaration_not_stale(self):
-        used = '''
-class E:
-    def go(self, key, cost_model):
-        def build():
-            def run(x):
-                return x + cost_model.weight
-            return run
-        return self._call(key, build, 1)  # audit: invariant(cost_model)
-'''
-        assert jitkeys.analyze_source(used, "m.py") == []
+        # the functions that call the lowering (no program cache between)
+        assert {"run", "run_expr", "summarize"} <= names["analytics/engine.py"]
+        assert {"region_compute", "materialize"} <= names["shard/exec.py"]
 
 
 # ===========================================================================
@@ -1231,7 +1049,7 @@ class TestRunner:
     def test_cli_clean_exit_and_json(self, tmp_path, capsys):
         out = tmp_path / "AUDIT.json"
         rc = runner.main(["--json", str(out), "--only",
-                          "registry,intwidth,trace,jitkey,sharddisjoint"])
+                          "registry,intwidth,trace,sharddisjoint"])
         assert rc == 0
         data = json.loads(out.read_text())
         assert data["ok"] and data["n_findings"] == 0
@@ -1269,11 +1087,15 @@ class TestRunner:
 
 class TestRunnerContract:
     def test_six_analyzers_registered(self):
+        """The reference's analyzers less ``jitkey`` (the port keeps no
+        program cache), in the reference's order."""
         from repro.audit import runner as jrunner
 
-        assert runner.ALL_ANALYZERS == jrunner.ALL_ANALYZERS == (
+        assert jrunner.ALL_ANALYZERS == (
             "registry", "intwidth", "trace", "jitkey", "kernelspec",
             "sharddisjoint")
+        assert runner.ALL_ANALYZERS == tuple(
+            a for a in jrunner.ALL_ANALYZERS if a != "jitkey")
         assert audit.ALL_ANALYZERS == runner.ALL_ANALYZERS
 
     def test_only_flag_and_schema_version(self, tmp_path, capsys):

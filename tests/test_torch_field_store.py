@@ -6,13 +6,13 @@ port with ``convert.from_arrays``.  What is held, with its tolerance:
 
 * inside the port, **bitwise**: store-backed (seeded) query results equal
   storeless ones for every (scheme, op set, stage, ± region) cell, field
-  and vector arity, ``Compressed`` and ``Encoded``; the seeded engine
-  program is cached apart from its cold twin and answers alike;
+  and vector arity, ``Compressed`` and ``Encoded``; a seeded engine call
+  answers as its cold twin on the same engine;
 * against the reference, **exactly**: cache-aware plans (uncalibrated and
   calibrated), store hit / miss / eviction / rejection counts, resident
   byte counts and LRU order replayed step by step, ``cached_stages`` rows,
   ``CostModel`` JSON in both directions (each package loads the other's
-  ``save``), and the engine's ``cache_size`` after the same sequence.
+  ``save``), and ``n_dispatches`` after the same sequence.
 
 The serve-side tests of ``tests/test_store.py`` are mirrored in
 ``tests/test_torch_serve.py``.
@@ -181,15 +181,18 @@ def test_seeded_engine_program_is_separate_and_equal():
     for i, c in enumerate(js):
         jstore.put(f"f{i}", c)
     cold = query(cs, "std", stage=Stage.Q, engine=eng)
-    janalytics.query(js, "std", stage=JStage.Q, engine=jeng)
-    assert eng.cache_size == jeng.cache_size == 1
+    jcold = janalytics.query(js, "std", stage=JStage.Q, engine=jeng)
+    assert cold.n_dispatches == jcold.n_dispatches == 1
     hot = query(ids, "std", stage=Stage.Q, engine=eng, store=store)
-    janalytics.query(ids, "std", stage=JStage.Q, engine=jeng, store=jstore)
-    assert eng.cache_size == jeng.cache_size == 2  # seeded program apart
+    jhot = janalytics.query(ids, "std", stage=JStage.Q, engine=jeng,
+                            store=jstore)
+    assert hot.n_dispatches == jhot.n_dispatches == 1
     for a, b in zip(cold.values, hot.values):
         _assert_same(b, a)
-    query(ids, "std", stage=Stage.Q, engine=eng, store=store)
-    assert eng.cache_size == 2  # and reused on the hit path
+    again = query(ids, "std", stage=Stage.Q, engine=eng, store=store)
+    assert again.store_misses == 0 and again.store_hits >= 1  # hit path
+    for a, b in zip(cold.values, again.values):
+        _assert_same(b, a)
 
 
 def test_engine_rejects_mismatched_seeds():

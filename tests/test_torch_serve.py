@@ -16,8 +16,7 @@ sides are then held together:
   bound is eps); ``tmean`` / ``tstd`` within
   ``error_analysis.temporal_round_bound``; expression roots rtol 1e-5,
   ``atol 1e-5·max|ref|``; result stages equal;
-* ``engine.cache_size`` and the ``n_dispatches`` of every group's query
-  equal, step by step.
+* the ``n_dispatches`` of every group's query equal, step by step.
 
 Mirrored: ``tests/test_analytics.py::test_analytics_frontend_*``,
 ``tests/test_expr.py::test_serve_*``, ``tests/test_fused.py::
@@ -115,13 +114,12 @@ def _slab(i, k=3, spatial=SPATIAL, seed=0):
 class Run:
     """One scenario's run on one package: the frontend, the finished
     requests by uid (in step order), and each group query's
-    ``n_dispatches`` and ``cache_size`` after every step."""
+    ``n_dispatches``."""
 
     def __init__(self, ns, monkeypatch):
         self.ns = ns
         self.done: dict = {}
         self.dispatches: list = []
-        self.cache_sizes: list = []
         self.fe = None
         mod = ns.module
         for name in ("_query_opset", "query"):
@@ -144,7 +142,6 @@ class Run:
         while fe._queue:
             for r in fe.step():
                 out[r.uid] = r
-            self.cache_sizes.append(fe.engine.cache_size)
         self.done.update(out)
         return out
 
@@ -197,7 +194,6 @@ def _same_outcomes(ref: Run, port: Run, field_of=None, temporal_of=None):
     """Both frontends answered and rejected the same uids alike, with
     values within the slice tolerances and the same dispatch counts."""
     assert sorted(ref.done) == sorted(port.done)
-    assert port.cache_sizes == ref.cache_sizes
     assert port.dispatches == ref.dispatches
     for uid, jr in ref.done.items():
         pr = port.done[uid]
@@ -275,7 +271,6 @@ def test_analytics_frontend_drains_mixed_requests(monkeypatch):
         assert len(done) == 7 and all(r.done for r in done.values())
         assert int(done[0].result_stage) == 1
         assert tuple(done[11].result.shape) == (38, 38)
-        assert fe.engine.cache_size == 3
 
     ref, port = _both(monkeypatch, scenario)
     _bitwise(H.mean(port.fields[0], Stage.M), port.done[0].result, "mean@M")
@@ -378,7 +373,6 @@ def test_serve_multi_op_request(monkeypatch, field_2d):
         fe.add_request(ns.AnalyticsRequest(uid=2, fields=c, op="gradient"))
         done = run.drain()
         assert all(r.error is None for r in done.values())
-        assert fe.engine.cache_size == 2
         stage = done[0].result_stage["mean"]
         for uid in (0, 1):
             assert set(done[uid].result) == {"mean", "std"}
@@ -456,7 +450,6 @@ def test_serve_region_requests(monkeypatch, field_2d):
         assert int(done[0].result_stage) == 2    # unaligned region: stage 2
         h, w = REGION[0][1] - REGION[0][0], REGION[1][1] - REGION[1][0]
         assert tuple(done[3].result.shape) == (h - 2, w - 2)
-        assert fe.engine.cache_size == 3
 
     ref, port = _both(monkeypatch, scenario)
     f0 = port.fields[0]
@@ -484,7 +477,6 @@ def test_serve_resolves_field_ids_one_dispatch_per_group(monkeypatch):
                                                op=["mean", "std"]))
         done = run.drain()
         assert all(r.error is None for r in done.values())
-        assert fe.engine.cache_size == 1
         h0 = store.stats.hits
         fe.add_request(ns.AnalyticsRequest(uid=9, fields="fields/0",
                                            op=["mean", "std"]))
@@ -542,7 +534,7 @@ def test_serve_per_request_isolation_and_cache_hygiene(
         monkeypatch, field_2d, vector_field_2d):
     """Malformed requests — duplicate component ids, empty op list, region
     out of bounds — reject individually; healthy requests in the same batch
-    are served, and nothing poisons the engine's program cache."""
+    are served, and a replay after them answers bitwise alike."""
     u, v = vector_field_2d
     ju, jv, jf = (_jc("hszp_nd", u), _jc("hszp_nd", v),
                   _jc("hszp_nd", field_2d))
@@ -567,13 +559,11 @@ def test_serve_per_request_isolation_and_cache_hygiene(
         assert "empty op set" in done[1].error
         assert "out of bounds" in done[2].error
         assert done[3].error is None and done[4].error is None
-        n = fe.engine.cache_size
         fe.add_request(ns.AnalyticsRequest(uid=5, fields=("u", "v"),
                                            op="curl"))
         fe.add_request(ns.AnalyticsRequest(uid=6, fields="f",
                                            op=["mean", "std"]))
         done2 = run.drain()
-        assert fe.engine.cache_size == n
         assert done2[5].error is None and done2[6].error is None
         _bitwise(done2[5].result, done[3].result, "curl replay")
         for op in ("mean", "std"):

@@ -9,8 +9,10 @@ port with ``convert.from_arrays``.  What is held, with its tolerance:
   ``gather_routing`` and ``spatial_bands`` over all four schemes, 1–8
   shards and ragged layouts; ``_max_shard_fraction`` and placement-priced
   ``plan_stages``; the integer intermediates (materialized stages, temporal
-  summary leaves) **bitwise**; the program cache's size under the
-  reference's key composition;
+  summary leaves) **bitwise**;
+* inside the port, **bitwise**: back-to-back ``ShardPrograms`` calls that
+  differ in one input equal a fresh instance's (the port keeps no program
+  cache);
 * inside the port, **bitwise**: 8 shards on ``["cpu"] * 8`` against the
   port's single-device path for every cell of the reference's shard matrix
   (``tests/test_shard.py``: 128 × 96, ``REGION``) — ``region_compute``,
@@ -39,7 +41,6 @@ from repro.analytics import planner as jplanner
 from repro.core import Scheme as JScheme
 from repro.core import Stage as JStage
 from repro.core import by_name as jax_by_name
-from repro.core import layout_key as jlayout_key
 from repro.core import oplib as joplib
 from repro.core import region as jregion
 from repro.shard import BlockPlacement as JPlacement
@@ -882,46 +883,37 @@ def test_serve_routing_rejects_per_request():
              done[1].result)
 
 
-# -- the program cache follows the reference's key composition -------------------
+# -- no program cache: back-to-back calls equal a fresh ShardPrograms ----------
 
-def _reference_key(je, ops_, stage, region, n):
-    """The reference's ``region_compute`` key for one field, composed from
-    the reference's own parts (the port's kernel mode in its slot)."""
-    names = joplib.canonical_ops(ops_)
-    norm = (jregion.normalize_region(region, je.shape)
-            if region is not None else None)
-    jp = JPlacement.of(je, n)
-    cl = joplib.set_closure(names, je.scheme, JStage(int(stage)), 0)
-    if norm is not None:
-        n_out = jregion.plan_region(je, norm, cl).payload_gather(je.bits).n_words
-    else:
-        n_out = -(-int(np.prod(je.padded_shape)) * je.bits // 32)
-    w_max = max(max(len(i) for i in jp.shard_word_index(je.bits)), 1)
-    return ((jlayout_key(je),), names, int(stage), 0, norm, (jp.sig(),),
-            n, oplib.kernel_sig(), (n_out,), ((n, w_max),))
+def _shard_calls(case):
+    """``ShardPrograms`` calls that differ from one another in one input."""
+    _, pe = _pair("hszp_nd")
+    if case == "region":
+        return [lambda p, r=r: p.region_compute(pe, ("mean", "std"), Stage.Q,
+                                                region=r)
+                for r in (REGION, None)]
+    if case == "materialize":
+        return [lambda p, st=st: p.materialize(pe, st, region=REGION)
+                for st in (Stage.P, Stage.Q)]
+    assert case == "kernel_mode"
+
+    def under(mode):
+        def call(p):
+            with ops.override_mode(mode):
+                return p.region_compute(pe, ("mean", "laplacian"), Stage.P)
+        return call
+    return [under("off"), under("on")]
 
 
-def test_program_cache_follows_reference_keys():
-    calls = []
-    for scheme in ("hszp", "hszx_nd"):
-        je, pe = _pair(scheme)
-        for ops_, st in ((("mean", "std"), Stage.Q), (("std", "mean"), Stage.Q),
-                         (("mean",), Stage.F), (("mean",), Stage.Q)):
-            for region in (None, REGION, ((16, 80), slice(8, 72))):
-                calls.append((je, pe, ops_, st, region))
+@pytest.mark.parametrize("case", ["region", "materialize", "kernel_mode"])
+def test_back_to_back_calls_equal_fresh_shard_programs(case):
+    """One ``ShardPrograms`` takes calls that differ in one input; each
+    equals the same call on a fresh one bitwise."""
+    calls = _shard_calls(case)
     progs = ShardPrograms(_cpu_mesh(8))
-    want = set()
-    for je, pe, ops_, st, region in calls:
-        progs.region_compute(pe, ops_, st, region=region)
-        want.add(_reference_key(je, ops_, st, region, 8))
-    assert len(progs._jitted) == len(want)
-    with ops.override_mode("off"):        # kernel mode is part of the key
-        progs.region_compute(calls[0][1], calls[0][2], calls[0][3])
-    assert len(progs._jitted) == len(want) + 1
-    small = ShardPrograms(_cpu_mesh(2), cache_limit=3)
-    for je, pe, ops_, st, region in calls[:8]:
-        small.region_compute(pe, ops_, st, region=region)
-    assert len(small._jitted) == 3
+    got = [call(progs) for call in calls]
+    for i, (call, g) in enumerate(zip(calls, got)):
+        _bitwise(call(ShardPrograms(_cpu_mesh(8))), g, f"{case} {i}")
 
 
 # ===========================================================================

@@ -107,7 +107,6 @@ def test_step_spans_nest_as_documented(scheme):
                          ("hsz.query", "hsz.plan"),
                          ("hsz.query", "hsz.store"),
                          ("hsz.query", "hsz.engine.run"),
-                         ("hsz.engine.run", "hsz.engine.build"),
                          ("hsz.engine.run", "hsz.engine.stack"),
                          ("hsz.engine.run", "hsz.op"),
                          ("hsz.op", "hsz.prelude")):
