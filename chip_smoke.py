@@ -631,12 +631,36 @@ LZ_SHAPES = ((2400, 3600), (2401, 3599), (2400, 3598), (33, 129), (31, 127),
 LZ_WIDTHS = (1, 7, 13, 31)
 
 
+def check_f32_modes(errs: dict, site: str, run, plain, eps, label: str,
+                    rng) -> None:
+    """The stencil pass's f32 modes of one source (``run(what, **kw)`` its
+    wrapper, ``plain(what)`` its int32 plain version) against the plain
+    epilogue, bitwise: write for every ``what`` (noted under ``site``), add
+    and sub of the derivatives onto random values (under ``site.add`` /
+    ``site.sub``)."""
+    for what in fused.LORENZO_WHATS:
+        _note(errs, site, bitwise_err(
+            fused.lorenzo_scale_plain(plain(what), eps), run(what, eps=eps),
+            f"{label} {what} f32 write"))
+    for what in ("deriv0", "deriv1"):
+        d = plain(what)
+        for mode in ("add", "sub"):
+            prior = torch.as_tensor(rng.standard_normal(tuple(d.shape))
+                                    .astype(np.float32) * 100.0, device=DEVICE)
+            _note(errs, f"{site}.{mode}", bitwise_err(
+                fused.lorenzo_scale_plain(d, eps, mode, prior.clone()),
+                run(what, eps=eps, mode=mode, out=prior.clone()),
+                f"{label} {what} f32 {mode}"))
+
+
 def check_lorenzo_tiling(seed: int, errs: dict) -> None:
     """Both Lorenzo passes, both sources and every ``what`` at
     ``LZ_SHAPES``, bitwise against the plain versions: a seeded full-range
-    int32 plane (so sums wrap) and payloads packed at ``LZ_WIDTHS``."""
+    int32 plane (so sums wrap) and payloads packed at ``LZ_WIDTHS``; the
+    stencil pass in every mode (:func:`check_f32_modes`)."""
     rng = np.random.default_rng(seed)
     tile = fused.lorenzo_tile()
+    eps = torch.tensor(0.37, dtype=torch.float32, device=DEVICE)
     for shape in LZ_SHAPES:
         plane = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape,
                                              dtype=np.int64).astype(np.int32),
@@ -650,6 +674,11 @@ def check_lorenzo_tiling(seed: int, errs: dict) -> None:
                 fused.lorenzo_core(plane, what),
                 fused.lorenzo2d(plane, what=what),
                 f"lorenzo2d {what} {shape}"))
+        check_f32_modes(
+            errs, "lorenzo2d.stencil",
+            lambda w, **kw: fused.lorenzo2d(plane, what=w, **kw),
+            lambda w: fused.lorenzo_core(plane, w), eps,
+            f"lorenzo2d {shape}", rng)
         for bits in LZ_WIDTHS:
             lim = 1 << (bits - 1)
             p = torch.as_tensor(rng.integers(-lim, lim, shape, dtype=np.int64)
@@ -665,6 +694,12 @@ def check_lorenzo_tiling(seed: int, errs: dict) -> None:
                     fused.lorenzo_enc2d_plain(words, shape, bits, what=what),
                     fused.lorenzo_enc2d(words, shape, bits, what=what),
                     f"lorenzo_enc2d {what} {shape} bits={bits}"))
+            check_f32_modes(
+                errs, "lorenzo_enc2d.stencil",
+                lambda w, **kw: fused.lorenzo_enc2d(words, shape, bits, what=w,
+                                                    **kw),
+                lambda w: fused.lorenzo_enc2d_plain(words, shape, bits, what=w),
+                eps, f"lorenzo_enc2d {shape} bits={bits}", rng)
     torch.cuda.synchronize()
     say("Lorenzo kernels == plain versions, bitwise, both passes, every what, "
         f"full-range int32 planes and payloads at {LZ_WIDTHS} bits, at "
@@ -767,6 +802,25 @@ def check_batch(inp: dict, errs: dict, what_tag: str, lorenzo: bool = True,
                 fused.lorenzo_enc2d_plain(words, shape, bits, what=what),
                 fused.lorenzo_enc2d(words, shape, bits, what=what),
                 f"batched lorenzo_enc2d {what} {what_tag}"))
+        # the f32 modes, each field its own eps (write noted under the
+        # sites, add and sub under "<site>.add x8" / ".sub x8")
+        eps = torch.linspace(1e-3, 0.5, plane.shape[0], dtype=torch.float32,
+                             device=DEVICE)
+        rng = np.random.default_rng(plane.shape[0])
+        sub = {}
+        check_f32_modes(
+            sub, "lorenzo2d.stencil",
+            lambda w, **kw: fused.lorenzo2d(plane, what=w, **kw),
+            lambda w: fused.lorenzo_core(plane, w), eps,
+            f"batched lorenzo2d {what_tag}", rng)
+        check_f32_modes(
+            sub, "lorenzo_enc2d.stencil",
+            lambda w, **kw: fused.lorenzo_enc2d(words, shape, bits, what=w,
+                                                **kw),
+            lambda w: fused.lorenzo_enc2d_plain(words, shape, bits, what=w),
+            eps, f"batched lorenzo_enc2d {what_tag}", rng)
+        for k, err in sub.items():
+            _note(errs, f"{k}{label}", err)
     if blockmean:
         for what in fused.BLOCKMEAN_WHATS:
             _note(errs, f"blockmean2d{label}", bitwise_err(
@@ -1528,15 +1582,17 @@ def time_region_queries(fields, tag: str) -> None:
 
 
 #: the Lorenzo kernels of a region gradient@③ query, in order (residual
-#: plane instantiations: no payload kernel, no unpack)
+#: plane instantiations: no payload kernel, no unpack; the stencil pass
+#: writes the f32 answer)
 REGION_LZ_KERNELS = ("lorenzo_edges_kernel<false>", "lorenzo_scan_kernel",
-                     "lorenzo_stencil_kernel<false")
+                     "lorenzo_stencil_kernel<false, 2, 1>")
 
 
 def region_query_kernels(fields, tag: str) -> None:
     """The device kernels of one ``Encoded`` sub-basin Lorenzo gradient@③
     query from a ``torch.profiler`` trace: the gather-unpack's torch ops,
-    then the three residual-plane Lorenzo kernels, then the float tail."""
+    then the three residual-plane Lorenzo kernels, the last writing the f32
+    answer: no float tail after them."""
     eu, ev = fields["hszp_nd"]["Encoded"]
     names, events = traced_kernels(
         lambda: run_cell("gradient", Stage.Q, eu, ev, R_BASIN))
@@ -1545,14 +1601,15 @@ def region_query_kernels(fields, tag: str) -> None:
     ours = names[first:first + 3] if first is not None else []
     if (len(ours) != 3
             or any(not k.startswith(w) for k, w in zip(ours, REGION_LZ_KERNELS))
+            or len(names) != first + 3
             or any(k.startswith(("unpack_kernel", "blockmean_kernel"))
                    or "<true" in k for k in names)):
         fail(f"Encoded region gradient@Q: kernels {names}")
     say(f"[{tag}] hszp_nd Encoded gradient@Q on the sub-basin, device "
         f"kernels: {first} of the gather-unpack "
         f"({_listed(names[:first], events[:first])}); then "
-        f"{_listed(names[first:first + 3], events[first:first + 3])}; then "
-        f"{len(names) - first - 3} ({_listed(names[first + 3:], events[first + 3:])})")
+        f"{_listed(names[first:first + 3], events[first:first + 3])}; no "
+        "float tail")
 
 
 # ===========================================================================
@@ -3391,7 +3448,7 @@ def check_launch_attrs(card: str) -> dict[str, tuple[int, int, int, int]]:
         info[f"lorenzo_edges_kernel<{flag}>"] = fused.lorenzo_launch_config(
             payload, None)
         for what in fused.LORENZO_WHATS:
-            name = f"lorenzo_stencil_kernel<{flag}, {what.upper()}>"
+            name = f"lorenzo_stencil_kernel<{flag}, {what.upper()}, INT32>"
             info[name] = fused.lorenzo_launch_config(payload, what)
         for what in fused.BLOCKMEAN_WHATS:
             name = f"blockmean_kernel<{flag}, {what.upper()}>"
@@ -3434,19 +3491,34 @@ COVER_BATCH_BM = (((44, 126), (4, 6), 13), ((33, 129), (1, 1), 7))
 COVER_BATCH_GRAD = ((3, 3), (33, 259), (65539, 4))
 
 
+#: the f32 epilogue's instantiations as the wrappers name them (what, mode)
+LZ_F32 = tuple((w.lower(), m.lower()) for w, m in specs.MODES_LZ
+               if m != "INT32")
+
+
 class Guarded:
     """One launch twice through ``build.call``, its outputs in windows of
     guarded buffers filled with a sentinel (one sentinel per launch).  Fails
     unless every guard word is untouched, no cell of a window keeps its
-    sentinel in both launches, and the two launches agree bitwise."""
+    sentinel in both launches, and the two launches agree bitwise.  A
+    window that the launch accumulates onto starts from given values
+    (``prior``) in both launches instead: its caller's comparison with the
+    plain version finds a cell written twice, and one written never where
+    its value moves; with ``changes``, every cell of such a window must
+    differ from its prior in both launches (a prior that every write
+    changes finds each cell written never)."""
 
     def __init__(self, covered: set):
         self.covered = covered
 
-    def __call__(self, names, outputs: dict, launch, written=None) -> dict:
+    def __call__(self, names, outputs: dict, launch, written=None,
+                 prior=None, changes=False) -> dict:
         """``outputs``: name -> (shape, dtype); ``launch(ptrs)`` calls the
         launcher with ``ptrs[name]``; ``written`` optionally limits a
-        window's checked cells (name -> count of leading elements)."""
+        window's checked cells (name -> count of leading elements);
+        ``prior`` (name -> tensor of the output's shape) the windows'
+        values before the launch."""
+        prior = prior or {}
         runs = []
         for fill in SENTINELS:
             bufs, ptrs = {}, {}
@@ -3454,6 +3526,9 @@ class Guarded:
                 words = int(np.prod(shape)) * (8 if dtype == torch.float64 else 4) // 4
                 buf = torch.full((2 * GUARD + words,), fill, dtype=torch.int32,
                                  device=DEVICE)
+                if name in prior:
+                    buf[GUARD:GUARD + words] = prior[name].reshape(-1).view(
+                        torch.int32)
                 bufs[name] = buf
                 ptrs[name] = buf[GUARD:].data_ptr()
             launch(ptrs)
@@ -3470,7 +3545,10 @@ class Guarded:
             per = 2 if dtype == torch.float64 else 1
             n = (written or {}).get(name, wa.numel() // per) * per
             left = (wa[:n] == SENTINELS[0]) & (wb[:n] == SENTINELS[1])
-            if bool(left.any()):
+            if name in prior and changes:
+                was = prior[name].reshape(-1).view(torch.int32)[:n]
+                left = (wa[:n] == was) | (wb[:n] == was)
+            if (name not in prior or changes) and bool(left.any()):
                 fail(f"{'/'.join(names)} {name}: {int(left.sum())} cells no "
                      "launch wrote")
             if n < wa.numel() and (bool((wa[n:] != SENTINELS[0]).any())
@@ -3530,15 +3608,48 @@ def cover_lorenzo(shape, bits: int, batch: int = 1, *, g: Guarded,
             outs = {"out0": (lead + shape, torch.int32)}
             if what == "grad":
                 outs["out1"] = (lead + shape, torch.int32)
-            got = g((f"lorenzo_stencil_kernel<{flag}, {what.upper()}>",), outs,
-                    lambda ptr, w=what: build.call(
+            got = g((f"lorenzo_stencil_kernel<{flag}, {what.upper()}, INT32>",),
+                    outs, lambda ptr, w=what: build.call(
                         "hsz_lorenzo_stencil", int(payload), src.data_ptr(), nw,
                         b, n0, n1, batch, edges["rowedge"].data_ptr(),
-                        edges["coledge"].data_ptr(), fused._LZ_CODE[w],
-                        ptr["out0"], ptr.get("out1"), s))
+                        edges["coledge"].data_ptr(), fused._LZ_CODE[w], 0,
+                        None, ptr["out0"], ptr.get("out1"), s))
             bitwise_err(fused.lorenzo_core(p, what),
                         tuple(got[k] for k in sorted(got)),
                         f"lorenzo stencil {flag} {what} {batch} x {shape}")
+        # the f32 epilogue: each field's own eps; add and sub onto random
+        # values, then onto -0.0 with eps of the sign that makes every write
+        # change it (d = 0: -0.0 + +0.0 = +0.0, -0.0 - -0.0 = +0.0), so that
+        # a cell the launch never wrote keeps -0.0
+        eps = torch.as_tensor(rng.uniform(1e-3, 2.0, batch).astype(np.float32),
+                              device=DEVICE)
+        for what, mode in LZ_F32:
+            outs = {"out0": (lead + shape, torch.float32)}
+            if what == "grad":
+                outs["out1"] = (lead + shape, torch.float32)
+            priors = [(None, eps, False)] if mode == "write" else [
+                (torch.as_tensor(rng.standard_normal(lead + shape)
+                                 .astype(np.float32) * 100.0, device=DEVICE),
+                 eps, False),
+                (torch.full(lead + shape, -0.0, device=DEVICE),
+                 eps if mode == "add" else -eps, True)]
+            for before, e, changes in priors:
+                got = g((f"lorenzo_stencil_kernel<{flag}, {what.upper()}, "
+                         f"{mode.upper()}>",), outs,
+                        lambda ptr, w=what, m=mode, e=e: build.call(
+                            "hsz_lorenzo_stencil", int(payload), src.data_ptr(),
+                            nw, b, n0, n1, batch, edges["rowedge"].data_ptr(),
+                            edges["coledge"].data_ptr(), fused._LZ_CODE[w],
+                            fused._MODE_CODE[m], e.data_ptr(), ptr["out0"],
+                            ptr.get("out1"), s),
+                        prior=None if before is None else {"out0": before},
+                        changes=changes)
+                want = fused.lorenzo_scale_plain(
+                    fused.lorenzo_core(p, what), e if lead else e[0], mode,
+                    None if before is None else before.clone())
+                bitwise_err(want, tuple(got[k] for k in sorted(got)),
+                            f"lorenzo stencil f32 {flag} {what} {mode} {batch} "
+                            f"x {shape}")
     p = bounded_batch(shape, batch, rng).reshape(lead + shape)
     cols = prefix_stats.corner_cols()
     n_cb = -(-n1 // cols)
@@ -5307,6 +5418,13 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
                                            site="lorenzo_enc2d")
     x, eps, bits = entry["x"], entry["eps"], entry["bits"]
     inv = (1.0 / (2.0 * eps)).reshape(())
+    # the stencil sites as the served rules launch them: the f32 answer of
+    # the field's eps (a gradient writes it; a divergence adds and a curl
+    # subtracts its second term, deriv1, onto the first)
+    f_eps = e_lz.eps.to(torch.float32).reshape(())
+    acc = fused.lorenzo_stencil(lz_words, shape, lz_bits, rowedge, coledge,
+                                "deriv0", from_payload=True,
+                                site="lorenzo_enc2d", eps=f_eps)
     z, q, p, blocked = entry["z"], entry["q"], entry["p"], entry["blocked"]
     nb, s_len = blocked.shape
     m = (n0 - 2) * (n1 - 2)
@@ -5343,13 +5461,13 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
                 (th, tw)),
             pay(e_lz) + edge_bytes, 7 * n),
         "lorenzo_enc2d.stencil": (  # take out 2, unzigzag 3, D0 and D1 2,
-            # deriv0 and deriv1 2
-            lambda w, r, c: fused.lorenzo_stencil(
+            # deriv0 and deriv1 2; f32 conversion and multiply 2 an output
+            lambda w, r, c, e: fused.lorenzo_stencil(
                 w, shape, lz_bits, r, c, "grad", from_payload=True,
-                site="lorenzo_enc2d"), (lz_words, rowedge, coledge),
-            lambda: fused.lorenzo_enc2d_plain(lz_words, shape, lz_bits,
-                                              what="grad"),
-            pay(e_lz) + edge_bytes + 8 * n, 9 * n),
+                site="lorenzo_enc2d", eps=e), (lz_words, rowedge, coledge, f_eps),
+            lambda: fused.lorenzo_scale_plain(fused.lorenzo_enc2d_plain(
+                lz_words, shape, lz_bits, what="grad"), f_eps),
+            pay(e_lz) + edge_bytes + 8 * n + 4, 9 * n, 4 * n),
         "blockmean_enc2d": (  # take out 2, unzigzag 3, two differences of p
             # and of the means and their sums 6
             lambda w, m: fused.blockmean_enc2d(w, m, shape, BLOCK, bm_bits,
@@ -5362,12 +5480,32 @@ def time_kernels(cont: dict, entry: dict, reps: int, tag: str) -> dict:
                                           site="lorenzo2d"), (lz_plane,),
             lambda: fused.lorenzo_edge_prefixes_plain(lz_plane, (th, tw)),
             4 * n + edge_bytes, 2 * n),
-        "lorenzo2d.stencil": (  # D0 and D1 2, deriv0 and deriv1 2
-            lambda x, r, c: fused.lorenzo_stencil(
+        "lorenzo2d.stencil": (  # D0 and D1 2, deriv0 and deriv1 2; f32
+            # conversion and multiply 2 an output
+            lambda x, r, c, e: fused.lorenzo_stencil(
                 x, shape, 0, r, c, "grad", from_payload=False,
-                site="lorenzo2d"), (lz_plane, rowedge, coledge),
-            lambda: fused.lorenzo_core(lz_plane, "grad"),
-            4 * n + edge_bytes + 8 * n, 4 * n),
+                site="lorenzo2d", eps=e), (lz_plane, rowedge, coledge, f_eps),
+            lambda: fused.lorenzo_scale_plain(
+                fused.lorenzo_core(lz_plane, "grad"), f_eps),
+            4 * n + edge_bytes + 8 * n + 4, 4 * n, 4 * n),
+        # deriv1 accumulated onto an f32 plane (the plane read once more):
+        # take out 2, unzigzag 3 (payload), D1 1, deriv1 1; f32 conversion,
+        # multiply and add or subtract 3
+        **{f"{site}.stencil.{mode}": (
+            lambda x, r, c, e, o, fp=fp, si=site, b=b, m=mode:
+            fused.lorenzo_stencil(x, shape, b, r, c, "deriv1", from_payload=fp,
+                                  site=si, eps=e, mode=m, out=o),
+            (src, rowedge, coledge, f_eps, acc),
+            lambda plain=plain, m=mode: fused.lorenzo_scale_plain(
+                plain(), f_eps, m, acc.clone()),
+            n_src + edge_bytes + 8 * n + 4, (7 if fp else 2) * n, 3 * n)
+           for site, src, fp, b, n_src, plain in (
+               ("lorenzo_enc2d", lz_words, True, lz_bits, pay(e_lz),
+                lambda: fused.lorenzo_enc2d_plain(lz_words, shape, lz_bits,
+                                                  what="deriv1")),
+               ("lorenzo2d", lz_plane, False, 0, 4 * n,
+                lambda: fused.lorenzo_core(lz_plane, "deriv1")))
+           for mode in ("add", "sub")},
         "blockmean2d": (  # two differences of p and of the means, sums 6
             lambda x, m: fused.blockmean2d(x, m, BLOCK, what="grad"),
             (bm_plane, meta),
@@ -5573,6 +5711,8 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
                                   site="lorenzo2d")
     corner_bytes = 4 * b * n_rt * -(-shape[1] // prefix_stats.corner_cols())
     ps_edges = prefix_stats.stats_edges(ps, "lorenzo_moments")
+    # the stencil sites' f32 answer, each field its own eps
+    beps = torch.linspace(1e-3, 1e-2, b, dtype=torch.float32, device=DEVICE)
     # the operations per element of time_kernels' plans, over b fields
     plans = {
         "unpack.residuals": (
@@ -5585,11 +5725,12 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
             lambda: fused.lorenzo_edge_prefixes_plain(p, (th, tw)),
             pay + edge_bytes, 7 * b * n),
         "lorenzo_enc2d.stencil": (
-            lambda w, r, c: fused.lorenzo_stencil(
+            lambda w, r, c, e: fused.lorenzo_stencil(
                 w, shape, bits, r, c, "grad", from_payload=True,
-                site="lorenzo_enc2d"), (words, *w_edges),
-            lambda: fused.lorenzo_enc2d_plain(words, shape, bits, what="grad"),
-            pay + edge_bytes + 8 * b * n, 9 * b * n),
+                site="lorenzo_enc2d", eps=e), (words, *w_edges, beps),
+            lambda: fused.lorenzo_scale_plain(fused.lorenzo_enc2d_plain(
+                words, shape, bits, what="grad"), beps),
+            pay + edge_bytes + 8 * b * n + 4 * b, 9 * b * n, 4 * b * n),
         "blockmean_enc2d": (
             lambda w, m: fused.blockmean_enc2d(w, m, shape, BLOCK, bits,
                                                what="grad"), (words, meta),
@@ -5602,11 +5743,12 @@ def time_batched_kernels(inp: dict, single: dict, reps: int,
             lambda: fused.lorenzo_edge_prefixes_plain(plane, (th, tw)),
             4 * b * n + edge_bytes, 2 * b * n),
         "lorenzo2d.stencil": (
-            lambda x, r, c: fused.lorenzo_stencil(
+            lambda x, r, c, e: fused.lorenzo_stencil(
                 x, shape, 0, r, c, "grad", from_payload=False,
-                site="lorenzo2d"), (plane, *p_edges),
-            lambda: fused.lorenzo_core(plane, "grad"),
-            4 * b * n + edge_bytes + 8 * b * n, 4 * b * n),
+                site="lorenzo2d", eps=e), (plane, *p_edges, beps),
+            lambda: fused.lorenzo_scale_plain(fused.lorenzo_core(plane, "grad"),
+                                              beps),
+            4 * b * n + edge_bytes + 8 * b * n + 4 * b, 4 * b * n, 4 * b * n),
         "blockmean2d": (
             lambda x, m: fused.blockmean2d(x, m, BLOCK, what="grad"),
             (plane, meta),
@@ -5759,6 +5901,121 @@ def time_lorenzo_whats(words, bits, plane, reps: int, tag: str) -> None:
                 f"registers, {per_sm} blocks/SM)")
 
 
+#: the f32 epilogue's timings: Ocean alone and the engine's batch of 16, at
+#: the Ocean cells' 9 bits
+LZ_F32_BATCHES = (1, 16)
+LZ_F32_BITS = 9
+
+
+def time_lorenzo_f32(seed: int, reps: int, tag: str) -> dict:
+    """The Lorenzo stencil pass alone (its edges given) at Ocean's shape, one
+    field and 16, from a 9-bit payload (``lorenzo_enc2d``, §6 row 3) and
+    from the residual plane (``lorenzo2d``, row 5), deriv0 in four forms in
+    one call: the int32 plane; the int32 plane with the torch tail the
+    rules ran before (interior crop, f32 conversion, x eps); the f32 write
+    mode; the add mode onto an f32 plane.  Write and add are bitwise the
+    plain epilogue of the int32 plane.  The byte bound: the source and
+    edges read once and the plane written once, the add mode's plane read
+    once more.  Returns the timings by (site, batch)."""
+    rng = np.random.default_rng(seed)
+    shape, bits = OCEAN, LZ_F32_BITS
+    n = math.prod(shape)
+    out = {}
+    for batch in LZ_F32_BATCHES:
+        lead = (batch,) if batch > 1 else ()
+        p = _residuals(lead + shape, bits, rng)
+        eps = torch.as_tensor(rng.uniform(1e-4, 1e-2, batch).astype(np.float32),
+                              device=DEVICE)
+        eps = eps if lead else eps[0]
+        for site, src, w_bits in (("lorenzo_enc2d", _payload_of(p, bits), bits),
+                                  ("lorenzo2d", p, 0)):
+            from_payload = site == "lorenzo_enc2d"
+            edges = fused.lorenzo_edges(src, shape, w_bits,
+                                        from_payload=from_payload, site=site)
+
+            def stencil(x, r, c, fp=from_payload, si=site, wb=w_bits, **kw):
+                return fused.lorenzo_stencil(x, shape, wb, r, c, "deriv0",
+                                             from_payload=fp, site=si, **kw)
+
+            def tail(x, r, c, e):
+                d = stencil(x, r, c)[..., 1:-1, 1:-1]
+                return d.to(torch.float32) * e.reshape(e.shape + (1, 1))
+
+            ints = stencil(src, *edges)
+            plane = stencil(src, *edges, eps=eps)
+            bitwise_err(fused.lorenzo_scale_plain(ints, eps), plane,
+                        f"{site} f32 write, {batch} x {shape}")
+            acc = plane.clone()
+            stencil(src, *edges, eps=eps, mode="add", out=acc)
+            bitwise_err(fused.lorenzo_scale_plain(ints, eps, "add",
+                                                  plane.clone()),
+                        acc, f"{site} f32 add, {batch} x {shape}")
+            del ints
+            base = 4 * src.numel() + 4 * sum(e.numel() for e in edges)
+            plane_bytes = 4 * batch * n
+            row = {}
+            for form, fn, args, n_bytes in (
+                    ("int32", stencil, (src, *edges), base + plane_bytes),
+                    ("int32 + torch tail", tail, (src, *edges, eps),
+                     base + plane_bytes),
+                    ("f32 write", lambda x, r, c, e: stencil(x, r, c, eps=e),
+                     (src, *edges, eps), base + plane_bytes),
+                    ("f32 add", lambda x, r, c, e, o: stencil(
+                        x, r, c, eps=e, mode="add", out=o),
+                     (src, *edges, eps, acc), base + 2 * plane_bytes)):
+                ms = graph_ms(fn, reps, args)
+                b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+                row[form] = {"graph_ms": ms, "bound_ms": b_ms}
+                say(f"[{tag}] {site} stencil pass deriv0 {form}, {batch} x "
+                    f"{shape} at {bits} bits: device alone {ms * 1e3:.1f} us "
+                    f"(byte bound {b_ms * 1e3:.1f} us, {ms / b_ms:.2f}x)")
+            out[(site, batch)] = row
+            del src, edges, plane, acc
+            torch.cuda.empty_cache()
+        del p
+    return out
+
+
+def served_tails(fields, tag: str) -> dict:
+    """``kernels.ops.TAILS`` over one served step of each Ocean traffic mix
+    with a float tail (diff: derivative along axis 0 and Laplacian of u and
+    v; multi: divergence and curl of (u, v); 16 requests of each op) for
+    both schemes: the share of float-tail operations that ran in a kernel
+    epilogue.  The Lorenzo (HSZp-nd) steps run them all there, the
+    block-mean ones none."""
+    mixes = {"diff": [("derivative", 0, fid) for fid in ("u", "v")] * 8
+             + [("laplacian", 0, fid) for fid in ("u", "v")] * 8,
+             "multi": [(op, 0, ("u", "v")) for op in ("divergence", "curl")
+                       for _ in range(16)]}
+    shares = {}
+    for scheme in SCHEMES:
+        store = FieldStore(cache_bytes=0)
+        for fid, f in zip(("u", "v"), fields[scheme]["Encoded"]):
+            store.put(fid, f)
+        for mix, kinds in mixes.items():
+            fe = AnalyticsFrontend(store=store)
+            for i, (op, axis, ids) in enumerate(kinds):
+                fe.add_request(AnalyticsRequest(uid=i, fields=ids, op=op,
+                                                axis=axis, stage="auto"))
+            ops.reset_tails()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                done = fe.step()
+            torch.cuda.synchronize()
+            if any(r.error is not None for r in done):
+                fail(f"served {scheme} {mix}: {[r.error for r in done]}")
+            tails = dict(ops.TAILS)
+            share = tails["kernel"] / max(sum(tails.values()), 1)
+            shares[(scheme, mix)] = share
+            want = 1.0 if scheme == "hszp_nd" else 0.0
+            if share != want:
+                fail(f"served {scheme} {mix}: float tails {tails}, kernel "
+                     f"share {share} (expected {want})")
+            say(f"[{tag}] served {scheme} {mix} step of {len(kinds)} "
+                f"requests: float tails {tails}, kernel share {share:.2f}")
+    return shares
+
+
 def traced_kernels(fn) -> tuple[list[str], list]:
     """The device kernels that one call of ``fn`` runs, in order, from a
     ``torch.profiler`` trace (after two untraced calls): short names and
@@ -5781,9 +6038,9 @@ def _listed(names, events) -> str:
 
 def query_kernels(fields, tag: str) -> dict:
     """The device kernels of one Lorenzo gradient@③ query per container, in
-    order, from a ``torch.profiler`` trace: the Lorenzo kernels before the
-    float tail (at most three, and no other kernel between them) and the
-    float tail's kernels, each with its device time."""
+    order, from a ``torch.profiler`` trace: the Lorenzo kernels (at most
+    three, the stencil pass writing the f32 answer) and no float tail after
+    them, each with its device time."""
     out = {}
     for container in ("Encoded", "Compressed"):
         fu, fv = fields["hszp_nd"][container]
@@ -5792,13 +6049,11 @@ def query_kernels(fields, tag: str) -> dict:
         ours = 0
         while ours < len(names) and names[ours].startswith("lorenzo_"):
             ours += 1
-        if not 0 < ours <= 3 or any(k.startswith("lorenzo_")
-                                    for k in names[ours:]):
+        if not 0 < ours <= 3 or ours != len(names):
             fail(f"Lorenzo gradient query ({container}): kernels {names}")
         out[container] = {"before_tail": ours, "total": len(names)}
         say(f"[{tag}] hszp_nd {container} gradient@Q device kernels: {ours} "
-            f"before the float tail ({_listed(names[:ours], events[:ours])}), "
-            f"then {len(names) - ours} ({_listed(names[ours:], events[ours:])})")
+            f"({_listed(names[:ours], events[:ours])}), no float tail")
     return out
 
 
@@ -5843,6 +6098,33 @@ PER_QUERY = {
     "blockmean2d": ("hszx_nd", "Compressed", "gradient", Stage.Q),
 }
 
+#: the stencil pass's accumulate modes as kernels-line entries (name ->
+#: the query whose launches of it are counted): a divergence adds its
+#: second term, a curl subtracts it
+MODE_QUERY = {
+    "lorenzo_enc2d.stencil.add": ("hszp_nd", "Encoded", "divergence", Stage.Q),
+    "lorenzo_enc2d.stencil.sub": ("hszp_nd", "Encoded", "curl", Stage.Q),
+    "lorenzo2d.stencil.add": ("hszp_nd", "Compressed", "divergence", Stage.Q),
+    "lorenzo2d.stencil.sub": ("hszp_nd", "Compressed", "curl", Stage.Q),
+}
+#: launches of the MODE_QUERY entries, counted at the launcher
+#: (``kernels.ops.LAUNCHES`` counts every mode under its stencil site)
+MODE_LAUNCHES = dict.fromkeys(MODE_QUERY, 0)
+
+
+def tally_modes(call):
+    """``build.call`` that also counts the stencil pass's add and sub
+    launches in :data:`MODE_LAUNCHES`."""
+    modes = {fused._MODE_CODE[m]: m for m in ("add", "sub")}
+
+    def tallied(name, *args):
+        if name == "hsz_lorenzo_stencil" and args[10] in modes:
+            site = "lorenzo_enc2d" if args[0] else "lorenzo2d"
+            MODE_LAUNCHES[f"{site}.stencil.{modes[args[10]]}"] += 1
+        return call(name, *args)
+    return tallied
+
+
 E2E = [
     ("hszp_nd", "Encoded", "mean", Stage.P),
     ("hszp_nd", "Encoded", "gradient", Stage.Q),
@@ -5865,6 +6147,17 @@ def per_query_launches(fields, tag: str) -> dict:
         run_cell(op, stage, fu, fv)
         torch.cuda.synchronize()
         out[site] = ops.LAUNCHES[site]
+        say(f"[{tag}] {site}: {out[site]} launch(es) per "
+            f"{scheme} {container} {op}@{stage.name} query")
+    for site, (scheme, container, op, stage) in MODE_QUERY.items():
+        fu, fv = fields[scheme][container]
+        for k in MODE_LAUNCHES:
+            MODE_LAUNCHES[k] = 0
+        run_cell(op, stage, fu, fv)
+        torch.cuda.synchronize()
+        out[site] = MODE_LAUNCHES[site]
+        if not out[site]:
+            fail(f"{scheme} {container} {op}@{stage.name}: no {site} launch")
         say(f"[{tag}] {site}: {out[site]} launch(es) per "
             f"{scheme} {container} {op}@{stage.name} query")
     return out
@@ -5988,7 +6281,7 @@ def lorenzo_build_lines() -> list[str]:
         for what in (None,) + fused.LORENZO_WHATS:
             smem, regs, per_sm = fused.lorenzo_launch_config(from_payload, what)
             key = (f"lorenzo_edges_kernel<{flag}>" if what is None else
-                   f"lorenzo_stencil_kernel<{flag}, {fused._LZ_CODE[what]}>")
+                   f"lorenzo_stencil_kernel<{flag}, {fused._LZ_CODE[what]}, ")
             n_sass = [v for k, v in sass.items() if key in k]
             lines.append(f"  lorenzo_band.cu {src} {what or 'edges'}: {smem} B "
                          f"shared memory, {regs} registers, {per_sm} blocks/SM, "
@@ -6051,6 +6344,7 @@ def main() -> None:
                          "port on the card only")
     card = nvidia_smi()
     tag = card
+    build.call = tally_modes(build.call)
     say(card)
     say(f"devices: {torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; python {sys.version.split()[0]}")
@@ -6107,8 +6401,13 @@ def main() -> None:
     phase_s["5"] = time.perf_counter()
     # 5. main path
     ops.reset_launches()
+    for k in MODE_LAUNCHES:
+        MODE_LAUNCHES[k] = 0
     fields, decomp, results = main_path(u, v)
     path_launches["main path"] = dict(ops.LAUNCHES)
+    mode_launches = dict(MODE_LAUNCHES)
+    if not all(mode_launches.values()):
+        fail(f"main path: accumulate launches {mode_launches}")
     require_launches("main path", path_launches["main path"])
     hosts = check_main_path(u, v, fields, decomp, results)
     check_ab(fields)
@@ -6192,6 +6491,8 @@ def main() -> None:
     del batch_in
     rank3 = time_rank3(args.seed, REPS, tag, errs)
     times.update(rank3)
+    epilogue = time_lorenzo_f32(args.seed, REPS, tag)
+    served_tails(fields, tag)
     per_query = per_query_launches(fields, tag)
     per_query.update(per_call_launches(entry, tag))
     per_query.update(rank3.pop("per_call"))
@@ -6308,6 +6609,24 @@ def main() -> None:
             kernels[-1].update(
                 {k: t[k] for k in ("batch", "axis", "axes") if k in t},
                 shape=list(MIRANDA), bits=MIRANDA_BITS)
+        if name in ("lorenzo_enc2d.stencil", "lorenzo2d.stencil"):
+            # deriv0 in each form, one field and a batch (time_lorenzo_f32)
+            kernels[-1]["epilogue"] = {
+                f"x{b}": row for (site, b), row in epilogue.items()
+                if name == f"{site}.stencil"}
+    for name, (scheme, container, op, stage) in MODE_QUERY.items():
+        # the accumulate modes of the stencil sites: their launches on the
+        # main path and per divergence or curl query
+        t = times[name]
+        source, replaces = SITES[name.rsplit(".", 1)[0]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": mode_launches[name],
+            "launches_per_query": per_query[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "graph_ms": t["graph_ms"],
+            "enqueue_ms": t["enqueue_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     for site in BATCHED_SITES:
         # the same kernel over a batch of 8 Ocean fields in one launch: its
         # launches are those of the batched runs: the engine path's (a),

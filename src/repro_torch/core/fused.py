@@ -31,11 +31,19 @@ torch rules; an axis whose interior is wider than the kernels take runs the
 torch rule's ops (``lorenzo_enc3d_plain``) under the same ``hsz.op.torch``
 span.
 
-The kernels emit exact-integer stencil planes (or, for the block-mean
-laplacians, the pre-eps f32 accumulation in a fixed order); the rules here
-apply the float tail — the same ``float()`` / eps multiply the torch rules
-end with — on the sliced window interior, so each covered cell equals its
-torch rule bit for bit, full-field and region-windowed.  Full-field
+The 2-D Lorenzo rules (unseeded) take the f32 answer from the stencil
+pass's epilogue — ``f32(plane) * eps`` as the torch rules round it, ``2 eps``
+for the laplacian — and return its window interior as a view of the
+kernel's padded-shape plane.  The other kernels emit exact-integer stencil
+planes (or, for the block-mean laplacians, the pre-eps f32 accumulation in
+a fixed order), and the rules here apply the float tail — the same
+``float()`` / eps multiply the torch rules end with — on the sliced window
+interior.  Either way each covered cell equals its torch rule bit for bit,
+full-field and region-windowed.  A 2-D divergence or curl whose terms all
+take the Lorenzo rule on planes of one shape and window accumulates them in
+one f32 plane (:func:`signed_sum`, the epilogue's ``add`` / ``sub``
+modes, in torch's order).  Every float-tail operation is counted in
+``kernels.ops.TAILS``, under ``"kernel"`` where an epilogue does it.  Full-field
 :class:`Encoded` contexts with 0 < bits < 32 and no seed take the
 payload-input kernels (the residual plane never exists in device memory);
 ``Compressed`` containers, region plans and stage-② seeds take the
@@ -65,6 +73,7 @@ import torch
 
 from .. import trace
 from ..kernels import fused as fk
+from ..kernels import ops as kernel_ops
 from ..kernels import stencil_dq as sk
 from .stages import Encoded, Stage
 
@@ -136,12 +145,53 @@ def _interior(ctx, out: torch.Tensor) -> torch.Tensor:
 
 # -- lorenzo family ---------------------------------------------------------
 
-def _lz(ctx, what: str):
+def _lz(ctx, what: str, eps: torch.Tensor, mode: str = "write",
+        out: torch.Tensor | None = None):
+    """The stencil pass's f32 answer over the context's full plane (the
+    payload, or the residual plane of ``ctx.sub``), in ``mode``."""
     if _payload2(ctx):
         f = ctx.field
         return fk.lorenzo_enc2d(f.payload, tuple(f.padded_shape), f.bits,
-                                what=what)
-    return fk.lorenzo2d(ctx.sub.residuals, what=what)
+                                what=what, eps=eps, mode=mode, out=out)
+    return fk.lorenzo2d(ctx.sub.residuals, what=what, eps=eps, mode=mode,
+                        out=out)
+
+
+def _plane(ctx) -> tuple:
+    """The shape of the full plane :func:`_lz` writes for ``ctx``."""
+    if _payload2(ctx):
+        return tuple(ctx.field.payload.shape[:-1]) + tuple(
+            ctx.field.padded_shape)
+    return tuple(ctx.sub.residuals.shape)
+
+
+def _accumulates(ctxs) -> bool:
+    """Can the Lorenzo derivatives of ``ctxs`` sum in one f32 plane?
+    Rank-2 contexts that no stage-③ seed serves, whose planes and windows
+    are one shape."""
+    if not all(_covers_2d(c) and not _q_seeded(c) for c in ctxs):
+        return False
+    windows = {tuple((w.start, w.stop) for w in _window2(c)) for c in ctxs}
+    return len({_plane(c) for c in ctxs}) == 1 and len(windows) == 1
+
+
+def signed_sum(terms, rules) -> torch.Tensor | None:
+    """``t0 ± t1 ± ...`` of the derivatives of ``terms`` (``(sign, ctx,
+    axis)``, the first sign ``+``; ``rules`` the derivative rule each term's
+    context selected) in one f32 plane, or None where no kernel epilogue can
+    sum them: the caller then runs each rule and sums in torch.  Where every
+    term takes the 2-D Lorenzo rule on planes of one shape and window, the
+    stencil pass writes the first term and adds or subtracts each next one
+    in its epilogue, in torch's order: bitwise the torch sum."""
+    if not (all(r is _LORENZO_DERIV for r in rules)
+            and _accumulates([ctx for _, ctx, _ in terms])):
+        return None
+    out = None
+    for sign, ctx, axis in terms:
+        mode = "write" if out is None else ("add" if sign > 0 else "sub")
+        out = _lz(ctx, f"deriv{axis}", ctx.eps, mode, out)
+    kernel_ops.tail("kernel", 2 * len(terms) - 1)
+    return _interior(terms[0][1], out)
 
 
 # -- stage-③ seeds: kernels on the resident integers -------------------------
@@ -151,6 +201,7 @@ def _grad_seeded(ctx) -> tuple[torch.Tensor, ...]:
     integers: the interior the torch rules' ``_central_diff`` reads (of
     every field of a batch, in one launch)."""
     d0, d1 = sk.grad2d_int(ctx.q_spatial.contiguous())
+    kernel_ops.tail("torch", 2)
     return (d0.to(torch.float32) * ctx.spatial_eps,
             d1.to(torch.float32) * ctx.spatial_eps)
 
@@ -163,6 +214,7 @@ def _lap_seeded(ctx) -> torch.Tensor:
     zero = torch.zeros(q.shape[:-2] + (1, 1), dtype=torch.int32,
                        device=q.device)
     acc = fk.blockmean2d(q, zero, tuple(q.shape[-2:]), what="lap_q")
+    kernel_ops.tail("torch")
     return acc[..., 1:-1, 1:-1] * (2.0 * ctx.spatial_eps)
 
 
@@ -172,27 +224,28 @@ def _deriv_lorenzo(ctx, axis: int) -> torch.Tensor:
         args = (f.payload, tuple(f.padded_shape), tuple(f.shape), f.bits,
                 axis, ctx.eps)
         if fk.lorenzo3d_fits(tuple(f.shape), axis):
+            kernel_ops.tail("kernel")
             return fk.lorenzo_enc3d(*args)
         # wider than the kernels take along this axis: the torch rule's ops
+        kernel_ops.tail("torch")
         with trace.span("hsz.op.torch"):
             return fk.lorenzo_enc3d_plain(*args)
     if _q_seeded(ctx):
         return _grad_seeded(ctx)[axis]
-    out = _lz(ctx, f"deriv{axis}")
-    return _interior(ctx, out).to(torch.float32) * ctx.spatial_eps
+    kernel_ops.tail("kernel")
+    return _interior(ctx, _lz(ctx, f"deriv{axis}", ctx.eps))
 
 
 def _grad_lorenzo(ctx, axis: int) -> tuple[torch.Tensor, ...]:
     if _q_seeded(ctx):
         return _grad_seeded(ctx)
-    d0, d1 = _lz(ctx, "grad")
-    return (_interior(ctx, d0).to(torch.float32) * ctx.spatial_eps,
-            _interior(ctx, d1).to(torch.float32) * ctx.spatial_eps)
+    kernel_ops.tail("kernel", 2)
+    return tuple(_interior(ctx, d) for d in _lz(ctx, "grad", ctx.eps))
 
 
 def _lap_lorenzo(ctx, axis: int) -> torch.Tensor:
-    out = _lz(ctx, "lap")
-    return _interior(ctx, out).to(torch.float32) * (2.0 * ctx.spatial_eps)
+    kernel_ops.tail("kernel")
+    return _interior(ctx, _lz(ctx, "lap", 2.0 * ctx.eps))
 
 
 # -- blockmean family -------------------------------------------------------
@@ -212,6 +265,7 @@ def _deriv_blockmean(ctx, axis: int) -> torch.Tensor:
     if _q_seeded(ctx):
         return _grad_seeded(ctx)[axis]
     out = _bm(ctx, f"deriv{axis}")
+    kernel_ops.tail("torch")
     return _interior(ctx, out).to(torch.float32) * ctx.spatial_eps
 
 
@@ -219,17 +273,20 @@ def _grad_blockmean(ctx, axis: int) -> tuple[torch.Tensor, ...]:
     if _q_seeded(ctx):
         return _grad_seeded(ctx)
     d0, d1 = _bm(ctx, "grad")
+    kernel_ops.tail("torch", 2)
     return (_interior(ctx, d0).to(torch.float32) * ctx.spatial_eps,
             _interior(ctx, d1).to(torch.float32) * ctx.spatial_eps)
 
 
 def _lap_blockmean_p(ctx, axis: int) -> torch.Tensor:
+    kernel_ops.tail("torch")
     return _interior(ctx, _bm(ctx, "lap_p")) * (2.0 * ctx.spatial_eps)
 
 
 def _lap_blockmean_q(ctx, axis: int) -> torch.Tensor:
     if _q_seeded(ctx):
         return _lap_seeded(ctx)
+    kernel_ops.tail("torch")
     return _interior(ctx, _bm(ctx, "lap_q")) * (2.0 * ctx.spatial_eps)
 
 

@@ -616,18 +616,24 @@ def _std_f(ctx: StageContext, axis: int) -> torch.Tensor:
                                   min=0.0))
 
 
+# The derivative-family torch rules each end with one float tail (the
+# conversion x eps), counted in kernels.ops.TAILS["torch"].
+
 def _deriv_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
     d = ctx.spatial_window(ctx.lorenzo_axis_diff(axis))
+    kernel_ops.tail("torch")
     return _lorenzo_deriv_stencil(d, axis, ctx.nb) * ctx.spatial_eps
 
 
 def _deriv_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
+    kernel_ops.tail("torch")
     return _blockmean_deriv_p(ctx.spatial_window(ctx.sub.residuals),
                               ctx.spatial_window(ctx.upsampled_means),
                               axis, ctx.nb) * ctx.spatial_eps
 
 
 def _deriv_q(ctx: StageContext, axis: int) -> torch.Tensor:
+    kernel_ops.tail("torch")
     return _central_diff(ctx.q_spatial, axis, ctx.spatial_eps, ctx.nb)
 
 
@@ -643,17 +649,20 @@ def _lap_p_lorenzo(ctx: StageContext, axis: int) -> torch.Tensor:
         d = ctx.spatial_window(ctx.lorenzo_axis_diff(a))
         term = _lorenzo_lap_term(d, a, ctx.nb)
         total = term if total is None else total + term
+    kernel_ops.tail("torch")
     return total.to(torch.float32) * (2.0 * ctx.spatial_eps)
 
 
 def _lap_p_blockmean(ctx: StageContext, axis: int) -> torch.Tensor:
     m = ctx.spatial_window(ctx.upsampled_means)
     p = ctx.spatial_window(ctx.sub.residuals)
+    kernel_ops.tail("torch")
     return ((_laplacian_stencil(p, ctx.nb) + _laplacian_stencil(m, ctx.nb))
             * (2.0 * ctx.spatial_eps))
 
 
 def _lap_q(ctx: StageContext, axis: int) -> torch.Tensor:
+    kernel_ops.tail("torch")
     return (_laplacian_stencil(ctx.q_spatial, ctx.nb)
             * (2.0 * ctx.spatial_eps))  # (V-B.4)
 
@@ -764,12 +773,34 @@ def select_rule(spec: OpSpec, stage: Stage, family: str,
     return _select(spec.fused, spec.lower, Stage(stage), family, ctx)
 
 
+def _derivative_rule(ctx: StageContext) -> Rule:
+    family = family_of(ctx.scheme)
+    return _select(fused_mod.DERIVATIVE, _DERIV_RULES, ctx.stage, family, ctx)
+
+
 def _derivative_at(ctx: StageContext, axis: int) -> torch.Tensor:
     """Dispatch the derivative rule for ``ctx`` — the shared postlude every
     multivariate/gradient lowering is assembled from."""
-    family = family_of(ctx.scheme)
-    rule = _select(fused_mod.DERIVATIVE, _DERIV_RULES, ctx.stage, family, ctx)
-    return rule(ctx, axis)
+    return _derivative_rule(ctx)(ctx, axis)
+
+
+def _signed_sum(terms: Sequence[tuple[int, StageContext, int]]) -> torch.Tensor:
+    """``t0 ± t1 ± ...`` of the derivatives of ``terms`` (``(sign, ctx,
+    axis)``, the first sign ``+``), left to right: in a kernel epilogue
+    where ``fused.signed_sum`` can, else each term's rule and torch's ``+``
+    / ``-`` — the same bits."""
+    rules = [_derivative_rule(ctx) for _, ctx, _ in terms]
+    total = fused_mod.signed_sum(terms, rules)
+    if total is not None:
+        return total
+    for (sign, ctx, axis), rule in zip(terms, rules):
+        term = rule(ctx, axis)
+        if total is None:
+            total = term
+            continue
+        kernel_ops.tail("torch")
+        total = total + term if sign > 0 else total - term
+    return total
 
 
 def _gradient_rule(ctx: StageContext, axis: int) -> tuple[torch.Tensor, ...]:
@@ -778,11 +809,7 @@ def _gradient_rule(ctx: StageContext, axis: int) -> tuple[torch.Tensor, ...]:
 
 
 def _divergence_vector(ctxs: Sequence[StageContext], axis: int) -> torch.Tensor:
-    total = None
-    for a, ctx in enumerate(ctxs):
-        term = _derivative_at(ctx, a)
-        total = term if total is None else total + term
-    return total
+    return _signed_sum([(1, ctx, a) for a, ctx in enumerate(ctxs)])
 
 
 def _curl_vector(ctxs: Sequence[StageContext], axis: int):
@@ -790,14 +817,14 @@ def _curl_vector(ctxs: Sequence[StageContext], axis: int):
     3-D: the full vector curl."""
     if len(ctxs) == 2:
         u, v = ctxs
-        return _derivative_at(v, 0) - _derivative_at(u, 1)
+        return _signed_sum([(1, v, 0), (-1, u, 1)])
     if len(ctxs) != 3:
         raise ValueError(f"curl needs 2 or 3 components, got {len(ctxs)}")
     u, v, w = ctxs
     return (
-        _derivative_at(w, 1) - _derivative_at(v, 2),
-        _derivative_at(u, 2) - _derivative_at(w, 0),
-        _derivative_at(v, 0) - _derivative_at(u, 1),
+        _signed_sum([(1, w, 1), (-1, v, 2)]),
+        _signed_sum([(1, u, 2), (-1, w, 0)]),
+        _signed_sum([(1, v, 0), (-1, u, 1)]),
     )
 
 

@@ -48,9 +48,10 @@ SIGNATURES = {
     # coledge, corners (null but for prefix_stats2d), stream
     "hsz_lorenzo_edges": (_I, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P),
     # from_payload, src, n_words (per field), bits, n0, n1, batch, rowedge,
-    # coledge, what, out0, out1, stream
-    "hsz_lorenzo_stencil": (_I, _P, _LL, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                            _P),
+    # coledge, what, mode (0 int32, 1 write, 2 add, 3 sub), eps (null for
+    # int32), out0, out1, stream
+    "hsz_lorenzo_stencil": (_I, _P, _LL, _I, _I, _I, _I, _P, _P, _I, _I, _P,
+                            _P, _P, _P),
     # from_payload, src, n_words (per field), bits, n0, n1, batch, meta,
     # b0, b1, what, out0, out1, stream
     "hsz_blockmean": (_I, _P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,

@@ -3,8 +3,8 @@
 // Replaces three Pallas sites of repro/kernels/fused.py and the one of
 // repro/kernels/prefix_stats.py:
 //   lorenzo_enc2d, pass 1 (_colsum_enc_kernel)   -> lorenzo_edges_kernel<true>
-//   lorenzo_enc2d, pass 2 (_lorenzo_enc_kernel)  -> lorenzo_stencil_kernel<true, WHAT>
-//   lorenzo2d            (_lorenzo_kernel)       -> lorenzo_stencil_kernel<false, WHAT>
+//   lorenzo_enc2d, pass 2 (_lorenzo_enc_kernel)  -> lorenzo_stencil_kernel<true, WHAT, MODE>
+//   lorenzo2d            (_lorenzo_kernel)       -> lorenzo_stencil_kernel<false, WHAT, MODE>
 //                                                   (+ lorenzo_edges_kernel<false>
 //                                                   for the band sums the reference
 //                                                   takes outside its kernel)
@@ -73,9 +73,25 @@
 //    occupancy API) that copies the next tile's words or residuals with
 //    cp.async while it sums the current one; the stencil pass runs one
 //    block per tile, which was as fast or faster there (PERF.md).
-//  - `what` is a template parameter (4 x 2 stencil instantiations), each
-//    doing only its own arithmetic, with 16-byte streaming stores
+//  - `what` is a template parameter (4 stencil instantiations a source and
+//    mode), each doing only its own arithmetic, with 16-byte streaming stores
 //    (st.global.cs) where n1 % 4 == 0 and masked scalars at a ragged edge.
+//
+// The f32 answer.  The lowering rules want f32(plane) * eps, not the int32
+// plane: in torch that is a conversion pass and a multiply pass over a
+// full-size plane, and a divergence or curl adds a third that sums two such
+// terms.  The stencil pass's MODE puts that tail in its epilogue, on the
+// integers it already holds in registers: INT32 stores the int32 planes (the
+// reference's kernels' output), WRITE stores __fmul_rn(__int2float_rn(d),
+// eps_b), ADD and SUB
+// add that to (take it from) the f32 value already in the output with
+// __fadd_rn / __fsub_rn, so a sum of terms accumulates in one plane.  Each is
+// exactly torch's rounding of d.float() * eps and of its + / -, and none
+// can be contracted into an FMA.  eps_b is field b's own eps, one load a
+// block.  ADD and SUB are instantiated for DERIV0 and DERIV1 (the terms of a
+// divergence or curl), INT32 and WRITE for every `what`: 24 instantiations
+// of one kernel.  WRITE stores the same bytes as INT32; ADD and SUB read the
+// output once more.
 //
 // Batch.  A batch of B planes (the fields of a batch_stack view, the
 // counterpart of the grid axis Pallas prepends under the reference's
@@ -134,6 +150,9 @@ static_assert(LD >= 132, "129 values at 31 bits span 129 words from a 16-byte bo
 static_assert(EW >= 132 + TH + 1, "edge staging");
 
 enum What { DERIV0 = 0, DERIV1 = 1, GRAD = 2, LAP = 3 };
+// The stencil pass's output: the int32 planes, or the f32 answer written,
+// added or subtracted (the epilogue).
+enum Mode { INT32 = 0, WRITE = 1, ADD = 2, SUB = 3 };
 
 struct Args {
   const void* src;         // payload words or the int32 residual plane(s)
@@ -150,7 +169,7 @@ struct Args {
   hsz::FastDiv by_cb;      // / ceil(n1 / SCOLS), the scan's column blocks of one plane
   int32_t* rowedge;        // (batch, n0, n_ct)
   int32_t* coledge;        // (batch, n_rt, n1)
-  uint32_t* out0;          // stencil pass: (batch, n0, n1) planes
+  uint32_t* out0;          // stencil pass: (batch, n0, n1) planes (int32 or f32)
   uint32_t* out1;          // grad only
   bool vin;                // 16-byte copies: aligned payload, or aligned plane rows
   bool vout;               // output rows are 16-byte aligned (16-byte stores)
@@ -511,10 +530,42 @@ __device__ __forceinline__ void fetch_edges(const Args& a, int b, int ti, int tj
   }
 }
 
-template <bool PAYLOAD, int WHAT>
+// The f32 epilogue: four exact stencil integers d of plane column j at
+// flat index k, converted and scaled by eps (WRITE), or that added to (ADD)
+// or taken from (SUB) the f32 value already there; masked at a ragged edge
+// as store4 is.
+template <int MODE>
+__device__ __forceinline__ void epilogue(uint32_t* out, long long k, int j, int n1, bool vec,
+                                         float eps, const uint32_t (&d)[4]) {
+  uint32_t v[4];
+  uint32_t prior[4] = {0u, 0u, 0u, 0u};
+  if constexpr (MODE != WRITE) {
+    if (vec && j + 3 < n1) {
+      const uint4 q = __ldcs(reinterpret_cast<const uint4*>(out + k));
+      prior[0] = q.x;
+      prior[1] = q.y;
+      prior[2] = q.z;
+      prior[3] = q.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j + e < n1) prior[e] = __ldcs(out + k + e);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float t = __fmul_rn(__int2float_rn((int)d[e]), eps);
+    if constexpr (MODE == WRITE) v[e] = __float_as_uint(t);
+    if constexpr (MODE == ADD) v[e] = __float_as_uint(__fadd_rn(__uint_as_float(prior[e]), t));
+    if constexpr (MODE == SUB) v[e] = __float_as_uint(__fsub_rn(__uint_as_float(prior[e]), t));
+  }
+  store4(out, k, j, n1, vec, v);
+}
+
+template <bool PAYLOAD, int WHAT, int MODE>
 __device__ __forceinline__ void stencil_tile(const Args& a, int b, int ti, int tj,
                                              const uint32_t* R, const uint32_t* E, uint32_t* T,
-                                             uint32_t* H) {
+                                             uint32_t* H, float eps) {
   constexpr bool N0 = WHAT != DERIV1;  // needs D0
   constexpr bool N1 = WHAT != DERIV0;  // needs D1
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -651,17 +702,25 @@ __device__ __forceinline__ void stencil_tile(const Args& a, int b, int ti, int t
       if constexpr (WHAT == LAP) o0[e] = (d0n - d0c) + (d1n - d1c);
     }
     const long long kk = ((long long)b * a.n0 + i) * a.n1 + j;
-    store4(a.out0, kk, j, a.n1, a.vout, o0);
-    if constexpr (WHAT == GRAD) store4(a.out1, kk, j, a.n1, a.vout, o1);
+    if constexpr (MODE == INT32) {
+      store4(a.out0, kk, j, a.n1, a.vout, o0);
+      if constexpr (WHAT == GRAD) store4(a.out1, kk, j, a.n1, a.vout, o1);
+    } else {
+      epilogue<MODE>(a.out0, kk, j, a.n1, a.vout, eps, o0);
+      if constexpr (WHAT == GRAD) epilogue<MODE>(a.out1, kk, j, a.n1, a.vout, eps, o1);
+    }
   }
 }
 
 // One block per tile: the tile's input (rows 0..32, the next row too;
 // columns 0..128, the next column too) and its edges, then D0, D1 and the
 // planes.  (A persistent grid that copies the next tile during this one was
-// no faster on the card; PERF.md.)
-template <bool PAYLOAD, int WHAT>
-__global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
+// no faster on the card; PERF.md.)  MODE INT32 writes the int32 planes (eps
+// unread, null); WRITE, ADD and SUB the f32 answer, field b scaled by
+// eps[b].
+template <bool PAYLOAD, int WHAT, int MODE>
+__global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a,
+                                                                const float* __restrict__ eps) {
   __shared__ __align__(16) uint32_t R[(TH + 1) * LD];
   __shared__ __align__(16) uint32_t E[EW];
   __shared__ __align__(16) uint32_t T[NWARP * LDT];
@@ -671,9 +730,11 @@ __global__ void __launch_bounds__(NT, 4) lorenzo_stencil_kernel(const Args a) {
   fetch<PAYLOAD, TH + 1, TW + 1>(a, b, ti * TH, tj * TW, R);
   fetch_edges(a, b, ti, tj, E);
   cp_async_commit();
+  float e = 0.0f;
+  if constexpr (MODE != INT32) e = eps[b];
   cp_async_wait_all();
   __syncthreads();
-  stencil_tile<PAYLOAD, WHAT>(a, b, ti, tj, R, E, T, H);
+  stencil_tile<PAYLOAD, WHAT, MODE>(a, b, ti, tj, R, E, T, H, e);
 }
 
 // ---------------------------------------------------------------------------
@@ -968,7 +1029,7 @@ const Config& edges_config() {
 
 template <bool PAYLOAD, int WHAT>
 const Config& stencil_config() {
-  static const Config c = config_of(lorenzo_stencil_kernel<PAYLOAD, WHAT>);
+  static const Config c = config_of(lorenzo_stencil_kernel<PAYLOAD, WHAT, INT32>);
   return c;
 }
 
@@ -1015,20 +1076,32 @@ int launch_edges(const Args& a, int32_t* corners, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <bool PAYLOAD, int WHAT>
-int launch_stencil(const Args& a, cudaStream_t s) {
-  lorenzo_stencil_kernel<PAYLOAD, WHAT><<<a.n_all, NT, 0, s>>>(a);
+template <bool PAYLOAD, int WHAT, int MODE>
+int launch_stencil(const Args& a, const float* eps, cudaStream_t s) {
+  lorenzo_stencil_kernel<PAYLOAD, WHAT, MODE><<<a.n_all, NT, 0, s>>>(a, eps);
   return (int)cudaGetLastError();
 }
 
-template <bool PAYLOAD>
-int dispatch_stencil(const Args& a, int what, cudaStream_t s) {
+template <bool PAYLOAD, int MODE>
+int dispatch_what(const Args& a, int what, const float* eps, cudaStream_t s) {
   switch (what) {
-    case DERIV0: return launch_stencil<PAYLOAD, DERIV0>(a, s);
-    case DERIV1: return launch_stencil<PAYLOAD, DERIV1>(a, s);
-    case GRAD: return launch_stencil<PAYLOAD, GRAD>(a, s);
-    default: return launch_stencil<PAYLOAD, LAP>(a, s);
+    case DERIV0: return launch_stencil<PAYLOAD, DERIV0, MODE>(a, eps, s);
+    case DERIV1: return launch_stencil<PAYLOAD, DERIV1, MODE>(a, eps, s);
+    case GRAD: return launch_stencil<PAYLOAD, GRAD, MODE>(a, eps, s);
+    default: return launch_stencil<PAYLOAD, LAP, MODE>(a, eps, s);
   }
+}
+
+// INT32 and WRITE for every `what`; ADD and SUB for the derivatives alone.
+template <bool PAYLOAD>
+int dispatch_stencil(const Args& a, int what, int mode, const float* eps, cudaStream_t s) {
+  if (mode == INT32) return dispatch_what<PAYLOAD, INT32>(a, what, eps, s);
+  if (mode == WRITE) return dispatch_what<PAYLOAD, WRITE>(a, what, eps, s);
+  if (what == DERIV0)
+    return mode == ADD ? launch_stencil<PAYLOAD, DERIV0, ADD>(a, eps, s)
+                       : launch_stencil<PAYLOAD, DERIV0, SUB>(a, eps, s);
+  return mode == ADD ? launch_stencil<PAYLOAD, DERIV1, ADD>(a, eps, s)
+                     : launch_stencil<PAYLOAD, DERIV1, SUB>(a, eps, s);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
@@ -1095,7 +1168,8 @@ extern "C" int hsz_corner_cols(int* cols) {
 }
 
 // Static shared memory (bytes), registers per thread and resident blocks per
-// SM of the edge pass (what < 0) or of the stencil pass for `what`.
+// SM of the edge pass (what < 0) or of the stencil pass for `what` (its
+// int32 mode).
 extern "C" int hsz_lorenzo_info(int from_payload, int what, int* smem_bytes, int* regs,
                                 int* blocks_per_sm) {
   if (what > LAP) return (int)cudaErrorInvalidValue;
@@ -1128,13 +1202,17 @@ extern "C" int hsz_lorenzo_edges(int from_payload, const void* src, long long n_
 }
 
 // Stencil pass over `batch` planes.  rowedge / coledge as the edge pass
-// leaves them; out0/out1: (batch, n0, n1) int32 (out1 only for what ==
-// GRAD).
+// leaves them; out0/out1: (batch, n0, n1) (out1 only for what == GRAD).
+// mode INT32 writes the int32 planes (eps null); WRITE writes the f32
+// f32(d) * eps_b, eps (batch,) f32; ADD and SUB (what DERIV0 or DERIV1) add
+// that to or take it from the f32 plane already in out0.
 extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long n_words,
                                    int bits, int n0, int n1, int batch, const void* rowedge,
-                                   const void* coledge, int what, void* out0,
-                                   void* out1, void* stream) {
-  if (bad_shape(from_payload, bits, n0, n1, batch) || what < DERIV0 || what > LAP)
+                                   const void* coledge, int what, int mode, const void* eps,
+                                   void* out0, void* out1, void* stream) {
+  if (bad_shape(from_payload, bits, n0, n1, batch) || what < DERIV0 || what > LAP ||
+      mode < INT32 || mode > SUB || (mode > WRITE && what > DERIV1) ||
+      (mode != INT32 && eps == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(from_payload, src, n_words, bits, n0, n1, batch);
   a.rowedge = const_cast<int32_t*>(static_cast<const int32_t*>(rowedge));
@@ -1142,8 +1220,10 @@ extern "C" int hsz_lorenzo_stencil(int from_payload, const void* src, long long 
   a.out0 = static_cast<uint32_t*>(out0);
   a.out1 = static_cast<uint32_t*>(out1);
   a.vout = (n1 & 3) == 0 && aligned16(out0) && (out1 == nullptr || aligned16(out1));
+  auto e = static_cast<const float*>(eps);
   auto s = (cudaStream_t)stream;
-  return from_payload ? dispatch_stencil<true>(a, what, s) : dispatch_stencil<false>(a, what, s);
+  return from_payload ? dispatch_stencil<true>(a, what, mode, e, s)
+                      : dispatch_stencil<false>(a, what, mode, e, s);
 }
 
 // p: (batch, n0, n1) int32; rowedge, coledge, corners as the edge pass
@@ -1208,27 +1288,59 @@ const KernelInfo lorenzo_info[] = {
     {"lorenzo_edges_kernel<true>", (const void*)lorenzo_edges_kernel<true>, NT, 0},
     {"lorenzo_scan_kernel", (const void*)lorenzo_scan_kernel, NT, 0},
     {"corner_scan_kernel", (const void*)corner_scan_kernel, NT, 0},
-    {"lorenzo_stencil_kernel<false, DERIV0>", (const void*)
-     lorenzo_stencil_kernel<false, DERIV0>, NT, 0},
-    {"lorenzo_stencil_kernel<false, DERIV1>", (const void*)
-     lorenzo_stencil_kernel<false, DERIV1>, NT, 0},
-    {"lorenzo_stencil_kernel<false, GRAD>", (const void*)
-     lorenzo_stencil_kernel<false, GRAD>, NT, 0},
-    {"lorenzo_stencil_kernel<false, LAP>", (const void*)
-     lorenzo_stencil_kernel<false, LAP>, NT, 0},
-    {"lorenzo_stencil_kernel<true, DERIV0>", (const void*)
-     lorenzo_stencil_kernel<true, DERIV0>, NT, 0},
-    {"lorenzo_stencil_kernel<true, DERIV1>", (const void*)
-     lorenzo_stencil_kernel<true, DERIV1>, NT, 0},
-    {"lorenzo_stencil_kernel<true, GRAD>", (const void*)
-     lorenzo_stencil_kernel<true, GRAD>, NT, 0},
-    {"lorenzo_stencil_kernel<true, LAP>", (const void*)
-     lorenzo_stencil_kernel<true, LAP>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV0, INT32>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV0, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV1, INT32>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV1, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<false, GRAD, INT32>", (const void*)
+     lorenzo_stencil_kernel<false, GRAD, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<false, LAP, INT32>", (const void*)
+     lorenzo_stencil_kernel<false, LAP, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV0, WRITE>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV0, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV1, WRITE>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV1, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<false, GRAD, WRITE>", (const void*)
+     lorenzo_stencil_kernel<false, GRAD, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<false, LAP, WRITE>", (const void*)
+     lorenzo_stencil_kernel<false, LAP, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV0, ADD>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV0, ADD>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV1, ADD>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV1, ADD>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV0, SUB>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV0, SUB>, NT, 0},
+    {"lorenzo_stencil_kernel<false, DERIV1, SUB>", (const void*)
+     lorenzo_stencil_kernel<false, DERIV1, SUB>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV0, INT32>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV0, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV1, INT32>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV1, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<true, GRAD, INT32>", (const void*)
+     lorenzo_stencil_kernel<true, GRAD, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<true, LAP, INT32>", (const void*)
+     lorenzo_stencil_kernel<true, LAP, INT32>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV0, WRITE>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV0, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV1, WRITE>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV1, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<true, GRAD, WRITE>", (const void*)
+     lorenzo_stencil_kernel<true, GRAD, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<true, LAP, WRITE>", (const void*)
+     lorenzo_stencil_kernel<true, LAP, WRITE>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV0, ADD>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV0, ADD>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV1, ADD>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV1, ADD>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV0, SUB>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV0, SUB>, NT, 0},
+    {"lorenzo_stencil_kernel<true, DERIV1, SUB>", (const void*)
+     lorenzo_stencil_kernel<true, DERIV1, SUB>, NT, 0},
     {"prefix_stats_tile_kernel<false>", (const void*)prefix_stats_tile_kernel<false>, NT,
      PS_SMEM},
     {"prefix_stats_tile_kernel<true>", (const void*)prefix_stats_tile_kernel<true>, NT,
      PS_SMEM},
     {"prefix_stats_reduce_kernel", (const void*)prefix_stats_reduce_kernel, NT, 0},
 };
-const KernelTable lorenzo_kernels = {lorenzo_info, 15};
+const KernelTable lorenzo_kernels = {lorenzo_info, 31};
 }  // namespace hsz

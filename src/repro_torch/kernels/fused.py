@@ -7,8 +7,13 @@ Counterparts of ``repro/kernels/fused.py``: ``lorenzo2d`` /
 unpack it inside the kernel, so the residual plane never exists in device
 memory; the others take a decoded int32 residual plane.  Every output is a
 full padded-shape plane whose boundary rows and columns are don't-care (the
-lowering rules in ``repro_torch.core.fused`` slice the interior and apply
-the float tail).
+lowering rules in ``repro_torch.core.fused`` slice the interior).  The
+block-mean planes leave the float tail to the rules; the Lorenzo wrappers
+take it too when given ``eps``: the stencil pass then writes the f32 answer
+``f32(plane) * eps`` (``mode="write"``) or adds it to / takes it from an
+f32 plane already there (``"add"`` / ``"sub"``, the derivatives only), in
+its epilogue, with the roundings of torch's tail (the plain versions are
+that tail, :func:`lorenzo_scale_plain`).
 
 A CUDA input launches the kernels in ``csrc/lorenzo_band.cu`` /
 ``csrc/blockmean_band.cu``; a CPU input takes the plain version, the
@@ -34,7 +39,11 @@ from . import bitpack, build, ops, specs
 
 LORENZO_WHATS = ("deriv0", "deriv1", "grad", "lap")
 BLOCKMEAN_WHATS = ("deriv0", "deriv1", "grad", "lap_p", "lap_q")
+#: the Lorenzo stencil pass's f32 epilogues (``add`` / ``sub``: derivatives);
+#: the int32 planes are the launcher's mode 0
+LORENZO_MODES = ("write", "add", "sub")
 _LZ_CODE = {w: i for i, w in enumerate(LORENZO_WHATS)}
+_MODE_CODE = {m: i + 1 for i, m in enumerate(LORENZO_MODES)}
 _BM_CODE = {w: i for i, w in enumerate(BLOCKMEAN_WHATS)}
 
 
@@ -126,6 +135,44 @@ def lorenzo_core(p: torch.Tensor, what: str):
     return _result(outs)
 
 
+def _check_mode(what: str, eps, mode: str, out) -> None:
+    if mode not in LORENZO_MODES:
+        raise ValueError(f"mode={mode!r}: expected one of {LORENZO_MODES}")
+    if eps is None and (mode != "write" or out is not None):
+        raise ValueError("the f32 modes take eps")
+    if mode == "write" and out is not None:
+        raise ValueError("mode='write' makes its own output; out= is for "
+                         "'add' and 'sub'")
+    if mode != "write" and (out is None or what not in ("deriv0", "deriv1")):
+        raise ValueError(f"mode={mode!r} accumulates a derivative onto out=, "
+                         f"got what={what!r}, out={out is not None}")
+
+
+def lorenzo_scale_plain(planes, eps: torch.Tensor, mode: str = "write",
+                        out: torch.Tensor | None = None):
+    """Plain version of the stencil pass's f32 epilogue: the int32
+    ``planes`` (one, or ``grad``'s pair) as f32 times ``eps`` (0-d, or
+    ``(B,)``: each field of a ``(B, n0, n1)`` batch its own), written as a
+    new plane (``write``), or added to (``add``) or taken from (``sub``)
+    ``out`` in place — torch's ``d.float() * eps`` and its ``+`` / ``-``,
+    the lowering rules' tail."""
+    if isinstance(planes, tuple):
+        return tuple(lorenzo_scale_plain(d, eps) for d in planes)
+    t = planes.to(torch.float32) * eps.reshape(tuple(eps.shape) + (1, 1))
+    if mode == "write":
+        return t
+    return out.add_(t) if mode == "add" else out.sub_(t)
+
+
+def _scaled(planes, eps, mode, out):
+    return planes if eps is None else lorenzo_scale_plain(planes, eps, mode,
+                                                          out)
+
+
+def _on_card(src, eps, out) -> bool:
+    return ops.on_card(src, *(t for t in (eps, out) if t is not None))
+
+
 @functools.cache
 def lorenzo_tile() -> tuple[int, int]:
     """(rows, columns) of the Lorenzo kernels' tiles, read from the library
@@ -206,60 +253,90 @@ def lorenzo_edges(src: torch.Tensor, shape: tuple, bits: int, *,
 
 def lorenzo_stencil(src: torch.Tensor, shape: tuple, bits: int,
                     rowedge: torch.Tensor, coledge: torch.Tensor, what: str, *,
-                    from_payload: bool, site: str):
+                    from_payload: bool, site: str,
+                    eps: torch.Tensor | None = None, mode: str = "write",
+                    out: torch.Tensor | None = None):
     """Stencil pass (kernel): D0 and D1 of each tile from its edges, the
-    requested int32 planes (``(B, n0, n1)`` for a batch, one launch)."""
+    requested int32 planes (``(B, n0, n1)`` for a batch, one launch); with
+    ``eps`` (0-d, or ``(B,)``), the f32 answer in ``mode`` instead (``add``
+    and ``sub`` into ``out``, which they return)."""
+    _check_mode(what, eps, mode, out)
     lead = _lead(src, 1 if from_payload else 2)
     n_out = 2 if what == "grad" else 1
-    outs = _outputs(lead + tuple(shape), n_out, torch.int32, src.device)
+    if eps is None:
+        outs = _outputs(lead + tuple(shape), n_out, torch.int32, src.device)
+        code, eps_ptr = 0, None
+    else:
+        scale = eps.reshape(-1)
+        ops.check(scale, "eps", torch.float32, (_batch(lead),))
+        code, eps_ptr = _MODE_CODE[mode], scale.data_ptr()
+        if out is None:
+            outs = _outputs(lead + tuple(shape), n_out, torch.float32,
+                            src.device)
+        else:
+            ops.check(out, "out", torch.float32, lead + tuple(shape))
+            outs = [out]
     build.call("hsz_lorenzo_stencil", int(from_payload), src.data_ptr(),
                src.shape[-1] if from_payload else 0, bits, shape[0], shape[1],
                _batch(lead), rowedge.data_ptr(), coledge.data_ptr(),
-               _LZ_CODE[what],
+               _LZ_CODE[what], code, eps_ptr,
                outs[0].data_ptr(), outs[-1].data_ptr() if n_out > 1 else None,
                ops.stream_ptr())
     ops.count(f"{site}.stencil")
     return _result(outs)
 
 
-def _lorenzo_kernels(src, shape, bits, what, *, from_payload, site):
+def _lorenzo_kernels(src, shape, bits, what, *, from_payload, site, eps,
+                     mode, out):
     edges = lorenzo_edges(src, shape, bits, from_payload=from_payload,
                           site=site)
     return lorenzo_stencil(src, shape, bits, *edges, what,
-                           from_payload=from_payload, site=site)
+                           from_payload=from_payload, site=site, eps=eps,
+                           mode=mode, out=out)
 
 
-def lorenzo2d(p: torch.Tensor, *, what: str):
+def lorenzo2d(p: torch.Tensor, *, what: str, eps: torch.Tensor | None = None,
+              mode: str = "write", out: torch.Tensor | None = None):
     """Fused Lorenzo recorrelation + integer stencil over a 2-D residual
     plane (or a ``(B, n0, n1)`` batch of them): ``deriv0`` / ``deriv1`` (one
-    int32 plane), ``grad`` (both), ``lap``."""
+    int32 plane), ``grad`` (both), ``lap``; with ``eps``, their f32 answer
+    in ``mode`` (:func:`lorenzo_scale_plain`)."""
     _check_what(what, LORENZO_WHATS)
-    if not ops.on_card(p):
-        return lorenzo_core(p, what)
+    _check_mode(what, eps, mode, out)
+    if not _on_card(p, eps, out):
+        return _scaled(lorenzo_core(p, what), eps, mode, out)
     ops.check(p, "residuals", torch.int32)
     if p.ndim not in (2, 3):
         raise ValueError(f"lorenzo2d takes a 2-D plane or a batch of them, "
                          f"got {tuple(p.shape)}")
     return _lorenzo_kernels(p, tuple(p.shape[-2:]), 0, what,
-                            from_payload=False, site="lorenzo2d")
+                            from_payload=False, site="lorenzo2d", eps=eps,
+                            mode=mode, out=out)
 
 
 def lorenzo_enc2d_plain(payload: torch.Tensor, shape: tuple, bits: int, *,
-                        what: str):
-    return lorenzo_core(_payload_plane(payload, shape, bits), what)
+                        what: str, eps: torch.Tensor | None = None,
+                        mode: str = "write", out: torch.Tensor | None = None):
+    return _scaled(lorenzo_core(_payload_plane(payload, shape, bits), what),
+                   eps, mode, out)
 
 
 def lorenzo_enc2d(payload: torch.Tensor, shape: tuple, bits: int, *,
-                  what: str):
+                  what: str, eps: torch.Tensor | None = None,
+                  mode: str = "write", out: torch.Tensor | None = None):
     """Single-pass decode + Lorenzo stencil from the packed payload
     (widths 1..31; ``(B, n_words)`` for a batch); bit-identical to
-    ``decode_device`` + :func:`lorenzo2d`."""
+    ``decode_device`` + :func:`lorenzo2d`, ``eps``, ``mode`` and ``out``
+    as there."""
     _check_what(what, LORENZO_WHATS)
-    if not ops.on_card(payload):
-        return lorenzo_enc2d_plain(payload, shape, bits, what=what)
+    _check_mode(what, eps, mode, out)
+    if not _on_card(payload, eps, out):
+        return lorenzo_enc2d_plain(payload, shape, bits, what=what, eps=eps,
+                                   mode=mode, out=out)
     _check_payload(payload, shape, bits)
     return _lorenzo_kernels(payload, tuple(shape), bits, what,
-                            from_payload=True, site="lorenzo_enc2d")
+                            from_payload=True, site="lorenzo_enc2d", eps=eps,
+                            mode=mode, out=out)
 
 
 # ---------------------------------------------------------------------------

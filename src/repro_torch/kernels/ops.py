@@ -10,6 +10,13 @@ where it launches its kernel, so a run can show that its path went through
 the kernels (``chip_smoke.py`` resets the counts before each path it drives
 and reads them after).
 
+:data:`TAILS` counts the float-tail operations of the derivative-family
+rules (derivative, gradient, laplacian) and of the vector compositions
+(divergence, curl): each conversion ``× eps`` and each ``+`` / ``-`` of two
+terms, under ``"kernel"`` where a kernel's epilogue does it and ``"torch"``
+where torch ops do.  It is apart from :data:`LAUNCHES`: an epilogue is no
+launch of its own.
+
 :func:`override_mode` ``("off")`` deselects the fused lowering rules in
 ``repro_torch.core.oplib`` so a covered cell runs its plain torch lowering
 rule instead; the A/B bit-identity checks are its only users.
@@ -46,6 +53,9 @@ LAUNCHES: dict[str, int] = {
     "prefix_stats2d.stats": 0,
 }
 
+#: float-tail operations by where they run (see the module docstring).
+TAILS: dict[str, int] = {"kernel": 0, "torch": 0}
+
 _MODES = ("on", "off")
 _MODE = "on"
 
@@ -57,6 +67,17 @@ def reset_launches() -> None:
 
 def count(site: str) -> None:
     LAUNCHES[site] += 1
+
+
+def reset_tails() -> None:
+    for k in TAILS:
+        TAILS[k] = 0
+
+
+def tail(where: str, n: int = 1) -> None:
+    """Count ``n`` float-tail operations run in a kernel epilogue
+    (``"kernel"``) or as torch ops (``"torch"``)."""
+    TAILS[where] += n
 
 
 def kernels_enabled() -> bool:

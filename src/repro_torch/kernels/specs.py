@@ -506,14 +506,29 @@ def _scan(corners: bool) -> KernelSpec:
 
 
 _WHATS_LZ = ("DERIV0", "DERIV1", "GRAD", "LAP")
+#: the stencil pass's instantiations (what, mode): the int32 planes and the
+#: f32 answer written for every ``what``, added or subtracted for the
+#: derivatives (the terms of a divergence or curl)
+MODES_LZ = tuple((w, m) for m in ("INT32", "WRITE") for w in _WHATS_LZ) + tuple(
+    (w, m) for m in ("ADD", "SUB") for w in ("DERIV0", "DERIV1"))
 
 
-def _stencil(payload: bool, what: str) -> KernelSpec:
+def _stencil(payload: bool, what: str, mode: str) -> KernelSpec:
+    """The stencil pass in ``mode``: the same grid and window; the f32 modes
+    read their field's eps, and ADD and SUB each output element they write
+    (the value they accumulate onto)."""
     flag = "true" if payload else "false"
     outs = ("out0", "out1") if what == "GRAD" else ("out0",)
+    epilogue = ()
+    if mode != "INT32":
+        epilogue = (Read("eps", ("b",), ("B",)),)
+    if mode in ("ADD", "SUB"):
+        epilogue += (Read("out0", ("b*n0 + ti*TH + rk", "tj*TW + c"),
+                          ("B*n0", "n1"), ("<", "<")),)
     return KernelSpec(
-        name=f"lorenzo_stencil_kernel<{flag}, {what}>", source="lorenzo_band.cu",
-        function="lorenzo_stencil_kernel", launch="launch_stencil",
+        name=f"lorenzo_stencil_kernel<{flag}, {what}, {mode}>",
+        source="lorenzo_band.cu", function="lorenzo_stencil_kernel",
+        launch="launch_stencil",
         replaces=_PALLAS + ("fused.py:302" if payload else "fused.py:250"),
         grid="B*n_tiles",
         bounds=_lz_bounds(r=("0", "TH"), c=("0", "TW"), rk=("0", "TH - 1"),
@@ -533,7 +548,7 @@ def _stencil(payload: bool, what: str) -> KernelSpec:
                 Read("E", ("132 + r",), ("EW",), shared=True),
                 Read("T", ("wr", "c"), ("NWARP", "LDT"), shared=True),
                 Read("H", ("wr + 1", "c"), ("NWARP + 1", "TW"),
-                     ("", "c <= TW - 1"), shared=True))),),
+                     ("", "c <= TW - 1"), shared=True)) + epilogue),),
         params=dict(_TILE_PARAMS),
         # D1 alone uses the warps' column totals T, D0 alone the rows H
         smem_static="4*((TH + 1)*LD + EW"
@@ -792,7 +807,7 @@ KERNEL_SPECS: tuple[KernelSpec, ...] = (
     _PACK, _QUANT, _BLOCK_STATS, _GRAD2D, _LAP2D,
     _unpack(False), _unpack(True),
     _edges(False), _edges(True), _scan(False), _scan(True),
-    *(_stencil(p, w) for p in (False, True) for w in _WHATS_LZ),
+    *(_stencil(p, w, m) for p in (False, True) for w, m in MODES_LZ),
     _stats_tile(False), _stats_tile(True), _REDUCE,
     *(_blockmean(p, w) for p in (False, True) for w in _WHATS_BM),
     _lz3_plane(0), _lz3_plane(1), _LZ3_EDGES, _LZ3_LANE,

@@ -483,7 +483,7 @@ class TestTraceSafetyAnalyzer:
 # analyzer (5): CUDA launch grids (kernelspec)
 # ===========================================================================
 
-_STENCIL = specs.spec("lorenzo_stencil_kernel<true, GRAD>")
+_STENCIL = specs.spec("lorenzo_stencil_kernel<true, GRAD, INT32>")
 _QUANT = specs.spec("quant_lorenzo2d_kernel")
 
 
@@ -536,7 +536,7 @@ class TestKernelSpecAnalyzer:
         srcs = kernelspec.load_sources(build.CSRC)
         names = [n for s in srcs for n, _ in s.table()]
         assert sorted(names) == sorted(specs.KERNEL_IDS)
-        assert len(specs.KERNEL_IDS) == len(set(specs.KERNEL_IDS)) == 36
+        assert len(specs.KERNEL_IDS) == len(set(specs.KERNEL_IDS)) == 52
         globals_ = {(s.name, g) for s in srcs for g, _ in s.globals()}
         assert globals_ == {(s.source, s.function) for s in specs.KERNEL_SPECS}
 
@@ -567,10 +567,10 @@ class TestKernelSpecAnalyzer:
     def test_unguarded_global_halo_one_finding(self):
         reads = tuple(replace(r, guard=("", "<")) if r.array == "p" else r
                       for r in specs.spec(
-                          "lorenzo_stencil_kernel<false, GRAD>")
+                          "lorenzo_stencil_kernel<false, GRAD, INT32>")
                       .branches[0].reads)
         fs = kernelspec.check_spec(_replace_branch(
-            specs.spec("lorenzo_stencil_kernel<false, GRAD>"), reads=reads))
+            specs.spec("lorenzo_stencil_kernel<false, GRAD, INT32>"), reads=reads))
         assert [f.invariant for f in fs] == ["halo-out-of-bounds"]
 
     def test_overlapping_tile_writes_one_finding(self):
@@ -591,7 +591,7 @@ class TestKernelSpecAnalyzer:
         assert [f.invariant for f in fs] == ["grid-write-overlap"]
 
     def test_coverage_gap_one_finding(self):
-        lap = specs.spec("lorenzo_stencil_kernel<true, LAP>")
+        lap = specs.spec("lorenzo_stencil_kernel<true, LAP, INT32>")
         fs = kernelspec.check_spec(replace(lap, facts=(
             "n0 == (n_rt - 1)*TH + e0 + TH", "n1 == (n_ct - 1)*TW + e1",
             "n_tiles == n_rt*n_ct")))
